@@ -1,0 +1,76 @@
+"""Train nightmare_v3 PPO with the PyTorch port.
+
+    python -m nightmare_rl_tpu_torch.tools.train -e 2048 -n 1000 [-r] [-p PATH]
+
+Runs on the card; ``--device cpu`` is the only way onto the CPU, and a
+missing card raises.  ``-n`` is the number of learning iterations.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import datetime
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg, PPOCfg
+from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
+from nightmare_rl_tpu_torch.utils.device import resolve_device
+
+
+def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
+    p = argparse.ArgumentParser()
+    p.add_argument("-e", "--envs", type=int, default=2048, dest="num_envs")
+    p.add_argument("-n", "--iterations", type=int, default=1000)
+    p.add_argument("-r", "--resume", action="store_true", default=False)
+    p.add_argument("-p", "--resume_path", type=str, default=None)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--robot", type=str, default="nightmare_v3",
+                   choices=["nightmare_v3", "anymal_c"])
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--log_root", type=str, default=None)
+    p.add_argument("--std_floor", type=float, default=0.0,
+                   help="exploration floor on the action std (flag-gated "
+                        "deviation from rsl_rl; 0 = parity config)")
+    p.add_argument("--max_ang_vel", type=float, default=None,
+                   help="override the sampled |wz| command range "
+                        "(reference default 0.8 rad/s)")
+    args = p.parse_args(argv)
+
+    if args.robot != "nightmare_v3":
+        raise NotImplementedError(f"--robot {args.robot} is not ported yet")
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+
+    log_root = args.log_root or os.path.join("logs", args.robot)
+    log_dir = os.path.join(log_root, str(datetime.datetime.now()))
+    print(f"Logging to {log_dir}")
+
+    pcfg = PPOCfg().replace(seed=args.seed)
+    if args.std_floor > 0.0:
+        pcfg = pcfg.replace(policy=dataclasses.replace(
+            pcfg.policy, std_floor=args.std_floor))
+    cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=args.num_envs))
+    if args.max_ang_vel is not None:
+        cfg = cfg.replace(commands=dataclasses.replace(
+            cfg.commands, ranges=dataclasses.replace(
+                cfg.commands.ranges, max_ang_vel=args.max_ang_vel)))
+    env = NightmareV3Env(cfg, device=device)
+
+    runner = OnPolicyRunner(env, pcfg, log_dir=log_dir)
+    runner.init(args.seed)
+    if args.resume:
+        path = get_load_path(args.resume_path or log_root)
+        print(f"Loading model from: {path}")
+        runner.load(path)
+    runner.learn(args.iterations, init_at_random_ep_len=True)
+    return runner
+
+
+if __name__ == "__main__":
+    main()
