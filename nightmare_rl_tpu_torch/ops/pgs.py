@@ -23,6 +23,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,6 +70,7 @@ def pgs_reference(J, U, b, R, lo, hi, iterations: int, noslip: int,
 _CTYPES = {torch.float32: "pgs_f32", torch.float64: "pgs_f64"}
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn(dtype: torch.dtype):
     fn = getattr(build.load("pgs"), _CTYPES[dtype])
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]

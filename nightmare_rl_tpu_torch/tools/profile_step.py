@@ -11,8 +11,9 @@ configuration) it measures, after warm-up:
   that take the most device time and the PGS kernel's share;
 - the wall time of one policy forward pass on the step's observations.
 
-The last line is one JSON object with these numbers and the card's name.
-A missing card raises.
+The last line is one JSON object with these numbers, the top kernels and
+the card's name: the per-layer breakdown that PERF.md's "Where the time
+goes" quotes.  A missing card raises.
 """
 
 from __future__ import annotations
@@ -94,6 +95,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "device_busy_ms": device_ms, "device_busy_share": device_ms / step_ms,
         "kernels_per_step": launches, "pgs_ms": pgs_ms, "policy_ms": policy_ms,
         "env_steps_per_s": args.envs / step_ms * 1e3,
+        "top_kernels": [
+            {"device_ms_per_step": e.self_device_time_total / 1e3 / args.steps,
+             "launches_per_step": e.count / args.steps, "name": e.key}
+            for e in top],
     }
     print(json.dumps(result))
     return result
