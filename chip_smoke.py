@@ -7,9 +7,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — nvcc builds ``ops/csrc/pgs.cu`` for sm_90a from the checkout;
-3. kernel  — the PGS kernel against ``pgs_reference`` on the card at the
-             main path's shapes, float64 random systems with and without dof
-             rows;
+             prints ptxas's registers and spills (the float32 kernels must
+             not spill) and the main path's launch geometry: lanes per env,
+             shared memory per block and envs resident per SM;
+3. kernel  — the PGS kernel against ``pgs_reference`` on the card, float64
+             random systems: the main path's shapes with and without dof
+             rows, then the design's edge shapes (N not a multiple of the
+             envs per block, panels that are not whole 16-byte chunks with
+             an odd contact block, nv above 32);
 4. physics — three decimated steps of 16 envs in float64 on the card (kernel)
              against the same steps on the CPU (plain version);
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
@@ -31,6 +36,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,23 +107,71 @@ def _pgs_ops(N, nefc, nv, iterations, noslip, ns_offset) -> float:
                 + noslip * npairs * pair)
 
 
-def phase_kernel() -> None:
+def phase_build() -> None:
+    """Build the kernel and report what ptxas and the occupancy query say."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import build
+    from nightmare_rl_tpu_torch.ops import pgs as P
+
+    info = build.build("pgs")
+    kernels, fn = [], None
+    for ln in info["log"].splitlines():
+        m = re.search(r"pgs_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E", ln)
+        if "Compiling entry function" in ln and m:
+            fn = dict(name=f"pgs_kernel<{'float' if m[1] == 'f' else 'double'}"
+                      f", L={m[2]}, K={m[3]}, exact={m[4]}>")
+            kernels.append(fn)
+        elif fn is not None and "spill stores" in ln:
+            fn["spill"] = [int(x) for x in
+                           re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+        elif fn is not None and "registers" in ln:
+            fn["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
+    ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
+                       f"stores/loads {k.get('spill')} B" for k in kernels)
+    print(f"build: pgs.cu -> {os.path.basename(info['path'])} in "
+          f"{info['seconds']:.1f} s; {ptxas}")
+    f32 = [k for k in kernels if "float," in k["name"]]
+    if not f32 or any(k.get("spill") != [0, 0] for k in f32):
+        raise AssertionError(f"float32 pgs kernels must not spill: {kernels}")
+
+    nefc, nv, ns, ns_offset = 112, 24, 4, 0
+    geo = P.launch_geometry(nefc, nv, ns, ns_offset, 4)
+    per_sm = P.envs_per_sm(geo, nv, torch.float32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"build: main path (nefc={nefc}, nv={nv}, float32): {geo.lanes} lanes "
+          f"per env, {geo.envs_per_block} envs per block, {geo.smem_bytes} B "
+          f"shared per block, {per_sm} envs resident per SM x {sms} SMs = "
+          f"{per_sm * sms} per wave ({math.ceil(2048 / (per_sm * sms))} "
+          f"waves at N=2048)")
+    if per_sm < 1:
+        raise AssertionError("the pgs kernel fits no env on an SM")
+
+
+def _check_random(N, nefc, nv, ns_offset, seed, it=3, ns=4) -> None:
     import torch
 
     from nightmare_rl_tpu_torch.ops import pgs as P
 
-    N, nefc, nv, it, ns = 2048, 112, 24, 3, 4
-    for ns_offset in (0, 4):
-        args = _random_system(N, nefc, nv, ns_offset, torch.float64, 10 + ns_offset)
-        f_k = P.pgs(*args, it, ns, ns_offset)
-        f_p = P.pgs_reference(*args, it, ns, ns_offset)
-        torch.cuda.synchronize()
-        err = float((f_k - f_p).abs().max() / f_p.abs().max())
-        print(f"kernel: float64 random N={N} nefc={nefc} nv={nv} "
-              f"ns_offset={ns_offset}: max|err|/max|f| = {err:.3e} "
-              f"(tol {F64_TOL:g})")
-        if not err <= F64_TOL:
-            raise AssertionError("pgs kernel disagrees with pgs_reference (float64)")
+    args = _random_system(N, nefc, nv, ns_offset, torch.float64, seed)
+    f_k = P.pgs(*args, it, ns, ns_offset)
+    f_p = P.pgs_reference(*args, it, ns, ns_offset)
+    torch.cuda.synchronize()
+    err = float((f_k - f_p).abs().max() / f_p.abs().max())
+    print(f"kernel: float64 random N={N} nefc={nefc} nv={nv} "
+          f"ns_offset={ns_offset}: max|err|/max|f| = {err:.3e} "
+          f"(tol {F64_TOL:g})")
+    if not err <= F64_TOL:
+        raise AssertionError("pgs kernel disagrees with pgs_reference (float64)")
+
+
+def phase_kernel() -> None:
+    for ns_offset in (0, 4):                    # the main path's shapes
+        _check_random(2048, 112, 24, ns_offset, 10 + ns_offset)
+    _check_random(2047, 112, 24, 4, 20)         # N not a multiple of 4 envs
+    _check_random(1, 112, 24, 0, 21)            # one env, three idle groups
+    _check_random(64, 21, 11, 2, 22)            # plain-load panels, odd block
+    _check_random(64, 40, 45, 2, 23)            # nv above 32: 32 lanes per env
 
 
 def phase_main_path_kernel(args: tuple, launches: int) -> dict:
@@ -274,7 +328,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from nightmare_rl_tpu_torch.ops import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -283,12 +336,7 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    info = build.build("pgs")
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: pgs.cu -> {os.path.basename(info['path'])} in "
-          f"{info['seconds']:.1f} s; " + " | ".join(ptxas))
-
+    phase_build()
     phase_kernel()
     phase_physics()
     launches, pgs_args, obs = phase_slice(name, smi)

@@ -102,3 +102,61 @@ def test_wrapper_rejects_bad_operands(bad):
         ns = 9
     with pytest.raises(ValueError):
         tpgs.pgs(J, U, b, R, lo, hi, ITERS, NOSLIP, ns)
+
+
+GEOMETRY_CASES = [
+    pytest.param(112, 24, 4, 0, 4, id="main_path_float32"),
+    pytest.param(112, 24, 4, 0, 8, id="main_path_float64"),
+    pytest.param(21, 11, 4, 2, 4, id="odd_panel_float32"),
+    pytest.param(21, 11, 4, 2, 8, id="odd_panel_float64"),
+    pytest.param(40, 45, 4, 2, 8, id="nv_above_32"),
+    pytest.param(112, 100, 0, 0, 8, id="one_env_per_block"),
+]
+
+
+@pytest.mark.parametrize("nefc,nv,noslip,ns_offset,itemsize", GEOMETRY_CASES)
+def test_launch_geometry_fits_the_kernel(nefc, nv, noslip, ns_offset, itemsize):
+    """The layout the wrapper hands the kernel: 16-byte panels, room for the
+    row and pair records and f, groups of a warp on different banks, one
+    block within the H100's shared memory."""
+    g = tpgs.launch_geometry(nefc, nv, noslip, ns_offset, itemsize)
+    assert g.lanes == (8 if nv <= 24 else 32)
+    assert g.lanes * 4 >= nv            # at most 3 (8 lanes) or 4 columns a lane
+    assert 1 <= g.envs_per_block <= 32 // g.lanes
+    assert g.panel >= nefc * nv and g.panel * itemsize % 16 == 0
+    npairs = (nefc - ns_offset) // 2 if noslip else 0
+    slack = g.lanes * (3 if g.lanes == 8 else 4) - nv   # columns past nv
+    assert g.env_stride >= 2 * g.panel + 7 * nefc + 3 * npairs + slack
+    assert g.env_stride * itemsize % 16 == 0
+    if g.envs_per_block > 1:
+        assert g.env_stride % 32 == g.lanes
+    assert g.smem_bytes == g.envs_per_block * g.env_stride * itemsize
+    assert g.smem_bytes <= tpgs.MAX_SMEM
+
+
+def test_launch_geometry_of_the_main_path():
+    """nefc=112, nv=24 in float32: 4 envs of 8 lanes per warp-sized block,
+    and two such blocks fit in one SM's 228 KB."""
+    g = tpgs.launch_geometry(112, 24, 4, 0, 4)
+    assert (g.lanes, g.envs_per_block) == (8, 4)
+    assert 2 * (g.smem_bytes + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("nefc,nv,dtype", [(120, 128, torch.float64),
+                                           (40, 129, torch.float32)])
+def test_wrapper_refuses_shapes_the_kernel_does_not_take(nefc, nv, dtype):
+    """Panels too large for shared memory, or nv above 128, are refused on
+    every device, so the CPU and the card take the same shapes."""
+    J = torch.zeros(1, nefc, nv, dtype=dtype)
+    v = torch.zeros(1, nefc, dtype=dtype)
+    with pytest.raises(ValueError):
+        tpgs.pgs(J, J, v, v, v, v, ITERS, NOSLIP, 0)
+
+
+def test_profile_pgs_refuses_to_run_without_a_card(monkeypatch):
+    """The kernel's profiler measures the card or nothing: no CPU fallback."""
+    from nightmare_rl_tpu_torch.tools import profile_pgs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        profile_pgs.main(["-e", "8"])
