@@ -25,7 +25,25 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
-             the CPU.
+             the CPU;
+8. physics-anymal — anymal_c (Newton solver, elliptic cones), 16 envs in
+             float64 from the reference pose with perturbed joints and
+             velocities, 3 decimated steps (12 substeps) at a converged
+             Newton budget: each step of the card starts from the CPU's
+             state before it, so the error is one decimated step's; the
+             zones of the cone contacts at the last substep are counted (a
+             bottom and a middle one are required);
+9. slice-anymal — the training CLI with ``--robot anymal_c``, 2048 envs,
+             float32, reset + 1 PPO iteration; every Newton solve is counted
+             (4 per env step) and the inputs of the last one are kept;
+10. newton-converged — those inputs in float64, solved at the slice's
+             budget and at 100 iterations with 50 refinements: in at least
+             90 % of the envs the budget's qacc must lie within 2e-4 of the
+             converged one (relative to 1 + |qacc|; the rest are envs whose
+             line search stalls on its round-off floor, PERF.md §6 PR 3).
+
+The anymal_c path runs no kernel of its own: the kernels' line lists only
+``pgs``.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.
@@ -48,6 +66,15 @@ F64_TOL = 1e-10              # max |kernel - plain| / max |f|, float64
 F32_TOL = 1e-5               # the same in float32 (560 dependent row steps)
 MIN_ACTIVE = 0.05            # least share of rows with hi > 0 in the float32 check
 PHYS_TOL = 1e-9              # card vs CPU physics state, float64
+# card vs CPU, one anymal_c decimated step, relative to each field's scale:
+# round-off amplified by the stiff elliptic cones (tests/test_torch_anymal.py)
+ANYMAL_STEP_TOL = 2e-8
+# Newton budget of the physics-anymal phase: at the env's 8 the perturbed
+# reset states are not converged, the line search's last decision sits on
+# the round-off floor of φ', and card and CPU need not agree beyond it
+ANYMAL_PHYS_ITERATIONS = 30
+NEWTON_CONVERGED_TOL = 2e-4  # budget vs converged qacc, /(1 + |qacc|)
+NEWTON_CONVERGED_SHARE = 0.9  # least share of envs within it
 
 
 def _nvidia_smi() -> str:
@@ -321,6 +348,178 @@ def phase_policy(obs) -> None:
         raise AssertionError("policy inference on the card disagrees with the CPU")
 
 
+def _anymal_system(dev, iterations: int):
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg
+    from nightmare_rl_tpu_torch.physics import loader
+
+    return dataclasses.replace(loader.load_system("anymal_c", device=dev),
+                               solver_iterations=iterations,
+                               max_contacts=AnymalCCfg().max_contacts)
+
+
+def _rel(ref, x) -> float:
+    """max|ref - x| / max(1, max|ref|), on the CPU."""
+    ref, x = ref.cpu(), x.cpu()
+    return float((ref - x).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def phase_physics_anymal() -> None:
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton, pipeline
+
+    N, dev = 16, "cuda"
+    t0 = time.perf_counter()
+    sys_ = {d: _anymal_system(d, ANYMAL_PHYS_ITERATIONS) for d in (dev, "cpu")}
+    g = torch.Generator().manual_seed(3)
+    st = pipeline.make_state(sys_["cpu"], N)
+    qpos = st.qpos.clone()
+    qpos[:, 7:] += 0.05 * torch.randn(N, 12, generator=g, dtype=torch.float64)
+    # velocities from 0 (feet that stick) to 0.3 (feet that slide) over envs
+    qvel = (0.3 * torch.linspace(0.0, 1.0, N, dtype=torch.float64)[:, None]
+            * torch.randn(N, 18, generator=g, dtype=torch.float64))
+    st = st.replace(qpos=qpos, qvel=qvel)
+    q0 = sys_["cpu"].qpos0[7:]
+    ctrls = [q0 + 0.1 * torch.randn(N, 12, generator=g, dtype=torch.float64)
+             for _ in range(3)]
+    last = {}
+    solve = newton.solve
+
+    def kept(efc, *args, **kw):
+        out = solve(efc, *args, **kw)
+        last["efc"], last["qacc"] = efc, out.qacc
+        return out
+
+    fields = ("qpos", "qvel", "qacc_warmstart", "sensordata")
+    errs = {f: 0.0 for f in fields}
+    card = st
+    newton.solve = kept
+    try:
+        for ctrl in ctrls:
+            on_card = pipeline.step(sys_[dev], _to(st, dev), ctrl.to(dev), 4)
+            card = pipeline.step(sys_[dev], _to(card, dev), ctrl.to(dev), 4)
+            st = pipeline.step(sys_["cpu"], st, ctrl, 4)
+            for f in fields:
+                errs[f] = max(errs[f], _rel(getattr(st, f), getattr(on_card, f)))
+    finally:
+        newton.solve = solve
+    efc = last["efc"]
+    jar = torch.einsum("nkv,nv->nk", efc.J, last["qacc"]) - efc.aref
+    zones = {"bottom": 0, "middle": 0, "top": 0, "inactive": 0}
+    for grp in efc.cones:
+        c = newton._cone_terms(efc, grp, jar)
+        zones["bottom"] += int(c.bottom.sum())
+        zones["middle"] += int(c.mid.sum())
+        zones["inactive"] += int((~grp.active).sum())
+        zones["top"] += int((grp.active & ~c.bottom & ~c.mid).sum())
+    free = max(_rel(getattr(st, f), getattr(card, f)) for f in fields)
+    err = max(errs.values())
+    print(f"physics-anymal: 3 decimated steps, {N} envs, float64, Newton "
+          f"budget {ANYMAL_PHYS_ITERATIONS}, card vs CPU one decimated step at "
+          f"a time: max rel err {err:.3e} "
+          f"({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}; tol "
+          f"{ANYMAL_STEP_TOL:g}); free-running over 12 substeps {free:.3e} "
+          f"(not held); cone contacts at the last substep (CPU): {zones}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not err <= ANYMAL_STEP_TOL:
+        raise AssertionError("anymal_c physics on the card disagrees with the CPU")
+    if zones["bottom"] < 1 or zones["middle"] < 1:
+        raise AssertionError(f"the cone code was not exercised: {zones}")
+
+
+def _to(state, dev):
+    """A physics State with every field on dev."""
+    import dataclasses
+
+    return state.replace(**{f.name: getattr(state, f.name).to(dev)
+                            for f in dataclasses.fields(state)})
+
+
+def phase_slice_anymal(device_name: str, smi: str) -> tuple:
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+    from nightmare_rl_tpu_torch.tools import train
+
+    solve = newton.solve
+    box = {"count": 0}
+
+    def counted(*args, **kw):
+        box["count"] += 1
+        box["args"] = (args, kw)
+        return solve(*args, **kw)
+
+    iters, envs = 1, 2048
+    t0 = time.perf_counter()
+    newton.solve = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runner = train.main(["--robot", "anymal_c", "-e", str(envs), "-n",
+                                 str(iters), "--log_root", tmp])
+            torch.cuda.synchronize()
+            saved = sorted(f for d, _, fs in os.walk(tmp) for f in fs)
+    finally:
+        newton.solve = solve
+    wall = time.perf_counter() - t0
+    stats = runner.last_stats
+    T = runner.cfg.runner.num_steps_per_env
+    dec = runner.env.cfg.decimation
+    expected = iters * T * dec + dec  # + the reset's zero-action step
+    rate = T * envs / (stats["rollout_s"] + stats["update_s"])
+    print(f"slice-anymal: {iters} PPO iteration x {T} steps x {envs} envs "
+          f"float32: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, newton "
+          f"solves {box['count']} (expected {expected}); rollout "
+          f"{stats['rollout_s']:.3f} s + update {stats['update_s']:.3f} s = "
+          f"{rate:,.0f} env-steps/s (smoke figure, {device_name}, {smi}); "
+          f"dones {stats['dones']}; saved {saved}; {wall:.1f} s incl. set-up")
+    if not math.isfinite(stats["loss"]):
+        raise AssertionError("non-finite PPO loss (anymal_c)")
+    if box["count"] != expected:
+        raise AssertionError(f"newton.solve ran {box['count']} times, "
+                             f"expected {expected}")
+    if not torch.isfinite(runner.ppo.obs).all():
+        raise AssertionError("non-finite observations (anymal_c)")
+    return box["args"]
+
+
+def phase_newton_converged(kept: tuple) -> None:
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+
+    t0 = time.perf_counter()
+    (efc, M, a0, iterations, ls_refine), kw = kept
+    x0 = kw.get("x0")
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    efc64 = newton.NewtonEfc(*[f64(x) for x in efc[:5]], cones=tuple(
+        newton.ConeGroup(g.start, g.dim, f64(g.mu), f64(g.mus), g.active)
+        for g in efc.cones))
+    args64 = (efc64, f64(M), f64(a0))
+    x64 = None if x0 is None else f64(x0)
+    budget = newton.solve(*args64, iterations, ls_refine, x0=x64).qacc
+    conv = newton.solve(*args64, 100, 50, x0=x64).qacc
+    per_env = ((budget - conv).abs() / (1.0 + conv.abs())).amax(dim=1).cpu()
+    q32 = newton.solve(efc, M, a0, iterations, ls_refine, x0=x0).qacc
+    e32 = float(((q32.double() - budget).abs() / (1.0 + budget.abs())).max())
+    share = float((per_env <= NEWTON_CONVERGED_TOL).double().mean())
+    q = torch.quantile(per_env, torch.tensor([0.5, 0.9, 0.99], dtype=per_env.dtype))
+    print(f"newton-converged: the slice's last solve ({per_env.numel()} envs, "
+          f"budget {iterations} iterations / {ls_refine} refinements) in "
+          f"float64 vs 100 / 50: max |dqacc|/(1+|qacc|) per env: median "
+          f"{q[0]:.3e}, p90 {q[1]:.3e}, p99 {q[2]:.3e}, max "
+          f"{float(per_env.max()):.3e}; {share:.1%} of envs within "
+          f"{NEWTON_CONVERGED_TOL:g} (required {NEWTON_CONVERGED_SHARE:.0%}); "
+          f"float32 vs float64 at the budget {e32:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not share >= NEWTON_CONVERGED_SHARE:
+        raise AssertionError("the slice's Newton budget is not converged")
+
+
 def main() -> int:
     import torch
 
@@ -331,6 +530,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
@@ -342,6 +542,10 @@ def main() -> int:
     launches, pgs_args, obs = phase_slice(name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
     phase_policy(obs)
+    phase_physics_anymal()
+    newton_args = phase_slice_anymal(name, smi)
+    phase_newton_converged(newton_args)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry]}))
     print(smi)

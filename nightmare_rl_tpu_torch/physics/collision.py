@@ -24,6 +24,8 @@ class Contacts(NamedTuple):
     active: torch.Tensor   # (N, ncp) bool
     jac: torch.Tensor      # (N, ncp, nv, 3) translational point jacobian
     centers: torch.Tensor  # (N, ncp, 3) world centers of the candidate spheres
+    jac_rot: torch.Tensor  # (N, ncp, nv, 3) rotational jacobian (world axes),
+                           # read by the condim > 3 rows
 
 
 class PairContacts(NamedTuple):
@@ -72,7 +74,8 @@ def find_contacts(sys: S.System, kin: KinOut) -> Contacts:
     lin = kin.cdof[:, None, :, 3:]
     jac = lin + Q.cross(ang, rel)                             # (N, ncp, nv, 3)
     mask = sys.body_dof_mask[body][..., None]                 # (ncp, nv, 1)
-    return Contacts(pos, dist, active, jac * mask, center)
+    jac_rot = ang.expand_as(jac) * mask
+    return Contacts(pos, dist, active, jac * mask, center, jac_rot)
 
 
 def find_pair_contacts(sys: S.System, kin: KinOut,

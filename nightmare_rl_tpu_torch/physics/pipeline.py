@@ -1,10 +1,16 @@
-"""Full physics step: forward dynamics + implicitfast integration + touch
-sensors (port of ``nightmare_rl_tpu/physics/pipeline.py``), the batched
-equivalent of ``mj_step`` with a decimation loop.
+"""Full physics step: forward dynamics + integration (implicitfast, or
+Euler with or without implicit joint damping) + touch sensors (port of
+``nightmare_rl_tpu/physics/pipeline.py``), the batched equivalent of
+``mj_step`` with a decimation loop.
+
+Not in this port: the dense mass-matrix branch for models without a
+block-arrow layout, and the JAX package's switch that turns the Newton
+warmstart off.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -74,8 +80,10 @@ def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
     if sys.max_pair_contacts > 0 and len(sys.cpair_a) > 0:
         pair = collision.find_pair_contacts(sys, kin, con)
     sol = solver.solve_contacts(sys, con, qpos, qvel, qacc_smooth, pair=pair,
-                                lay=lay, fac=fac)
-    # touch sensors: per-contact normal force = Σ pyramid facet forces
+                                lay=lay, fac=fac, M=M,
+                                warmstart=state.qacc_warmstart)
+    # touch sensors: per-contact normal force (Σ pyramid facet forces, or
+    # the normal row of an elliptic cone)
     sensordata = sol.nforce @ sys.sensor_cpoint_matrix.T
     return ForwardOut(kin, vel, M, qfrc_smooth, qacc_smooth, con, sol, act,
                       sensordata)
@@ -98,24 +106,38 @@ def _integrate_pos(sys: S.System, qpos: torch.Tensor, qvel: torch.Tensor,
     return torch.stack(cols, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _euler_damped(sys: S.System) -> bool:
+    """Whether the Euler integrator treats joint damping implicitly (read
+    once per System, so the step never copies it to the host)."""
+    return bool(sys.eulerdamp) and bool((sys.dof_damping.cpu() > 0).any())
+
+
 def step(sys: S.System, state: S.State, ctrl: torch.Tensor,
          n_steps: int = 1) -> S.State:
     """Advance physics by ``n_steps`` timesteps with constant ctrl (the
     decimation loop of the reference env)."""
-    if sys.integrator != S.IMPLICITFAST:
-        raise NotImplementedError("only the implicitfast integrator is ported")
     lay = _layout(sys)
     dt = sys.timestep
     qpos0 = sys.qpos0
     for _ in range(n_steps):
         fwd = forward(sys, state, ctrl)
-        # (M - h·∂f/∂v)·qacc = qfrc_smooth + qfrc_constraint, with the
-        # actuator (gear²·b2) and damping terms of the velocity derivative
-        deriv = fwd.act.vel_deriv - sys.dof_damping
-        Mhat = fwd.M - dt * torch.diag_embed(deriv)
-        qacc = arrow.solve_vec(lay, arrow.factor(lay, Mhat),
-                               fwd.qfrc_smooth + fwd.sol.qfrc_constraint)
-        qvel = state.qvel + dt * qacc
+        qfrc = fwd.qfrc_smooth + fwd.sol.qfrc_constraint
+        if sys.integrator == S.IMPLICITFAST:
+            # (M - h·∂f/∂v)·qacc = qfrc_smooth + qfrc_constraint, with the
+            # actuator (gear²·b2) and damping terms of the velocity derivative
+            deriv = fwd.act.vel_deriv - sys.dof_damping
+            Mhat = fwd.M - dt * torch.diag_embed(deriv)
+            qacc = arrow.solve_vec(lay, arrow.factor(lay, Mhat), qfrc)
+            qvel = state.qvel + dt * qacc
+        elif _euler_damped(sys):
+            # mj_Euler with implicit joint damping:
+            # (M + h·diag(B)) v⁺ = M v + h·qfrc_total
+            MhB = fwd.M + dt * torch.diag(sys.dof_damping)
+            rhs = torch.einsum("nij,nj->ni", fwd.M, state.qvel) + dt * qfrc
+            qvel = arrow.solve_vec(lay, arrow.factor(lay, MhB), rhs)
+        else:
+            qvel = state.qvel + dt * fwd.sol.qacc
         qpos = _integrate_pos(sys, state.qpos, qvel, dt)
 
         # mj_checkPos/mj_checkVel: non-finite or >mjMAXVAL values reset the

@@ -1,5 +1,5 @@
-"""Constraint assembly + PGS solve (+ noslip), MuJoCo semantics: the PGS /
-pyramidal-cone branch of ``nightmare_rl_tpu/physics/solver.py``.
+"""Constraint assembly and solve (port of
+``nightmare_rl_tpu/physics/solver.py``), MuJoCo semantics.
 
 Row families: dof friction rows (|f| ≤ frictionloss), joint-limit rows and
 pyramidal contact rows (condim 3 → 4 facets, J = Jn ± μ·Jt_i, f ≥ 0), in
@@ -10,8 +10,11 @@ regularization R from MuJoCo's diag-approximation, then the dual PGS
 contact tangent pairs.  Inactive candidate rows stay in the system with
 bounds [0, 0], so every env has the same row count.
 
-Not in this port: Newton/CG, elliptic cones, condim > 3 and the leg-sparse
-PGS core.
+Newton models (``solver_type`` Newton or CG) solve with ``physics/newton.py``
+instead: elliptic cones get one row per friction direction (condim 3, 4 or
+6), pyramidal cones the same facets as PGS followed by the noslip pass.
+
+Not in this port: the leg-sparse PGS core.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nightmare_rl_tpu_torch.ops.pgs import pgs
-from nightmare_rl_tpu_torch.physics import arrow
+from nightmare_rl_tpu_torch.physics import arrow, newton
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.physics.collision import (
     Contacts, PairContacts, topk_smallest,
@@ -100,12 +103,28 @@ def _pyramid_rows(Jn, fdirs, mus, dist, active, solref, solimp, iw, impratio,
     )
 
 
-def _fdirs(jac, mu, condim: int):
-    """Friction directions/coefficients for the plane-contact frame
-    (mju_makeFrame for n=+z: t1 = (0,1,0), t2 = (-1,0,0)); condim 3 only."""
-    if condim != 3:
-        raise NotImplementedError(f"condim {condim} contacts are not ported")
-    return jac[..., 2], [jac[..., 1], -jac[..., 0]], [mu, mu]
+def _fdirs(jac, jac_rot, mu, mu_rot, condim: int):
+    """Friction directions and coefficients for the plane-contact frame
+    (mju_makeFrame for n=+z: t1 = (0,1,0), t2 = (-1,0,0)), in MuJoCo's order
+    t1, t2[, torsion[, roll1, roll2]]."""
+    Jn = jac[..., 2]
+    fdirs = [jac[..., 1], -jac[..., 0]]
+    mus = [mu, mu]
+    if condim >= 4:
+        fdirs.append(jac_rot[..., 2])
+        mus.append(mu_rot[..., 0])
+    if condim >= 6:
+        fdirs += [jac_rot[..., 1], -jac_rot[..., 0]]
+        mus += [mu_rot[..., 1], mu_rot[..., 2]]
+    return Jn, fdirs, mus
+
+
+def _friction_rot(sys: S.System, like: torch.Tensor) -> torch.Tensor:
+    """(ncp, 3) torsional and rolling friction; zeros for an archive
+    without them."""
+    if sys.cpoint_friction_rot is not None:
+        return sys.cpoint_friction_rot
+    return like.new_zeros(sys.ncp, 3)
 
 
 def make_efc(sys: S.System, con: Contacts, qvel: torch.Tensor, iw=None,
@@ -113,14 +132,52 @@ def make_efc(sys: S.System, con: Contacts, qvel: torch.Tensor, iw=None,
     """Pyramidal contact rows for every candidate point."""
     if iw is None:  # world side contributes 0 invweight
         iw = sys.body_invweight[S.index_tensor(sys.cpoint_bodyid, qvel.device), 0]
-    Jn, fdirs, mus = _fdirs(con.jac, sys.cpoint_friction, condim)
+    Jn, fdirs, mus = _fdirs(con.jac, con.jac_rot, sys.cpoint_friction,
+                            _friction_rot(sys, qvel), condim)
     return _pyramid_rows(Jn, fdirs, mus, con.dist, con.active,
                          sys.cpoint_solref, sys.cpoint_solimp, iw,
                          sys.impratio, qvel)
 
 
-def make_pair_efc(sys: S.System, pc: PairContacts, qvel: torch.Tensor) -> Efc:
-    """Pyramid facet rows for the selected body↔body sphere-pair contacts."""
+def _elliptic_rows(Jn, fdirs, mus, dist, active, solref, solimp, iw,
+                   impratio, qvel) -> Tuple[Efc, torch.Tensor, torch.Tensor]:
+    """Elliptic-cone rows for a group of n contacts of one condim d per env:
+    per contact [normal | t1 | t2 | (torsion) | (roll1 | roll2)], one row per
+    friction direction.  Friction rows carry aref = −B·vel (no position
+    term); R₀ = (1−imp)/imp·Σinvweight on the normal row and
+    Rᵢ = R₀·(μ₁/μᵢ)²/impratio on friction rows; the cone coefficient is
+    μ̄ = μ₁/√impratio.  Returns (rows, μ̄ (N, n), μ (N, n, d-1))."""
+    J = torch.stack([Jn] + list(fdirs), dim=2)           # (N, n, d, nv)
+    N, n, d, nv = J.shape
+    mus_arr = torch.stack(list(mus), dim=-1)              # (N, n, d-1)
+    mu1 = mus[0]
+
+    imp = impedance(solimp, dist)
+    K, B = _kb(solref, solimp)
+    vel = torch.einsum("ncfv,nv->ncf", J, qvel)
+    aref = -B[..., None] * vel
+    aref[..., 0] = aref[..., 0] + (-(K * imp * dist))
+    R0 = torch.clamp_min((1.0 - imp) / torch.clamp_min(imp, 1e-12) * iw, 1e-12)
+    Rf = R0[..., None] * (mu1[..., None] / mus_arr) ** 2 / impratio
+    R = torch.cat([R0[..., None], Rf], dim=-1)
+    mu_bar = mu1 / torch.sqrt(J.new_tensor(impratio))
+
+    efc = Efc(
+        J.reshape(N, n * d, nv),
+        aref.reshape(N, n * d),
+        R.reshape(N, n * d),
+        J.new_zeros(N, n * d),
+        torch.where(torch.repeat_interleave(active, d, dim=1), torch.inf,
+                    0.0).to(J.dtype),
+    )
+    return efc, mu_bar, mus_arr
+
+
+def make_pair_efc(sys: S.System, pc: PairContacts, qvel: torch.Tensor,
+                  elliptic: bool = False):
+    """Rows for the selected body↔body sphere-pair contacts (condim 3):
+    pyramid facets, or per-direction cone rows when ``elliptic``.  Returns
+    (rows, μ̄, μ) as ``_elliptic_rows`` does, μ̄ and μ None for facets."""
     mu = sys.cpair_friction[pc.sel]                         # (N, K)
     Jn = torch.einsum("nkvd,nkd->nkv", pc.jac, pc.normal)
     Jt1 = torch.einsum("nkvd,nkd->nkv", pc.jac, pc.t1)
@@ -130,8 +187,11 @@ def make_pair_efc(sys: S.System, pc: PairContacts, qvel: torch.Tensor) -> Efc:
     iw_all = sys.body_invweight[:, 0]
     bodyid = S.index_tensor(sys.cpoint_bodyid, qvel.device)
     iw = iw_all[bodyid[pc.a]] + iw_all[bodyid[pc.b]]
-    return _pyramid_rows(Jn, [Jt1, Jt2], [mu, mu], pc.dist, pc.active,
-                         solref, solimp, iw, sys.impratio, qvel)
+    args = (Jn, [Jt1, Jt2], [mu, mu], pc.dist, pc.active, solref, solimp, iw,
+            sys.impratio, qvel)
+    if elliptic:
+        return _elliptic_rows(*args)
+    return _pyramid_rows(*args), None, None
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,45 +260,114 @@ class Assembled(NamedTuple):
     back to candidate points."""
 
     efc: Efc
+    nefc: Optional[newton.NewtonEfc]  # set for Newton models
     ns_offset: int
-    cparts: List[Tuple[Efc, torch.Tensor, int]]  # (rows, point idx (N, n), nf)
+    # per plane-contact group: (rows, point idx (N, n), rows per point,
+    # condim, μ̄, μ), μ̄ and μ None for pyramidal rows
+    cparts: List[tuple]
+    pair_part: Optional[tuple]        # make_pair_efc's (rows, μ̄, μ)
+
+
+@functools.lru_cache(maxsize=None)
+def _condim_groups(sys: S.System) -> Tuple[Tuple[int, ...], tuple]:
+    """Candidate points of condim 3, and (condim, points) for each higher
+    condim in ascending order: the static split of the contact rows."""
+    condim = sys.cpoint_condim if len(sys.cpoint_condim) else (3,) * sys.ncp
+    if min(condim) < 3:
+        raise NotImplementedError("condim 1 contacts are not supported")
+    c3 = tuple(i for i, d in enumerate(condim) if d == 3)
+    higher = tuple((d, tuple(i for i, c in enumerate(condim) if c == d))
+                   for d in sorted(set(condim)) if d > 3)
+    return c3, higher
+
+
+@functools.lru_cache(maxsize=None)
+def _cone_row_mask(nefc: int, spans: Tuple[Tuple[int, int], ...],
+                   device: torch.device) -> torch.Tensor:
+    """(nefc,) False on the rows [start, stop) of each cone group (their cost
+    is handled per contact, not as one-sided quadratics)."""
+    mask = torch.ones(nefc, dtype=torch.bool)
+    for a, b in spans:
+        mask[a:b] = False
+    return mask.to(device)
 
 
 def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
              qvel: torch.Tensor, pair: Optional[PairContacts] = None
              ) -> Assembled:
     """Assemble every constraint row as solve_contacts consumes it:
-    [dof friction | joint limits | top-K plane-contact facets | pair facets]."""
-    condim = sys.cpoint_condim if len(sys.cpoint_condim) else (3,) * sys.ncp
-    if any(d != 3 for d in condim):
-        raise NotImplementedError("only condim-3 contacts are ported")
-    if sys.solver_type != S.SOLVER_PGS or sys.cone != S.PYRAMIDAL:
-        raise NotImplementedError("only the PGS solver with pyramidal cones "
-                                  "is ported")
+    [dof friction | joint limits | condim-3 contacts (the top-K deepest when
+    sys.max_contacts = K > 0) | condim > 3 contacts (ascending condim) |
+    pair contacts].  Pyramidal models get ± facet rows; Newton models with
+    elliptic cones get one row per direction, grouped into cones."""
     N, dev = qvel.shape[0], qvel.device
     rows_n = torch.arange(N, device=dev)[:, None]
-    K = sys.max_contacts
-    if 0 < K < sys.ncp:
-        sel = topk_smallest(con.dist, K)                    # (N, K)
-    else:
-        sel = torch.arange(sys.ncp, device=dev).expand(N, -1)
+    use_newton = sys.solver_type in (S.SOLVER_CG, S.SOLVER_NEWTON)
+    elliptic = use_newton and sys.cone == S.ELLIPTIC
     iw_full = sys.body_invweight[S.index_tensor(sys.cpoint_bodyid, dev), 0]
-    Jn, fdirs, mus = _fdirs(con.jac[rows_n, sel], sys.cpoint_friction[sel], 3)
-    rows = _pyramid_rows(Jn, fdirs, mus, con.dist[rows_n, sel],
-                         con.active[rows_n, sel], sys.cpoint_solref[sel],
-                         sys.cpoint_solimp[sel], iw_full[sel], sys.impratio,
-                         qvel)
-    cparts = [(rows, sel, 4)]
-    parts = [rows]
+    mu_rot_full = _friction_rot(sys, qvel)
+
+    def group_rows(idx, d: int):
+        """Rows for the points idx (N, n), all of condim d."""
+        Jn, fdirs, mus = _fdirs(con.jac[rows_n, idx], con.jac_rot[rows_n, idx],
+                                sys.cpoint_friction[idx], mu_rot_full[idx], d)
+        args = (Jn, fdirs, mus, con.dist[rows_n, idx], con.active[rows_n, idx],
+                sys.cpoint_solref[idx], sys.cpoint_solimp[idx], iw_full[idx],
+                sys.impratio, qvel)
+        if elliptic:
+            return _elliptic_rows(*args)
+        return _pyramid_rows(*args), None, None
+
+    c3, higher = _condim_groups(sys)
+    K = sys.max_contacts
+    cparts = []
+    if c3:
+        c3t = S.index_tensor(c3, dev)
+        if 0 < K < len(c3):
+            sel3 = c3t[topk_smallest(con.dist[:, c3t], K)]   # (N, K)
+        else:
+            sel3 = c3t.expand(N, -1)
+        rows, mu_bar, mus = group_rows(sel3, 3)
+        cparts.append((rows, sel3, 3 if elliptic else 4, 3, mu_bar, mus))
+    for d, pts in higher:
+        idx = S.index_tensor(pts, dev).expand(N, -1)
+        rows, mu_bar, mus = group_rows(idx, d)
+        cparts.append((rows, idx, d if elliptic else 2 * (d - 1), d, mu_bar, mus))
+
+    parts = [p[0] for p in cparts]
+    pair_part = None
     if pair is not None:
-        parts.append(make_pair_efc(sys, pair, qvel))
+        pair_part = make_pair_efc(sys, pair, qvel, elliptic=elliptic)
+        parts.append(pair_part[0])
     efc_d = make_dof_efc(sys, qpos, qvel)
     ns_offset = 0
     if efc_d is not None:
         ns_offset = efc_d.J.shape[1]
         parts.insert(0, efc_d)
     efc = _cat(parts) if len(parts) > 1 else parts[0]
-    return Assembled(efc, ns_offset, cparts)
+
+    nefc = None
+    if use_newton:
+        cones = []
+        if elliptic:
+            off = ns_offset
+            for _, idx, nf, d, mu_bar, mus in cparts:
+                cones.append(newton.ConeGroup(off, d, mu_bar, mus,
+                                              con.active[rows_n, idx]))
+                off += idx.shape[1] * nf
+            if pair_part is not None:
+                cones.append(newton.ConeGroup(off, 3, pair_part[1], pair_part[2],
+                                              pair.active))
+        spans = tuple((g.start, g.start + g.mus.shape[-2] * g.dim) for g in cones)
+        is_fl = efc.lo < 0.0
+        nefc = newton.NewtonEfc(
+            J=efc.J, aref=efc.aref, R=efc.R,
+            quad_active=(~is_fl) & (efc.hi > 0.0)
+            & _cone_row_mask(efc.J.shape[1], spans, dev),
+            fl=torch.where(is_fl, efc.hi, 0.0),
+            cones=tuple(cones),
+        )
+    return Assembled(efc, nefc, ns_offset, cparts, pair_part)
 
 
 class SolveOut(NamedTuple):
@@ -270,32 +399,81 @@ class ContactSolveOut(NamedTuple):
     qacc: torch.Tensor             # (N, nv)
 
 
+def _noslip_pairs(A: torch.Tensor, b: torch.Tensor, f: torch.Tensor,
+                  hi: torch.Tensor, ns_offset: int, sweeps: int) -> torch.Tensor:
+    """MuJoCo's noslip post-pass on consecutive ± facet pairs from row
+    ns_offset, starting from the force f (after a Newton solve), with the
+    Delassus matrix A (N, nefc, nefc)."""
+    nefc = b.shape[1]
+    npairs = (nefc - ns_offset) // 2
+    if sweeps <= 0 or npairs <= 0:
+        return f
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    f = f.clone()
+    for _ in range(sweeps):
+        for p in range(npairs):
+            i, j = ns_offset + 2 * p, ns_offset + 2 * p + 1
+            s = f[:, i] + f[:, j]
+            g = torch.einsum("nk,nk->n", A[:, i] - A[:, j], f) + b[:, i] - b[:, j]
+            h = diag[:, i] + diag[:, j] - 2.0 * A[:, i, j]
+            y = 0.5 * (f[:, i] - f[:, j]) - g / torch.clamp_min(h, 1e-12)
+            y = torch.minimum(torch.maximum(y, -0.5 * s), 0.5 * s)
+            ok = hi[:, i] > 0
+            fi = torch.where(ok, 0.5 * s + y, f[:, i])
+            fj = torch.where(ok, 0.5 * s - y, f[:, j])
+            f[:, i], f[:, j] = fi, fj
+    return f
+
+
 def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                    qvel: torch.Tensor, qacc_smooth: torch.Tensor,
                    pair: Optional[PairContacts] = None,
                    lay: Optional[arrow.ArrowLayout] = None,
-                   fac: Optional[arrow.ArrowFac] = None) -> ContactSolveOut:
-    """Full constraint solve with top-K candidate selection; normal forces
-    (Σ facet forces) are scattered back to the full candidate set for the
-    touch sensors."""
+                   fac: Optional[arrow.ArrowFac] = None,
+                   M: Optional[torch.Tensor] = None,
+                   warmstart: Optional[torch.Tensor] = None) -> ContactSolveOut:
+    """Full constraint solve with top-K candidate selection.  PGS models run
+    the PGS solve; Newton models run ``newton.solve`` from the warmstart
+    (then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
+    the normal row of an elliptic cone) are scattered back to the full
+    candidate set for the touch sensors."""
     if lay is None or fac is None:
         raise NotImplementedError(
             "the port solves only models with a block-arrow mass matrix")
     asm = assemble(sys, con, qpos, qvel, pair=pair)
-    sol = solve(sys, asm.efc, qacc_smooth, asm.ns_offset, lay, fac)
+    efc, ns_offset = asm.efc, asm.ns_offset
+    elliptic = asm.nefc is not None and sys.cone == S.ELLIPTIC
+    if asm.nefc is not None:
+        if M is None:
+            raise ValueError("the Newton solve needs the mass matrix M")
+        nsol = newton.solve(asm.nefc, M, qacc_smooth, sys.solver_iterations,
+                            min(sys.ls_iterations, sys.ls_refine), x0=warmstart)
+        sol = SolveOut(nsol.force, nsol.qfrc_constraint, nsol.qacc)
+        if sys.noslip_iterations > 0 and not elliptic:
+            Minv = arrow.inv(lay, fac)
+            A = (efc.J @ Minv) @ efc.J.transpose(1, 2)
+            b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
+            force = _noslip_pairs(A, b, nsol.force, efc.hi, ns_offset,
+                                  sys.noslip_iterations)
+            qfrc = torch.einsum("nkv,nk->nv", efc.J, force)
+            sol = SolveOut(force, qfrc,
+                           qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc))
+    else:
+        sol = solve(sys, efc, qacc_smooth, ns_offset, lay, fac)
 
     N = qvel.shape[0]
     nforce = sol.force.new_zeros(N, sys.ncp)
-    off = asm.ns_offset
-    for _, idx, nf in asm.cparts:
+    off = ns_offset
+    for _, idx, nf, _, _, _ in asm.cparts:
         n = idx.shape[1]
         blk = sol.force[:, off:off + n * nf].reshape(N, n, nf)
-        nforce = nforce.scatter(1, idx, blk.sum(dim=-1))
+        nforce = nforce.scatter(1, idx, blk[..., 0] if elliptic else blk.sum(dim=-1))
         off += n * nf
     if pair is not None:
         # pair normal force feeds the touch sensors of BOTH bodies; duplicate
         # indices accumulate (scatter_add, the batched index_add_)
-        nf_pair = sol.force[:, off:].reshape(N, -1, 4).sum(dim=-1)
+        blk = sol.force[:, off:].reshape(N, -1, 3 if elliptic else 4)
+        nf_pair = blk[..., 0] if elliptic else blk.sum(dim=-1)
         nforce = nforce.scatter_add(1, pair.a, nf_pair).scatter_add(
             1, pair.b, nf_pair)
     return ContactSolveOut(nforce, sol.qfrc_constraint, sol.qacc)

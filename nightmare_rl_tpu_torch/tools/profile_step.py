@@ -1,14 +1,17 @@
 """Where the time of the training path goes on the card.
 
     python -m nightmare_rl_tpu_torch.tools.profile_step [-e 2048] [--steps 4]
+        [--robot nightmare_v3|anymal_c]
 
-For the nightmare_v3 env at ``-e`` envs in float32 (the training CLI's
+For the robot's env at ``-e`` envs in float32 (the training CLI's
 configuration) it measures, after warm-up:
 
 - the wall time of one env step (host clock around synchronized steps);
 - with ``torch.profiler``: the device time inside those steps, hence the
-  device's busy share, the number of kernels one step launches, the kernels
-  that take the most device time and the PGS kernel's share;
+  device's busy share, the number of kernels one step and one physics
+  substep launch, the kernels that take the most device time and the PGS
+  kernel's share (zero for anymal_c, whose Newton solve runs no kernel of
+  its own);
 - the wall time of one policy forward pass on the step's observations.
 
 The last line is one JSON object with these numbers, the top kernels and
@@ -28,6 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
 from nightmare_rl_tpu_torch.utils.device import resolve_device
@@ -47,11 +51,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("-e", "--envs", type=int, default=2048)
     p.add_argument("--steps", type=int, default=4)
+    p.add_argument("--robot", type=str, default="nightmare_v3",
+                   choices=["nightmare_v3", "anymal_c"])
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
 
-    env = NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=args.envs)),
-                         device=dev)
+    if args.robot == "anymal_c":
+        env = AnymalCEnv(AnymalCCfg(num_envs=args.envs), device=dev)
+        substeps = env.cfg.decimation
+    else:
+        env = NightmareV3Env(NightmareV3Cfg().replace(
+            env=EnvCfg(num_envs=args.envs)), device=dev)
+        substeps = env.cfg.control.decimation
     net = ActorCritic(env.num_obs, env.num_actions).to(dev)
     box = {}
     box["state"], box["obs"] = env.reset(0)
@@ -83,17 +94,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
 
     name = torch.cuda.get_device_name(dev)
-    print(f"profile: {name}, {args.envs} envs float32: env step {step_ms:.3f} ms "
-          f"wall; device busy {device_ms:.3f} ms ({100 * device_ms / step_ms:.1f}%) "
-          f"in {launches:.0f} kernels; pgs kernel {pgs_ms:.3f} ms; policy "
-          f"forward {policy_ms:.3f} ms")
+    print(f"profile: {name}, {args.robot}, {args.envs} envs float32: env step "
+          f"{step_ms:.3f} ms wall; device busy {device_ms:.3f} ms "
+          f"({100 * device_ms / step_ms:.1f}%) in {launches:.0f} kernels "
+          f"({launches / substeps:.0f} per substep); pgs kernel {pgs_ms:.3f} ms; "
+          f"policy forward {policy_ms:.3f} ms")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / args.steps:8.3f} ms  "
               f"{e.count / args.steps:6.0f}x  {e.key[:90]}")
     result = {
-        "device": name, "envs": args.envs, "env_step_ms": step_ms,
-        "device_busy_ms": device_ms, "device_busy_share": device_ms / step_ms,
-        "kernels_per_step": launches, "pgs_ms": pgs_ms, "policy_ms": policy_ms,
+        "device": name, "robot": args.robot, "envs": args.envs,
+        "env_step_ms": step_ms, "device_busy_ms": device_ms,
+        "device_busy_share": device_ms / step_ms, "kernels_per_step": launches,
+        "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms,
+        "policy_ms": policy_ms,
         "env_steps_per_s": args.envs / step_ms * 1e3,
         "top_kernels": [
             {"device_ms_per_step": e.self_device_time_total / 1e3 / args.steps,

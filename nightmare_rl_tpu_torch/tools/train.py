@@ -1,6 +1,7 @@
-"""Train nightmare_v3 PPO with the PyTorch port.
+"""Train nightmare_v3 (or anymal_c) PPO with the PyTorch port.
 
     python -m nightmare_rl_tpu_torch.tools.train -e 2048 -n 1000 [-r] [-p PATH]
+        [--robot nightmare_v3|anymal_c]
 
 Runs on the card; ``--device cpu`` is the only way onto the CPU, and a
 missing card raises.  ``-n`` is the number of learning iterations.
@@ -17,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg, PPOCfg
+from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
 from nightmare_rl_tpu_torch.utils.device import resolve_device
@@ -38,12 +40,10 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
                    help="exploration floor on the action std (flag-gated "
                         "deviation from rsl_rl; 0 = parity config)")
     p.add_argument("--max_ang_vel", type=float, default=None,
-                   help="override the sampled |wz| command range "
-                        "(reference default 0.8 rad/s)")
+                   help="override the sampled |wz| command range of "
+                        "nightmare_v3 (reference default 0.8 rad/s)")
     args = p.parse_args(argv)
 
-    if args.robot != "nightmare_v3":
-        raise NotImplementedError(f"--robot {args.robot} is not ported yet")
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
 
@@ -55,12 +55,15 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
     if args.std_floor > 0.0:
         pcfg = pcfg.replace(policy=dataclasses.replace(
             pcfg.policy, std_floor=args.std_floor))
-    cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=args.num_envs))
-    if args.max_ang_vel is not None:
-        cfg = cfg.replace(commands=dataclasses.replace(
-            cfg.commands, ranges=dataclasses.replace(
-                cfg.commands.ranges, max_ang_vel=args.max_ang_vel)))
-    env = NightmareV3Env(cfg, device=device)
+    if args.robot == "anymal_c":
+        env = AnymalCEnv(AnymalCCfg(num_envs=args.num_envs), device=device)
+    else:
+        cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=args.num_envs))
+        if args.max_ang_vel is not None:
+            cfg = cfg.replace(commands=dataclasses.replace(
+                cfg.commands, ranges=dataclasses.replace(
+                    cfg.commands.ranges, max_ang_vel=args.max_ang_vel)))
+        env = NightmareV3Env(cfg, device=device)
 
     runner = OnPolicyRunner(env, pcfg, log_dir=log_dir)
     runner.init(args.seed)

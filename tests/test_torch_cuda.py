@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA card: the PGS CUDA kernel against
 its plain PyTorch version in cases beside those of ``chip_smoke.py``
 (float32 random systems, float32 panels that take the plain-load path, a
-NaN in b, infinite bounds, the occupancy of the main path's geometry).
+NaN in b, infinite bounds, the occupancy of the main path's geometry); the
+anymal_c step under a process-wide TF32 setting; the Newton solve on the
+card against the CPU (float64, 1e-10).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
 to 1e-3 (a chain of 560 dependent row steps in float32 rounding on random,
 often ill-conditioned systems).  They skip where torch.cuda.is_available()
@@ -120,3 +122,74 @@ def test_profile_pgs_reports_the_phases(cuda):
     assert res["wave_envs"] == 300 and res["lanes_per_env"] == 8
     assert res["wave_prologue_us"] > 0
     assert res["row_step_ns"] > 0 and res["pair_step_ns"] > 0
+
+
+@pytest.mark.cuda
+def test_anymal_step_runs_full_float32_under_tf32(cuda):
+    """With TF32 allowed process-wide, the anymal_c step still multiplies at
+    full float32 (the Newton line search needs it): it stays finite, equals
+    the step with TF32 off within 1e-5 relative, and leaves the setting as
+    it found it."""
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    obs = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            env = AnymalCEnv(AnymalCCfg(num_envs=256), device=cuda)
+            state, _ = env.reset(0)
+            acts = 0.3 * torch.randn(256, 12, device=cuda,
+                                     generator=torch.Generator(cuda).manual_seed(1))
+            obs[tf32] = env.step(state, acts).obs
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert bool(torch.isfinite(obs[True]).all())
+    err = float((obs[True] - obs[False]).abs().max() / obs[False].abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_newton_solve_card_matches_cpu(cuda):
+    """Random float64 batches with dim-3 and dim-6 cone groups, dof-friction
+    and one-sided rows: the solve on the card equals the CPU's to 1e-10
+    (4 Newton steps, 1 refinement, which on this batch stays above the
+    line search's round-off floor; see tests/test_torch_newton.py)."""
+    from nightmare_rl_tpu_torch.physics import newton
+
+    g = torch.Generator().manual_seed(3)
+    N, nv, n3, n6 = 64, 12, 4, 3
+    nefc = 10 + 3 * n3 + 6 * n6
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    J, aref = rnd(N, nefc, nv), rnd(N, nefc)
+    R = 0.05 + 0.45 * torch.rand(N, nefc, generator=g, dtype=torch.float64)
+    fl = torch.zeros(N, nefc, dtype=torch.float64)
+    fl[:, :4] = 0.5
+    qa = torch.zeros(N, nefc, dtype=torch.bool)
+    qa[:, 4:10] = True
+    mus3 = 0.05 + torch.rand(N, n3, 2, generator=g, dtype=torch.float64)
+    mus6 = 0.05 + torch.rand(N, n6, 5, generator=g, dtype=torch.float64)
+    G = rnd(N, nv, nv)
+    M = 0.2 * (G @ G.transpose(1, 2) + nv * torch.eye(nv, dtype=torch.float64))
+    a0, x0 = 3.0 * rnd(N, nv), 3.0 * rnd(N, nv)
+
+    def on(dev):
+        t = lambda x: x.to(dev)
+        cones = (newton.ConeGroup(10, 3, t(mus3[..., 0] / 10), t(mus3),
+                                  t(torch.rand(N, n3, generator=g) < 0.8)),
+                 newton.ConeGroup(10 + 3 * n3, 6, t(mus6[..., 0] / 10), t(mus6),
+                                  t(torch.rand(N, n6, generator=g) < 0.8)))
+        efc = newton.NewtonEfc(t(J), t(aref), t(R), t(qa), t(fl), cones)
+        return newton.solve(efc, t(M), t(a0), 4, 1, x0=t(x0))
+
+    g.manual_seed(4)
+    ref = on("cpu")
+    g.manual_seed(4)
+    out = on(cuda)
+    for name in ("force", "qfrc_constraint", "qacc"):
+        a, b = getattr(ref, name), getattr(out, name).cpu()
+        assert float((a - b).abs().max() / (1 + a.abs().max())) <= 1e-10, name
