@@ -40,10 +40,31 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              budget and at 100 iterations with 50 refinements: in at least
              90 % of the envs the budget's qacc must lie within 2e-4 of the
              converged one (relative to 1 + |qacc|; the rest are envs whose
-             line search stalls on its round-off floor, PERF.md §6 PR 3).
+             line search stalls on its round-off floor, PERF.md §6);
+11. recorder/resume (right after the slice) — the slice's runner recorded
+             env 0: it received 2 × 80 frames with finite qpos; the
+             ``model_2.pt`` it saved, loaded into a fresh runner on the card,
+             restores every field of the train state exactly;
+12. play-grid — ``tools/play.py``'s ``grid_eval`` of
+             ``artifacts/model_3176.pt``: 7 commands × 400 steps,
+             deterministic, float32; zero falls on every row, achieved vx at
+             least 80 % of the command on the ±0.3 m/s straight rows, and the
+             PGS kernel on every substep, held against ``pgs_reference`` on
+             the inputs of its last call;
+13. custom-play — the batched gait engine in float64 on the card against
+             the CPU over an idle → get-up → walk journey (≤ 1e-9 in the
+             joint angles); then ``tools/custom_play.py`` at 256 envs,
+             float32, tripod, 430 control steps, four commands spread over
+             the envs (two walks, two turns): every env stands up and walks
+             and turns as the JAX tool does under its command, the envs of
+             one command agree, and the PGS kernel is held against
+             ``pgs_reference`` on the inputs of its last call;
+14. simple-test — ``tools/simple_test.py -e 2048 -s 5 -d 4``: substeps/s;
+             the PGS kernel held against ``pgs_reference`` on the inputs of
+             its last call.
 
-The anymal_c path runs no kernel of its own: the kernels' line lists only
-``pgs``.
+The anymal_c path and the new tools run no kernel of their own: the
+kernels' line lists only ``pgs`` (its launches are the slice's).
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.
@@ -51,6 +72,7 @@ The line before the nvidia-smi line is the kernels' JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -75,6 +97,26 @@ ANYMAL_STEP_TOL = 2e-8
 ANYMAL_PHYS_ITERATIONS = 30
 NEWTON_CONVERGED_TOL = 2e-4  # budget vs converged qacc, /(1 + |qacc|)
 NEWTON_CONVERGED_SHARE = 0.9  # least share of envs within it
+MODEL_3176 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "artifacts", "model_3176.pt")
+GRID_STEPS = 400
+GRID_MIN_VX = 0.8            # least achieved/commanded vx on the straight rows
+ENGINE_TOL = 1e-9            # gait engine, card vs CPU, float64 joint angles
+CUSTOM_ENVS, CUSTOM_STEPS = 256, 430
+# (lin, ang) commands, env i taking the (i mod 4)-th, and what the JAX tool
+# gives for each on the CPU (python -m nightmare_rl_tpu.tools.custom_play
+# --steps 430 --lin L --ang A --envs 1, float32): the base's horizontal
+# displacement from (0, 0, 0.15) in m and its final yaw in rad.  For lin
+# 0.08 it ends at x=-0.483496, y=+0.019455, z=0.089835, nearly all of it
+# walked after get-up ends near step 280.  Each env must walk within half
+# and 1.5 times the JAX tool's distance and, on a turn, turn its way by at
+# least half its angle; the envs of one command must end within
+# CUSTOM_SPREAD of each other.
+CUSTOM_CMDS = ((0.08, 0.0), (0.04, 0.0), (0.08, 0.3), (0.08, -0.3))
+CUSTOM_JAX = ((0.4839, -0.0479), (0.3046, -0.0097), (0.2592, +0.9996),
+              (0.2577, -1.0180))
+CUSTOM_SPREAD = 0.01
+CUSTOM_MIN_HEIGHT = 0.07     # base z once up (the engine stands at ~0.09 m)
 
 
 def _nvidia_smi() -> str:
@@ -201,31 +243,64 @@ def phase_kernel() -> None:
     _check_random(64, 40, 45, 2, 23)            # nv above 32: 32 lanes per env
 
 
-def phase_main_path_kernel(args: tuple, launches: int) -> dict:
-    """The kernel against its plain version on the inputs that the slice's
-    last PGS call received, and both timed on them."""
+@contextlib.contextmanager
+def _kept_pgs():
+    """Keeps the inputs of the last PGS call in the yielded dict; the call
+    goes on to the wrapper."""
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import solver
+
+    last = {}
+
+    def pgs_kept(*args):
+        last["args"] = args
+        return P.pgs(*args)
+
+    solver.pgs = pgs_kept
+    try:
+        yield last
+    finally:
+        solver.pgs = P.pgs
+
+
+def _hold_kernel(label: str, args: tuple, shape: tuple) -> float:
+    """The kernel against ``pgs_reference`` on the float32 inputs that a
+    path's last PGS call received (of (N, nefc, nv) ``shape``); asserts a
+    minimum share of active rows.  Returns max|err|."""
     import torch
 
     from nightmare_rl_tpu_torch.ops import pgs as P
 
-    J, U, b, R, lo, hi, it, ns, ns_offset = args
+    J, hi = args[0], args[5]
     N, nefc, nv = J.shape
-    assert (N, nefc, nv, ns_offset) == (2048, 112, 24, 0), (J.shape, ns_offset)
-    assert J.dtype == torch.float32, J.dtype
+    assert tuple(J.shape) == shape and J.dtype == torch.float32, (J.shape, J.dtype)
     f_k = P.pgs(*args)
     f_p = P.pgs_reference(*args)
     torch.cuda.synchronize()
     abs_err = float((f_k - f_p).abs().max())
     rel = abs_err / float(f_p.abs().max())
     active = float((hi > 0).double().mean())
-    print(f"kernel: float32 main-path inputs (the slice's last call) N={N} "
-          f"nefc={nefc} nv={nv}: {active:.1%} of rows active (min "
-          f"{MIN_ACTIVE:.0%}), max|f| = {float(f_p.abs().max()):.4g}, "
-          f"max|err| = {abs_err:.3e}, /max|f| = {rel:.3e} (tol {F32_TOL:g})")
+    print(f"kernel: float32 {label} N={N} nefc={nefc} nv={nv}: {active:.1%} of "
+          f"rows active (min {MIN_ACTIVE:.0%}), max|f| = "
+          f"{float(f_p.abs().max()):.4g}, max|err| = {abs_err:.3e}, /max|f| = "
+          f"{rel:.3e} (tol {F32_TOL:g})")
     if not active >= MIN_ACTIVE:
-        raise AssertionError("the main path's PGS inputs have too few active rows")
+        raise AssertionError(f"the PGS inputs of {label} have too few active rows")
     if not rel <= F32_TOL or not torch.isfinite(f_k).all():
-        raise AssertionError("pgs kernel disagrees with pgs_reference (float32)")
+        raise AssertionError(f"pgs kernel disagrees with pgs_reference on {label}")
+    return abs_err
+
+
+def phase_main_path_kernel(args: tuple, launches: int) -> dict:
+    """The kernel against its plain version on the inputs that the slice's
+    last PGS call received, and both timed on them."""
+    from nightmare_rl_tpu_torch.ops import pgs as P
+
+    J, U, b, R, lo, hi, it, ns, ns_offset = args
+    N, nefc, nv = J.shape
+    assert ns_offset == 0, ns_offset
+    abs_err = _hold_kernel("main-path inputs (the slice's last call)", args,
+                           (2048, 112, 24))
 
     kern_ms = _cuda_ms(lambda: P.pgs(*args), reps=50)
     plain_ms = _cuda_ms(lambda: P.pgs_reference(*args), reps=3, warmup=1)
@@ -280,32 +355,22 @@ def phase_physics() -> None:
         raise AssertionError("physics on the card disagrees with the CPU")
 
 
-def phase_slice(device_name: str, smi: str) -> tuple:
+def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     import torch
 
     from nightmare_rl_tpu_torch.ops import pgs as P
-    from nightmare_rl_tpu_torch.physics import solver
     from nightmare_rl_tpu_torch.tools import train
 
-    # keep the inputs of the last PGS call; the call goes on to the wrapper
-    last = {}
-
-    def pgs_kept(*args):
-        last["args"] = args
-        return P.pgs(*args)
-
     iters, envs = 2, 2048
-    solver.pgs = pgs_kept
-    with tempfile.TemporaryDirectory() as tmp:
+    with _kept_pgs() as last:
         P.pgs.launches = 0
         t0 = time.perf_counter()
-        runner = train.main(["-e", str(envs), "-n", str(iters),
-                             "--log_root", tmp])
+        runner = train.main(["-e", str(envs), "-n", str(iters), "--log_root",
+                             tmp])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = P.pgs.launches
-        saved = sorted(f for d, _, fs in os.walk(tmp) for f in fs)
-    solver.pgs = P.pgs
+    saved = sorted(f for d, _, fs in os.walk(tmp) for f in fs)
     stats = runner.last_stats
     T = runner.cfg.runner.num_steps_per_env
     dec = runner.env.cfg.control.decimation
@@ -324,7 +389,7 @@ def phase_slice(device_name: str, smi: str) -> tuple:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations")
-    return launches, last["args"], runner.ppo.obs
+    return launches, last["args"], runner
 
 
 def phase_policy(obs) -> None:
@@ -520,6 +585,187 @@ def phase_newton_converged(kept: tuple) -> None:
         raise AssertionError("the slice's Newton budget is not converged")
 
 
+def _smi_line(t0: float, device_name: str, smi: str) -> str:
+    return f"{time.perf_counter() - t0:.1f} s; {device_name}, {smi}"
+
+
+def phase_recorder_resume(runner, tmp: str, device_name: str, smi: str) -> None:
+    """The slice's recordings, and its last checkpoint reloaded on the card."""
+    import numpy as np
+    import torch
+
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
+    from nightmare_rl_tpu_torch.utils.checkpoint import state_items
+    from nightmare_rl_tpu_torch.utils.recorder import load_recording
+
+    t0 = time.perf_counter()
+    rec = runner.recorder
+    T = runner.cfg.runner.num_steps_per_env
+    qpos = runner.last_stats["record"][0]
+    files = [load_recording(f) for f in rec.files_written]
+    finite = bool(np.isfinite(qpos).all()) and all(
+        np.isfinite(q).all() for traj in files for (_, q, _, _) in traj)
+    path = get_load_path(tmp)
+    fresh = OnPolicyRunner(NightmareV3Env(runner.env.cfg, device="cuda"),
+                           runner.cfg)
+    restored = fresh.load(path)
+    a, b = state_items(runner.ppo), state_items(fresh.ppo)
+    differ = [k for k in a if not (
+        torch.equal(a[k].cpu(), b[k].cpu()) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k])]
+    stats = runner.last_stats
+    rate = T * runner.env.num_envs / (stats["rollout_s"] + stats["update_s"])
+    print(f"recorder/resume: env 0 frames received {rec.frames} (expected "
+          f"{2 * T}), {len(rec.files_written)} episode files, qpos finite "
+          f"{finite}; {os.path.basename(path)} reloaded on the card: full "
+          f"train state {restored}, {len(a)} fields, differing {differ}; slice "
+          f"with recording on {rate:,.0f} env-steps/s (PERF.md §6: "
+          f"21,282-29,115 without recording); {_smi_line(t0, device_name, smi)}")
+    if rec.frames != 2 * T or not finite:
+        raise AssertionError("the slice's recording is incomplete or not finite")
+    if not restored or differ or a.keys() != b.keys():
+        raise AssertionError(f"the reloaded train state differs: {differ}")
+
+
+def phase_play_grid(device_name: str, smi: str) -> None:
+    """model_3176 over the command envelope, through tools/play.py."""
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import play
+
+    t0 = time.perf_counter()
+    with _kept_pgs() as last:
+        P.pgs.launches = 0
+        res = play.grid_eval(MODEL_3176, GRID_STEPS, device="cuda")
+        launches = P.pgs.launches
+    expected = GRID_STEPS * 2 + 2  # 2 substeps per step + the reset's step
+    rec, s = res["record"], res["settle"]
+    for i, row in enumerate(res["rows"]):
+        print(f"play-grid: cmd vx {row['cmd_vx']:+.2f} wz {row['cmd_wz']:+.2f} ",
+              end="")
+        play.print_gait_metrics(rec["feet"][s:, i], rec["qpos"][s:, i, 2],
+                                res["dt"])
+    straight = [r for r in res["rows"] if r["cmd_wz"] == 0 and r["cmd_vx"] != 0]
+    print(f"play-grid: {len(res['rows'])} commands x {GRID_STEPS} steps "
+          f"float32: falls {[r['falls'] for r in res['rows']]}, straight-row "
+          f"vx% {[round(r['vx_pct'], 1) for r in straight]} (min "
+          f"{GRID_MIN_VX:.0%}), pgs launches {launches} (expected {expected}); "
+          f"{_smi_line(t0, device_name, smi)}")
+    if any(r["falls"] for r in res["rows"]):
+        raise AssertionError("model_3176 fell in the grid eval")
+    if len(straight) != 2 or any(r["vx_pct"] < 100 * GRID_MIN_VX
+                                 for r in straight):
+        raise AssertionError("model_3176 does not track the straight commands")
+    if launches != expected:
+        raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
+    _hold_kernel("play-grid inputs (its last call)", last["args"],
+                 (len(res["rows"]), 112, 24))
+
+
+def _engine_journey(dev: str):
+    """Angles of 4 engines (float64) on dev over idle -> get up -> walk,
+    each env with its own walk command."""
+    import torch
+
+    from nightmare_rl_tpu_torch.engine import gait as G
+
+    cfg = G.make_cfg(engine_fps=1.0 / 0.016, device=dev)
+    es = G.init_state(cfg, 4)
+    lin = torch.tensor([0.08, 0.05, -0.06, 1.5], dtype=torch.float64, device=dev)
+    ang = torch.tensor([0.0, 0.25, 0.3, 0.0], dtype=torch.float64, device=dev)
+    mode = torch.full((4,), G.MODE_WALK, dtype=torch.long, device=dev)
+    angles, t = [], 0.0
+    for k in range(420):
+        t += 0.016
+        state = torch.full((4,), G.CMD_IDLE if k < 10 else G.CMD_AWAKE,
+                           dtype=torch.long, device=dev)
+        es, a = G.update(cfg, es, t, lin, ang, state, mode)
+        angles.append(a)
+    return torch.stack(angles).cpu(), es.fsm.cpu()
+
+
+def phase_custom_play(device_name: str, smi: str) -> None:
+    """The gait engine card vs CPU, then the custom_play tool at 256 envs."""
+    import numpy as np
+
+    from nightmare_rl_tpu_torch.engine import gait as G
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import custom_play
+
+    t0 = time.perf_counter()
+    card, fsm = _engine_journey("cuda")
+    cpu, _ = _engine_journey("cpu")
+    err = float((card - cpu).abs().max())
+    print(f"custom-play: engine 4 envs x 420 ticks float64, card vs CPU "
+          f"max|dangle| = {err:.3e} (tol {ENGINE_TOL:g}); final states "
+          f"{fsm.tolist()} (WALK = {G.WALK}); {_smi_line(t0, device_name, smi)}")
+    if not err <= ENGINE_TOL or not (fsm == G.WALK).all():
+        raise AssertionError("the gait engine on the card disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    lin, ang = zip(*CUSTOM_CMDS)
+    with _kept_pgs() as last:
+        P.pgs.launches = 0
+        res = custom_play.main(
+            ["--envs", str(CUSTOM_ENVS), "--steps", str(CUSTOM_STEPS), "--lin"]
+            + [str(x) for x in lin] + ["--ang"] + [str(x) for x in ang])
+        launches = P.pgs.launches
+    q = res["qpos"]
+    disp = np.hypot(q[:, 0], q[:, 1])  # qpos0 is (0, 0, 0.15)
+    w, x, y, z = q[:, 3:7].T
+    yaw = np.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    group = np.arange(CUSTOM_ENVS) % len(CUSTOM_CMDS)
+    rows, bad = [], []
+    for k, ((l, a), (ref_disp, ref_yaw)) in enumerate(zip(CUSTOM_CMDS,
+                                                          CUSTOM_JAX)):
+        d, h, spread = disp[group == k], yaw[group == k], np.ptp(
+            q[group == k, :3], axis=0).max()
+        rows.append(f"lin {l} ang {a:+}: displacement {d.min():.4f}-"
+                    f"{d.max():.4f} m (JAX {ref_disp}), yaw {h.min():+.4f} to "
+                    f"{h.max():+.4f} (JAX {ref_yaw:+}), spread {spread:.2e} m")
+        ok = (0.5 * ref_disp <= d.min() and d.max() <= 1.5 * ref_disp
+              and spread <= CUSTOM_SPREAD)
+        if a:  # a turn: the JAX tool's sign, at least half its angle
+            ok &= bool((np.sign(h) == np.sign(ref_yaw)).all()
+                       and (np.abs(h) >= 0.5 * abs(ref_yaw)).all())
+        if not ok:
+            bad.append((l, a))
+    print(f"custom-play: {CUSTOM_ENVS} envs x {CUSTOM_STEPS} control steps "
+          f"float32 tripod, env i takes command i mod {len(CUSTOM_CMDS)}: "
+          f"{'; '.join(rows)}; base z min {q[:, 2].min():.4f} (min "
+          f"{CUSTOM_MIN_HEIGHT}), {res['ctrl_steps_per_s']:.1f} control "
+          f"steps/s ({res['wall_s']:.1f} s), pgs launches {launches} "
+          f"(expected {CUSTOM_STEPS * 2}); {_smi_line(t0, device_name, smi)}")
+    if not np.isfinite(q).all() or q[:, 2].min() < CUSTOM_MIN_HEIGHT:
+        raise AssertionError("the engine-driven hexapods are not standing")
+    if bad:
+        raise AssertionError(f"the engine-driven hexapods do not walk as the "
+                             f"JAX tool does under the commands {bad}")
+    if launches != CUSTOM_STEPS * 2:
+        raise AssertionError(f"pgs kernel ran {launches} times")
+    _hold_kernel("custom-play inputs (its last call)", last["args"],
+                 (CUSTOM_ENVS, 16 * 4 + 16, 24))
+
+
+def phase_simple_test(device_name: str, smi: str) -> None:
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import simple_test
+
+    t0 = time.perf_counter()
+    with _kept_pgs() as last:
+        P.pgs.launches = 0
+        rate = simple_test.main(["-e", "2048", "-s", "5", "-d", "4"])
+        launches = P.pgs.launches
+    print(f"simple-test: 2048 envs x 5 calls x 4 substeps float32, "
+          f"max_contacts 16: {rate:,.0f} substeps/s, pgs launches {launches} "
+          f"(expected {(1 + 5) * 4}, the warm-up's included); "
+          f"{_smi_line(t0, device_name, smi)}")
+    if launches != (1 + 5) * 4:
+        raise AssertionError(f"pgs kernel ran {launches} times")
+    _hold_kernel("simple-test inputs (its last call)", last["args"],
+                 (2048, 16 * 4 + 16, 24))
+
+
 def main() -> int:
     import torch
 
@@ -539,12 +785,18 @@ def main() -> int:
     phase_build()
     phase_kernel()
     phase_physics()
-    launches, pgs_args, obs = phase_slice(name, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, pgs_args, runner = phase_slice(name, smi, tmp)
+        phase_recorder_resume(runner, tmp, name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
-    phase_policy(obs)
+    phase_policy(runner.ppo.obs)
+    del runner
     phase_physics_anymal()
     newton_args = phase_slice_anymal(name, smi)
     phase_newton_converged(newton_args)
+    phase_play_grid(name, smi)
+    phase_custom_play(name, smi)
+    phase_simple_test(name, smi)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry]}))

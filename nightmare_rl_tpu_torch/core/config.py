@@ -48,6 +48,9 @@ class ViewerCfg:
     # envs/nightmare_v3_config.py:31-33
     render: bool = False
     record_states: bool = True
+    # the robot's MJCF, which render-during-training opens in mujoco.viewer
+    # (the port has no default: the reference's models are not in the tree)
+    xml_path: Optional[str] = None
 
 
 @dataclass(frozen=True)

@@ -76,6 +76,11 @@ class StepOut(NamedTuple):
     time_out: torch.Tensor
     reward_terms: torch.Tensor           # (N, n_terms) this step's terms
     finished_episode_sums: torch.Tensor  # (N, n_terms), nan where not reset
+    # post-step PRE-reset physics state, for training-time trajectory
+    # recording (the reference records env 0 before reset_idx runs,
+    # envs/nightmare_v3_env.py:261-274)
+    record_qpos: torch.Tensor            # (N, nq)
+    record_qvel: torch.Tensor            # (N, nv)
 
 
 class NightmareV3Env:
@@ -307,7 +312,7 @@ class NightmareV3Env:
             time_out_buf=time_out,
         )
         return StepOut(new_state, obs, reward, reset, time_out, reward_terms,
-                       finished_sums)
+                       finished_sums, phys.qpos, phys.qvel)
 
     def _noise_scale_vec(self) -> torch.Tensor:
         """Noise vector (:109-119).  NB the reference's dof index ranges are

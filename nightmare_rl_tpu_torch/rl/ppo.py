@@ -12,14 +12,18 @@
 - gradients clipped to global norm 1.0 by optax's rule, then Adam (eps 1e-8).
 
 The rollout runs eagerly on the env's device; its action noise comes from
-one ``torch.Generator``.
+one ``torch.Generator``.  With ``record_states`` the rollout also keeps env
+0's pre-reset ``(qpos, qvel, action, done, commands)`` each step on the
+device and copies the stacked rows to the host once per iteration
+(``stats["record"]``), for the trajectory recorder.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nightmare_rl_tpu_torch.core.config import PPOCfg
@@ -52,8 +56,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _record_to_host(rows) -> Tuple[np.ndarray, ...]:
+    """Env 0's per-step rows [(qpos, qvel, action, done, commands)] → the
+    (T, ·) numpy arrays of each, in ONE device→host copy."""
+    widths = [r.numel() for r in rows[0]]
+    flat = torch.stack([torch.cat([x.reshape(-1).to(rows[0][0].dtype)
+                                   for x in r]) for r in rows]).cpu().numpy()
+    cols = np.split(flat, np.cumsum(widths)[:-1], axis=1)
+    qpos, qvel, act, done, cmd = cols
+    return qpos, qvel, act, done[:, 0] > 0.5, cmd
+
+
 class PPO:
-    def __init__(self, env, cfg: PPOCfg):
+    def __init__(self, env, cfg: PPOCfg, record_states: bool = False):
         if cfg.runner.policy_class_name != "ActorCritic":
             raise NotImplementedError("only the feed-forward ActorCritic is ported")
         self.env = env
@@ -75,6 +90,7 @@ class PPO:
         self.env_state = None
         self.obs = None
         self.iteration = 0
+        self.record_states = record_states
 
     # ------------------------------------------------------------------
 
@@ -95,11 +111,12 @@ class PPO:
     @torch.no_grad()
     def rollout(self):
         """One rollout of num_steps_per_env steps from the current state.
-        Returns the trajectory and the episode metrics."""
+        Returns the trajectory, the episode metrics and env 0's recorded
+        rows (host arrays, or None without ``record_states``)."""
         T = self.cfg.runner.num_steps_per_env
         gamma = self.cfg.algorithm.gamma
         env = self.env
-        rows = []
+        rows, rec = [], []
         n_done = torch.zeros((), device=self.device)
         term_sums = None
         state, obs = self.env_state, self.obs
@@ -112,6 +129,9 @@ class PPO:
             reward = out.reward + gamma * value * out.time_out.to(value.dtype)
             rows.append(Transition(obs, action, reward, out.done, value, logp,
                                    mu, std))
+            if self.record_states:
+                rec.append((out.record_qpos[0], out.record_qvel[0], action[0],
+                            out.done[0], out.state.commands[0]))
             fin = out.finished_episode_sums
             n_done = n_done + torch.sum(~torch.isnan(fin[:, 0]))
             s = torch.nansum(fin, dim=0)
@@ -119,7 +139,8 @@ class PPO:
             state, obs = out.state, out.obs
         self.env_state, self.obs = state, obs
         traj = Transition(*[torch.stack(xs) for xs in zip(*rows)])
-        return traj, n_done, term_sums
+        record: Optional[tuple] = _record_to_host(rec) if rec else None
+        return traj, n_done, term_sums, record
 
     def gae(self, traj: Transition, last_value: torch.Tensor):
         """Returns (advantages, returns, normalized advantages), each (T, N)."""
@@ -210,7 +231,7 @@ class PPO:
     def learn_step(self) -> Dict[str, object]:
         """One PPO iteration (rollout + update)."""
         t0 = time.perf_counter()
-        traj, n_done, term_sums = self.rollout()
+        traj, n_done, term_sums, record = self.rollout()
         with torch.no_grad():
             _, _, last_value = self.net(self.obs)
         _, returns, norm_adv = self.gae(traj, last_value)
@@ -236,4 +257,7 @@ class PPO:
             rollout_s=t1 - t0,
             update_s=t2 - t1,
         )
+        if record is not None:
+            # (qpos, qvel, action, done, commands), each (T, ·)
+            stats["record"] = record
         return stats

@@ -1,11 +1,13 @@
 """On-policy training runner: the rsl_rl OnPolicyRunner equivalent (port of
-``nightmare_rl_tpu/rl/runner.py`` without the viewer, the trajectory
-recorder and the profiler hook).
+``nightmare_rl_tpu/rl/runner.py``).
 
 Metric logging to ``metrics.jsonl``, periodic checkpoints in rsl_rl's
-``model_<iter>.pt`` format (``model_state_dict``, ``optimizer_state_dict``,
-``iter``, ``infos``), latest-run/latest-checkpoint resume resolution, and a
-final save when SIGTERM/SIGINT arrives.
+``model_<iter>.pt`` format plus the full train state (utils/checkpoint.py),
+latest-run/latest-checkpoint resume resolution, a final save when
+SIGTERM/SIGINT arrives, training-time recording of env 0's episodes as
+``.pkl`` files (``cfg.viewer.record_states``, on by default, as in the
+reference), render-during-training (``cfg.viewer.render``) and an optional
+``torch.profiler`` trace of iterations 2-4.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ import signal
 import time
 from typing import Optional
 
-import torch
-
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.rl.ppo import PPO
+from nightmare_rl_tpu_torch.utils import checkpoint
+from nightmare_rl_tpu_torch.utils.recorder import StateRecorder
 
 
 class JsonlWriter:
@@ -42,12 +44,64 @@ class JsonlWriter:
         self._f.close()
 
 
+class TrainingViewer:
+    """Render-during-training (reference cfg.viewer.render syncs a viewer
+    every env step, envs/nightmare_v3_env.py:373-390): env 0's frames from
+    each rollout window are injected into a passive mujoco.viewer with the
+    commanded-velocity arrow drawn.  Disables itself, with a message, where
+    there is no MJCF path, no mujoco or no display."""
+
+    def __init__(self, xml: Optional[str]):
+        self._viewer = None
+        self._dead = False
+        self._xml = xml
+
+    def show(self, qpos, cmd) -> None:
+        if self._dead:
+            return
+        try:
+            if self._xml is None:
+                raise RuntimeError("no MJCF path (cfg.viewer.xml_path)")
+            import mujoco as mj
+
+            if self._viewer is None:
+                import mujoco.viewer as mjv
+
+                self._m = mj.MjModel.from_xml_path(self._xml)
+                self._d = mj.MjData(self._m)
+                self._viewer = mjv.launch_passive(self._m, self._d)
+            from nightmare_rl_tpu_torch.tools.play import draw_command_arrow
+
+            for k in range(qpos.shape[0]):
+                if not self._viewer.is_running():
+                    self._dead = True
+                    return
+                self._d.qpos[:] = qpos[k]
+                mj.mj_forward(self._m, self._d)
+                draw_command_arrow(self._viewer, self._d.qpos, cmd[k])
+                self._viewer.cam.lookat = self._d.qpos[:3]
+                self._viewer.sync()
+        except Exception as e:
+            print(f"viewer unavailable, disabling render: {e}")
+            self._dead = True
+
+
 class OnPolicyRunner:
     def __init__(self, env, cfg: PPOCfg, log_dir: Optional[str] = None):
         self.env = env
         self.cfg = cfg
         self.log_dir = log_dir
-        self.ppo = PPO(env, cfg)
+        # training-time trajectory recording (the reference records env 0 by
+        # default, cfg.viewer.record_states / envs/nightmare_v3_env.py:261-272)
+        # and render-during-training; both consume the same env-0 stream
+        viewer_cfg = getattr(env.cfg, "viewer", None)
+        record = log_dir is not None and getattr(viewer_cfg, "record_states",
+                                                 False)
+        render = getattr(viewer_cfg, "render", False)
+        self.ppo = PPO(env, cfg, record_states=record or render)
+        self.recorder = StateRecorder(log_dir, dt=env.dt) if record else None
+        self.viewer = (TrainingViewer(getattr(viewer_cfg, "xml_path", None))
+                       if render else None)
         self.writer: Optional[JsonlWriter] = None
         self.last_stats: Optional[dict] = None
 
@@ -57,24 +111,18 @@ class OnPolicyRunner:
     def save(self, it: int) -> None:
         if self.log_dir is None:
             return
-        os.makedirs(self.log_dir, exist_ok=True)
-        torch.save({
-            "model_state_dict": self.ppo.net.state_dict(),
-            "optimizer_state_dict": self.ppo.optimizer.state_dict(),
-            "iter": it,
-            "infos": None,
-        }, os.path.join(self.log_dir, f"model_{it}.pt"))
+        checkpoint.save(os.path.join(self.log_dir, f"model_{it}.pt"), self.ppo)
 
-    def load(self, path: str) -> None:
-        blob = torch.load(path, map_location=self.env.device, weights_only=True)
-        self.ppo.net.load_state_dict(blob["model_state_dict"])
-        if "optimizer_state_dict" in blob:
-            self.ppo.optimizer.load_state_dict(blob["optimizer_state_dict"])
-            self.ppo.lr = self.ppo.optimizer.param_groups[0]["lr"]
-        self.ppo.iteration = int(blob.get("iter", 0))
+    def load(self, path: str) -> bool:
+        """Restore a checkpoint; returns whether it held the full train
+        state (see utils/checkpoint.py)."""
+        return checkpoint.load(path, self.ppo)
 
     def learn(self, num_learning_iterations: int,
-              init_at_random_ep_len: bool = False) -> None:
+              init_at_random_ep_len: bool = False,
+              profile_dir: Optional[str] = None) -> None:
+        """``profile_dir``: write a torch.profiler chrome trace of iterations
+        2-4 there (the counterpart of the JAX package's jax.profiler hook)."""
         # checkpoint-on-signal: a preempted run saves model_<iter> and exits
         stop = {"flag": False}
 
@@ -84,7 +132,8 @@ class OnPolicyRunner:
         prev_handlers = {s: signal.signal(s, _on_signal)
                          for s in (signal.SIGTERM, signal.SIGINT)}
         try:
-            self._learn(num_learning_iterations, init_at_random_ep_len, stop)
+            self._learn(num_learning_iterations, init_at_random_ep_len, stop,
+                        profile_dir)
         finally:
             for s, h in prev_handlers.items():
                 signal.signal(s, h)
@@ -92,8 +141,25 @@ class OnPolicyRunner:
                 self.writer.close()
                 self.writer = None
 
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.env.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, profile_dir: str) -> None:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
+
     def _learn(self, num_iters: int, init_at_random_ep_len: bool,
-               stop: dict) -> None:
+               stop: dict, profile_dir: Optional[str]) -> None:
         if self.ppo.env_state is None:
             self.init()
         if init_at_random_ep_len:
@@ -103,11 +169,13 @@ class OnPolicyRunner:
         steps_per_iter = self.cfg.runner.num_steps_per_env * self.env.num_envs
         t_start = time.time()
         iters_run = 0
+        prof = None
         for k in range(num_iters):
             iters_run = k + 1
+            if profile_dir and k == 2:  # skip the warm-up iterations
+                prof = self._start_profiler()
             t0 = time.time()
             stats = self.ppo.learn_step()
-            dt_iter = time.time() - t0
             it = self.ppo.iteration
             self.last_stats = stats
             if not math.isfinite(stats["loss"]):
@@ -115,6 +183,16 @@ class OnPolicyRunner:
                 raise FloatingPointError(
                     f"iter {it}: loss is {stats['loss']} — training diverged; "
                     "resume from the last good checkpoint")
+            if "record" in stats:
+                qp, qv, act, done, cmd = stats["record"]
+                if self.recorder is not None:
+                    self.recorder.add_steps(qp, qv, act, done)
+                if self.viewer is not None:
+                    self.viewer.show(qp, cmd)
+            dt_iter = time.time() - t0
+            if prof is not None and k == 4:
+                self._stop_profiler(prof, profile_dir)
+                prof = None
             if self.writer is not None:
                 for key in ("loss", "surrogate_loss", "value_loss", "kl", "lr",
                             "mean_reward", "mean_noise_std"):
@@ -135,6 +213,8 @@ class OnPolicyRunner:
             if stop["flag"]:
                 print(f"signal received — checkpointing at iter {it} and exiting")
                 break
+        if prof is not None:  # the run ended inside the traced window
+            self._stop_profiler(prof, profile_dir)
         if self.log_dir:
             self.save(self.ppo.iteration)
         total = iters_run * steps_per_iter

@@ -1,10 +1,16 @@
 """Train nightmare_v3 (or anymal_c) PPO with the PyTorch port.
 
     python -m nightmare_rl_tpu_torch.tools.train -e 2048 -n 1000 [-r] [-p PATH]
-        [--robot nightmare_v3|anymal_c]
+        [--robot nightmare_v3|anymal_c] [--profile DIR]
 
 Runs on the card; ``--device cpu`` is the only way onto the CPU, and a
-missing card raises.  ``-n`` is the number of learning iterations.
+missing card raises.  ``-n`` is the number of learning iterations.  ``-r``
+resumes the newest checkpoint under ``-p`` (or the log root): a checkpoint
+of the port restores the full train state (weights, optimizer, lr, RNG, env
+state and observations), so the run continues as if uninterrupted; a
+weights-only ``.pt`` restores the weights (and optimizer) and starts the
+envs from reset.  nightmare_v3 runs record env 0's episodes as ``.pkl``
+files in the run directory (``tools/replay.py`` plays them).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--log_root", type=str, default=None)
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler trace of iterations 2-4 here")
     p.add_argument("--std_floor", type=float, default=0.0,
                    help="exploration floor on the action std (flag-gated "
                         "deviation from rsl_rl; 0 = parity config)")
@@ -67,11 +75,14 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
 
     runner = OnPolicyRunner(env, pcfg, log_dir=log_dir)
     runner.init(args.seed)
+    resumed = False
     if args.resume:
         path = get_load_path(args.resume_path or log_root)
         print(f"Loading model from: {path}")
-        runner.load(path)
-    runner.learn(args.iterations, init_at_random_ep_len=True)
+        resumed = runner.load(path)
+    # a full-state resume keeps the saved episode lengths
+    runner.learn(args.iterations, init_at_random_ep_len=not resumed,
+                 profile_dir=args.profile)
     return runner
 
 

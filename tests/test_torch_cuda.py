@@ -3,7 +3,10 @@ its plain PyTorch version in cases beside those of ``chip_smoke.py``
 (float32 random systems, float32 panels that take the plain-load path, a
 NaN in b, infinite bounds, the occupancy of the main path's geometry); the
 anymal_c step under a process-wide TF32 setting; the Newton solve on the
-card against the CPU (float64, 1e-10).
+card against the CPU (float64, 1e-10); tools/play.py's grid rollout of
+model_3176 on the card against the CPU (float64, 3 steps, 1e-9); the
+kernel on the inputs of custom_play's contact cap (max_contacts=16, float32,
+1e-5 of max|f|).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
 to 1e-3 (a chain of 560 dependent row steps in float32 rounding on random,
 often ill-conditioned systems).  They skip where torch.cuda.is_available()
@@ -193,3 +196,67 @@ def test_newton_solve_card_matches_cpu(cuda):
     for name in ("force", "qfrc_constraint", "qacc"):
         a, b = getattr(ref, name), getattr(out, name).cpu()
         assert float((a - b).abs().max() / (1 + a.abs().max())) <= 1e-10, name
+
+
+@pytest.mark.cuda
+def test_play_grid_rollout_card_matches_cpu(cuda):
+    """tools/play.py's rollout of model_3176 on the 7-command grid, float64,
+    3 steps from one post-reset state: the card equals the CPU to 1e-9."""
+    import os
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.tools import play
+    from nightmare_rl_tpu_torch.utils.checkpoint import to_device
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "artifacts", "model_3176.pt")
+    cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=len(play.GRID)))
+    recs = {}
+    state0, obs0 = None, None
+    for dev in ("cpu", cuda):
+        env = NightmareV3Env(cfg, dtype=torch.float64, device=dev)
+        if state0 is None:
+            state0, obs0 = env.reset(0)
+        before = P.pgs.launches
+        _, _, recs[str(dev)] = play.rollout(
+            env, play.load_policy(ckpt, env), to_device(state0, dev),
+            obs0.to(dev), torch.from_numpy(play.GRID), 3)
+    assert P.pgs.launches == before + 3 * 2
+    for k in ("qpos", "obs", "vel", "feet"):
+        a, b = recs["cpu"][k], recs[str(cuda)][k]
+        assert abs(a - b).max() <= 1e-9, k
+
+
+@pytest.mark.cuda
+def test_kernel_at_custom_play_contact_cap(cuda):
+    """The PGS kernel on the inputs that custom_play's physics
+    (max_contacts=16, float32, 256 envs) hands it, against pgs_reference."""
+    from nightmare_rl_tpu_torch.physics import pipeline, solver
+    from nightmare_rl_tpu_torch.tools import custom_play
+
+    sys_, _, phys, _, _ = custom_play.make(256, device=cuda)
+    g = torch.Generator().manual_seed(12)
+    qpos = phys.qpos.cpu()
+    qpos[:, 7:] += 0.3 * torch.randn(256, 18, generator=g)
+    qpos[:, 2] -= 0.1  # feet into the ground: ~28 % of the rows active
+    kept = {}
+
+    def pgs_kept(*args):
+        kept["args"] = args
+        return P.pgs(*args)
+
+    solver.pgs = pgs_kept
+    try:
+        pipeline.step(sys_, phys.replace(qpos=qpos.to(cuda)),
+                      torch.zeros(256, 18, device=cuda), 1)
+    finally:
+        solver.pgs = P.pgs
+    args = kept["args"]
+    J = args[0]
+    assert J.shape == (256, 80, 24) and J.dtype == torch.float32
+    active = float((args[5] > 0).double().mean())
+    assert active >= 0.05, active
+    out = P.pgs(*args)
+    ref = P.pgs_reference(*args)
+    assert _rel_err(out, ref) <= 1e-5

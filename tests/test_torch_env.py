@@ -89,7 +89,7 @@ def test_env_steps_match(episode):
     _, _, pairs = episode
     for jout, tout in pairs:
         for name in ("obs", "reward", "done", "time_out", "reward_terms",
-                     "finished_episode_sums"):
+                     "finished_episode_sums", "record_qpos", "record_qvel"):
             _close(getattr(jout, name), getattr(tout, name), name)
 
 
@@ -166,6 +166,14 @@ def test_entry_points_raise_without_cuda():
         train.main(["-e", "2", "-n", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--robot", "anymal_c", "-e", "2", "-n", "1"])
+    from nightmare_rl_tpu_torch.tools import custom_play, play, simple_test
+
+    for main, argv in ((play.main, ["--steps", "1"]),
+                       (play.main, ["--grid", "--steps", "1"]),
+                       (custom_play.main, ["--steps", "1"]),
+                       (simple_test.main, ["-e", "2", "-s", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
 
 
 def test_train_refuses_unported_robot(tmp_path):
@@ -189,7 +197,9 @@ def test_train_refuses_unported_robot(tmp_path):
 
 def test_import_hygiene():
     """Importing every module of the port (and chip_smoke.py) pulls in
-    neither JAX, flax, optax nor the JAX package."""
+    neither JAX, flax, optax nor the JAX package, and none of the host-side
+    viewer and plotting packages (mujoco, pynput, matplotlib), which stay
+    inside the functions that use them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import nightmare_rl_tpu_torch as p\n"
@@ -198,7 +208,8 @@ def test_import_hygiene():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'nightmare_rl_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'nightmare_rl_tpu', 'mujoco', "
+        "'pynput', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -187,7 +187,8 @@ def test_runner_trains_saves_and_resumes(tmp_path):
     path = get_load_path(str(tmp_path))
     assert path.endswith("model_1.pt")
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    assert set(blob) == {"model_state_dict", "optimizer_state_dict", "iter", "infos"}
+    assert set(blob) == {"model_state_dict", "optimizer_state_dict", "iter",
+                         "infos", "train_state"}
     assert "actor.6.weight" in blob["model_state_dict"]
     other = OnPolicyRunner(env, cfg)
     other.load(path)
