@@ -61,13 +61,43 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              ``pgs_reference`` on the inputs of its last call;
 14. simple-test — ``tools/simple_test.py -e 2048 -s 5 -d 4``: substeps/s;
              the PGS kernel held against ``pgs_reference`` on the inputs of
-             its last call.
+             its last call;
+15. recurrent-net — ``ActorCriticRecurrent`` at full width (rnn 512,
+             [54, 42, 30]), weights from a seed: a 6-step sequence with
+             resets, outputs and gradients, on the card against the CPU, in
+             float64 and in float32 with cuDNN's TF32 flag on (torch's
+             default), which the port's LSTM must not follow;
+16. slice-recurrent — the training CLI with the recurrent policy
+             (``policy_class_name="ActorCriticRecurrent"``): nightmare_v3,
+             2048 envs, float32, one full PPO iteration (80 steps, 5×4
+             update); the hidden state must be nonzero, the PGS kernel must
+             have run on every substep and is held against
+             ``pgs_reference`` on the inputs of its last call;
+17. sharded — the CLI's ``--mesh`` under ``python -m
+             torch.distributed.run``: world 1 (nccl) and world 2 (gloo, both
+             ranks on cuda:0), 2048 global envs, 4 steps, with a 1×1 update
+             (rollout stats, loss and parameters agree) and the default 5×4
+             update (rollout stats agree); then world 2 with the recurrent
+             policy for one full iteration: the hidden state is sharded,
+             each rank counts its PGS launches and rank 1's last PGS inputs
+             hold the kernel against ``pgs_reference``; the world-2
+             checkpoint reloaded at world 1 restores every field of the
+             global train state; on a machine with two or more cards, world
+             1 is also held against one nccl rank per card;
+18. external — ``rl/external.py``'s ``ExternalPPO`` stepping the port's env
+             through a host callback against the fused ``PPO`` from the same
+             seed and weights: 256 envs, 16 steps of 7-step episodes (the
+             resets and time-out bootstraps agree), one iteration.
 
-The anymal_c path and the new tools run no kernel of their own: the
-kernels' line lists only ``pgs`` (its launches are the slice's).
+The anymal_c path, the new tools and the recurrent, sharded and external
+paths run no kernel of their own: the kernels' line lists only ``pgs`` (its
+launches are the slice's).
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.
+``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
+sharded phase runs this script again as its ranks (``--mesh-worker``, see
+``mesh_worker``); tests/test_torch_sharded.py runs the same ranks on the
+CPU.
 """
 
 from __future__ import annotations
@@ -117,6 +147,10 @@ CUSTOM_JAX = ((0.4839, -0.0479), (0.3046, -0.0097), (0.2592, +0.9996),
               (0.2577, -1.0180))
 CUSTOM_SPREAD = 0.01
 CUSTOM_MIN_HEIGHT = 0.07     # base z once up (the engine stands at ~0.09 m)
+RNN_TOL = 1e-10              # recurrent net, card vs CPU, /max|output|, float64
+RNN_F32_TOL = 1e-5           # the same in float32 (TF32's 10-bit mantissa fails it)
+MESH_ENVS = 2048             # global envs of the sharded phase
+MESH_TIMEOUT = 400           # seconds for one torch.distributed.run
 
 
 def _nvidia_smi() -> str:
@@ -766,16 +800,475 @@ def phase_simple_test(device_name: str, smi: str) -> None:
                  (2048, 16 * 4 + 16, 24))
 
 
+def _recurrent_seq(net, obs, done, dev: str) -> tuple:
+    """``net`` over the sequence ``obs`` with the resets ``done`` on
+    ``dev``: the stacked outputs and carries, and the gradient of their sum
+    of squares (the backward pass wrapped as rl/ppo.py wraps it)."""
+    import copy
+
+    import torch
+
+    from nightmare_rl_tpu_torch.models import actor_critic as ac
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+
+    m = copy.deepcopy(net).to(dev)
+    h = m.initial_state(obs.shape[1])
+    seq = []
+    for t in range(obs.shape[0]):
+        (mu, _, v), h = m(obs[t].to(dev), h)
+        h = ac.reset_hidden(h, done[t].to(dev))
+        seq.append(torch.cat([mu, v[:, None], *h[0], *h[1]], 1))
+    out = torch.stack(seq)
+    with full_float32():
+        torch.square(out).sum().backward()
+    grads = torch.cat([p.grad.reshape(-1) for p in m.parameters()
+                       if p.grad is not None])
+    return out.detach().cpu(), grads.cpu()
+
+
+def _rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_recurrent_net(device_name: str, smi: str) -> None:
+    """The recurrent actor-critic at full width, card vs CPU, forward and
+    backward: in float64, and in float32 with cuDNN's TF32 flag at torch's
+    default (on), which the port must override for its LSTM."""
+    import copy
+
+    import torch
+
+    from nightmare_rl_tpu_torch.models import actor_critic as ac
+
+    t0 = time.perf_counter()
+    T, N = 6, 64
+    torch.manual_seed(11)
+    net = ac.ActorCriticRecurrent(66, 18, rnn_hidden=512).double()
+    g = torch.Generator().manual_seed(12)
+    obs = torch.randn(T, N, 66, generator=g, dtype=torch.float64)
+    done = torch.rand(T, N, generator=g) < 0.2
+    card, cpu = (_recurrent_seq(net, obs, done, d) for d in ("cuda", "cpu"))
+    err, gerr = _rel_err(card[0], cpu[0]), _rel_err(card[1], cpu[1])
+
+    net32, obs32 = copy.deepcopy(net).float(), obs.float()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # torch's default
+    try:
+        card32, cpu32 = (_recurrent_seq(net32, obs32, done, d)
+                         for d in ("cuda", "cpu"))
+        # the bare nn.LSTM, one step, under the flag: what TF32 would give
+        lstm = copy.deepcopy(net32.memory_a.rnn)
+        with torch.no_grad():
+            bare = _rel_err(lstm.cuda()(obs32[:1].cuda())[0].cpu(),
+                            lstm.cpu()(obs32[:1])[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    err32, gerr32 = _rel_err(card32[0], cpu32[0]), _rel_err(card32[1], cpu32[1])
+    print(f"recurrent-net: rnn 512 [54,42,30], {T} steps x {N} envs with "
+          f"{int(done.sum())} resets, card vs CPU max|err|/max|out|: float64 "
+          f"outputs {err:.3e}, gradients {gerr:.3e} (tol {RNN_TOL:g}); float32 "
+          f"with cudnn.allow_tf32 on: outputs {err32:.3e}, gradients "
+          f"{gerr32:.3e} (tol {RNN_F32_TOL:g}; the bare nn.LSTM step under "
+          f"TF32: {bare:.3e}); {_smi_line(t0, device_name, smi)}")
+    finite = all(torch.isfinite(x).all() for x in (*card, *card32))
+    if not (err <= RNN_TOL and gerr <= RNN_TOL and err32 <= RNN_F32_TOL
+            and gerr32 <= RNN_F32_TOL and finite):
+        raise AssertionError("the recurrent net on the card disagrees with "
+                             "the CPU")
+
+
+def _hidden_nonzero(hidden) -> bool:
+    return all(float(x.abs().max()) > 0 for carry in hidden for x in carry)
+
+
+def phase_slice_recurrent(device_name: str, smi: str) -> None:
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import train
+
+    envs = 2048
+    pcfg = PPOCfg(runner=RunnerCfg(policy_class_name="ActorCriticRecurrent"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _kept_pgs() as last:
+        P.pgs.launches = 0
+        runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp],
+                            pcfg=pcfg)
+        torch.cuda.synchronize()
+        launches = P.pgs.launches
+    stats = runner.last_stats
+    T = pcfg.runner.num_steps_per_env
+    expected = T * 2 + 2  # 2 substeps per env step + the reset's step
+    rate = T * envs / (stats["rollout_s"] + stats["update_s"])
+    nonzero = _hidden_nonzero(runner.ppo.hidden)
+    print(f"slice-recurrent: 1 PPO iteration x {T} steps x {envs} envs "
+          f"float32, rnn {pcfg.policy.rnn_hidden_size}: loss "
+          f"{stats['loss']:.4f}, kl {stats['kl']:.4f}, hidden state nonzero "
+          f"{nonzero}, pgs launches {launches} (expected {expected}); rollout "
+          f"{stats['rollout_s']:.3f} s + update {stats['update_s']:.3f} s = "
+          f"{rate:,.0f} env-steps/s (smoke figure, recording on); "
+          f"{_smi_line(t0, device_name, smi)}")
+    if not math.isfinite(stats["loss"]) or not nonzero:
+        raise AssertionError("recurrent PPO: non-finite loss or zero state")
+    if launches != expected:
+        raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
+    _hold_kernel("slice-recurrent inputs (its last call)", last["args"],
+                 (envs, 112, 24))
+
+
+def _mesh_jobs(rnn: int = 512, recurrent_steps: int = 80) -> dict:
+    """The sharded checks' PPO configs: 4 steps with a 1×1 update
+    (``single``) and with the default 5×4 update (``default``), and the
+    recurrent policy (``recurrent``)."""
+    from nightmare_rl_tpu_torch.core.config import (
+        AlgorithmCfg, PolicyCfg, PPOCfg, RunnerCfg,
+    )
+
+    short = RunnerCfg(num_steps_per_env=4)
+    return {
+        "single": PPOCfg(runner=short, algorithm=AlgorithmCfg(
+            num_mini_batches=1, num_learning_epochs=1)),
+        "default": PPOCfg(runner=short),
+        "recurrent": PPOCfg(
+            runner=RunnerCfg(num_steps_per_env=recurrent_steps,
+                             policy_class_name="ActorCriticRecurrent"),
+            policy=PolicyCfg(rnn_hidden_size=rnn)),
+    }
+
+
+def _cpu(x):
+    import torch
+
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _mesh_dump(path: str, runner, **extra) -> None:
+    import torch
+
+    from nightmare_rl_tpu_torch.utils.checkpoint import state_items
+
+    ppo = runner.ppo
+    torch.save({
+        "stats": {k: v for k, v in (runner.last_stats or {}).items()
+                  if k != "record"},
+        "items": {k: _cpu(v) for k, v in state_items(ppo).items()},
+        "obs": ppo.obs.cpu(),
+        "hidden": [x.cpu() for carry in ppo.hidden for x in carry],
+        "world": ppo.shard.world, "num_envs": runner.env.num_envs,
+        "device": str(ppo.device), "backend": ppo.mesh.backend, **extra,
+    }, path)
+
+
+def mesh_worker(argv) -> int:
+    """One rank of a run of the sharded CLI (``--mesh-worker OUT JOB...``,
+    started by ``_torchrun``): trains each job of ``_mesh_jobs`` for one
+    iteration through ``tools/train.py --mesh`` and saves, per rank,
+    ``OUT/<job>_rank<r>.pt``: the statistics, the global train state
+    (``checkpoint.state_items``), its own rows of the observations and of
+    the hidden state (h_a, c_a, h_c, c_c), its PGS launches and wall
+    seconds and, for ``recurrent``, the inputs of its last PGS call.  With
+    ``--resume ROOT`` it then restores the newest recurrent checkpoint
+    under ROOT and saves the state before (``loaded``) and after
+    (``continued``) one more iteration.  The sharded phase runs it on the
+    card; tests/test_torch_sharded.py runs it with ``--device cpu``."""
+    import argparse
+
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.parallel import mesh
+    from nightmare_rl_tpu_torch.tools import train
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py --mesh-worker")
+    p.add_argument("out")
+    p.add_argument("jobs", nargs="+", choices=("single", "default",
+                                               "recurrent"))
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
+    p.add_argument("--envs", type=int, default=MESH_ENVS)
+    p.add_argument("--rnn", type=int, default=512)
+    p.add_argument("--recurrent-steps", type=int, default=80)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--resume", default=None)
+    a = p.parse_args(argv)
+    cli = ["--mesh", "--device", a.device, "-e", str(a.envs), "--seed",
+           str(a.seed)] + (["--backend", a.backend] if a.backend else [])
+    jobs = _mesh_jobs(a.rnn, a.recurrent_steps)
+
+    def dump(job, runner, **extra):
+        _mesh_dump(os.path.join(a.out, f"{job}_rank{runner.ppo.shard.rank}.pt"),
+                   runner, **extra)
+
+    try:
+        for job in a.jobs:
+            with _kept_pgs() as last:
+                P.pgs.launches = 0
+                t0 = time.perf_counter()
+                runner = train.main(cli + ["-n", "1", "--log_root",
+                                           os.path.join(a.out, job)],
+                                    pcfg=jobs[job])
+                if runner.ppo.device.type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = P.pgs.launches
+            dump(job, runner, wall=wall, launches=launches,
+                 pgs_args=(tuple(_cpu(x) for x in last["args"])
+                           if job == "recurrent" else None))
+        if a.resume:
+            runner = train.main(cli + ["-n", "0", "-r", "-p", a.resume,
+                                       "--log_root",
+                                       os.path.join(a.out, "resumed")],
+                                pcfg=jobs["recurrent"])
+            dump("loaded", runner)
+            runner.learn(1)
+            dump("continued", runner)
+    finally:
+        mesh.close()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(world: int, out: str, *worker_args: str,
+              timeout: float = MESH_TIMEOUT) -> float:
+    """Run ``mesh_worker`` as ``world`` ranks under ``python -m
+    torch.distributed.run`` (one CPU thread each); returns the wall
+    seconds.  On a failure or a timeout every process of the run is
+    killed and AssertionError raised with the end of its log."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={world}", "--master_addr=127.0.0.1",
+           f"--master_port={_free_port()}", os.path.join(here, "chip_smoke.py"),
+           "--mesh-worker", out, *worker_args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True, cwd=here,
+                            env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"world {world} did not end in {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"world {world} ({' '.join(worker_args)}) exited "
+                             f"{proc.returncode}:\n{log[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def _load_rank(d: str, job: str, rank: int = 0) -> dict:
+    import torch
+
+    return torch.load(os.path.join(d, f"{job}_rank{rank}.pt"),
+                      weights_only=False)
+
+
+def _hold_worlds(w1: str, wn: str, world: int) -> None:
+    """World 1 against world ``world`` (their ``single`` and ``default``
+    jobs): with the 1×1 update the rollout stats, loss and parameters
+    agree to the JAX test's tolerances (tests/test_sharded.py:54-91); with
+    the 5×4 update the rollout stats agree."""
+    import numpy as np
+
+    a, b = _load_rank(w1, "single"), _load_rank(wn, "single")
+    sa, sb = a["stats"], b["stats"]
+    params = [k for k in a["items"] if k.startswith("net.")]
+    perr = max(float((a["items"][k] - b["items"][k]).abs().max())
+               for k in params)
+    devices = [_load_rank(wn, "single", r)["device"] for r in range(world)]
+    print(f"sharded: world 1 ({a['backend']}, {a['device']}) vs world {world} "
+          f"({b['backend']}, {' and '.join(devices)}), {a['num_envs']} "
+          f"global envs x 4 steps, 1x1 update: mean_reward {sa['mean_reward']:.7f} / "
+          f"{sb['mean_reward']:.7f}, dones {sa['dones']} / {sb['dones']}, "
+          f"loss {sa['loss']:.7f} / {sb['loss']:.7f}, max|dparam| {perr:.3e}")
+    np.testing.assert_allclose(sa["mean_reward"], sb["mean_reward"], rtol=1e-6)
+    assert sa["dones"] == sb["dones"], (sa["dones"], sb["dones"])
+    np.testing.assert_allclose(sa["loss"], sb["loss"], rtol=1e-6, atol=1e-7)
+    for k in params:
+        np.testing.assert_allclose(a["items"][k].numpy(), b["items"][k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    a, b = _load_rank(w1, "default"), _load_rank(wn, "default")
+    sa, sb = a["stats"], b["stats"]
+    print(f"sharded: 5x4 update: mean_reward {sa['mean_reward']:.7f} / "
+          f"{sb['mean_reward']:.7f}, dones {sa['dones']} / {sb['dones']}, "
+          f"loss {sa['loss']:.5f} / {sb['loss']:.5f} (shard-local "
+          f"minibatches)")
+    np.testing.assert_allclose(sa["mean_reward"], sb["mean_reward"], rtol=1e-6)
+    np.testing.assert_allclose(sa["episode_reward_means"],
+                               sb["episode_reward_means"], rtol=1e-6,
+                               atol=1e-7)
+    assert sa["dones"] == sb["dones"], (sa["dones"], sb["dones"])
+
+
+def _sharded_over_cards(w1: str, tmp: str) -> None:
+    """Where the machine has several cards: world 1 (run in ``w1``) against
+    one NCCL rank per card."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"sharded: {cards} card, the NCCL run over cards is skipped "
+              f"(it runs where there are two or more)")
+        return
+    wn = os.path.join(tmp, f"w{cards}")
+    wall = _torchrun(cards, wn, "--backend", "nccl", "single", "default")
+    _hold_worlds(w1, wn, cards)
+    print(f"sharded: world {cards} over {cards} cards with nccl: "
+          f"torch.distributed.run wall {wall:.1f} s (2 jobs, start-up "
+          f"included)")
+
+
+def phase_sharded(device_name: str, smi: str) -> None:
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
+    from nightmare_rl_tpu_torch.utils.checkpoint import state_items
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        w1, w2 = os.path.join(tmp, "w1"), os.path.join(tmp, "w2")
+        wall1 = _torchrun(1, w1, "--backend", "nccl", "single", "default")
+        wall2 = _torchrun(2, w2, "--backend", "gloo", "single", "default",
+                          "recurrent")
+        _hold_worlds(w1, w2, 2)
+
+        r0, r1 = _load_rank(w2, "recurrent"), _load_rank(w2, "recurrent", 1)
+        T = _mesh_jobs()["recurrent"].runner.num_steps_per_env
+        n = MESH_ENVS // 2
+        expected = T * 2 + 2
+        st = r0["stats"]
+        shapes = [[tuple(x.shape) for x in r["hidden"]] for r in (r0, r1)]
+        nonzero = [all(float(x.abs().max()) > 0 for x in r["hidden"])
+                   for r in (r0, r1)]
+        print(f"sharded: world 2 recurrent, 1 iteration x {T} steps x "
+              f"{MESH_ENVS} envs: loss {st['loss']:.4f}, hidden per rank "
+              f"{shapes[0][0]} / {shapes[1][0]}, nonzero {nonzero[0]} / "
+              f"{nonzero[1]}, pgs launches per rank {r0['launches']} / "
+              f"{r1['launches']} (expected {expected}); rollout "
+              f"{st['rollout_s']:.3f} s + update {st['update_s']:.3f} s per "
+              f"rank; torch.distributed.run wall {wall1:.1f} s (world 1, 2 "
+              f"jobs) and {wall2:.1f} s (world 2, 3 jobs) incl. start-up")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError("sharded recurrent PPO: non-finite loss")
+        for r, s, nz in zip((r0, r1), shapes, nonzero):
+            if s != [(n, 512)] * 4 or not nz:
+                raise AssertionError(f"the hidden state is not sharded: {s}")
+            if r["launches"] != expected:
+                raise AssertionError(f"a rank ran pgs {r['launches']} times")
+        differ = [k for k in r0["items"] if not _same(r0["items"][k],
+                                                      r1["items"][k])]
+        if differ:
+            raise AssertionError(f"the ranks' global states differ: {differ}")
+        _hold_kernel("sharded rank 1 inputs (its last call)",
+                     tuple(x.cuda() if isinstance(x, torch.Tensor) else x
+                           for x in r1["pgs_args"]), (n, 112, 24))
+
+        cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=MESH_ENVS))
+        fresh = OnPolicyRunner(NightmareV3Env(cfg, device="cuda"),
+                               _mesh_jobs()["recurrent"])
+        path = get_load_path(os.path.join(w2, "recurrent"))
+        restored = fresh.load(path)
+        got = {k: _cpu(v) for k, v in state_items(fresh.ppo).items()}
+        saved = r0["items"]
+        differ = [k for k in saved if k not in got or not _same(saved[k],
+                                                                got[k])]
+        print(f"sharded: {os.path.basename(path)} of world 2 reloaded at "
+              f"world 1 on the card: full train state {restored}, "
+              f"{len(saved)} fields, differing {differ}")
+        if not restored or differ or saved.keys() != got.keys():
+            raise AssertionError(f"the world-1 reload differs: {differ}")
+
+        _sharded_over_cards(w1, tmp)
+    print(f"sharded: {_smi_line(t_phase, device_name, smi)}")
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def phase_external(device_name: str, smi: str) -> None:
+    import numpy as np
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import (
+        EnvCfg, NightmareV3Cfg, PPOCfg, RunnerCfg,
+    )
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.rl.external import ExternalPPO
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+
+    t0 = time.perf_counter()
+    N, T = 256, 16
+    cfg = PPOCfg(runner=RunnerCfg(num_steps_per_env=T))
+    # 7-step episodes: the rollout resets and bootstraps time-outs
+    ecfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=N,
+                                               episode_length_s=0.1))
+    fused = PPO(NightmareV3Env(ecfg, device="cuda"), cfg)
+    fused.init(0)
+    env = NightmareV3Env(ecfg, device="cuda")
+    state0, obs0 = env.reset(0)
+    ext = ExternalPPO(env.num_obs, env.num_actions, N, cfg)
+    ext.init(0, obs0.cpu().numpy())
+    ext.ppo.net.load_state_dict(fused.net.state_dict())
+    box = {"state": state0}
+
+    def step_fn(actions):
+        out = env.step(box["state"], torch.as_tensor(actions, device="cuda"))
+        box["state"] = out.state
+        return tuple(x.cpu().numpy() for x in (out.obs, out.reward, out.done,
+                                               out.time_out))
+
+    P.pgs.launches = 0
+    sf = fused.learn_step()
+    sf_launches = P.pgs.launches
+    P.pgs.launches = 0
+    se = ext.learn_iteration(step_fn)
+    se_launches = P.pgs.launches
+    perr = max(float((a - b).abs().max()) for a, b in zip(
+        fused.net.state_dict().values(), ext.ppo.net.state_dict().values()))
+    print(f"external: ExternalPPO ({ext.ppo.device}) vs fused PPO, {N} envs x "
+          f"{T} steps float32: loss {se['loss']:.7f} / {sf['loss']:.7f}, kl "
+          f"{se['kl']:.7f} / {sf['kl']:.7f}, max|dparam| {perr:.3e}, dones "
+          f"{se['dones']} / {sf['dones']}, pgs launches {se_launches} / "
+          f"{sf_launches} (expected {2 * T}); {_smi_line(t0, device_name, smi)}")
+    np.testing.assert_allclose(sf["loss"], se["loss"], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(sf["kl"], se["kl"], rtol=2e-3, atol=1e-6)
+    for a, b in zip(fused.net.state_dict().values(),
+                    ext.ppo.net.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-4)
+    if se_launches != 2 * T or sf_launches != 2 * T:
+        raise AssertionError("the external or fused rollout skipped the kernel")
+    if not se["dones"] == sf["dones"] > 0:
+        raise AssertionError("the external and fused rollouts reset differently")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
@@ -797,6 +1290,10 @@ def main() -> int:
     phase_play_grid(name, smi)
     phase_custom_play(name, smi)
     phase_simple_test(name, smi)
+    phase_recurrent_net(name, smi)
+    phase_slice_recurrent(name, smi)
+    phase_sharded(name, smi)
+    phase_external(name, smi)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry]}))

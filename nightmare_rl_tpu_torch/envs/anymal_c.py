@@ -15,7 +15,8 @@ dtype (in float32 the command resampling period is 1249 steps, in float64
 1250); commands are drawn twice per step, for the resample and for the
 reset, each draw covering the whole batch; the reset keeps the physics
 state's ``qacc_warmstart``.  Randomness comes from one ``torch.Generator``
-on the env's device, in place of the JAX env's per-env keys.
+on the env's device, in place of the JAX env's per-env keys; under a mesh
+the env holds one shard's envs and draws through ``parallel/shard.py``.
 
 The Newton line search needs full float32 products: the step runs its
 matrix products without TF32, whatever the process-wide setting.
@@ -23,7 +24,6 @@ matrix products without TF32, whatever the process-wide setting.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -33,9 +33,10 @@ import numpy as np
 import torch
 
 from nightmare_rl_tpu_torch.core import quat as Q
+from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
-from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.device import full_float32, resolve_device
 
 REWARD_NAMES = [
     "termination", "tracking_lin_vel", "tracking_ang_vel", "lin_vel_z",
@@ -107,18 +108,6 @@ class StepOut(NamedTuple):
     record_qvel: torch.Tensor
 
 
-@contextlib.contextmanager
-def full_float32_matmul():
-    """Matrix products at full float32 precision (no TF32) inside the block;
-    the previous setting is restored on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 class AnymalCEnv:
     """Batched lockstep env with the rsl_rl-style contract
     (num_envs/num_obs/num_actions/max_episode_length, step/reset)."""
@@ -126,7 +115,7 @@ class AnymalCEnv:
     def __init__(self, cfg: AnymalCCfg = AnymalCCfg(),
                  sys: Optional[S.System] = None,
                  dtype: torch.dtype = torch.float32, device=None,
-                 seed: int = 0):
+                 seed: int = 0, shard: Shard = Shard()):
         self.cfg = cfg
         self.device = resolve_device(device)
         if sys is None:
@@ -139,7 +128,8 @@ class AnymalCEnv:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-        self.num_envs = cfg.num_envs
+        self.shard = shard
+        self.num_envs = local_envs(cfg.num_envs, shard)
         self.num_obs = cfg.num_obs
         self.num_privileged_obs = cfg.num_obs
         self.num_actions = cfg.num_actions
@@ -160,8 +150,8 @@ class AnymalCEnv:
                                        device=self.device)
 
     def _uniform(self, n: int, bound: float) -> torch.Tensor:
-        u = torch.rand(n, generator=self.generator, dtype=self.dtype,
-                       device=self.device)
+        u = self.shard.draw(torch.rand, (n,), generator=self.generator,
+                            dtype=self.dtype, device=self.device)
         return -bound + 2.0 * bound * u
 
     def _sample_commands(self, n: int) -> torch.Tensor:
@@ -197,7 +187,7 @@ class AnymalCEnv:
 
     def step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:
         """raw_actions: (num_envs, 12) raw policy actions."""
-        with full_float32_matmul():
+        with full_float32():
             return self._step(state, raw_actions)
 
     def _step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:

@@ -19,7 +19,10 @@ Behavioral re-derivation of the reference env (nightmare_rl
   (:239-256); tibia/body contact modes 1 = penalty not termination.
 
 Randomness comes from one ``torch.Generator`` on the env's device, in place
-of the JAX package's per-env keys; the two give different numbers.
+of the JAX package's per-env keys; the two give different numbers.  Under a
+mesh the env holds one shard's envs (``cfg.env.num_envs`` is the global
+count) and draws through ``parallel/shard.py``, so an env's numbers do not
+depend on the world size.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from nightmare_rl_tpu_torch.core import quat as Q
 from nightmare_rl_tpu_torch.core.config import NightmareV3Cfg
+from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.utils.device import resolve_device
@@ -89,7 +93,7 @@ class NightmareV3Env:
 
     def __init__(self, cfg: NightmareV3Cfg, sys: S.System | None = None,
                  dtype: torch.dtype = torch.float32, device=None,
-                 seed: int = 0):
+                 seed: int = 0, shard: Shard = Shard()):
         self.cfg = cfg
         self.device = resolve_device(device)
         if sys is None:
@@ -105,7 +109,8 @@ class NightmareV3Env:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-        self.num_envs = cfg.env.num_envs
+        self.shard = shard
+        self.num_envs = local_envs(cfg.env.num_envs, shard)
         self.num_obs = cfg.env.num_obs
         self.num_privileged_obs = cfg.env.num_obs  # mirror reference (:34)
         self.num_actions = cfg.env.num_actions
@@ -130,8 +135,8 @@ class NightmareV3Env:
     # ------------------------------------------------------------------
 
     def _uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand(shape, generator=self.generator, dtype=self.dtype,
-                       device=self.device)
+        u = self.shard.draw(torch.rand, shape, generator=self.generator,
+                            dtype=self.dtype, device=self.device)
         return lo + (hi - lo) * u
 
     def _sample_commands(self, n: int) -> torch.Tensor:
@@ -290,8 +295,9 @@ class NightmareV3Env:
             actions,
         ], dim=1)
         if cfg.noise.add_noise:
-            noise = 2.0 * torch.rand(obs.shape, generator=self.generator,
-                                     dtype=dtype, device=self.device) - 1.0
+            noise = 2.0 * self.shard.draw(
+                torch.rand, obs.shape, generator=self.generator, dtype=dtype,
+                device=self.device) - 1.0
             obs = obs + noise * self._noise_scale_vec()
         clip_obs = cfg.normalization.clip_observations
         obs = torch.clamp(obs, -clip_obs, clip_obs)

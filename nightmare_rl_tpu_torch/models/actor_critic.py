@@ -1,11 +1,22 @@
-"""Actor-critic matching rsl_rl's ActorCritic module (port of the
-feed-forward half of ``nightmare_rl_tpu/models/actor_critic.py``).
+"""Actor-critics matching rsl_rl's ActorCritic and ActorCriticRecurrent
+modules (port of ``nightmare_rl_tpu/models/actor_critic.py``).
 
 MLP actor + MLP critic (hidden dims [54, 42, 30], elu) and a
 state-independent std vector that is itself the parameter.  The module
 layout is rsl_rl's: ``nn.Sequential(Linear, act, ..., Linear)`` under
 ``actor`` and ``critic`` plus ``std``, so a reference ``model_*.pt``
-state_dict loads with ``load_state_dict``.
+state_dict loads with ``load_state_dict``.  The recurrent net puts one LSTM
+in front of each MLP, under ``memory_a.rnn`` and ``memory_c.rnn`` as rsl_rl
+does.
+
+Hidden-state order: the port carries ``((h_a, c_a), (h_c, c_c))``, torch's
+``(h, c)`` per LSTM, each (batch, rnn_hidden).  The JAX package's flax cells
+carry ``(c, h)``; swap the pair where a state crosses over.
+
+The LSTM runs at full float32 precision whatever the caller's TF32 flags
+(torch lets cuDNN's RNNs use TF32 by default): ``Memory.forward`` runs
+under ``utils.device.full_float32``, and so must every backward pass
+through it (``rl/ppo.py`` wraps its ``loss.backward()``).
 """
 
 from __future__ import annotations
@@ -15,6 +26,9 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+from nightmare_rl_tpu_torch.parallel.shard import Shard
+from nightmare_rl_tpu_torch.utils.device import full_float32
 
 _ACTIVATIONS = {
     "elu": nn.ELU,
@@ -26,6 +40,13 @@ _ACTIVATIONS = {
 }
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
+    """flax's default kernel init (the JAX package's): lecun-normal
+    truncated at 2σ."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
 def _mlp(n_in: int, hidden: Sequence[int], n_out: int,
          activation: str) -> nn.Sequential:
     layers = []
@@ -35,10 +56,8 @@ def _mlp(n_in: int, hidden: Sequence[int], n_out: int,
     layers.append(nn.Linear(dims[-1], n_out))
     for m in layers:
         if isinstance(m, nn.Linear):
-            # flax Dense's default init (the JAX package's): lecun-normal
-            # truncated at 2σ, zero bias
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            # flax Dense's default init, zero bias
+            _lecun_normal_(m.weight, m.in_features)
             nn.init.zeros_(m.bias)
     return nn.Sequential(*layers)
 
@@ -72,10 +91,85 @@ class ActorCritic(nn.Module):
         return self.actor(obs)
 
 
+Carry = Tuple[torch.Tensor, torch.Tensor]   # torch's (h, c)
+Hidden = Tuple[Carry, Carry]                # (actor carry, critic carry)
+
+
+class Memory(nn.Module):
+    """rsl_rl's Memory: a one-layer ``nn.LSTM`` under ``rnn``, stepped one
+    time step per call (a done-mask between steps rules out a sequence
+    call).  Initialised as flax's ``OptimizedLSTMCell``: per gate, input
+    kernels lecun-normal, recurrent kernels orthogonal, zero biases.  The
+    flax cell has one bias per gate, so ``bias_ih`` is frozen (it stays in
+    the state dict, at zero unless a file sets it): training both biases
+    would move each gate's bias by two optimizer steps."""
+
+    def __init__(self, n_in: int, hidden: int):
+        super().__init__()
+        self.rnn = nn.LSTM(n_in, hidden, num_layers=1)
+        _lecun_normal_(self.rnn.weight_ih_l0, n_in)
+        for w in self.rnn.weight_hh_l0.data.chunk(4):
+            nn.init.orthogonal_(w)
+        nn.init.zeros_(self.rnn.bias_ih_l0)
+        nn.init.zeros_(self.rnn.bias_hh_l0)
+        self.rnn.bias_ih_l0.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor, carry: Carry) -> Tuple[torch.Tensor, Carry]:
+        h, c = carry
+        with full_float32():
+            out, (h, c) = self.rnn(x[None], (h[None], c[None]))
+        return out[0], (h[0], c[0])
+
+
+class ActorCriticRecurrent(nn.Module):
+    """rsl_rl's ActorCriticRecurrent: an LSTM memory in front of the actor
+    MLP and another in front of the critic MLP, whose inputs are the LSTM
+    outputs (width ``rnn_hidden``)."""
+
+    def __init__(self, num_obs: int, num_actions: int,
+                 actor_hidden: Sequence[int] = (54, 42, 30),
+                 critic_hidden: Sequence[int] = (54, 42, 30),
+                 activation: str = "elu", init_noise_std: float = 1.0,
+                 rnn_hidden: int = 512, std_floor: float = 0.0):
+        super().__init__()
+        self.memory_a = Memory(num_obs, rnn_hidden)
+        self.memory_c = Memory(num_obs, rnn_hidden)
+        self.actor = _mlp(rnn_hidden, actor_hidden, num_actions, activation)
+        self.critic = _mlp(rnn_hidden, critic_hidden, 1, activation)
+        self.std = nn.Parameter(torch.full((num_actions,), init_noise_std))
+        self.std_floor = std_floor  # as in ActorCritic
+        self.rnn_hidden = rnn_hidden
+
+    def initial_state(self, batch: int) -> Hidden:
+        """Zero carries for ``batch`` envs, on the net's device and dtype."""
+        z = self.std.new_zeros(batch, self.rnn_hidden)
+        return ((z, z), (z, z))
+
+    def forward(self, obs: torch.Tensor, hidden: Hidden
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Hidden]:
+        """One step: ``(mu, std, value), new_hidden``; obs (batch, num_obs)."""
+        out_a, carry_a = self.memory_a(obs, hidden[0])
+        out_c, carry_c = self.memory_c(obs, hidden[1])
+        mu = self.actor(out_a)
+        v = self.critic(out_c)[..., 0]
+        std = self.std.expand_as(mu)
+        if self.std_floor > 0.0:
+            std = torch.clamp_min(std, self.std_floor)
+        return (mu, std, v), (carry_a, carry_c)
+
+
+def reset_hidden(hidden: Hidden, done: torch.Tensor) -> Hidden:
+    """Zero the carries of finished envs (done: (batch,) bool)."""
+    keep = (~done)[:, None]
+    return tuple(tuple(x * keep for x in carry) for carry in hidden)
+
+
 def sample_action(mu: torch.Tensor, std: torch.Tensor,
-                  generator: torch.Generator) -> torch.Tensor:
-    noise = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                        device=mu.device)
+                  generator: torch.Generator,
+                  shard: Shard = Shard()) -> torch.Tensor:
+    """mu + std·ε with ε drawn at the global batch shape (parallel/shard.py)."""
+    noise = shard.draw(torch.randn, mu.shape, generator=generator,
+                       dtype=mu.dtype, device=mu.device)
     return mu + std * noise
 
 

@@ -1,4 +1,4 @@
-"""PPO for the feed-forward actor-critic (port of the feed-forward path of
+"""PPO for the feed-forward and recurrent actor-critics (port of
 ``nightmare_rl_tpu/rl/ppo.py``), mirroring rsl_rl v1.0.2's PPO:
 
 - 80-step rollout per iteration, storage of
@@ -11,11 +11,22 @@
   [1e-5, 1e-2]), applied to that same minibatch's step;
 - gradients clipped to global norm 1.0 by optax's rule, then Adam (eps 1e-8).
 
+The recurrent policy (``cfg.runner.policy_class_name ==
+"ActorCriticRecurrent"``, one LSTM layer) carries its hidden state through
+the rollout, zeroed where an env is done, and takes the last value from one
+extra LSTM step whose carry is discarded.  Its minibatches are groups of
+whole-env trajectories, replayed through the LSTM for all T steps from the
+rollout-start hidden state with the same done-masked resets, and
+back-propagated through all T steps.
+
 The rollout runs eagerly on the env's device; its action noise comes from
-one ``torch.Generator``.  With ``record_states`` the rollout also keeps env
+one ``torch.Generator``, drawn at the global batch shape
+(``parallel/shard.py``).  With ``record_states`` the rollout also keeps env
 0's pre-reset ``(qpos, qvel, action, done, commands)`` each step on the
 device and copies the stacked rows to the host once per iteration
-(``stats["record"]``), for the trajectory recorder.
+(``stats["record"]``), for the trajectory recorder.  The hooks ``_all_sum``,
+``_sync_grads``, ``gather_envs`` and ``any_rank`` are the identity here;
+``parallel/mesh.py::ShardedPPO`` makes them collectives.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ import torch
 
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.models import actor_critic as ac
+from nightmare_rl_tpu_torch.parallel.shard import Shard
+from nightmare_rl_tpu_torch.utils.device import full_float32
 
 
 class Transition(NamedTuple):
@@ -68,29 +81,72 @@ def _record_to_host(rows) -> Tuple[np.ndarray, ...]:
 
 
 class PPO:
+    distributed = False  # ShardedPPO reduces over the ranks of a mesh
+
     def __init__(self, env, cfg: PPOCfg, record_states: bool = False):
-        if cfg.runner.policy_class_name != "ActorCritic":
-            raise NotImplementedError("only the feed-forward ActorCritic is ported")
         self.env = env
         self.cfg = cfg
         self.device = env.device
         self.dtype = env.dtype
+        self.shard = getattr(env, "shard", Shard())
+        if self.shard.world > 1 and not self.distributed:
+            raise ValueError("an env sharded over several ranks needs "
+                             "parallel.mesh.ShardedPPO")
         p, a = cfg.policy, cfg.algorithm
-        self.net = ac.ActorCritic(
-            env.num_obs, env.num_actions,
-            actor_hidden=tuple(p.actor_hidden_dims),
-            critic_hidden=tuple(p.critic_hidden_dims),
-            activation=p.activation, init_noise_std=p.init_noise_std,
-            std_floor=p.std_floor,
-        ).to(device=self.device, dtype=self.dtype)
+        kind = cfg.runner.policy_class_name
+        self.recurrent = kind == "ActorCriticRecurrent"
+        if self.recurrent:
+            if p.rnn_type != "lstm" or p.rnn_num_layers != 1:
+                raise NotImplementedError("the recurrent policy is a "
+                                          "single-layer LSTM")
+            self.net = ac.ActorCriticRecurrent(
+                env.num_obs, env.num_actions,
+                actor_hidden=tuple(p.actor_hidden_dims),
+                critic_hidden=tuple(p.critic_hidden_dims),
+                activation=p.activation, init_noise_std=p.init_noise_std,
+                rnn_hidden=p.rnn_hidden_size, std_floor=p.std_floor)
+        elif kind == "ActorCritic":
+            self.net = ac.ActorCritic(
+                env.num_obs, env.num_actions,
+                actor_hidden=tuple(p.actor_hidden_dims),
+                critic_hidden=tuple(p.critic_hidden_dims),
+                activation=p.activation, init_noise_std=p.init_noise_std,
+                std_floor=p.std_floor)
+        else:
+            raise ValueError(f"unknown policy_class_name {kind!r}")
+        self.net.to(device=self.device, dtype=self.dtype)
+        # the trained parameters (the LSTMs' bias_ih stays frozen)
+        self.params = [p for p in self.net.parameters() if p.requires_grad]
         self.lr = a.learning_rate
-        self.optimizer = torch.optim.Adam(self.net.parameters(), lr=self.lr,
+        self.optimizer = torch.optim.Adam(self.params, lr=self.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.generator = torch.Generator(device=self.device)
         self.env_state = None
         self.obs = None
+        # recurrent carry ((h_a, c_a), (h_c, c_c)) of this shard's envs, or ()
+        self.hidden: ac.Hidden | tuple = ()
         self.iteration = 0
         self.record_states = record_states
+
+    # ------------------------------------------------------------------
+    # collective hooks: the identity on one process
+
+    def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the ranks."""
+        return x
+
+    def _sync_grads(self, kl: torch.Tensor) -> torch.Tensor:
+        """Average the .grad of every parameter, and ``kl``, over the ranks;
+        returns the averaged kl."""
+        return kl
+
+    def gather_envs(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor of this shard's envs (env axis first) → the global one."""
+        return x
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank."""
+        return flag
 
     # ------------------------------------------------------------------
 
@@ -98,15 +154,37 @@ class PPO:
         seed = self.cfg.seed if seed is None else seed
         self.generator.manual_seed(seed)
         self.env_state, self.obs = self.env.reset(seed)
+        self.hidden = (self.net.initial_state(self.env.num_envs)
+                       if self.recurrent else ())
 
     def randomize_episode_lengths(self) -> None:
         """init_at_random_ep_len=True (train.py:54): spread initial episode
         lengths uniformly so resets decorrelate."""
-        self.env_state.episode_length = torch.randint(
-            0, self.env.max_episode_length, (self.env.num_envs,),
+        self.env_state.episode_length = self.shard.randint(
+            self.env.max_episode_length, self.env.num_envs,
             generator=self.generator, device=self.device, dtype=torch.int32)
 
     # ------------------------------------------------------------------
+
+    def _forward(self, obs, hidden):
+        """(mu, std, value), new hidden (unchanged for the feed-forward net)."""
+        if self.recurrent:
+            return self.net(obs, hidden)
+        return self.net(obs), hidden
+
+    @torch.no_grad()
+    def act(self, obs, hidden):
+        """One policy step: action, mu, std, value, logp and the new hidden."""
+        (mu, std, value), hidden = self._forward(obs, hidden)
+        action = ac.sample_action(mu, std, self.generator, self.shard)
+        return action, mu, std, value, ac.log_prob(mu, std, action), hidden
+
+    @torch.no_grad()
+    def last_value(self) -> torch.Tensor:
+        """V of the current observations; a recurrent net takes one extra
+        LSTM step whose carry is discarded."""
+        (_, _, value), _ = self._forward(self.obs, self.hidden)
+        return value
 
     @torch.no_grad()
     def rollout(self):
@@ -119,12 +197,12 @@ class PPO:
         rows, rec = [], []
         n_done = torch.zeros((), device=self.device)
         term_sums = None
-        state, obs = self.env_state, self.obs
+        state, obs, hidden = self.env_state, self.obs, self.hidden
         for _ in range(T):
-            mu, std, value = self.net(obs)
-            action = ac.sample_action(mu, std, self.generator)
-            logp = ac.log_prob(mu, std, action)
+            action, mu, std, value, logp, hidden = self.act(obs, hidden)
             out = env.step(state, action)
+            if self.recurrent:
+                hidden = ac.reset_hidden(hidden, out.done)
             # timeout bootstrap (rsl_rl PPO.process_env_step)
             reward = out.reward + gamma * value * out.time_out.to(value.dtype)
             rows.append(Transition(obs, action, reward, out.done, value, logp,
@@ -137,13 +215,14 @@ class PPO:
             s = torch.nansum(fin, dim=0)
             term_sums = s if term_sums is None else term_sums + s
             state, obs = out.state, out.obs
-        self.env_state, self.obs = state, obs
+        self.env_state, self.obs, self.hidden = state, obs, hidden
         traj = Transition(*[torch.stack(xs) for xs in zip(*rows)])
         record: Optional[tuple] = _record_to_host(rec) if rec else None
         return traj, n_done, term_sums, record
 
     def gae(self, traj: Transition, last_value: torch.Tensor):
-        """Returns (advantages, returns, normalized advantages), each (T, N)."""
+        """Returns (advantages, returns, normalized advantages), each (T, N);
+        the normalization's mean and variance are over the global batch."""
         a = self.cfg.algorithm
         next_values = torch.cat([traj.value[1:], last_value[None]], dim=0)
         adv = torch.zeros_like(last_value)
@@ -155,9 +234,10 @@ class PPO:
             adv = delta + a.gamma * a.lam * nonterminal * adv
             advantages[t] = adv
         returns = advantages + traj.value
-        n = advantages.numel()
-        mean = advantages.mean()
-        var = torch.square(advantages - mean).sum() / max(n - 1, 1)
+        world = self.shard.world
+        n = advantages.numel() * world
+        mean = self._all_sum(advantages.mean()) / world
+        var = self._all_sum(torch.square(advantages - mean).sum()) / max(n - 1, 1)
         norm_adv = (advantages - mean) / (torch.sqrt(var) + 1e-8)
         return advantages, returns, norm_adv
 
@@ -190,40 +270,73 @@ class PPO:
             return min(1e-2, self.lr * 1.5)
         return self.lr
 
+    def _replay(self, mb: Transition, hidden):
+        """The recurrent net over a minibatch of whole trajectories (T, n),
+        from ``hidden`` with the rollout's done-masked resets."""
+        outs = []
+        for t in range(mb.obs.shape[0]):
+            out, hidden = self.net(mb.obs[t], hidden)
+            hidden = ac.reset_hidden(hidden, mb.done[t])
+            outs.append(out)
+        return [torch.stack(x) for x in zip(*outs)]
+
+    def draw_perm(self, T: int, N: int) -> torch.Tensor:
+        """The update's permutation: of this shard's T·N samples, or of its
+        N envs for the recurrent update (parallel/shard.py)."""
+        return self.shard.perm(1 if self.recurrent else T, N, self.generator,
+                               self.device)
+
     def update(self, traj: Transition, returns: torch.Tensor,
-               norm_adv: torch.Tensor, perm: torch.Tensor) -> Dict[str, float]:
-        """The 5×4 minibatch update over the permutation ``perm`` of the
-        T·N samples, shared by every epoch."""
+               norm_adv: torch.Tensor, perm: torch.Tensor,
+               hidden0=None) -> Dict[str, float]:
+        """The 5×4 minibatch update over the permutation ``perm``, shared by
+        every epoch: of the T·N samples, or for the recurrent net of the N
+        envs, whose trajectories replay from ``hidden0`` (the rollout-start
+        hidden state)."""
         a = self.cfg.algorithm
-        B = returns.numel()
-        flat = Transition(*[x.reshape((B,) + x.shape[2:]) for x in traj])
-        returns, norm_adv = returns.reshape(B), norm_adv.reshape(B)
         nmb = a.num_mini_batches
-        idxs = perm.reshape(nmb, B // nmb)
-        params = list(self.net.parameters())
+        if self.recurrent:
+            idxs = perm.reshape(nmb, -1)
+
+            def minibatch(idx):
+                mb = Transition(*[x[:, idx] for x in traj])
+                h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
+                return mb, returns[:, idx], norm_adv[:, idx], self._replay(mb, h0)
+        else:
+            B = returns.numel()
+            flat = Transition(*[x.reshape((B,) + x.shape[2:]) for x in traj])
+            flat_ret, flat_adv = returns.reshape(B), norm_adv.reshape(B)
+            idxs = perm.reshape(nmb, B // nmb)
+
+            def minibatch(idx):
+                mb = Transition(*[x[idx] for x in flat])
+                return mb, flat_ret[idx], flat_adv[idx], self.net(mb.obs)
         losses, surrs, v_losses, kls = [], [], [], []
         for _ in range(a.num_learning_epochs):
             for idx in idxs:
-                mb = Transition(*[x[idx] for x in flat])
-                mu, std, value = self.net(mb.obs)
+                mb, mb_ret, mb_adv, (mu, std, value) = minibatch(idx)
                 loss, surr, v_loss, kl = self._loss_terms(
-                    mb, returns[idx], norm_adv[idx], mu, std, value)
+                    mb, mb_ret, mb_adv, mu, std, value)
                 self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
+                with full_float32():  # the LSTM's backward, no TF32
+                    loss.backward()
+                kl = self._sync_grads(kl.detach())
                 # adaptive lr from this minibatch's KL, applied to its step
-                self.lr = self._adapt_lr(float(kl.detach()))
+                self.lr = self._adapt_lr(float(kl))
                 for group in self.optimizer.param_groups:
                     group["lr"] = self.lr
-                clip_by_global_norm(params, a.max_grad_norm)
+                clip_by_global_norm(self.params, a.max_grad_norm)
                 self.optimizer.step()
                 losses.append(loss.detach())
                 surrs.append(surr.detach())
                 v_losses.append(v_loss.detach())
-                kls.append(kl.detach())
+                kls.append(kl)
+        m = torch.stack([torch.stack(x).mean() for x in (losses, surrs, v_losses)])
+        m = self._all_sum(m) / self.shard.world
         return {
-            "loss": float(torch.stack(losses).mean()),
-            "surrogate_loss": float(torch.stack(surrs).mean()),
-            "value_loss": float(torch.stack(v_losses).mean()),
+            "loss": float(m[0]),
+            "surrogate_loss": float(m[1]),
+            "value_loss": float(m[2]),
             "kl": float(torch.stack(kls).mean()),
             "lr": self.lr,
         }
@@ -231,29 +344,31 @@ class PPO:
     def learn_step(self) -> Dict[str, object]:
         """One PPO iteration (rollout + update)."""
         t0 = time.perf_counter()
+        hidden0 = self.hidden
         traj, n_done, term_sums, record = self.rollout()
-        with torch.no_grad():
-            _, _, last_value = self.net(self.obs)
-        _, returns, norm_adv = self.gae(traj, last_value)
+        _, returns, norm_adv = self.gae(traj, self.last_value())
         _sync(self.device)
         t1 = time.perf_counter()
-        B = returns.numel()
-        perm = torch.randperm(B, generator=self.generator, device=self.device)
-        stats = self.update(traj, returns, norm_adv, perm)
+        T, N = traj.reward.shape
+        stats = self.update(traj, returns, norm_adv, self.draw_perm(T, N),
+                            hidden0)
         _sync(self.device)
         t2 = time.perf_counter()
         self.iteration += 1
+        # episode and rollout metrics over the global batch, in one reduction
+        red = self._all_sum(torch.cat([
+            n_done.reshape(1).to(term_sums.dtype), term_sums,
+            (traj.reward.mean() / self.shard.world).reshape(1),
+            traj.done.sum().reshape(1).to(term_sums.dtype)]))
+        n, term_sums = float(red[0]), red[1:-2]
         # mean finished-episode sums per reward term, per episode second
-        n = float(n_done)
         ep_means = (term_sums / max(n, 1.0) / self.env.max_episode_length_s
                     if n > 0 else torch.zeros_like(term_sums))
         stats.update(
-            mean_reward=float(traj.reward.mean()),
-            dones=int(traj.done.sum()),
+            mean_reward=float(red[-2]),
+            dones=int(red[-1]),
             episode_reward_means=ep_means.cpu().tolist(),
-            mean_noise_std=float(torch.clamp_min(
-                torch.abs(self.net.std.detach()),
-                self.cfg.policy.std_floor).mean()),
+            mean_noise_std=self.mean_noise_std(),
             rollout_s=t1 - t0,
             update_s=t2 - t1,
         )
@@ -261,3 +376,8 @@ class PPO:
             # (qpos, qvel, action, done, commands), each (T, ·)
             stats["record"] = record
         return stats
+
+    def mean_noise_std(self) -> float:
+        """The std that sampling sees (the std_floor clamp applied)."""
+        return float(torch.clamp_min(torch.abs(self.net.std.detach()),
+                                     self.cfg.policy.std_floor).mean())

@@ -8,6 +8,12 @@ SIGTERM/SIGINT arrives, training-time recording of env 0's episodes as
 ``.pkl`` files (``cfg.viewer.record_states``, on by default, as in the
 reference), render-during-training (``cfg.viewer.render``) and an optional
 ``torch.profiler`` trace of iterations 2-4.
+
+With a ``mesh`` (``parallel/mesh.py``) the runner drives ``ShardedPPO``:
+every rank runs it, the statistics are global, and rank 0 alone prints,
+writes ``metrics.jsonl`` and writes checkpoints (every rank takes part in
+gathering the env state for them).  Recording and render are off under a
+mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -87,7 +93,8 @@ class TrainingViewer:
 
 
 class OnPolicyRunner:
-    def __init__(self, env, cfg: PPOCfg, log_dir: Optional[str] = None):
+    def __init__(self, env, cfg: PPOCfg, log_dir: Optional[str] = None,
+                 mesh=None):
         self.env = env
         self.cfg = cfg
         self.log_dir = log_dir
@@ -98,7 +105,14 @@ class OnPolicyRunner:
         record = log_dir is not None and getattr(viewer_cfg, "record_states",
                                                  False)
         render = getattr(viewer_cfg, "render", False)
-        self.ppo = PPO(env, cfg, record_states=record or render)
+        if mesh is not None:
+            from nightmare_rl_tpu_torch.parallel.mesh import ShardedPPO
+
+            self.ppo = ShardedPPO(env, cfg, mesh)
+            record = render = False
+        else:
+            self.ppo = PPO(env, cfg, record_states=record or render)
+        self.main = self.ppo.shard.rank == 0  # prints and writes
         self.recorder = StateRecorder(log_dir, dt=env.dt) if record else None
         self.viewer = (TrainingViewer(getattr(viewer_cfg, "xml_path", None))
                        if render else None)
@@ -164,15 +178,16 @@ class OnPolicyRunner:
             self.init()
         if init_at_random_ep_len:
             self.ppo.randomize_episode_lengths()
-        if self.log_dir is not None and self.writer is None:
+        if self.log_dir is not None and self.writer is None and self.main:
             self.writer = JsonlWriter(self.log_dir)
-        steps_per_iter = self.cfg.runner.num_steps_per_env * self.env.num_envs
+        steps_per_iter = (self.cfg.runner.num_steps_per_env * self.env.num_envs
+                          * self.ppo.shard.world)
         t_start = time.time()
         iters_run = 0
         prof = None
         for k in range(num_iters):
             iters_run = k + 1
-            if profile_dir and k == 2:  # skip the warm-up iterations
+            if profile_dir and k == 2 and self.main:  # skip the warm-up
                 prof = self._start_profiler()
             t0 = time.time()
             stats = self.ppo.learn_step()
@@ -203,15 +218,18 @@ class OnPolicyRunner:
                 self.writer.add_scalar("perf/env_steps_per_s",
                                        steps_per_iter / dt_iter, it)
                 self.writer.flush()
-            if it % 10 == 0 or k == 0:
+            if (it % 10 == 0 or k == 0) and self.main:
                 print(f"iter {it}: reward {stats['mean_reward']:+.4f} "
                       f"loss {stats['loss']:.4f} kl {stats['kl']:.4f} "
                       f"lr {stats['lr']:.2e} "
                       f"({steps_per_iter / dt_iter:,.0f} env-steps/s)")
             if self.log_dir and it % self.cfg.runner.save_interval == 0:
                 self.save(it)
-            if stop["flag"]:
-                print(f"signal received — checkpointing at iter {it} and exiting")
+            # under a mesh every rank stops when any rank got the signal
+            if self.ppo.any_rank(stop["flag"]):
+                if self.main:
+                    print(f"signal received — checkpointing at iter {it} and "
+                          "exiting")
                 break
         if prof is not None:  # the run ended inside the traced window
             self._stop_profiler(prof, profile_dir)
@@ -219,8 +237,9 @@ class OnPolicyRunner:
             self.save(self.ppo.iteration)
         total = iters_run * steps_per_iter
         wall = time.time() - t_start
-        print(f"total: {total:,} env-steps in {wall:.1f}s "
-              f"({total / max(wall, 1e-9):,.0f} env-steps/s)")
+        if self.main:
+            print(f"total: {total:,} env-steps in {wall:.1f}s "
+                  f"({total / max(wall, 1e-9):,.0f} env-steps/s)")
 
 
 def get_load_path(root: str, load_run=-1, checkpoint=-1) -> str:

@@ -3,6 +3,10 @@
     python -m nightmare_rl_tpu_torch.tools.train -e 2048 -n 1000 [-r] [-p PATH]
         [--robot nightmare_v3|anymal_c] [--profile DIR]
 
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m nightmare_rl_tpu_torch.tools.train --mesh -e 2048 -n 1000
+        [--backend nccl|gloo] [--multihost]
+
 Runs on the card; ``--device cpu`` is the only way onto the CPU, and a
 missing card raises.  ``-n`` is the number of learning iterations.  ``-r``
 resumes the newest checkpoint under ``-p`` (or the log root): a checkpoint
@@ -11,6 +15,16 @@ state and observations), so the run continues as if uninterrupted; a
 weights-only ``.pt`` restores the weights (and optimizer) and starts the
 envs from reset.  nightmare_v3 runs record env 0's episodes as ``.pkl``
 files in the run directory (``tools/replay.py`` plays them).
+
+``--mesh`` shards the ``-e`` envs over the ranks that
+``torch.distributed.run`` starts (parallel/mesh.py), each rank on
+``cuda:LOCAL_RANK`` (or on the CPU with ``--device cpu``); rank 0 alone
+prints and writes.  The backend is nccl on the card and gloo on the CPU;
+``--backend gloo`` puts several ranks on one card, which NCCL refuses.
+``--multihost`` marks ranks that span hosts: the run then refuses to start
+outside ``torch.distributed.run``.  A checkpoint saved at any world size
+resumes at any other.  The recurrent policy is chosen in the PPO config
+(``runner.policy_class_name``), which Python callers pass as ``pcfg``.
 """
 
 from __future__ import annotations
@@ -26,11 +40,16 @@ import torch
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg, PPOCfg
 from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+from nightmare_rl_tpu_torch.parallel import mesh as M
+from nightmare_rl_tpu_torch.parallel.shard import Shard
 from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
 from nightmare_rl_tpu_torch.utils.device import resolve_device
 
 
-def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
+def main(argv: Optional[Sequence[str]] = None,
+         pcfg: Optional[PPOCfg] = None) -> OnPolicyRunner:
+    """``pcfg``: the PPO config (default ``PPOCfg()``); ``--seed`` and
+    ``--std_floor`` override its fields."""
     p = argparse.ArgumentParser()
     p.add_argument("-e", "--envs", type=int, default=2048, dest="num_envs")
     p.add_argument("-n", "--iterations", type=int, default=1000)
@@ -50,35 +69,60 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
     p.add_argument("--max_ang_vel", type=float, default=None,
                    help="override the sampled |wz| command range of "
                         "nightmare_v3 (reference default 0.8 rad/s)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the envs over the ranks of "
+                        "python -m torch.distributed.run")
+    p.add_argument("--multihost", action="store_true",
+                   help="the ranks span hosts: refuse to start outside "
+                        "torch.distributed.run (implies --mesh)")
+    p.add_argument("--backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="collectives under --mesh: nccl (the card's default) "
+                        "or gloo (the CPU's; several ranks on one card)")
     args = p.parse_args(argv)
+    if args.backend is not None and not (args.mesh or args.multihost):
+        p.error("--backend needs --mesh")
 
-    device = resolve_device(args.device)
+    mesh, shard = None, Shard()
+    if args.mesh or args.multihost:
+        mesh = M.make_mesh(args.device, args.backend,
+                           require_launcher=args.multihost)
+        device, shard = mesh.device, mesh.shard
+    else:
+        device = resolve_device(args.device)
+    main_rank = shard.rank == 0
     torch.manual_seed(args.seed)
 
     log_root = args.log_root or os.path.join("logs", args.robot)
     log_dir = os.path.join(log_root, str(datetime.datetime.now()))
-    print(f"Logging to {log_dir}")
+    if main_rank:
+        print(f"Logging to {log_dir}")
+        if mesh is not None:
+            print(f"mesh: {mesh.world} rank(s), backend {mesh.backend}, "
+                  f"rank 0 on {mesh.device}")
 
-    pcfg = PPOCfg().replace(seed=args.seed)
+    pcfg = (pcfg or PPOCfg()).replace(seed=args.seed)
     if args.std_floor > 0.0:
         pcfg = pcfg.replace(policy=dataclasses.replace(
             pcfg.policy, std_floor=args.std_floor))
     if args.robot == "anymal_c":
-        env = AnymalCEnv(AnymalCCfg(num_envs=args.num_envs), device=device)
+        env = AnymalCEnv(AnymalCCfg(num_envs=args.num_envs), device=device,
+                         shard=shard)
     else:
         cfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=args.num_envs))
         if args.max_ang_vel is not None:
             cfg = cfg.replace(commands=dataclasses.replace(
                 cfg.commands, ranges=dataclasses.replace(
                     cfg.commands.ranges, max_ang_vel=args.max_ang_vel)))
-        env = NightmareV3Env(cfg, device=device)
+        env = NightmareV3Env(cfg, device=device, shard=shard)
 
-    runner = OnPolicyRunner(env, pcfg, log_dir=log_dir)
+    runner = OnPolicyRunner(env, pcfg, log_dir=log_dir, mesh=mesh)
     runner.init(args.seed)
     resumed = False
     if args.resume:
         path = get_load_path(args.resume_path or log_root)
-        print(f"Loading model from: {path}")
+        if main_rank:
+            print(f"Loading model from: {path}")
         resumed = runner.load(path)
     # a full-state resume keeps the saved episode lengths
     runner.learn(args.iterations, init_at_random_ep_len=not resumed,
@@ -87,4 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> OnPolicyRunner:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        M.close()

@@ -5,10 +5,15 @@ TrainState with orbax).
 A file keeps rsl_rl's keys (``model_state_dict``, ``optimizer_state_dict``,
 ``iter``, ``infos``), so the reference's ``play.py`` still loads it, and adds
 one ``train_state`` entry for a deterministic resume: the learning rate, the
-PPO generator's state, every field of the env state, the last observation
-and the env's own generator state.  A file without ``train_state`` (for
-example ``artifacts/model_3176.pt``) restores the weights, and the
-optimizer where present.
+PPO generator's state, every field of the env state, the last observation,
+the recurrent policy's hidden state and the env's own generator state.  A
+file without ``train_state`` (for example ``artifacts/model_3176.pt``)
+restores the weights, and the optimizer where present.
+
+Under a mesh (``parallel/mesh.py``) the file holds the GLOBAL env state: every
+rank takes part in gathering it and rank 0 writes it; a load gives each rank
+its own rows.  A checkpoint saved at any world size resumes at any other (the
+generators are equal on every rank, parallel/shard.py).
 """
 
 from __future__ import annotations
@@ -29,15 +34,38 @@ def _fields(state) -> Dict[str, Any]:
     return out
 
 
-def _rebuild(template, saved: Dict[str, Any], device):
-    """``template``'s dataclass filled from ``saved`` (nested dicts)."""
+def _rebuild(template, saved: Dict[str, Any], device, rows=lambda x: x):
+    """``template``'s dataclass filled from ``saved`` (nested dicts), each
+    tensor cut by ``rows``."""
     kw = {}
     for f in dataclasses.fields(template):
         cur = getattr(template, f.name)
         v = saved[f.name]
-        kw[f.name] = (_rebuild(cur, v, device) if dataclasses.is_dataclass(cur)
-                      else v.to(device))
+        kw[f.name] = (_rebuild(cur, v, device, rows)
+                      if dataclasses.is_dataclass(cur) else rows(v).to(device))
     return dataclasses.replace(template, **kw)
+
+
+def _map(fn, d: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in d.items()}
+
+
+def _hidden(ppo, fn):
+    """The recurrent hidden state as nested dicts of ``fn`` of each tensor
+    (torch's (h, c) per LSTM), or None for the feed-forward net."""
+    if not ppo.recurrent:
+        return None
+    return {name: {"h": fn(carry[0]), "c": fn(carry[1])}
+            for name, carry in zip(("actor", "critic"), ppo.hidden)}
+
+
+def _global(ppo) -> Dict[str, Any]:
+    """The env-axis part of the train state, gathered over the ranks
+    (a collective under a mesh)."""
+    g = ppo.gather_envs
+    return {"env_state": _map(g, _fields(ppo.env_state)), "obs": g(ppo.obs),
+            "hidden": _hidden(ppo, g)}
 
 
 def to_device(state, device):
@@ -51,7 +79,11 @@ def _generator(ppo):
 
 
 def save(path: str, ppo, infos=None) -> None:
-    """Write the PPO's weights, optimizer and full train state to ``path``."""
+    """Write the PPO's weights, optimizer and full train state to ``path``
+    (under a mesh every rank calls this, and rank 0 writes)."""
+    glob = _global(ppo)
+    if ppo.shard.rank != 0:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     env_gen = _generator(ppo)
     torch.save({
@@ -62,21 +94,20 @@ def save(path: str, ppo, infos=None) -> None:
         "train_state": {
             "lr": ppo.lr,
             "generator": ppo.generator.get_state(),
-            "env_state": _fields(ppo.env_state),
-            "obs": ppo.obs,
+            **glob,
             "env_generator": None if env_gen is None else env_gen.get_state(),
         },
     }, path)
 
 
 def state_items(ppo) -> Dict[str, Any]:
-    """Every tensor and number of ``ppo``'s train state, flat by name (for
-    comparing two train states)."""
+    """Every tensor and number of ``ppo``'s global train state, flat by
+    name (for comparing two train states; a collective under a mesh)."""
     out = {f"net.{k}": v for k, v in ppo.net.state_dict().items()}
     for i, st in ppo.optimizer.state_dict()["state"].items():
         out.update({f"adam.{i}.{k}": v for k, v in st.items()})
     env_gen = _generator(ppo)
-    out.update(lr=ppo.lr, iteration=ppo.iteration, obs=ppo.obs,
+    out.update(lr=ppo.lr, iteration=ppo.iteration,
                generator=ppo.generator.get_state(),
                env_generator=None if env_gen is None else env_gen.get_state())
 
@@ -87,7 +118,11 @@ def state_items(ppo) -> Dict[str, Any]:
             else:
                 out[prefix + k] = v
 
-    walk("env.", _fields(ppo.env_state))
+    glob = _global(ppo)
+    out["obs"] = glob["obs"]
+    walk("env.", glob["env_state"])
+    if glob["hidden"] is not None:
+        walk("hidden.", glob["hidden"])
     return out
 
 
@@ -111,8 +146,13 @@ def load(path: str, ppo) -> bool:
         group["lr"] = ppo.lr
     # generator states are CPU byte tensors whatever the generator's device
     ppo.generator.set_state(ts["generator"].cpu())
-    ppo.env_state = _rebuild(ppo.env_state, ts["env_state"], dev)
-    ppo.obs = ts["obs"].to(dev)
+    rows = ppo.shard.rows
+    ppo.env_state = _rebuild(ppo.env_state, ts["env_state"], dev, rows)
+    ppo.obs = rows(ts["obs"]).to(dev)
+    if ppo.recurrent:
+        hid = ts["hidden"]
+        ppo.hidden = tuple((rows(hid[k]["h"]).to(dev), rows(hid[k]["c"]).to(dev))
+                           for k in ("actor", "critic"))
     env_gen = _generator(ppo)
     if env_gen is not None and ts["env_generator"] is not None:
         env_gen.set_state(ts["env_generator"].cpu())

@@ -1,6 +1,9 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the guard that keeps
+float32 work out of TF32."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -14,3 +17,19 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' (--device cpu) to run "
             "on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32():
+    """No TF32 inside the block, whatever the process-wide flags: neither in
+    matrix products nor in cuDNN (whose LSTM follows
+    ``torch.backends.cudnn.allow_tf32``, True by default).  The flags are
+    read when a kernel is chosen, in a backward pass too; the previous
+    flags are restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev

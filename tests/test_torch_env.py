@@ -166,6 +166,13 @@ def test_entry_points_raise_without_cuda():
         train.main(["-e", "2", "-n", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--robot", "anymal_c", "-e", "2", "-n", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--mesh", "-e", "2", "-n", "1"])
+    from nightmare_rl_tpu_torch.core.config import PPOCfg
+    from nightmare_rl_tpu_torch.rl.external import ExternalPPO
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExternalPPO(66, 18, 2, PPOCfg())
     from nightmare_rl_tpu_torch.tools import custom_play, play, simple_test
 
     for main, argv in ((play.main, ["--steps", "1"]),
