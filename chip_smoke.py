@@ -87,11 +87,30 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 18. external — ``rl/external.py``'s ``ExternalPPO`` stepping the port's env
              through a host callback against the fused ``PPO`` from the same
              seed and weights: 256 envs, 16 steps of 7-step episodes (the
-             resets and time-out bootstraps agree), one iteration.
+             resets and time-out bootstraps agree), one iteration;
+19. dense-hexapod — nightmare_v3 with its block-arrow layout withheld, so
+             the dense mass-matrix branch steps it (dense Cholesky, the
+             PGS kernel's U from the dense M⁻¹): one decimated step of
+             2048 envs in float64 against the arrow path; then, once the
+             envs have landed, 10 float32 env steps of random actions,
+             finite and timed beside the arrow path; the kernel held on the
+             last dense inputs of both and timed;
+20. dense-models — the archives that ``tools/compile_model`` made from the
+             port's MJCF assets (two free spheres, condim 3 and 6, PGS with
+             100 sweeps; a limited hinge with frictionloss, no contact
+             point), 2048 envs: 50 float64 steps on the card against the
+             CPU, 10 float32 steps on the card; the kernel held in both
+             precisions at their shapes (2048 x 18 x 12, 2048 x 3 x 1) and
+             timed;
+21. curve — ``tools/compare_reference_curve.py --side tpu`` at 256 envs x 2
+             iterations for seeds 1 and 2: rows with the JAX tool's keys,
+             and first-iteration losses that differ (``PPO.init`` draws the
+             weights from the seed).
 
-The anymal_c path, the new tools and the recurrent, sharded and external
-paths run no kernel of their own: the kernels' line lists only ``pgs`` (its
-launches are the slice's).
+The anymal_c path, the new tools and the recurrent, sharded, external and
+dense paths run no kernel of their own: the kernels' line lists only
+``pgs``, and its launches are those of the slice, the dense phases and the
+curve phase, each counted from zero.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -147,6 +166,7 @@ CUSTOM_JAX = ((0.4839, -0.0479), (0.3046, -0.0097), (0.2592, +0.9996),
               (0.2577, -1.0180))
 CUSTOM_SPREAD = 0.01
 CUSTOM_MIN_HEIGHT = 0.07     # base z once up (the engine stands at ~0.09 m)
+SETTLE_STEPS = 25            # zero-action env steps before the dense-hexapod steps
 RNN_TOL = 1e-10              # recurrent net, card vs CPU, /max|output|, float64
 RNN_F32_TOL = 1e-5           # the same in float32 (TF32's 10-bit mantissa fails it)
 MESH_ENVS = 2048             # global envs of the sharded phase
@@ -298,63 +318,78 @@ def _kept_pgs():
 
 
 def _hold_kernel(label: str, args: tuple, shape: tuple) -> float:
-    """The kernel against ``pgs_reference`` on the float32 inputs that a
-    path's last PGS call received (of (N, nefc, nv) ``shape``); asserts a
-    minimum share of active rows.  Returns max|err|."""
+    """The kernel against ``pgs_reference`` on the inputs that a path's last
+    PGS call received (of (N, nefc, nv) ``shape``), at F32_TOL in float32
+    and F64_TOL in float64; asserts a minimum share of active rows.
+    Returns max|err|."""
     import torch
 
     from nightmare_rl_tpu_torch.ops import pgs as P
 
     J, hi = args[0], args[5]
     N, nefc, nv = J.shape
-    assert tuple(J.shape) == shape and J.dtype == torch.float32, (J.shape, J.dtype)
+    assert tuple(J.shape) == shape and J.dtype in (torch.float32, torch.float64), (
+        J.shape, J.dtype)
+    tol = F32_TOL if J.dtype == torch.float32 else F64_TOL
     f_k = P.pgs(*args)
     f_p = P.pgs_reference(*args)
     torch.cuda.synchronize()
     abs_err = float((f_k - f_p).abs().max())
     rel = abs_err / float(f_p.abs().max())
     active = float((hi > 0).double().mean())
-    print(f"kernel: float32 {label} N={N} nefc={nefc} nv={nv}: {active:.1%} of "
-          f"rows active (min {MIN_ACTIVE:.0%}), max|f| = "
+    print(f"kernel: {str(J.dtype)[6:]} {label} N={N} nefc={nefc} nv={nv}: "
+          f"{active:.1%} of rows active (min {MIN_ACTIVE:.0%}), max|f| = "
           f"{float(f_p.abs().max()):.4g}, max|err| = {abs_err:.3e}, /max|f| = "
-          f"{rel:.3e} (tol {F32_TOL:g})")
+          f"{rel:.3e} (tol {tol:g})")
     if not active >= MIN_ACTIVE:
         raise AssertionError(f"the PGS inputs of {label} have too few active rows")
-    if not rel <= F32_TOL or not torch.isfinite(f_k).all():
+    if not rel <= tol or not torch.isfinite(f_k).all():
         raise AssertionError(f"pgs kernel disagrees with pgs_reference on {label}")
     return abs_err
 
 
-def phase_main_path_kernel(args: tuple, launches: int) -> dict:
-    """The kernel against its plain version on the inputs that the slice's
-    last PGS call received, and both timed on them."""
+def _time_kernel(label: str, args: tuple) -> dict:
+    """CUDA-event times of the kernel and of its plain version on one call's
+    float32 inputs, and the least time the card could take for it: the
+    larger of its bytes (J and U, b, R, lo, hi read once, f written once)
+    over the memory rate and its operations over the float32 rate."""
     from nightmare_rl_tpu_torch.ops import pgs as P
 
     J, U, b, R, lo, hi, it, ns, ns_offset = args
     N, nefc, nv = J.shape
-    assert ns_offset == 0, ns_offset
-    abs_err = _hold_kernel("main-path inputs (the slice's last call)", args,
-                           (2048, 112, 24))
-
     kern_ms = _cuda_ms(lambda: P.pgs(*args), reps=50)
     plain_ms = _cuda_ms(lambda: P.pgs_reference(*args), reps=3, warmup=1)
     nbytes = (2 * J.numel() + 5 * N * nefc) * J.element_size()
     ops = _pgs_ops(N, nefc, nv, it, ns, ns_offset)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_FLOPS * 1e3
-    chain = it * nefc + ns * ((nefc - ns_offset) // 2)
-    print(f"kernel: pgs float32 {kern_ms:.4f} ms/launch, plain {plain_ms:.3f} ms; "
-          f"bound {max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.3f} GFLOP); serial chain {chain} row steps/env "
-          f"-> {kern_ms * 1e6 / chain:.1f} ns per step")
+    bound = max(t_bytes, t_ops)
+    chain = it * nefc + (ns * ((nefc - ns_offset) // 2) if ns > 0 else 0)
+    print(f"kernel: pgs float32 {label} N={N} nefc={nefc} nv={nv} ({it} sweeps, "
+          f"{ns} noslip from row {ns_offset}): {kern_ms:.4f} ms/launch, plain "
+          f"{plain_ms:.3f} ms; bound {bound * 1e3:.2f} us by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.2f} "
+          f"MB, {ops / 1e9:.4f} GFLOP) = {bound / kern_ms:.1%} of it; serial "
+          f"chain {chain} row steps/env -> {kern_ms * 1e6 / chain:.1f} ns per step")
+    return dict(ms=kern_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_main_path_kernel(args: tuple, launches: int) -> dict:
+    """The kernel against its plain version on the inputs that the slice's
+    last PGS call received, and both timed on them."""
+    J, U, b, R, lo, hi, it, ns, ns_offset = args
+    assert ns_offset == 0, ns_offset
+    abs_err = _hold_kernel("main-path inputs (the slice's last call)", args,
+                           (2048, 112, 24))
+    t = _time_kernel("main path", args)
     return dict(
         name="pgs", route="cuda",
         source="nightmare_rl_tpu_torch/ops/csrc/pgs.cu",
         replaces="nightmare_rl_tpu/ops/pgs.py:345",
-        launches=launches, max_abs_err=abs_err, ms=kern_ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
+        launches=launches, max_abs_err=abs_err, ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None,
     )
 
 
@@ -1259,6 +1294,255 @@ def phase_external(device_name: str, smi: str) -> None:
         raise AssertionError("the external and fused rollouts reset differently")
 
 
+def _withheld_arrow():
+    """The block-arrow layout withheld: every model steps through the dense
+    mass-matrix branch inside the block."""
+    from unittest import mock
+
+    from nightmare_rl_tpu_torch.physics import arrow
+
+    return mock.patch.object(arrow, "layout", lambda sys: None)
+
+
+def _rel_state(a, b) -> float:
+    """``_rel`` of b against a, the worst over qpos, qvel, qacc_warmstart
+    and sensordata (those with elements)."""
+    return max(_rel(getattr(a, f), getattr(b, f))
+               for f in ("qpos", "qvel", "qacc_warmstart", "sensordata")
+               if getattr(a, f).numel())
+
+
+def _host_syncs(fn) -> int:
+    """The device-to-host synchronizations that fn() makes, as counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_dense_hexapod(device_name: str, smi: str) -> tuple:
+    """nightmare_v3 with its arrow layout withheld: in float64 one decimated
+    step of 2048 envs, dense against arrow; in float32, once the envs have
+    landed, 10 env steps of random actions at 2048 envs, finite, with the
+    kernel held on the last dense inputs and timed beside the arrow path."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import loader, pipeline
+
+    t0 = time.perf_counter()
+    N = 2048
+    sys_ = dataclasses.replace(loader.load_system("nightmare_v3", device="cuda"),
+                               max_contacts=24)
+    g = torch.Generator().manual_seed(6)
+    st = pipeline.make_state(sys_, N)
+    qpos = st.qpos.cpu()
+    qpos[:, 7:] += 0.3 * torch.randn(N, 18, generator=g, dtype=torch.float64)
+    qpos[:, 2] -= 0.13                          # the feet reach the floor
+    st = st.replace(qpos=qpos.cuda(), qvel=torch.randn(
+        N, sys_.nv, generator=g, dtype=torch.float64).cuda())
+    ctrl = torch.randn(N, sys_.nu, generator=g, dtype=torch.float64).cuda()
+    ref = pipeline.step(sys_, st, ctrl, 2)
+    with _withheld_arrow(), _kept_pgs() as last64:
+        P.pgs.launches = 0
+        dense = pipeline.step(sys_, st, ctrl, 2)
+        launches = P.pgs.launches
+    err64 = _rel_state(ref, dense)
+    contacts = float((dense.sensordata > 0).double().mean())
+    print(f"dense-hexapod: float64, {N} envs, one decimated step, dense vs "
+          f"arrow: max rel err {err64:.3e} (tol {PHYS_TOL:g}), "
+          f"{contacts:.1%} of touch sensors loaded")
+    if not err64 <= PHYS_TOL or not contacts > 0:
+        raise AssertionError("the dense branch disagrees with the arrow path")
+    _hold_kernel("dense-hexapod inputs (float64 step)", last64["args"],
+                 (N, 112, 24))
+
+    ecfg = NightmareV3Cfg().replace(env=EnvCfg(num_envs=N))
+    env = NightmareV3Env(ecfg, device="cuda")
+    settled, _ = env.reset(0)
+    for _ in range(SETTLE_STEPS):              # land on the floor first
+        settled = env.step(settled, torch.zeros(N, 18, device="cuda")).state
+    acts = 0.3 * torch.randn(10, N, 18, generator=g).cuda()
+    walls, syncs = {}, {}
+    for mode in ("arrow", "dense"):
+        state = settled
+        with (_withheld_arrow() if mode == "dense" else contextlib.nullcontext()), \
+                _kept_pgs() as last:
+            P.pgs.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for a in acts:
+                out = env.step(state, a)
+                state = out.state
+            torch.cuda.synchronize()
+            walls[mode] = (time.perf_counter() - t1) / len(acts)
+            n = P.pgs.launches
+            syncs[mode] = _host_syncs(lambda: pipeline.step(
+                env.sys, state.phys, torch.zeros(N, 18, device="cuda"), 1))
+        if not torch.isfinite(out.obs).all() or not torch.isfinite(
+                state.phys.qpos).all():
+            raise AssertionError(f"non-finite {mode} env steps")
+        if mode == "dense":
+            launches += n
+            args32 = last["args"]
+    expected = 2 + 10 * ecfg.control.decimation
+    print(f"dense-hexapod: float32, {N} envs x 10 env steps of random actions "
+          f"after {SETTLE_STEPS} settling steps on the arrow path: "
+          f"finite; {walls['dense'] * 1e3:.1f} ms per env step dense, "
+          f"{walls['arrow'] * 1e3:.1f} ms arrow; host syncs in one physics "
+          f"substep: dense {syncs['dense']}, arrow {syncs['arrow']}; pgs "
+          f"launches {launches} "
+          f"(expected {expected}); {_smi_line(t0, device_name, smi)}")
+    if launches != expected:
+        raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
+    _hold_kernel("dense-hexapod inputs (its last call)", args32, (N, 112, 24))
+    return launches, _time_kernel("dense-hexapod", args32)
+
+
+def _model_states(sys_, name: str, N: int, seed: int):
+    """Seeded initial (qpos, qvel) of N envs of a dense model: the spheres
+    spin, roll and slide into the floor (tests/test_condim6.py), the hinge
+    starts on both sides of and beyond its limits."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    qpos = sys_.qpos0.cpu().expand(N, -1).clone()
+    if name == "spheres_condim6":
+        qvel = torch.zeros(N, sys_.nv, dtype=torch.float64)
+        qvel[:, 3:6] = torch.tensor([0.0, 4.0, 8.0])
+        qvel[:, 9:12] = torch.tensor([0.0, 4.0, 8.0])
+        qvel[:, [0, 6]] = 0.5
+        qvel += 0.5 * torch.randn(N, sys_.nv, generator=g, dtype=torch.float64)
+        qpos[:, [2, 9]] -= 0.004 * torch.rand(N, 2, generator=g,
+                                              dtype=torch.float64)
+    else:
+        qpos[:, 0] = 1.2 * torch.rand(N, generator=g, dtype=torch.float64) - 0.6
+        qvel = 3.0 * torch.randn(N, 1, generator=g, dtype=torch.float64)
+    return qpos, qvel
+
+
+def phase_dense_models(device_name: str, smi: str) -> tuple:
+    """The two dense models shipped as MJCF with their archives (compiled
+    by tools/compile_model), 2048 envs: in float64 50 steps on the card
+    against the CPU; in float32 10 steps on the card; the kernel held on the
+    last inputs of each, and timed on the float32 ones."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import loader, pipeline
+    from nightmare_rl_tpu_torch.physics import system as S
+
+    N, steps = 2048, 50
+    launches, times = 0, {}
+    for name, shape in (("spheres_condim6", (N, 18, 12)),
+                        ("hinge_dof_rows", (N, 3, 1))):
+        t0 = time.perf_counter()
+        res = {}
+        for dev in ("cuda", "cpu"):
+            sys_ = loader.load_system(name, device=dev)
+            qpos, qvel = _model_states(sys_, name, N, 7)
+            st = pipeline.make_state(sys_, N).replace(qpos=qpos.to(dev),
+                                                      qvel=qvel.to(dev))
+            ctrl = torch.zeros(N, sys_.nu, dtype=torch.float64, device=dev)
+            with _kept_pgs() as last:
+                P.pgs.launches = 0
+                for _ in range(steps):
+                    st = pipeline.step(sys_, st, ctrl, 1)
+                n = P.pgs.launches
+            res[dev] = st
+            if dev == "cuda":
+                launches += n
+                args64, n64 = last["args"], n
+        err = _rel_state(res["cpu"], res["cuda"])
+        print(f"dense-models: {name}, float64, {N} envs x {steps} steps, card "
+              f"vs CPU: max rel err {err:.3e} (tol {PHYS_TOL:g}); pgs "
+              f"launches {n64} (expected {steps}); "
+              f"{_smi_line(t0, device_name, smi)}")
+        if not err <= PHYS_TOL:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+        if n64 != steps:
+            raise AssertionError(f"{name}: pgs kernel ran {n64} times")
+        _hold_kernel(f"{name} inputs (float64 step)", args64, shape)
+
+        sys32 = S.tree_cast(loader.load_system(name, device="cuda"),
+                            torch.float32)
+        qpos, qvel = _model_states(sys32, name, N, 8)
+        st = pipeline.make_state(sys32, N).replace(
+            qpos=qpos.float().cuda(), qvel=qvel.float().cuda())
+        ctrl = torch.zeros(N, sys32.nu, device="cuda")
+        with _kept_pgs() as last:
+            P.pgs.launches = 0
+            for _ in range(10):
+                st = pipeline.step(sys32, st, ctrl, 1)
+            n = P.pgs.launches
+        launches += n
+        if n != 10 or not torch.isfinite(st.qpos).all():
+            raise AssertionError(f"{name}: float32 steps ran the kernel {n} "
+                                 "times or went non-finite")
+        _hold_kernel(f"{name} inputs (float32, its last call)", last["args"],
+                     shape)
+        times[name] = _time_kernel(name, last["args"])
+    return launches, times
+
+
+def phase_curve(device_name: str, smi: str, tmp: str) -> int:
+    """tools/compare_reference_curve --side tpu, 256 envs x 2 iterations,
+    seeds 1 and 2: rows with the JAX tool's keys, and seeded networks that
+    differ (their first-iteration losses differ)."""
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import compare_reference_curve as crc
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "logs", "curvecmp", "tpu_s1",
+                           "metrics.jsonl")) as fh:
+        jax_rows = [json.loads(ln) for ln in fh]
+    jax_keys = set().union(*(r.keys() for r in jax_rows))
+    base = set(jax_rows[1])                     # a row without episode terms
+    rows, launches = {}, 0
+    for seed in (1, 2):
+        P.pgs.launches = 0
+        path = crc.main(["--side", "tpu", "--envs", "256", "--iters", "2",
+                         "--seed", str(seed), "--out",
+                         os.path.join(tmp, f"torch_s{seed}")])
+        n = P.pgs.launches
+        launches += n
+        with open(path) as fh:
+            rows[seed] = [json.loads(ln) for ln in fh]
+        if n != 2 + 2 * 80 * 2:
+            raise AssertionError(f"seed {seed}: pgs kernel ran {n} times")
+    for seed, rs in rows.items():
+        for r in rs:
+            if not base <= set(r) <= jax_keys or not all(
+                    math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"seed {seed}: row {r} lacks the JAX "
+                                     "tool's keys or is not finite")
+    l1, l2 = rows[1][0]["loss"], rows[2][0]["loss"]
+    print(f"curve: compare_reference_curve --side tpu, 256 envs x 2 iterations: "
+          f"first-iteration loss {l1:.6f} (seed 1) vs {l2:.6f} (seed 2), mean "
+          f"reward {rows[1][-1]['mean_reward']:+.4f} / "
+          f"{rows[2][-1]['mean_reward']:+.4f}; keys as the JAX tool's; pgs "
+          f"launches {launches}; {_smi_line(t0, device_name, smi)}")
+    if l1 == l2:
+        raise AssertionError("seeds 1 and 2 trained the same network")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1294,6 +1578,20 @@ def main() -> int:
     phase_slice_recurrent(name, smi)
     phase_sharded(name, smi)
     phase_external(name, smi)
+    hex_launches, hex_t = phase_dense_hexapod(name, smi)
+    model_launches, model_t = phase_dense_models(name, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        curve_launches = phase_curve(name, smi, tmp)
+    shapes = [("dense-hexapod 2048x112x24", hex_t)] + [
+        (f"{k} {s}", model_t[k]) for k, s in (
+            ("spheres_condim6", "2048x18x12"), ("hinge_dof_rows", "2048x3x1"))]
+    print("kernel: pgs per shape (float32): " + "; ".join(
+        f"{lbl}: {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+        f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}" for lbl, t in shapes))
+    entry["launches"] += hex_launches + model_launches + curve_launches
+    print(f"kernel: pgs launches {entry['launches']} = slice {launches} + "
+          f"dense-hexapod {hex_launches} + dense-models {model_launches} + "
+          f"curve {curve_launches}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry]}))

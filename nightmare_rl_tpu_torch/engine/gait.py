@@ -29,6 +29,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from nightmare_rl_tpu_torch.utils.device import full_float32
+
 # FSM state ids
 IDLE, ADJ_GET_UP, GET_UP, SIT, ADJ_SIT, STAND, WALK = range(7)
 # command states / modes
@@ -371,6 +373,7 @@ def _lerp_pose(start, end, w):
     return start + (end - start) * w[:, None, None]
 
 
+@full_float32()
 def update(cfg: EngineCfg, es: EngineState, t, lin_speed, ang_speed,
            cmd_state: torch.Tensor, cmd_mode: torch.Tensor
            ) -> Tuple[EngineState, torch.Tensor]:

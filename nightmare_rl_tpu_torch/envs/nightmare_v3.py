@@ -40,7 +40,7 @@ from nightmare_rl_tpu_torch.core.config import NightmareV3Cfg
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
-from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.device import full_float32, resolve_device
 
 # reward functions in the reference config's registration order
 REWARD_NAMES = [
@@ -174,6 +174,10 @@ class NightmareV3Env:
 
     def step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:
         """raw_actions: (num_envs, 18) raw policy actions."""
+        with full_float32():
+            return self._step(state, raw_actions)
+
+    def _step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:
         cfg, sys, dtype, dt = self.cfg, self.sys, self.dtype, self.dt
         N = raw_actions.shape[0]
 

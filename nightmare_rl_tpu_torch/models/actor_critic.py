@@ -13,10 +13,17 @@ Hidden-state order: the port carries ``((h_a, c_a), (h_c, c_c))``, torch's
 ``(h, c)`` per LSTM, each (batch, rnn_hidden).  The JAX package's flax cells
 carry ``(c, h)``; swap the pair where a state crosses over.
 
-The LSTM runs at full float32 precision whatever the caller's TF32 flags
-(torch lets cuDNN's RNNs use TF32 by default): ``Memory.forward`` runs
-under ``utils.device.full_float32``, and so must every backward pass
-through it (``rl/ppo.py`` wraps its ``loss.backward()``).
+Both nets run at full float32 precision whatever the caller's TF32 flags
+(torch lets cuDNN's RNNs use TF32 by default, and
+``torch.set_float32_matmul_precision("high")`` would put the MLPs'
+products in TF32): ``ActorCritic.forward``, ``act_inference`` and
+``Memory.forward`` run under ``utils.device.full_float32``, and so must
+every backward pass through them (``rl/ppo.py`` wraps its
+``loss.backward()``).
+
+``reset_parameters(generator)`` draws every weight anew from its init
+distribution with a CPU generator, so a seed fixes the weights
+(``rl/ppo.py::PPO.init_params``).
 """
 
 from __future__ import annotations
@@ -40,11 +47,36 @@ _ACTIVATIONS = {
 }
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
+def _draw_(param: torch.Tensor, init_fn, generator=None, **kw) -> None:
+    """Draw ``param`` from ``init_fn`` (an ``nn.init`` function) with
+    ``generator`` (a CPU generator; torch's global RNG when None), through
+    a float32 CPU tensor: one seed gives the same weights on every device
+    and dtype, and the global-RNG draws are those of an in-place init."""
+    tmp = torch.empty(param.shape, dtype=torch.float32)
+    init_fn(tmp, generator=generator, **kw)
+    with torch.no_grad():
+        param.copy_(tmp)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
     """flax's default kernel init (the JAX package's): lecun-normal
     truncated at 2σ."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+    _draw_(w, nn.init.trunc_normal_, generator, std=std, a=-2 * std,
+           b=2 * std)
+
+
+def _init_linear_(m: nn.Linear, generator=None) -> None:
+    """flax Dense's default init: lecun-normal kernel, zero bias."""
+    _lecun_normal_(m.weight, m.in_features, generator)
+    with torch.no_grad():
+        m.bias.zero_()
+
+
+def _init_mlp_(mlp: nn.Sequential, generator=None) -> None:
+    for m in mlp:
+        if isinstance(m, nn.Linear):
+            _init_linear_(m, generator)
 
 
 def _mlp(n_in: int, hidden: Sequence[int], n_out: int,
@@ -54,12 +86,9 @@ def _mlp(n_in: int, hidden: Sequence[int], n_out: int,
     for a, b in zip(dims[:-1], dims[1:]):
         layers += [nn.Linear(a, b), _ACTIVATIONS[activation]()]
     layers.append(nn.Linear(dims[-1], n_out))
-    for m in layers:
-        if isinstance(m, nn.Linear):
-            # flax Dense's default init, zero bias
-            _lecun_normal_(m.weight, m.in_features)
-            nn.init.zeros_(m.bias)
-    return nn.Sequential(*layers)
+    mlp = nn.Sequential(*layers)
+    _init_mlp_(mlp)
+    return mlp
 
 
 class ActorCritic(nn.Module):
@@ -73,10 +102,20 @@ class ActorCritic(nn.Module):
         self.critic = _mlp(num_obs, critic_hidden, 1, activation)
         # the raw parameter (rsl_rl keeps it positive only implicitly)
         self.std = nn.Parameter(torch.full((num_actions,), init_noise_std))
+        self.init_noise_std = init_noise_std
         # exploration floor (flag-gated deviation from rsl_rl; 0 = parity):
         # >0 clamps the std used for sampling and likelihood
         self.std_floor = std_floor
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every parameter anew from its init distribution with
+        ``generator`` (a CPU generator), in place."""
+        _init_mlp_(self.actor, generator)
+        _init_mlp_(self.critic, generator)
+        with torch.no_grad():
+            self.std.fill_(self.init_noise_std)
+
+    @full_float32()
     def forward(self, obs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Returns (mu, std, value)."""
@@ -87,6 +126,7 @@ class ActorCritic(nn.Module):
             std = torch.clamp_min(std, self.std_floor)
         return mu, std, v
 
+    @full_float32()
     def act_inference(self, obs: torch.Tensor) -> torch.Tensor:
         return self.actor(obs)
 
@@ -107,12 +147,19 @@ class Memory(nn.Module):
     def __init__(self, n_in: int, hidden: int):
         super().__init__()
         self.rnn = nn.LSTM(n_in, hidden, num_layers=1)
-        _lecun_normal_(self.rnn.weight_ih_l0, n_in)
-        for w in self.rnn.weight_hh_l0.data.chunk(4):
-            nn.init.orthogonal_(w)
-        nn.init.zeros_(self.rnn.bias_ih_l0)
-        nn.init.zeros_(self.rnn.bias_hh_l0)
+        self.reset_parameters()
         self.rnn.bias_ih_l0.requires_grad_(False)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Draw the LSTM's weights with ``generator`` (torch's global RNG
+        when None), in place."""
+        rnn = self.rnn
+        _lecun_normal_(rnn.weight_ih_l0, rnn.input_size, generator)
+        for w in rnn.weight_hh_l0.chunk(4):
+            _draw_(w, nn.init.orthogonal_, generator)
+        with torch.no_grad():
+            rnn.bias_ih_l0.zero_()
+            rnn.bias_hh_l0.zero_()
 
     def forward(self, x: torch.Tensor, carry: Carry) -> Tuple[torch.Tensor, Carry]:
         h, c = carry
@@ -137,8 +184,19 @@ class ActorCriticRecurrent(nn.Module):
         self.actor = _mlp(rnn_hidden, actor_hidden, num_actions, activation)
         self.critic = _mlp(rnn_hidden, critic_hidden, 1, activation)
         self.std = nn.Parameter(torch.full((num_actions,), init_noise_std))
+        self.init_noise_std = init_noise_std
         self.std_floor = std_floor  # as in ActorCritic
         self.rnn_hidden = rnn_hidden
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every parameter anew from its init distribution with
+        ``generator`` (a CPU generator), in place."""
+        self.memory_a.reset_parameters(generator)
+        self.memory_c.reset_parameters(generator)
+        _init_mlp_(self.actor, generator)
+        _init_mlp_(self.critic, generator)
+        with torch.no_grad():
+            self.std.fill_(self.init_noise_std)
 
     def initial_state(self, batch: int) -> Hidden:
         """Zero carries for ``batch`` envs, on the net's device and dtype."""

@@ -1,6 +1,6 @@
-"""Cholesky factor and solve of small batched SPD matrices (the part of
-``nightmare_rl_tpu/ops/linalg.py`` and ``jax.scipy.linalg.cho_solve`` that
-the Newton solver needs for its Hessian, (N, nv, nv)).
+"""Cholesky factor, solve and inverse of small batched SPD matrices (the
+part of ``nightmare_rl_tpu/ops/linalg.py`` and ``jax.scipy.linalg.cho_solve``
+that the dense mass-matrix branch and the Newton Hessian need, (N, n, n)).
 
 ``torch.linalg.cholesky`` checks its ``info`` with a device-to-host copy on
 every call, so ``chol`` uses ``cholesky_ex``, which does not.  Where a matrix
@@ -25,3 +25,12 @@ def chol(M: torch.Tensor) -> torch.Tensor:
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x = (L Lᵀ)⁻¹ b for one right-hand side per matrix, b (..., n)."""
     return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def spd_inv_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """M⁻¹ = L⁻ᵀ L⁻¹ from the lower Cholesky factor L (..., n, n) of M, as
+    the JAX package forms it: one batched triangular solve against the
+    identity (no error check, so no host sync) and one matmul."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    Li = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return Li.transpose(-1, -2) @ Li

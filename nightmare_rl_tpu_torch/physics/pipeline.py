@@ -3,22 +3,28 @@ Euler with or without implicit joint damping) + touch sensors (port of
 ``nightmare_rl_tpu/physics/pipeline.py``), the batched equivalent of
 ``mj_step`` with a decimation loop.
 
-Not in this port: the dense mass-matrix branch for models without a
-block-arrow layout, and the JAX package's switch that turns the Newton
-warmstart off.
+The mass matrix is factored block-arrow where the tree is a free base with
+equal independent legs (``arrow.layout``; both bundled robots), and by dense
+Cholesky otherwise.  As in the JAX package, ``NIGHTMARE_NO_WARMSTART`` (any
+non-empty value) starts every Newton solve from qacc_smooth instead of the
+previous step's qacc; it is read on every call.  ``forward`` and ``step``
+multiply at full float32 whatever the caller's TF32 settings.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
 import torch
 
 from nightmare_rl_tpu_torch.core import quat as Q
+from nightmare_rl_tpu_torch.ops import linalg
 from nightmare_rl_tpu_torch.physics import arrow, collision, dynamics
 from nightmare_rl_tpu_torch.physics import kinematics, solver
 from nightmare_rl_tpu_torch.physics import system as S
+from nightmare_rl_tpu_torch.utils.device import full_float32
 
 _MAXVAL = 1e10  # mjMAXVAL: larger or non-finite qpos/qvel resets the env
 
@@ -27,6 +33,9 @@ class ForwardOut(NamedTuple):
     kin: kinematics.KinOut
     vel: kinematics.VelOut
     M: torch.Tensor
+    # dense Cholesky factor of M, or None where the block-arrow factor was
+    # used (arrow.layout(sys) is not None)
+    M_chol: Optional[torch.Tensor]
     qfrc_smooth: torch.Tensor
     qacc_smooth: torch.Tensor
     con: collision.Contacts
@@ -54,14 +63,7 @@ def make_state(sys: S.System, num_envs: int) -> S.State:
     )
 
 
-def _layout(sys: S.System) -> arrow.ArrowLayout:
-    lay = arrow.layout(sys)
-    if lay is None:
-        raise NotImplementedError(
-            "the port steps only models with a block-arrow mass matrix")
-    return lay
-
-
+@full_float32()
 def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
     qpos, qvel = state.qpos, state.qvel
     kin = kinematics.kinematics(sys, qpos)
@@ -71,22 +73,30 @@ def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
     act = dynamics.actuation(sys, qpos, qvel, ctrl)
     qfrc_smooth = act.qfrc_actuator + dynamics.passive(sys, qvel) - bias
 
-    lay = _layout(sys)
-    fac = arrow.factor(lay, M)
-    qacc_smooth = arrow.solve_vec(lay, fac, qfrc_smooth)
+    # block-arrow factor where the tree allows it, dense Cholesky otherwise;
+    # exact algebra either way
+    lay = arrow.layout(sys)
+    if lay is not None:
+        fac, M_chol = arrow.factor(lay, M), None
+        qacc_smooth = arrow.solve_vec(lay, fac, qfrc_smooth)
+    else:
+        fac, M_chol = None, linalg.chol(M)
+        qacc_smooth = linalg.cho_solve(M_chol, qfrc_smooth)
 
     con = collision.find_contacts(sys, kin)
     pair = None
     if sys.max_pair_contacts > 0 and len(sys.cpair_a) > 0:
         pair = collision.find_pair_contacts(sys, kin, con)
+    warmstart = (None if os.environ.get("NIGHTMARE_NO_WARMSTART")
+                 else state.qacc_warmstart)
     sol = solver.solve_contacts(sys, con, qpos, qvel, qacc_smooth, pair=pair,
-                                lay=lay, fac=fac, M=M,
-                                warmstart=state.qacc_warmstart)
+                                lay=lay, fac=fac, M=M, M_chol=M_chol,
+                                warmstart=warmstart)
     # touch sensors: per-contact normal force (Σ pyramid facet forces, or
     # the normal row of an elliptic cone)
     sensordata = sol.nforce @ sys.sensor_cpoint_matrix.T
-    return ForwardOut(kin, vel, M, qfrc_smooth, qacc_smooth, con, sol, act,
-                      sensordata)
+    return ForwardOut(kin, vel, M, M_chol, qfrc_smooth, qacc_smooth, con, sol,
+                      act, sensordata)
 
 
 def _integrate_pos(sys: S.System, qpos: torch.Tensor, qvel: torch.Tensor,
@@ -113,11 +123,18 @@ def _euler_damped(sys: S.System) -> bool:
     return bool(sys.eulerdamp) and bool((sys.dof_damping.cpu() > 0).any())
 
 
+@full_float32()
 def step(sys: S.System, state: S.State, ctrl: torch.Tensor,
          n_steps: int = 1) -> S.State:
     """Advance physics by ``n_steps`` timesteps with constant ctrl (the
     decimation loop of the reference env)."""
-    lay = _layout(sys)
+    lay = arrow.layout(sys)
+
+    def spd_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+        if lay is not None:
+            return arrow.solve_vec(lay, arrow.factor(lay, A), rhs)
+        return linalg.cho_solve(linalg.chol(A), rhs)
+
     dt = sys.timestep
     qpos0 = sys.qpos0
     for _ in range(n_steps):
@@ -128,14 +145,14 @@ def step(sys: S.System, state: S.State, ctrl: torch.Tensor,
             # actuator (gear²·b2) and damping terms of the velocity derivative
             deriv = fwd.act.vel_deriv - sys.dof_damping
             Mhat = fwd.M - dt * torch.diag_embed(deriv)
-            qacc = arrow.solve_vec(lay, arrow.factor(lay, Mhat), qfrc)
+            qacc = spd_solve(Mhat, qfrc)
             qvel = state.qvel + dt * qacc
         elif _euler_damped(sys):
             # mj_Euler with implicit joint damping:
             # (M + h·diag(B)) v⁺ = M v + h·qfrc_total
             MhB = fwd.M + dt * torch.diag(sys.dof_damping)
             rhs = torch.einsum("nij,nj->ni", fwd.M, state.qvel) + dt * qfrc
-            qvel = arrow.solve_vec(lay, arrow.factor(lay, MhB), rhs)
+            qvel = spd_solve(MhB, rhs)
         else:
             qvel = state.qvel + dt * fwd.sol.qacc
         qpos = _integrate_pos(sys, state.qpos, qvel, dt)

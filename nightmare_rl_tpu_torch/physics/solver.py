@@ -24,6 +24,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from nightmare_rl_tpu_torch.ops import linalg
 from nightmare_rl_tpu_torch.ops.pgs import pgs
 from nightmare_rl_tpu_torch.physics import arrow, newton
 from nightmare_rl_tpu_torch.physics import system as S
@@ -273,7 +274,7 @@ def _condim_groups(sys: S.System) -> Tuple[Tuple[int, ...], tuple]:
     """Candidate points of condim 3, and (condim, points) for each higher
     condim in ascending order: the static split of the contact rows."""
     condim = sys.cpoint_condim if len(sys.cpoint_condim) else (3,) * sys.ncp
-    if min(condim) < 3:
+    if condim and min(condim) < 3:
         raise NotImplementedError("condim 1 contacts are not supported")
     c3 = tuple(i for i, d in enumerate(condim) if d == 3)
     higher = tuple((d, tuple(i for i, c in enumerate(condim) if c == d))
@@ -294,12 +295,13 @@ def _cone_row_mask(nefc: int, spans: Tuple[Tuple[int, int], ...],
 
 def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
              qvel: torch.Tensor, pair: Optional[PairContacts] = None
-             ) -> Assembled:
+             ) -> Optional[Assembled]:
     """Assemble every constraint row as solve_contacts consumes it:
     [dof friction | joint limits | condim-3 contacts (the top-K deepest when
     sys.max_contacts = K > 0) | condim > 3 contacts (ascending condim) |
     pair contacts].  Pyramidal models get ± facet rows; Newton models with
-    elliptic cones get one row per direction, grouped into cones."""
+    elliptic cones get one row per direction, grouped into cones.  None
+    where the model has no constraint row at all."""
     N, dev = qvel.shape[0], qvel.device
     rows_n = torch.arange(N, device=dev)[:, None]
     use_newton = sys.solver_type in (S.SOLVER_CG, S.SOLVER_NEWTON)
@@ -344,6 +346,8 @@ def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
     if efc_d is not None:
         ns_offset = efc_d.J.shape[1]
         parts.insert(0, efc_d)
+    if not parts:
+        return None
     efc = _cat(parts) if len(parts) > 1 else parts[0]
 
     nefc = None
@@ -377,20 +381,30 @@ class SolveOut(NamedTuple):
 
 
 def solve(sys: S.System, efc: Efc, qacc_smooth: torch.Tensor,
-          ns_offset: int, lay: arrow.ArrowLayout,
-          fac: arrow.ArrowFac) -> SolveOut:
+          ns_offset: int, Minv: torch.Tensor) -> SolveOut:
     """Dual box-PGS from zero with fixed sweeps, then noslip on the contact
     tangent pairs from row ns_offset: the dense matrix-free branch of the JAX
-    solver.  M⁻¹ comes from the block-arrow factor and U = J M⁻¹ is one
-    batched matmul; the sweeps run in ``ops.pgs.pgs``."""
+    solver.  U = J M⁻¹ is one batched matmul with the caller's M⁻¹
+    (``minv``); the sweeps run in ``ops.pgs.pgs``."""
     b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
-    Minv = arrow.inv(lay, fac)
     U = efc.J @ Minv                                        # (N, nefc, nv)
     f = pgs(efc.J, U, b, efc.R, efc.lo, efc.hi, sys.solver_iterations,
             sys.noslip_iterations, ns_offset)
     qfrc = torch.einsum("nkv,nk->nv", efc.J, f)
     qacc = qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc)
     return SolveOut(f, qfrc, qacc)
+
+
+def minv(lay: Optional[arrow.ArrowLayout], fac: Optional[arrow.ArrowFac],
+         M_chol: Optional[torch.Tensor]) -> torch.Tensor:
+    """M⁻¹ (N, nv, nv) from whichever factor the pipeline made: the
+    block-arrow one, else the dense Cholesky factor."""
+    if fac is not None:
+        return arrow.inv(lay, fac)
+    if M_chol is None:
+        raise ValueError("the solve needs the block-arrow factor or the "
+                         "dense Cholesky factor of M")
+    return linalg.spd_inv_from_chol(M_chol)
 
 
 class ContactSolveOut(NamedTuple):
@@ -431,16 +445,20 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                    lay: Optional[arrow.ArrowLayout] = None,
                    fac: Optional[arrow.ArrowFac] = None,
                    M: Optional[torch.Tensor] = None,
-                   warmstart: Optional[torch.Tensor] = None) -> ContactSolveOut:
+                   warmstart: Optional[torch.Tensor] = None,
+                   M_chol: Optional[torch.Tensor] = None) -> ContactSolveOut:
     """Full constraint solve with top-K candidate selection.  PGS models run
     the PGS solve; Newton models run ``newton.solve`` from the warmstart
     (then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
     the normal row of an elliptic cone) are scattered back to the full
-    candidate set for the touch sensors."""
-    if lay is None or fac is None:
-        raise NotImplementedError(
-            "the port solves only models with a block-arrow mass matrix")
+    candidate set for the touch sensors.  M⁻¹ comes from the block-arrow
+    factor (``lay``, ``fac``) or, without one, from the dense Cholesky
+    factor ``M_chol``."""
     asm = assemble(sys, con, qpos, qvel, pair=pair)
+    N = qvel.shape[0]
+    if asm is None:  # nothing constrains the model
+        return ContactSolveOut(qvel.new_zeros(N, sys.ncp),
+                               torch.zeros_like(qvel), qacc_smooth)
     efc, ns_offset = asm.efc, asm.ns_offset
     elliptic = asm.nefc is not None and sys.cone == S.ELLIPTIC
     if asm.nefc is not None:
@@ -450,7 +468,7 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                             min(sys.ls_iterations, sys.ls_refine), x0=warmstart)
         sol = SolveOut(nsol.force, nsol.qfrc_constraint, nsol.qacc)
         if sys.noslip_iterations > 0 and not elliptic:
-            Minv = arrow.inv(lay, fac)
+            Minv = minv(lay, fac, M_chol)
             A = (efc.J @ Minv) @ efc.J.transpose(1, 2)
             b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
             force = _noslip_pairs(A, b, nsol.force, efc.hi, ns_offset,
@@ -459,9 +477,8 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
             sol = SolveOut(force, qfrc,
                            qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc))
     else:
-        sol = solve(sys, efc, qacc_smooth, ns_offset, lay, fac)
+        sol = solve(sys, efc, qacc_smooth, ns_offset, minv(lay, fac, M_chol))
 
-    N = qvel.shape[0]
     nforce = sol.force.new_zeros(N, sys.ncp)
     off = ns_offset
     for _, idx, nf, _, _, _ in asm.cparts:

@@ -46,7 +46,10 @@ class ExternalPPO:
         self.num_envs = num_envs
 
     def init(self, seed: int, obs0: np.ndarray) -> None:
-        """Seed the action-noise generator and set the first observations."""
+        """The train state of ``seed`` (weights, optimizer, learning rate
+        and iteration, as ``PPO.init`` makes them), the action-noise
+        generator seeded, and the first observations."""
+        self.ppo.init_params(seed)
         self.ppo.generator.manual_seed(seed)
         self.ppo.obs = self._tensor(obs0)
 

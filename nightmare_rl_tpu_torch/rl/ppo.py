@@ -92,7 +92,7 @@ class PPO:
         if self.shard.world > 1 and not self.distributed:
             raise ValueError("an env sharded over several ranks needs "
                              "parallel.mesh.ShardedPPO")
-        p, a = cfg.policy, cfg.algorithm
+        p = cfg.policy
         kind = cfg.runner.policy_class_name
         self.recurrent = kind == "ActorCriticRecurrent"
         if self.recurrent:
@@ -117,9 +117,7 @@ class PPO:
         self.net.to(device=self.device, dtype=self.dtype)
         # the trained parameters (the LSTMs' bias_ih stays frozen)
         self.params = [p for p in self.net.parameters() if p.requires_grad]
-        self.lr = a.learning_rate
-        self.optimizer = torch.optim.Adam(self.params, lr=self.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self._reset_optimizer()
         self.generator = torch.Generator(device=self.device)
         self.env_state = None
         self.obs = None
@@ -150,8 +148,29 @@ class PPO:
 
     # ------------------------------------------------------------------
 
+    def init_params(self, seed: int) -> None:
+        """Draw the weights from ``seed`` (their init distributions, on a
+        CPU generator of their own, as the JAX package splits k_net off
+        PRNGKey(seed)), and reset Adam's state, the learning rate and the
+        iteration count."""
+        state = np.random.SeedSequence([seed, 1]).generate_state(2)
+        gen = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+        self.net.reset_parameters(gen)
+        self._reset_optimizer()
+        self.iteration = 0
+
+    def _reset_optimizer(self) -> None:
+        """Adam from a fresh state at the configured learning rate."""
+        self.lr = self.cfg.algorithm.learning_rate
+        self.optimizer = torch.optim.Adam(self.params, lr=self.lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+
     def init(self, seed: int | None = None) -> None:
+        """The train state of ``seed`` (the config's seed when None): fresh
+        weights, optimizer, learning rate and iteration (``init_params``),
+        the action-noise generator seeded, the envs reset."""
         seed = self.cfg.seed if seed is None else seed
+        self.init_params(seed)
         self.generator.manual_seed(seed)
         self.env_state, self.obs = self.env.reset(seed)
         self.hidden = (self.net.initial_state(self.env.num_envs)

@@ -35,8 +35,6 @@ import datetime
 import os
 from typing import Optional, Sequence
 
-import torch
-
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg, PPOCfg
 from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
@@ -91,7 +89,6 @@ def main(argv: Optional[Sequence[str]] = None,
     else:
         device = resolve_device(args.device)
     main_rank = shard.rank == 0
-    torch.manual_seed(args.seed)
 
     log_root = args.log_root or os.path.join("logs", args.robot)
     log_dir = os.path.join(log_root, str(datetime.datetime.now()))

@@ -131,16 +131,18 @@ def load(path: str, ppo) -> bool:
     was restored (False for a weights-only file)."""
     dev = ppo.device
     blob = torch.load(path, map_location=dev, weights_only=True)
+    ts = blob.get("train_state")
+    if ts is not None and ppo.env_state is None:
+        # the template that the saved env state fills; it draws weights and
+        # resets the optimizer, so it comes before they are restored
+        ppo.init()
     ppo.net.load_state_dict(blob["model_state_dict"])
     if "optimizer_state_dict" in blob:
         ppo.optimizer.load_state_dict(blob["optimizer_state_dict"])
         ppo.lr = ppo.optimizer.param_groups[0]["lr"]
     ppo.iteration = int(blob.get("iter", 0))
-    ts = blob.get("train_state")
     if ts is None:
         return False
-    if ppo.env_state is None:
-        ppo.init()  # the template that the saved env state fills
     ppo.lr = ts["lr"]
     for group in ppo.optimizer.param_groups:
         group["lr"] = ppo.lr

@@ -80,10 +80,11 @@ def test_train_cli_resume_matches_uninterrupted(tmp_path):
     from nightmare_rl_tpu_torch.tools import train
 
     args = ["-e", "4", "--device", "cpu", "--seed", "3"]
-    whole = train.main(args + ["-n", "2", "--log_root", str(tmp_path / "w")])
-    train.main(args + ["-n", "1", "--log_root", str(tmp_path / "r")])
+    whole = train.main(args + ["-n", "2", "--log_root", str(tmp_path / "w")],
+                       pcfg=CFG)
+    train.main(args + ["-n", "1", "--log_root", str(tmp_path / "r")], pcfg=CFG)
     resumed = train.main(args + ["-n", "1", "-r", "--log_root",
-                                 str(tmp_path / "r")])
+                                 str(tmp_path / "r")], pcfg=CFG)
     assert resumed.ppo.iteration == 2
     _assert_identical(whole, resumed)
 

@@ -2,7 +2,9 @@
 its plain PyTorch version in cases beside those of ``chip_smoke.py``
 (float32 random systems, float32 panels that take the plain-load path, a
 NaN in b, infinite bounds, the occupancy of the main path's geometry); the
-anymal_c step under a process-wide TF32 setting; the Newton solve on the
+anymal_c step under a process-wide TF32 setting, and the nightmare_v3
+step, the actor-critic, the gait engine and custom_play's control step
+under ``torch.set_float32_matmul_precision("high")``; the Newton solve on the
 card against the CPU (float64, 1e-10); tools/play.py's grid rollout of
 model_3176 on the card against the CPU (float64, 3 steps, 1e-9); the
 kernel on the inputs of custom_play's contact cap (max_contacts=16, float32,
@@ -151,6 +153,52 @@ def test_anymal_step_runs_full_float32_under_tf32(cuda):
     assert bool(torch.isfinite(obs[True]).all())
     err = float((obs[True] - obs[False]).abs().max() / obs[False].abs().max())
     assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_nightmare_paths_run_full_float32_under_high_precision(cuda):
+    """With ``torch.set_float32_matmul_precision("high")`` (TF32 in matrix
+    products), the nightmare_v3 step, the feed-forward actor-critic, the
+    gait engine's batched step and custom_play's control step still
+    multiply at full float32: their outputs equal those at "highest"
+    within 1e-6 relative, and the setting is left as it was found."""
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.engine import gait as G
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
+    from nightmare_rl_tpu_torch.tools import custom_play
+
+    prev = torch.get_float32_matmul_precision()
+    gen = torch.Generator(cuda).manual_seed(2)
+    acts = 0.3 * torch.randn(256, 18, device=cuda, generator=gen)
+    obs_in = torch.randn(2048, 66, device=cuda, generator=gen)
+    net = ActorCritic(66, 18).to(cuda)
+    out = {}
+    try:
+        for prec in ("high", "highest"):
+            torch.set_float32_matmul_precision(prec)
+            env = NightmareV3Env(NightmareV3Cfg().replace(
+                env=EnvCfg(num_envs=256)), device=cuda)
+            state, _ = env.reset(0)
+            step_obs = env.step(state, acts).obs
+            mu, _, value = net(obs_in)
+            sys_, cfg, phys, es, limited = custom_play.make(64, device=cuda)
+            lin = torch.full((64,), 0.08, device=cuda)
+            ang = torch.zeros(64, device=cuda)
+            phys, es, limited = custom_play.control_step(
+                sys_, cfg, phys, es, limited, 0.0, lin, ang)
+            _, angles = G.update(cfg, es, 0.02, lin, ang,
+                                 torch.ones(64, dtype=torch.long, device=cuda),
+                                 torch.ones(64, dtype=torch.long, device=cuda))
+            out[prec] = (step_obs, mu, value, net.act_inference(obs_in),
+                         phys.qpos, angles)
+            assert torch.get_float32_matmul_precision() == prec
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for a, b in zip(out["high"], out["highest"]):
+        assert bool(torch.isfinite(a).all())
+        err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        assert err <= 1e-6, err
 
 
 @pytest.mark.cuda

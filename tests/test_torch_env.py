@@ -185,15 +185,17 @@ def test_entry_points_raise_without_cuda():
 
 def test_train_refuses_unported_robot(tmp_path):
     """A robot the port does not have is refused; anymal_c, ported now,
-    trains: the CLI at a tiny size on the CPU, one PPO iteration of 4 envs,
-    ends with a finite loss and a checkpoint."""
+    trains: the CLI at a tiny size on the CPU, one PPO iteration of 4 envs
+    over 2-step rollouts, ends with a finite loss and a checkpoint."""
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
     from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCEnv
     from nightmare_rl_tpu_torch.tools import train
 
     with pytest.raises(SystemExit):
         train.main(["--robot", "cassie", "--device", "cpu"])
     runner = train.main(["--robot", "anymal_c", "-e", "4", "-n", "1",
-                         "--device", "cpu", "--log_root", str(tmp_path)])
+                         "--device", "cpu", "--log_root", str(tmp_path)],
+                        pcfg=PPOCfg(runner=RunnerCfg(num_steps_per_env=2)))
     assert isinstance(runner.env, AnymalCEnv)
     assert runner.env.num_obs == 48 and runner.env.num_actions == 12
     assert np.isfinite(runner.last_stats["loss"])

@@ -15,6 +15,7 @@ package's (models/actor_critic.py ActorCriticRecurrent, rl/ppo.py
 The flax carry is (c, h); the port's is torch's (h, c).
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -260,7 +261,9 @@ def test_lstm_runs_without_tf32():
 
 
 def test_recurrent_checkpoint_round_trip(tmp_path):
-    ref = OnPolicyRunner(_env(), CFG, log_dir=str(tmp_path / "a"))
+    cfg = CFG.replace(runner=dataclasses.replace(CFG.runner,
+                                                 num_steps_per_env=4))
+    ref = OnPolicyRunner(_env(), cfg, log_dir=str(tmp_path / "a"))
     ref.init(0)
     ref.learn(1, init_at_random_ep_len=True)
     path = get_load_path(str(tmp_path))
@@ -268,7 +271,7 @@ def test_recurrent_checkpoint_round_trip(tmp_path):
     assert torch.equal(hid["critic"]["c"], ref.ppo.hidden[1][1])
     ref.learn(1)
 
-    resumed = OnPolicyRunner(_env(), CFG)
+    resumed = OnPolicyRunner(_env(), cfg)
     resumed.init(7)
     assert resumed.load(path) is True
     resumed.learn(1)
