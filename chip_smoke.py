@@ -6,17 +6,27 @@
 Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
-2. build   — nvcc builds ``ops/csrc/pgs.cu`` for sm_90a from the checkout;
-             prints ptxas's registers and spills (the float32 kernels must
-             not spill) and the main path's launch geometry: lanes per env,
-             shared memory per block and envs resident per SM;
+2. build   — nvcc builds ``ops/csrc/pgs.cu`` and ``ops/csrc/pgs_legs.cu``
+             for sm_90a from the checkout, both at once; prints ptxas's
+             registers and spills (the float32 kernels must not spill) and
+             each kernel's main-path launch geometry: lanes per env, shared
+             memory per block and envs resident per SM;
 3. kernel  — the PGS kernel against ``pgs_reference`` on the card, float64
              random systems: the main path's shapes with and without dof
              rows, then the design's edge shapes (N not a multiple of the
              envs per block, panels that are not whole 16-byte chunks with
              an odd contact block, nv above 32);
+3b. kernel-legs — the leg-sparse kernel (f and qacc's change from its
+             epilogue) against ``leg_panels`` + ``pgs_legs_reference`` (+
+             ``arrow.solve_lt``) on the card, float64 random block-arrow
+             problems at the main path's shape (2048 x 112, 6 legs): with
+             pair rows, dof rows, half the rows base-only, same-branch
+             pairs, N=2047, N=1 and anymal_c's layout (4 legs); on each, the
+             dense kernel on the same system (U = J M⁻¹) too;
 4. physics — three decimated steps of 16 envs in float64 on the card (kernel)
              against the same steps on the CPU (plain version);
+4b. physics-legs — the same with NIGHTMARE_PGS=legs: the legs kernel on
+             every substep against the legs form on the CPU;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep.  The inputs of the
@@ -26,6 +36,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              with CUDA-event times for both;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
+7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
+             float32, reset + 1 PPO iteration: finite loss, the legs kernel
+             on every substep and the dense one never; the legs kernel held
+             against its plain version on the inputs of its last call and
+             timed beside the dense form on the same system (M⁻¹, U = J M⁻¹,
+             the pgs kernel and M⁻¹Jᵀf), its bound counting of J the
+             values the rows need; then the env step timed in both forms, in
+             turns, from one settled state, and the host syncs of one
+             physics substep counted in each;
 8. physics-anymal — anymal_c (Newton solver, elliptic cones), 16 envs in
              float64 from the reference pose with perturbed joints and
              velocities, 3 decimated steps (12 substeps) at a converged
@@ -105,12 +124,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 21. curve — ``tools/compare_reference_curve.py --side tpu`` at 256 envs x 2
              iterations for seeds 1 and 2: rows with the JAX tool's keys,
              and first-iteration losses that differ (``PPO.init`` draws the
-             weights from the seed).
+             weights from the seed);
+22. probe  — NIGHTMARE_PGS unset: the solver-form probe at the main path's
+             key, both candidates timed at N=2048; its verdict is printed
+             (not asserted) and read back from its cache file.
 
-The anymal_c path, the new tools and the recurrent, sharded, external and
-dense paths run no kernel of their own: the kernels' line lists only
-``pgs``, and its launches are those of the slice, the dense phases and the
-curve phase, each counted from zero.
+The phases that hold the dense kernel run with NIGHTMARE_PGS=kernel, as
+the mesh ranks do; the legs phases and the probe set the variable
+themselves.  The anymal_c path, the new tools and the recurrent, sharded,
+external and dense paths run no kernel of their own: the kernels' line
+lists ``pgs``, whose launches are those of the slice, the dense phases and
+the curve phase, and ``pgs_legs``, whose launches are slice-legs', each
+counted from zero.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -171,6 +196,8 @@ RNN_TOL = 1e-10              # recurrent net, card vs CPU, /max|output|, float64
 RNN_F32_TOL = 1e-5           # the same in float32 (TF32's 10-bit mantissa fails it)
 MESH_ENVS = 2048             # global envs of the sharded phase
 MESH_TIMEOUT = 400           # seconds for one torch.distributed.run
+LEGS_DENSE_TOL = 1e-9        # legs against dense form, /max|f|, float64
+LEGS_STEPS = 10              # float32 env steps timed per form in slice-legs
 
 
 def _nvidia_smi() -> str:
@@ -220,6 +247,89 @@ def _random_system(N, nefc, nv, ns_offset, dtype, seed):
     return [x.to(dtype).contiguous() for x in (J, U, b, R, lo, hi)]
 
 
+def _random_arrow_batch(rng, N, nefc, B, s, nb, ns_offset=0, npair_rows=0,
+                        same_branch_rows=0, base_share=0.15) -> dict:
+    """N random constraint systems over block-arrow mass matrices (numpy,
+    float64), batched from tests/test_ops.py::_random_arrow_problem: rows
+    whose support has the leg-slot structure of the real models.  Dof rows
+    (before ns_offset) touch one leg; plane-contact rows one leg and the
+    base, a share of them the base only (has1 False); the last npair_rows
+    rows are pair rows on two legs without the base, the first
+    same_branch_rows of them on one leg (slot 2 masked).  The two rows of a
+    noslip pair share their slots.  Returns the factor blocks (Ld, W, Ls, C),
+    M⁻¹, J, the slot ids and masks, b, R, lo and hi, with some contact
+    pairs inactive."""
+    import numpy as np
+
+    nv = nb + B * s
+    ii, jj = np.arange(s), np.arange(nb)
+    Ld = np.tril(rng.normal(size=(N, B, s, s)))
+    Ld[:, :, ii, ii] = np.abs(Ld[:, :, ii, ii]) + 1.0
+    W = rng.normal(size=(N, B, s, nb)) * 0.3
+    Ls = np.tril(rng.normal(size=(N, nb, nb)))
+    Ls[:, jj, jj] = np.abs(Ls[:, jj, jj]) + 1.0
+    C = Ld @ W
+    M = np.zeros((N, nv, nv))
+    M[:, :nb, :nb] = (np.einsum("nbsi,nbsj->nij", W, W)
+                      + Ls @ Ls.transpose(0, 2, 1))
+    for k in range(B):
+        sl = slice(nb + k * s, nb + (k + 1) * s)
+        M[:, sl, sl] = Ld[:, k] @ Ld[:, k].transpose(0, 2, 1)
+        M[:, sl, :nb] = C[:, k]
+        M[:, :nb, sl] = C[:, k].transpose(0, 2, 1)
+    rows = np.arange(nefc)
+    leg1 = rng.integers(0, B, size=(N, nefc))
+    pair_row = rows >= nefc - npair_rows
+    same = pair_row & (rows < nefc - npair_rows + same_branch_rows)
+    leg2 = np.where(same, leg1, np.where(leg1 + 1 < B, leg1 + 1, 0))
+    has2 = np.broadcast_to(pair_row & ~same, (N, nefc)).copy()
+    same = np.broadcast_to(same, (N, nefc)).copy()
+    lead = np.arange(ns_offset, nefc - 1, 2)
+    for x in (leg1, leg2, has2, same):
+        x[:, lead + 1] = x[:, lead]
+    has1 = np.ones((N, nefc), bool)
+    base_only = (rng.random((N, nefc)) < base_share) & ~has2 & ~same
+    J = np.zeros((N, nefc, nv))
+    J[..., :nb] = rng.normal(size=(N, nefc, nb)) * (
+        (rows >= ns_offset) & ~has2 & ~same)[..., None]
+    n, r = np.arange(N)[:, None, None], rows[None, :, None]
+    J[n, r, nb + s * leg1[..., None] + ii] = rng.normal(size=(N, nefc, s)) * (
+        ~base_only)[..., None]
+    J[n, r, nb + s * leg2[..., None] + ii] += rng.normal(size=(N, nefc, s)) * (
+        has2[..., None])
+    lo = np.zeros((N, nefc))
+    hi = np.full((N, nefc), np.inf)
+    lo[:, :ns_offset] = -2.0
+    hi[:, :ns_offset] = 2.0
+    npairs = (nefc - ns_offset) // 2
+    contact = slice(ns_offset, ns_offset + 2 * npairs)
+    hi[:, contact] = np.where(np.repeat(rng.random((N, npairs)) < 0.3, 2, axis=1),
+                              0.0, hi[:, contact])
+    return dict(Ld=Ld, W=W, Ls=Ls, C=C, Minv=np.linalg.inv(M), J=J,
+                leg1=leg1.astype(np.int32), leg2=leg2.astype(np.int32),
+                has1=~base_only, has2=has2,
+                b=rng.normal(size=(N, nefc)) * 5,
+                R=np.abs(rng.normal(size=(N, nefc))) + 0.01, lo=lo, hi=hi)
+
+
+def _legs_args(prob: dict, dev, dtype) -> tuple:
+    """(lay, fac, J, legmeta, b, R, lo, hi) of a ``_random_arrow_batch``
+    problem as tensors on dev, the arguments of ``ops.pgs.pgs_legs`` before
+    the sweep counts."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import arrow, solver
+
+    t = {k: torch.as_tensor(v, device=dev) for k, v in prob.items()}
+    f = {k: v.to(dtype).contiguous() for k, v in t.items() if v.is_floating_point()}
+    N, B, s, _ = f["Ld"].shape
+    nb = f["Ls"].shape[-1]
+    return (arrow.ArrowLayout(nb + B * s, nb, B, s),
+            arrow.ArrowFac(f["Ld"], f["W"], f["Ls"], f["C"]), f["J"],
+            solver.LegMeta(t["leg1"], t["leg2"], t["has1"], t["has2"]),
+            f["b"], f["R"], f["lo"], f["hi"])
+
+
 def _pgs_ops(N, nefc, nv, iterations, noslip, ns_offset) -> float:
     """Floating-point operations of one solve, counted from the algorithm."""
     npairs = max((nefc - ns_offset) // 2, 0) if noslip > 0 else 0
@@ -230,45 +340,102 @@ def _pgs_ops(N, nefc, nv, iterations, noslip, ns_offset) -> float:
                 + noslip * npairs * pair)
 
 
-def phase_build() -> None:
-    """Build the kernel and report what ptxas and the occupancy query say."""
-    import torch
+def _pgs_legs_ops(N, nefc, B, iterations, noslip, ns_offset) -> float:
+    """Floating-point operations of one leg-sparse solve (B legs of 3 dofs, a
+    6-dof base: 12 panel values a row) with its qacc epilogue, counted from
+    the algorithm."""
+    npairs = max((nefc - ns_offset) // 2, 0) if noslip > 0 else 0
+    # two 3x3 solves, two 3x6 products with W, the 6x6 solve, |panel|^2
+    prologue_row = 2 * 15 + 2 * 36 + 12 + 42 + 24
+    sweep_row = 4 * 12 + 8          # panel·u, the update, g, clip
+    pair = 7 * 12 + 20              # (g_i - g_j)·u, two updates, scalars
+    epilogue = 42 + B * (36 + 15)   # Ls^-T, then per leg W xb and Ld^-T
+    return N * (prologue_row * nefc + 24 * npairs + iterations * nefc * sweep_row
+                + noslip * npairs * pair + epilogue)
 
-    from nightmare_rl_tpu_torch.ops import build
+
+def _legs_plain(args: tuple):
+    """``leg_panels`` + ``pgs_legs_reference`` and ``arrow.solve_lt`` of its
+    final slot state: the plain version of ``pgs_legs`` (f, dqacc) on any
+    device.  args: pgs_legs's, sweep counts included."""
     from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import arrow, solver
 
-    info = build.build("pgs")
+    lay, fac, J, lm, b, R, lo, hi, it, ns, ns_offset = args
+    f, u = P.pgs_legs_reference(
+        solver.leg_panels(lay, fac, J, lm), lm.leg1, lm.leg2, b, R, lo, hi,
+        lay.nbranch, lay.branch_size, lay.nbase, it, ns, ns_offset)
+    return f, arrow.solve_lt(lay, fac, u)
+
+
+def _ptxas(log: str, pattern: str, label) -> list:
+    """Registers and spill bytes per kernel instantiation from nvcc's
+    ``-Xptxas -v`` output; ``label`` names an instantiation from the match
+    of ``pattern`` on its mangled name."""
     kernels, fn = [], None
-    for ln in info["log"].splitlines():
-        m = re.search(r"pgs_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E", ln)
-        if "Compiling entry function" in ln and m:
-            fn = dict(name=f"pgs_kernel<{'float' if m[1] == 'f' else 'double'}"
-                      f", L={m[2]}, K={m[3]}, exact={m[4]}>")
-            kernels.append(fn)
+    for ln in log.splitlines():
+        m = re.search(pattern, ln)
+        if "Compiling entry function" in ln:
+            fn = dict(name=label(m)) if m else None
+            if fn is not None:
+                kernels.append(fn)
         elif fn is not None and "spill stores" in ln:
             fn["spill"] = [int(x) for x in
                            re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
         elif fn is not None and "registers" in ln:
             fn["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
-    ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
-                       f"stores/loads {k.get('spill')} B" for k in kernels)
-    print(f"build: pgs.cu -> {os.path.basename(info['path'])} in "
-          f"{info['seconds']:.1f} s; {ptxas}")
-    f32 = [k for k in kernels if "float," in k["name"]]
-    if not f32 or any(k.get("spill") != [0, 0] for k in f32):
-        raise AssertionError(f"float32 pgs kernels must not spill: {kernels}")
+    return kernels
 
+
+def phase_build() -> None:
+    """Build both kernels (one nvcc each, started together) and report what
+    ptxas and the occupancy queries say."""
+    import concurrent.futures
+
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import build
+    from nightmare_rl_tpu_torch.ops import pgs as P
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        infos = dict(zip(("pgs", "pgs_legs"),
+                         pool.map(build.build, ("pgs", "pgs_legs"))))
+    kernels = {
+        "pgs": _ptxas(infos["pgs"]["log"],
+                      r"pgs_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E",
+                      lambda m: f"pgs_kernel<{'float' if m[1] == 'f' else 'double'}"
+                                f", L={m[2]}, K={m[3]}, exact={m[4]}>"),
+        "pgs_legs": _ptxas(infos["pgs_legs"]["log"], r"pgs_legs_kernelI([fd])E",
+                           lambda m: "pgs_legs_kernel<"
+                                     f"{'float' if m[1] == 'f' else 'double'}>"),
+    }
+    for name, ks in kernels.items():
+        ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
+                           f"stores/loads {k.get('spill')} B" for k in ks)
+        print(f"build: {name}.cu -> {os.path.basename(infos[name]['path'])} in "
+              f"{infos[name]['seconds']:.1f} s; {ptxas}")
+        f32 = [k for k in ks if "<float" in k["name"]]
+        if not f32 or any(k.get("spill") != [0, 0] for k in f32):
+            raise AssertionError(f"float32 {name} kernels must not spill: {ks}")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     nefc, nv, ns, ns_offset = 112, 24, 4, 0
     geo = P.launch_geometry(nefc, nv, ns, ns_offset, 4)
     per_sm = P.envs_per_sm(geo, nv, torch.float32)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"build: main path (nefc={nefc}, nv={nv}, float32): {geo.lanes} lanes "
-          f"per env, {geo.envs_per_block} envs per block, {geo.smem_bytes} B "
-          f"shared per block, {per_sm} envs resident per SM x {sms} SMs = "
-          f"{per_sm * sms} per wave ({math.ceil(2048 / (per_sm * sms))} "
-          f"waves at N=2048)")
-    if per_sm < 1:
-        raise AssertionError("the pgs kernel fits no env on an SM")
+    print(f"build: pgs main path (nefc={nefc}, nv={nv}, float32): {geo.lanes} "
+          f"lanes per env, {geo.envs_per_block} envs per block, "
+          f"{geo.smem_bytes} B shared per block, {per_sm} envs resident per SM "
+          f"x {sms} SMs = {per_sm * sms} per wave "
+          f"({math.ceil(2048 / (per_sm * sms))} waves at N=2048)")
+    lgeo = P.legs_geometry(nefc, 6, 3, 6, ns, ns_offset, 4)
+    legs_sm = P.legs_envs_per_sm(lgeo, torch.float32)
+    print(f"build: pgs_legs main path (nefc={nefc}, B=6, float32): "
+          f"{P.LEG_LANES} lanes per env, {lgeo.envs_per_block} envs per block, "
+          f"{lgeo.smem_bytes} B shared per block, {legs_sm} envs resident per "
+          f"SM x {sms} SMs = {legs_sm * sms} per wave "
+          f"({math.ceil(2048 / (legs_sm * sms))} waves at N=2048)")
+    if per_sm < 1 or legs_sm < 1:
+        raise AssertionError("a kernel fits no env on an SM")
 
 
 def _check_random(N, nefc, nv, ns_offset, seed, it=3, ns=4) -> None:
@@ -297,24 +464,100 @@ def phase_kernel() -> None:
     _check_random(64, 40, 45, 2, 23)            # nv above 32: 32 lanes per env
 
 
+def _check_random_legs(label: str, prob: dict, ns_offset: int, it=3,
+                       ns=4) -> None:
+    """The legs kernel, f and qacc's change, against ``_legs_plain`` on the
+    card (float64, F64_TOL), and against the dense kernel and M⁻¹Jᵀf on the
+    same problem with U = J M⁻¹ (LEGS_DENSE_TOL: another factorization of
+    the same A)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+
+    lay, fac, J, lm, b, R, lo, hi = args = _legs_args(prob, "cuda", torch.float64)
+    f_k, dq_k = P.pgs_legs(*args, it, ns, ns_offset)
+    f_p, dq_p = _legs_plain(args + (it, ns, ns_offset))
+    Minv = torch.as_tensor(prob["Minv"], device="cuda")
+    f_d = P.pgs(J, (J @ Minv).contiguous(), b, R, lo, hi, it, ns, ns_offset)
+    dq_d = torch.einsum("nij,nj->ni", Minv, torch.einsum("nkv,nk->nv", J, f_d))
+    torch.cuda.synchronize()
+    scale, dscale = float(f_p.abs().max()), float(dq_p.abs().max())
+    err = max(float((f_k - f_p).abs().max()) / scale,
+              float((dq_k - dq_p).abs().max()) / dscale)
+    dense = max(float((f_k - f_d).abs().max()) / scale,
+                float((dq_k - dq_d).abs().max()) / dscale)
+    N, nefc, nv = J.shape
+    print(f"kernel-legs: float64 {label} N={N} nefc={nefc} (B, s, nb)="
+          f"{(lay.nbranch, lay.branch_size, lay.nbase)} ns_offset={ns_offset}: "
+          f"{int((~lm.has1).sum())} base-only rows, {int(lm.has2.sum())} "
+          f"two-leg rows; max|err|/max|x| over f and dqacc = {err:.3e} "
+          f"against the plain version (tol {F64_TOL:g}), {dense:.3e} against "
+          f"the dense kernel and M⁻¹Jᵀf (tol {LEGS_DENSE_TOL:g})")
+    if not err <= F64_TOL:
+        raise AssertionError(f"pgs_legs kernel disagrees with its plain version ({label})")
+    if not dense <= LEGS_DENSE_TOL:
+        raise AssertionError(f"pgs_legs kernel disagrees with the dense kernel ({label})")
+
+
+def phase_kernel_legs() -> None:
+    """The legs kernel on random block-arrow problems: the main path's
+    shape and its variants, the edge counts of envs, anymal_c's layout."""
+    import numpy as np
+
+    rng = np.random.default_rng(30)
+    main = (2048, 112, 6, 3, 6)
+    _check_random_legs("contacts + pairs", _random_arrow_batch(
+        rng, *main, npair_rows=16), 0)
+    _check_random_legs("dof rows", _random_arrow_batch(
+        rng, 2048, 115, 6, 3, 6, ns_offset=3, npair_rows=16), 3)
+    _check_random_legs("half base-only rows", _random_arrow_batch(
+        rng, *main, npair_rows=16, base_share=0.5), 0)
+    _check_random_legs("same-branch pairs", _random_arrow_batch(
+        rng, *main, npair_rows=16, same_branch_rows=8), 0)
+    _check_random_legs("an odd env count", _random_arrow_batch(
+        rng, 2047, 115, 6, 3, 6, ns_offset=3, npair_rows=16,
+        same_branch_rows=4), 3)
+    _check_random_legs("one env", _random_arrow_batch(
+        rng, 1, 112, 6, 3, 6, npair_rows=16), 0)
+    _check_random_legs("anymal-shaped", _random_arrow_batch(
+        rng, 2048, 96, 4, 3, 6, ns_offset=36, npair_rows=8,
+        same_branch_rows=4), 36)
+
+
 @contextlib.contextmanager
-def _kept_pgs():
-    """Keeps the inputs of the last PGS call in the yielded dict; the call
-    goes on to the wrapper."""
+def _pgs_mode(mode):
+    """NIGHTMARE_PGS set to mode (None: unset) inside the block."""
+    prev = os.environ.pop("NIGHTMARE_PGS", None)
+    if mode is not None:
+        os.environ["NIGHTMARE_PGS"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("NIGHTMARE_PGS", None)
+        if prev is not None:
+            os.environ["NIGHTMARE_PGS"] = prev
+
+
+@contextlib.contextmanager
+def _kept_pgs(name: str = "pgs"):
+    """Keeps the positional inputs of the last call of the solver's ``name``
+    (``pgs`` or ``pgs_legs``) in the yielded dict; the call goes on to the
+    wrapper."""
     from nightmare_rl_tpu_torch.ops import pgs as P
     from nightmare_rl_tpu_torch.physics import solver
 
     last = {}
+    fn = getattr(P, name)
 
-    def pgs_kept(*args):
+    def kept(*args, **kw):
         last["args"] = args
-        return P.pgs(*args)
+        return fn(*args, **kw)
 
-    solver.pgs = pgs_kept
+    setattr(solver, name, kept)
     try:
         yield last
     finally:
-        solver.pgs = P.pgs
+        setattr(solver, name, fn)
 
 
 def _hold_kernel(label: str, args: tuple, shape: tuple) -> float:
@@ -424,6 +667,46 @@ def phase_physics() -> None:
         raise AssertionError("physics on the card disagrees with the CPU")
 
 
+def phase_physics_legs() -> None:
+    """phase_physics in the leg-sparse form: the legs kernel on the card
+    against the plain version on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import loader, pipeline
+
+    N = 16
+    res = {}
+    with _pgs_mode("legs"):
+        for dev in ("cuda", "cpu"):
+            sys_ = dataclasses.replace(
+                loader.load_system("nightmare_v3", device=dev), max_contacts=24)
+            g = torch.Generator().manual_seed(5)
+            st = pipeline.make_state(sys_, N)
+            qpos = st.qpos.cpu()
+            qpos[:, 7:] += 0.3 * torch.randn(N, 18, generator=g, dtype=torch.float64)
+            qpos[:, 2] -= 0.05
+            qvel = torch.randn(N, sys_.nv, generator=g, dtype=torch.float64)
+            ctrl = torch.randn(N, sys_.nu, generator=g, dtype=torch.float64)
+            st = st.replace(qpos=qpos.to(dev), qvel=qvel.to(dev))
+            P.pgs_legs.launches = P.pgs.launches = 0
+            for _ in range(3):
+                st = pipeline.step(sys_, st, ctrl.to(dev), 2)
+            res[dev] = st, P.pgs_legs.launches, P.pgs.launches
+    (card, legs, dense), cpu = res["cuda"], res["cpu"][0]
+    err = max(float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+              for f in ("qpos", "qvel", "sensordata"))
+    print(f"physics-legs: 3 decimated steps, 16 envs, float64, NIGHTMARE_PGS=legs, "
+          f"card vs CPU: max|err| = {err:.3e} (tol {PHYS_TOL:g}); pgs_legs "
+          f"launches {legs} (expected 6), pgs {dense}")
+    if not err <= PHYS_TOL:
+        raise AssertionError("legs physics on the card disagrees with the CPU")
+    if legs != 6 or dense != 0:
+        raise AssertionError("the legs form did not run on every substep")
+
+
 def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     import torch
 
@@ -459,6 +742,235 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations")
     return launches, last["args"], runner
+
+
+def _hold_legs(label: str, args: tuple) -> float:
+    """The legs kernel, f and qacc's change, against ``_legs_plain`` on the
+    inputs of a path's last call, float32 at F32_TOL of max|f| (and of
+    max|dqacc|) with at least MIN_ACTIVE of the rows active.  Returns
+    max|err| of f."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+
+    lay, fac, J, lm, b, R, lo, hi, it, ns, ns_offset = args
+    f_k, dq_k = P.pgs_legs(*args)
+    f_p, dq_p = _legs_plain(args)
+    torch.cuda.synchronize()
+    abs_err = float((f_k - f_p).abs().max())
+    rel = abs_err / float(f_p.abs().max())
+    dq_rel = float((dq_k - dq_p).abs().max()) / float(dq_p.abs().max())
+    active = float((hi > 0).double().mean())
+    N, nefc, nv = J.shape
+    print(f"kernel-legs: {str(J.dtype)[6:]} {label} N={N} nefc={nefc} nv={nv}: "
+          f"{active:.1%} of rows active (min {MIN_ACTIVE:.0%}), "
+          f"{int((~lm.has1).sum())} base-only rows, max|f| = "
+          f"{float(f_p.abs().max()):.4g}, max|err| = {abs_err:.3e}, /max|f| = "
+          f"{rel:.3e}; dqacc /max|dqacc| = {dq_rel:.3e} (tol "
+          f"{F32_TOL if J.dtype == torch.float32 else F64_TOL:g})")
+    tol = F32_TOL if J.dtype == torch.float32 else F64_TOL
+    if not active >= MIN_ACTIVE:
+        raise AssertionError(f"the legs inputs of {label} have too few active rows")
+    if (not rel <= tol or not dq_rel <= tol or not torch.isfinite(f_k).all()
+            or not torch.isfinite(dq_k).all()):
+        raise AssertionError(f"pgs_legs kernel disagrees with its plain version on {label}")
+    return abs_err
+
+
+def _time_legs(args: tuple) -> dict:
+    """CUDA-event times on one legs call's float32 inputs: the legs kernel
+    with its qacc epilogue (as the step runs it), its plain version, and
+    the dense form on the same system with what the step runs for it (M⁻¹
+    from the factor, U = J M⁻¹, the pgs kernel, M⁻¹ Jᵀ f; and the pgs
+    kernel alone).  The legs bound: the bytes the function needs over the
+    memory rate against its operations over the float32 rate.  Each input
+    is read once and each output (f, dqacc) written once; of J only the
+    values the rows' masks select count (a row's 6 base columns, and 3 for
+    each slot whose mask is set: this run's data, at most 12 of 24)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import arrow
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+
+    lay, fac, J, lm, b, R, lo, hi, it, ns, ns_offset = args
+    N, nefc, nv = J.shape
+    U = (J @ arrow.inv(lay, fac)).contiguous()
+
+    def dense():
+        with full_float32():
+            Minv = arrow.inv(lay, fac)
+            f = P.pgs(J, J @ Minv, b, R, lo, hi, it, ns, ns_offset)
+            return torch.einsum("nij,nj->ni", Minv,
+                                torch.einsum("nkv,nk->nv", J, f))
+
+    legs_ms = _cuda_ms(lambda: P.pgs_legs(*args), reps=50)
+    dense_ms = _cuda_ms(dense, reps=50)
+    pgs_ms = _cuda_ms(lambda: P.pgs(J, U, b, R, lo, hi, it, ns, ns_offset), reps=50)
+    plain_ms = _cuda_ms(lambda: _legs_plain(args), reps=3, warmup=1)
+    item = J.element_size()
+    s, nb = lay.branch_size, lay.nbase
+    j_vals = (nb * N * nefc
+              + s * int(lm.has1.sum().item() + lm.has2.sum().item()))
+    nbytes = ((j_vals + fac.Ld.numel() + fac.W.numel() + fac.Ls.numel()
+               + 5 * N * nefc + N * nv) * item
+              + 2 * N * nefc * 4 + 2 * N * nefc)
+    ops = _pgs_legs_ops(N, nefc, lay.nbranch, it, ns, ns_offset)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    chain = it * nefc + (ns * ((nefc - ns_offset) // 2) if ns > 0 else 0)
+    print(f"kernel-legs: float32 main path N={N} nefc={nefc} nv={nv} ({it} "
+          f"sweeps, {ns} noslip): {legs_ms:.4f} ms/launch, plain {plain_ms:.3f} "
+          f"ms; bound {bound * 1e3:.2f} us by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.2f} "
+          f"MB, {ops / 1e9:.4f} GFLOP) = {bound / legs_ms:.1%} of it; serial "
+          f"chain {chain} row steps/env -> {legs_ms * 1e6 / chain:.1f} ns per "
+          f"step; J values needed {j_vals / (N * nefc):.2f} per row of {nv}; "
+          f"dense form on the same system: arrow.inv + J @ Minv + pgs + "
+          f"M⁻¹Jᵀf {dense_ms:.4f} ms, pgs alone {pgs_ms:.4f} ms")
+    return dict(ms=legs_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                dense_ms=dense_ms, pgs_ms=pgs_ms)
+
+
+def _env_step_ms(env, state, acts) -> float:
+    """Wall ms per env step of ``env`` from ``state`` over the actions."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts:
+        state = env.step(state, a).state
+    torch.cuda.synchronize()
+    if not torch.isfinite(state.phys.qpos).all():
+        raise AssertionError("non-finite env steps")
+    return (time.perf_counter() - t0) * 1e3 / len(acts)
+
+
+def phase_slice_legs(device_name: str, smi: str) -> dict:
+    """The training CLI's path in the leg-sparse form (NIGHTMARE_PGS=legs):
+    nightmare_v3, 2048 envs, float32, reset + 1 PPO iteration, the legs
+    kernel on every substep and no dense one; the kernel held on the inputs
+    of its last call and timed beside the dense form; then env steps timed
+    in both forms, in turns, from one settled state."""
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import pipeline
+    from nightmare_rl_tpu_torch.tools import train
+
+    t0 = time.perf_counter()
+    envs = 2048
+    with tempfile.TemporaryDirectory() as tmp, _pgs_mode("legs"), \
+            _kept_pgs("pgs_legs") as last:
+        P.pgs_legs.launches = P.pgs.launches = 0
+        runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp])
+        torch.cuda.synchronize()
+        launches, dense = P.pgs_legs.launches, P.pgs.launches
+    stats = runner.last_stats
+    T = runner.cfg.runner.num_steps_per_env
+    dec = runner.env.cfg.control.decimation
+    expected = T * dec + dec  # + the reset's zero-action step
+    rate = T * envs / (stats["rollout_s"] + stats["update_s"])
+    print(f"slice-legs: 1 PPO iteration x {T} steps x {envs} envs float32, "
+          f"NIGHTMARE_PGS=legs: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, "
+          f"pgs_legs launches {launches} (expected {expected}), pgs {dense}; "
+          f"rollout {stats['rollout_s']:.3f} s + update {stats['update_s']:.3f} "
+          f"s = {rate:,.0f} env-steps/s (smoke figure, recording on); "
+          f"{_smi_line(t0, device_name, smi)}")
+    if not math.isfinite(stats["loss"]) or not torch.isfinite(runner.ppo.obs).all():
+        raise AssertionError("legs PPO: non-finite loss or observations")
+    if launches != expected or dense != 0:
+        raise AssertionError(f"pgs_legs ran {launches} times (expected "
+                             f"{expected}), pgs {dense}")
+    del runner
+    args = last["args"]
+    abs_err = _hold_legs("main-path inputs (slice-legs' last call)", args)
+    t = _time_legs(args)
+
+    env = NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=envs)),
+                         device="cuda")
+    settled, _ = env.reset(0)
+    n = env.num_envs
+    with _pgs_mode("kernel"):
+        for _ in range(SETTLE_STEPS):
+            settled = env.step(settled, torch.zeros(n, 18, device="cuda")).state
+    g = torch.Generator(device="cuda").manual_seed(9)
+    acts = 0.3 * torch.randn(LEGS_STEPS, n, 18, device="cuda", generator=g)
+    walls, syncs = {"legs": [], "kernel": []}, {}
+    for mode in ("legs", "kernel", "kernel", "legs"):
+        with _pgs_mode(mode):
+            walls[mode].append(_env_step_ms(env, settled, acts))
+            syncs[mode] = _host_syncs(lambda: pipeline.step(
+                env.sys, settled.phys, torch.zeros(n, 18, device="cuda"), 1))
+    print(f"slice-legs: env step at {n} envs float32 after {SETTLE_STEPS} "
+          f"settling steps, {LEGS_STEPS} steps of random actions per run, in "
+          f"turns: legs {', '.join(f'{w:.1f}' for w in walls['legs'])} ms, dense "
+          f"(kernel) {', '.join(f'{w:.1f}' for w in walls['kernel'])} ms; host "
+          f"syncs in one physics substep: legs {syncs['legs']}, dense "
+          f"{syncs['kernel']}; {_smi_line(t0, device_name, smi)}")
+    return dict(name="pgs_legs", route="cuda",
+                source="nightmare_rl_tpu_torch/ops/csrc/pgs_legs.cu",
+                replaces="nightmare_rl_tpu/ops/pgs.py:133",
+                launches=launches, max_abs_err=abs_err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None)
+
+
+def phase_probe(device_name: str, smi: str, tmp: str) -> None:
+    """The unpinned default on the card: the solver-form probe at the main
+    path's key, measured afresh into a cache file of its own, then read
+    back from that file by a fresh dispatch."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import NightmareV3Cfg
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.physics import loader, solver
+    from nightmare_rl_tpu_torch.physics import system as S
+
+    t0 = time.perf_counter()
+    sys_ = dataclasses.replace(
+        S.tree_cast(loader.load_system("nightmare_v3", device="cuda"),
+                    torch.float32),
+        max_contacts=NightmareV3Cfg().solver.max_contacts)
+    cache = os.path.join(tmp, "probe.json")
+    env = dict(NIGHTMARE_PROBE_CACHE=cache, NIGHTMARE_PROBE="reprobe",
+               NIGHTMARE_PROBE_N="2048")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with _pgs_mode(None):
+            P._MODE_CACHE.clear()
+            verdict = solver.prewarm(sys_, "cuda")
+            times = dict(P.last_probe)
+            os.environ.pop("NIGHTMARE_PROBE")
+            P._MODE_CACHE.clear()
+            P.last_probe.clear()
+            again = solver.prewarm(sys_, "cuda")
+            reprobed = bool(P.last_probe)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    with open(cache) as fh:
+        stored = json.load(fh)
+    print(f"probe: unpinned default at the main path's key (nefc="
+          f"{solver._row_count(sys_)}, float32), N={times.get('N')}: verdict "
+          f"'{verdict}'; candidate ms (wall, synchronized, least of 3 after the "
+          f"first): {', '.join(f'{k} {v:.4f}' for k, v in times['ms'].items())}; "
+          f"read back from the cache file: '{again}' (probed again: {reprobed}); "
+          f"{len(stored)} entry in {os.path.basename(cache)}; "
+          f"{_smi_line(t0, device_name, smi)}")
+    if verdict not in ("legs", "kernel") or set(times["ms"]) != {"legs", "kernel"}:
+        raise AssertionError(f"the probe chose {verdict!r} from {times}")
+    if again != verdict or reprobed:
+        raise AssertionError("the cached verdict was not read back")
 
 
 def phase_policy(obs) -> None:
@@ -1027,6 +1539,7 @@ def mesh_worker(argv) -> int:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--resume", default=None)
     a = p.parse_args(argv)
+    os.environ["NIGHTMARE_PGS"] = "kernel"   # the ranks hold the dense kernel
     cli = ["--mesh", "--device", a.device, "-e", str(a.envs), "--seed",
            str(a.seed)] + (["--backend", a.backend] if a.backend else [])
     jobs = _mesh_jobs(a.rnn, a.recurrent_steps)
@@ -1559,15 +2072,21 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    # the phases that hold the dense kernel pin it; the legs phases and the
+    # probe set NIGHTMARE_PGS themselves
+    os.environ["NIGHTMARE_PGS"] = "kernel"
     phase_build()
     phase_kernel()
+    phase_kernel_legs()
     phase_physics()
+    phase_physics_legs()
     with tempfile.TemporaryDirectory() as tmp:
         launches, pgs_args, runner = phase_slice(name, smi, tmp)
         phase_recorder_resume(runner, tmp, name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
     phase_policy(runner.ppo.obs)
     del runner
+    legs_entry = phase_slice_legs(name, smi)
     phase_physics_anymal()
     newton_args = phase_slice_anymal(name, smi)
     phase_newton_converged(newton_args)
@@ -1582,6 +2101,7 @@ def main() -> int:
     model_launches, model_t = phase_dense_models(name, smi)
     with tempfile.TemporaryDirectory() as tmp:
         curve_launches = phase_curve(name, smi, tmp)
+        phase_probe(name, smi, tmp)
     shapes = [("dense-hexapod 2048x112x24", hex_t)] + [
         (f"{k} {s}", model_t[k]) for k, s in (
             ("spheres_condim6", "2048x18x12"), ("hinge_dof_rows", "2048x3x1"))]
@@ -1594,7 +2114,7 @@ def main() -> int:
           f"curve {curve_launches}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, legs_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

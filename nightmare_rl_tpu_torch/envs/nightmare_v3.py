@@ -38,7 +38,7 @@ import torch
 from nightmare_rl_tpu_torch.core import quat as Q
 from nightmare_rl_tpu_torch.core.config import NightmareV3Cfg
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
-from nightmare_rl_tpu_torch.physics import loader, pipeline
+from nightmare_rl_tpu_torch.physics import loader, pipeline, solver
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.utils.device import full_float32, resolve_device
 
@@ -105,6 +105,8 @@ class NightmareV3Env:
             sys = dataclasses.replace(
                 sys, noslip_iterations=cfg.solver.noslip_iterations)
         self.sys = dataclasses.replace(sys, max_contacts=cfg.solver.max_contacts)
+        # the PGS form's dispatch probe, before the first step (ops/pgs.py)
+        solver.prewarm(self.sys, self.device)
         self.dtype = dtype
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

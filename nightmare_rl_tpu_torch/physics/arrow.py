@@ -171,6 +171,19 @@ def solve_vec(lay: ArrowLayout, fac: ArrowFac, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([x0, xl.reshape(N, B * s)], dim=-1)
 
 
+def solve_lt(lay: ArrowLayout, fac: ArrowFac, u: torch.Tensor) -> torch.Tensor:
+    """x = L⁻ᵀ u for the no-fill factor L = [[blkdiag(Ld_b), 0], [W_bᵀ…, Ls]]
+    of M, u (N, nv) in the factor's order [legs | base]; x in dof order
+    [base | legs].  With u = Gᵀf, the leg-sparse PGS's slot state
+    (``ops/pgs.py``), x = M⁻¹ Jᵀ f: half of ``solve_vec``'s work."""
+    nb, B, s = lay.nbase, lay.nbranch, lay.branch_size
+    N = u.shape[0]
+    xb = _solve_triu(fac.Ls, u[:, B * s:, None])                # (N, nb, 1)
+    xl = _solve_triu(fac.Ld, u[:, :B * s].reshape(N, B, s, 1)
+                     - fac.W @ xb[:, None])
+    return torch.cat([xb[..., 0], xl.reshape(N, B * s)], dim=-1)
+
+
 def inv(lay: ArrowLayout, fac: ArrowFac) -> torch.Tensor:
     """Explicit M^{-1} (N, nv, nv) assembled from the factor blocks:
 

@@ -5,7 +5,9 @@ Euler with or without implicit joint damping) + touch sensors (port of
 
 The mass matrix is factored block-arrow where the tree is a free base with
 equal independent legs (``arrow.layout``; both bundled robots), and by dense
-Cholesky otherwise.  As in the JAX package, ``NIGHTMARE_NO_WARMSTART`` (any
+Cholesky otherwise.  The layout and the factor go to the contact solve,
+whose assembly then gives each row its leg slots, so that PGS models can
+solve in the leg-sparse form (``solver.solve``).  As in the JAX package, ``NIGHTMARE_NO_WARMSTART`` (any
 non-empty value) starts every Newton solve from qacc_smooth instead of the
 previous step's qacc; it is read on every call.  ``forward`` and ``step``
 multiply at full float32 whatever the caller's TF32 settings.

@@ -10,11 +10,17 @@ regularization R from MuJoCo's diag-approximation, then the dual PGS
 contact tangent pairs.  Inactive candidate rows stay in the system with
 bounds [0, 0], so every env has the same row count.
 
+The PGS solve has two forms (``ops/pgs.py``), chosen per call by
+``ops/pgs.py::choose_mode`` as the JAX package chooses them: the dense
+matrix-free form (U = J M⁻¹, then ``pgs``) and, for models whose mass
+matrix is block-arrow (``physics/arrow.py``), the leg-block-sparse form
+(``pgs_legs`` on the G = J L⁻ᵀ panels, with the per-row slot assignment
+``LegMeta``), which forms neither U nor M⁻¹.  ``prewarm`` runs the
+dispatch's probe before the first step.
+
 Newton models (``solver_type`` Newton or CG) solve with ``physics/newton.py``
 instead: elliptic cones get one row per friction direction (condim 3, 4 or
 6), pyramidal cones the same facets as PGS followed by the noslip pass.
-
-Not in this port: the leg-sparse PGS core.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nightmare_rl_tpu_torch.ops import linalg
-from nightmare_rl_tpu_torch.ops.pgs import pgs
+from nightmare_rl_tpu_torch.ops.pgs import choose_mode, dtype_key, pgs, pgs_legs
 from nightmare_rl_tpu_torch.physics import arrow, newton
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.physics.collision import (
@@ -256,6 +262,116 @@ def _cat(parts: List[Efc]) -> Efc:
                  for f in Efc._fields])
 
 
+class LegMeta(NamedTuple):
+    """Per-row slot assignment of the leg-sparse PGS (``ops/pgs.py``): every
+    constraint row of an arrow-layout model touches at most two legs plus
+    the base.  The leg ids address the branches; ``hasN`` False zeroes slot
+    N's panel where the row does not involve it (a plane-contact row repeats
+    leg1's id in slot 2, and the mask is what keeps it from counting twice).
+    Each (N, nefc), in the row order of ``Efc``."""
+
+    leg1: torch.Tensor  # int32 branch id of slot 1
+    leg2: torch.Tensor  # int32 branch id of slot 2
+    has1: torch.Tensor  # bool
+    has2: torch.Tensor  # bool
+
+
+@functools.lru_cache(maxsize=None)
+def _point_leg_map(sys: S.System, lay: arrow.ArrowLayout) -> Tuple[int, ...]:
+    """Static candidate-point → branch map, read once per System: a point's
+    body, or the first ancestor that has a joint, names the branch of that
+    joint's dof; -1 where the walk ends on the base or the world (the
+    point's rows involve only base dofs)."""
+    out = []
+    for p in range(sys.ncp):
+        b = sys.cpoint_bodyid[p]
+        while b > 0 and sys.body_jntnum[b] == 0:
+            b = sys.body_parent[b]
+        leg = -1
+        if b > 0:
+            d = sys.jnt_dofadr[sys.body_jntadr[b]]
+            if d >= lay.nbase:
+                leg = (d - lay.nbase) // lay.branch_size
+        out.append(leg)
+    return tuple(out)
+
+
+def _dof_row_dofs(sys: S.System) -> Tuple[int, ...]:
+    """The dof of each dof-constraint row, in make_dof_efc's row order
+    (friction rows, then lower-limit rows, then upper-limit rows)."""
+    fric_dofs, lim_jnts = _dof_row_sources(sys)
+    lim_dofs = tuple(sys.jnt_dofadr[j] for j in lim_jnts)
+    return fric_dofs + lim_dofs + lim_dofs
+
+
+def leg_panels(lay: arrow.ArrowLayout, fac: arrow.ArrowFac, J: torch.Tensor,
+               lm: LegMeta) -> torch.Tensor:
+    """(N, nefc, 2s+nb) row panels of G = J L⁻ᵀ in [leg1 | leg2 | base] slot
+    layout, from the block-arrow factor: the plain version of the legs
+    kernel's prologue (the JAX package's ``_leg_panels``, batched).  With
+    dofs ordered legs first and base last, L = [[blkdiag(Ld_b), 0],
+    [W_bᵀ…, Ls]] is a no-fill Cholesky factor of M, so per row
+
+        g_leg = Ld[leg]⁻¹ j_leg                       (s×s triangular solve)
+        g_b   = Ls⁻¹ (j_b − Σ g_leg · W[leg])          (nb×nb triangular solve)
+    """
+    s, nb = lay.branch_size, lay.nbase
+    ar = torch.arange(s, device=J.device)
+    n = torch.arange(J.shape[0], device=J.device)[:, None]
+
+    def slot(leg, has):
+        leg = leg.long()
+        j = torch.gather(J, 2, nb + s * leg[..., None] + ar) * has[..., None].to(J.dtype)
+        return arrow._solve_tril(fac.Ld[n, leg], j[..., None])[..., 0], fac.W[n, leg]
+
+    g1, W1 = slot(lm.leg1, lm.has1)
+    g2, W2 = slot(lm.leg2, lm.has2)
+    rb = (J[..., :nb] - torch.einsum("nrs,nrsk->nrk", g1, W1)
+          - torch.einsum("nrs,nrsk->nrk", g2, W2))
+    gb = arrow._solve_tril(fac.Ls, rb.transpose(1, 2)).transpose(1, 2)
+    return torch.cat([g1, g2, gb], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _static_slots(sys: S.System, lay: arrow.ArrowLayout, device: torch.device):
+    """The point → branch map (ncp,) and the dof rows' branch and mask
+    (ndof rows,) as tensors on device, made once (a host-to-device copy in
+    the step would wait for the card)."""
+    nb, s = lay.nbase, lay.branch_size
+    dd = _dof_row_dofs(sys)
+    return (torch.tensor(_point_leg_map(sys, lay), dtype=torch.int32,
+                         device=device),
+            torch.tensor([(d - nb) // s if d >= nb else 0 for d in dd],
+                         dtype=torch.int32, device=device),
+            torch.tensor([d >= nb for d in dd], dtype=torch.bool,
+                         device=device))
+
+
+def _legmeta(sys: S.System, lay: arrow.ArrowLayout, N: int, device,
+             cparts: List[tuple], pair: Optional[PairContacts]) -> LegMeta:
+    """The slot assignment of every row, in the concatenated row order
+    [dof | contact groups | pairs] (pyramidal facets only: Newton models do
+    not run the PGS)."""
+    plm, dleg, dhas = _static_slots(sys, lay, torch.device(device))
+    parts = []
+    if dleg.numel():
+        leg, has = dleg.expand(N, -1), dhas.expand(N, -1)
+        parts.append((leg, leg, has, torch.zeros_like(has)))
+    for _, idx, nf, _, _, _ in cparts:
+        lp = plm[idx]                                       # (N, n)
+        leg = torch.repeat_interleave(lp.clamp_min(0), nf, dim=1)
+        has = torch.repeat_interleave(lp >= 0, nf, dim=1)
+        parts.append((leg, leg, has, torch.zeros_like(has)))
+    if pair is not None:
+        la, lb = plm[pair.a], plm[pair.b]
+        # a same-branch pair (e.g. coxa against tibia of one leg): J's leg
+        # columns already carry both points, and slot 1 takes them whole;
+        # slot 2 as well would count the leg twice
+        parts.append(tuple(torch.repeat_interleave(x, 4, dim=1) for x in (
+            la.clamp_min(0), lb.clamp_min(0), la >= 0, (lb >= 0) & (la != lb))))
+    return LegMeta(*[torch.cat([p[k] for p in parts], dim=1) for k in range(4)])
+
+
 class Assembled(NamedTuple):
     """The assembled constraint system plus what is needed to scatter forces
     back to candidate points."""
@@ -267,6 +383,8 @@ class Assembled(NamedTuple):
     # condim, μ̄, μ), μ̄ and μ None for pyramidal rows
     cparts: List[tuple]
     pair_part: Optional[tuple]        # make_pair_efc's (rows, μ̄, μ)
+    # the leg-sparse PGS's slot assignment, for PGS models with a layout
+    legmeta: Optional[LegMeta] = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,14 +412,15 @@ def _cone_row_mask(nefc: int, spans: Tuple[Tuple[int, int], ...],
 
 
 def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
-             qvel: torch.Tensor, pair: Optional[PairContacts] = None
-             ) -> Optional[Assembled]:
+             qvel: torch.Tensor, pair: Optional[PairContacts] = None,
+             lay: Optional[arrow.ArrowLayout] = None) -> Optional[Assembled]:
     """Assemble every constraint row as solve_contacts consumes it:
     [dof friction | joint limits | condim-3 contacts (the top-K deepest when
     sys.max_contacts = K > 0) | condim > 3 contacts (ascending condim) |
     pair contacts].  Pyramidal models get ± facet rows; Newton models with
-    elliptic cones get one row per direction, grouped into cones.  None
-    where the model has no constraint row at all."""
+    elliptic cones get one row per direction, grouped into cones.  With a
+    block-arrow layout ``lay``, PGS models also get each row's leg slots
+    (``legmeta``).  None where the model has no constraint row at all."""
     N, dev = qvel.shape[0], qvel.device
     rows_n = torch.arange(N, device=dev)[:, None]
     use_newton = sys.solver_type in (S.SOLVER_CG, S.SOLVER_NEWTON)
@@ -371,7 +490,55 @@ def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
             fl=torch.where(is_fl, efc.hi, 0.0),
             cones=tuple(cones),
         )
-    return Assembled(efc, nefc, ns_offset, cparts, pair_part)
+    legmeta = None
+    if lay is not None and not use_newton:
+        legmeta = _legmeta(sys, lay, N, dev, cparts, pair)
+    return Assembled(efc, nefc, ns_offset, cparts, pair_part, legmeta)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_count(sys: S.System) -> int:
+    """nefc of a PGS model's assembled system, from the System alone: dof
+    rows, 4 facets per selected condim-3 point, 2(d-1) per condim-d point,
+    4 per selected pair."""
+    c3, higher = _condim_groups(sys)
+    K = sys.max_contacts
+    n = len(_dof_row_dofs(sys))
+    if c3:
+        n += 4 * (K if 0 < K < len(c3) else len(c3))
+    n += sum(2 * (d - 1) * len(pts) for d, pts in higher)
+    if sys.max_pair_contacts > 0 and len(sys.cpair_a) > 0:
+        n += 4 * min(sys.max_pair_contacts, len(sys.cpair_a))
+    return n
+
+
+def _lay_shape(lay: Optional[arrow.ArrowLayout]):
+    return None if lay is None else (lay.nbranch, lay.branch_size, lay.nbase)
+
+
+def _pgs_mode(sys: S.System, lay: Optional[arrow.ArrowLayout],
+              legs_available: bool, nefc: int, ns_offset: int, dtype,
+              device) -> str:
+    """``choose_mode`` at a PGS solve's key."""
+    return choose_mode(
+        legs_available=legs_available, nefc=nefc, nv=sys.nv,
+        iterations=sys.solver_iterations, noslip=sys.noslip_iterations,
+        ns_offset=ns_offset, lay_shape=_lay_shape(lay),
+        dtype_name=dtype_key(dtype), device=device)
+
+
+def prewarm(sys: S.System, device=None) -> str:
+    """Runs the solver-form dispatch now (``ops/pgs.py::choose_mode``: on the
+    card a timing probe, unless a verdict is cached), at the key the solve
+    will ask for: nefc, nv and ns_offset derived from the System without
+    stepping.  Called from the env's constructor, so the probe runs before
+    the first step; returns the form, "newton" for Newton and CG models."""
+    if sys.solver_type in (S.SOLVER_CG, S.SOLVER_NEWTON):
+        return "newton"
+    lay = arrow.layout(sys)
+    return _pgs_mode(sys, lay, lay is not None, _row_count(sys),
+                     len(_dof_row_dofs(sys)), sys.dtype,
+                     sys.device if device is None else device)
 
 
 class SolveOut(NamedTuple):
@@ -381,12 +548,30 @@ class SolveOut(NamedTuple):
 
 
 def solve(sys: S.System, efc: Efc, qacc_smooth: torch.Tensor,
-          ns_offset: int, Minv: torch.Tensor) -> SolveOut:
+          ns_offset: int, lay: Optional[arrow.ArrowLayout] = None,
+          fac: Optional[arrow.ArrowFac] = None,
+          M_chol: Optional[torch.Tensor] = None,
+          legmeta: Optional[LegMeta] = None) -> SolveOut:
     """Dual box-PGS from zero with fixed sweeps, then noslip on the contact
-    tangent pairs from row ns_offset: the dense matrix-free branch of the JAX
-    solver.  U = J M⁻¹ is one batched matmul with the caller's M⁻¹
-    (``minv``); the sweeps run in ``ops.pgs.pgs``."""
+    tangent pairs from row ns_offset, in the form ``choose_mode`` picks:
+
+    - legs (block-arrow factor and slot assignment given): ``pgs_legs`` on
+      the G panels, which also gives qacc's change M⁻¹ Jᵀ f = L⁻ᵀ u from
+      its final slot state u = Gᵀf; no M⁻¹, no U and no solve with M are
+      formed (the JAX package solves M⁻¹ qfrc with ``arrow.solve_vec``: the
+      two agree to round-off);
+    - dense: M⁻¹ from the block-arrow or the dense Cholesky factor
+      (``minv``), U = J M⁻¹ in one batched matmul, ``pgs``."""
     b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
+    mode = _pgs_mode(sys, lay, legmeta is not None and fac is not None,
+                     efc.J.shape[1], ns_offset, efc.J.dtype, efc.J.device)
+    if mode == "legs":
+        f, dq = pgs_legs(lay, fac, efc.J, legmeta, b, efc.R, efc.lo, efc.hi,
+                         sys.solver_iterations, sys.noslip_iterations,
+                         ns_offset)
+        return SolveOut(f, torch.einsum("nkv,nk->nv", efc.J, f),
+                        qacc_smooth + dq)
+    Minv = minv(lay, fac, M_chol)
     U = efc.J @ Minv                                        # (N, nefc, nv)
     f = pgs(efc.J, U, b, efc.R, efc.lo, efc.hi, sys.solver_iterations,
             sys.noslip_iterations, ns_offset)
@@ -451,7 +636,9 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
     the PGS solve; Newton models run ``newton.solve`` from the warmstart
     (then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
     the normal row of an elliptic cone) are scattered back to the full
-    candidate set for the touch sensors.  M⁻¹ comes from the block-arrow
+    candidate set for the touch sensors.  The PGS solve runs in the form
+    ``choose_mode`` picks, and only the legs form has the rows' slot
+    assignment made; M⁻¹, where a step needs it, comes from the block-arrow
     factor (``lay``, ``fac``) or, without one, from the dense Cholesky
     factor ``M_chol``."""
     asm = assemble(sys, con, qpos, qvel, pair=pair)
@@ -477,7 +664,13 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
             sol = SolveOut(force, qfrc,
                            qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc))
     else:
-        sol = solve(sys, efc, qacc_smooth, ns_offset, minv(lay, fac, M_chol))
+        legmeta = None
+        if fac is not None and _pgs_mode(
+                sys, lay, True, efc.J.shape[1], ns_offset, efc.J.dtype,
+                efc.J.device) == "legs":
+            legmeta = _legmeta(sys, lay, N, qvel.device, asm.cparts, pair)
+        sol = solve(sys, efc, qacc_smooth, ns_offset, lay, fac, M_chol,
+                    legmeta)
 
     nforce = sol.force.new_zeros(N, sys.ncp)
     off = ns_offset

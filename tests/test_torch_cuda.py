@@ -9,6 +9,15 @@ card against the CPU (float64, 1e-10); tools/play.py's grid rollout of
 model_3176 on the card against the CPU (float64, 3 steps, 1e-9); the
 kernel on the inputs of custom_play's contact cap (max_contacts=16, float32,
 1e-5 of max|f|).
+The leg-sparse kernel (``ops/csrc/pgs_legs.cu``; f, and qacc's change from
+its epilogue) against ``leg_panels`` + ``pgs_legs_reference`` (+
+``arrow.solve_lt``) on random block-arrow problems
+(``chip_smoke._random_arrow_batch``) at the edges of its design (ghost
+groups, 4 and 5 legs, an odd row count, no sweeps), float32 at the main
+path's shape, a NaN in b, infinite bounds, its occupancy, and its refusal
+of a layout it does not take.  Tests that count the dense kernel's launches
+pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
+verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
 to 1e-3 (a chain of 560 dependent row steps in float32 rounding on random,
 often ill-conditioned systems).  They skip where torch.cuda.is_available()
@@ -18,12 +27,22 @@ only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import importlib.util
 import math
+import os
 
+import numpy as np
 import pytest
 import torch
 
 from nightmare_rl_tpu_torch.ops import pgs as P
+from nightmare_rl_tpu_torch.physics import arrow, solver
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 
 @pytest.fixture
@@ -247,11 +266,10 @@ def test_newton_solve_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-def test_play_grid_rollout_card_matches_cpu(cuda):
+def test_play_grid_rollout_card_matches_cpu(cuda, monkeypatch):
     """tools/play.py's rollout of model_3176 on the 7-command grid, float64,
     3 steps from one post-reset state: the card equals the CPU to 1e-9."""
-    import os
-
+    monkeypatch.setenv("NIGHTMARE_PGS", "kernel")
     from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
     from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
     from nightmare_rl_tpu_torch.tools import play
@@ -277,12 +295,13 @@ def test_play_grid_rollout_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_at_custom_play_contact_cap(cuda):
+def test_kernel_at_custom_play_contact_cap(cuda, monkeypatch):
     """The PGS kernel on the inputs that custom_play's physics
     (max_contacts=16, float32, 256 envs) hands it, against pgs_reference."""
-    from nightmare_rl_tpu_torch.physics import pipeline, solver
+    from nightmare_rl_tpu_torch.physics import pipeline
     from nightmare_rl_tpu_torch.tools import custom_play
 
+    monkeypatch.setenv("NIGHTMARE_PGS", "kernel")
     sys_, _, phys, _, _ = custom_play.make(256, device=cuda)
     g = torch.Generator().manual_seed(12)
     qpos = phys.qpos.cpu()
@@ -308,3 +327,107 @@ def test_kernel_at_custom_play_contact_cap(cuda):
     out = P.pgs(*args)
     ref = P.pgs_reference(*args)
     assert _rel_err(out, ref) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the leg-sparse kernel
+
+
+def _legs(N, nefc, B, ns_offset, seed, dtype=torch.float64, **kw):
+    prob = smoke._random_arrow_batch(np.random.default_rng(seed), N, nefc, B, 3,
+                                     6, ns_offset, **kw)
+    return smoke._legs_args(prob, "cuda", dtype)
+
+
+def _legs_plain(args, it, ns, ns_offset):
+    return smoke._legs_plain(tuple(args) + (it, ns, ns_offset))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,nefc,B,ns_offset,it,ns", [
+    (7, 112, 6, 0, 3, 4),       # ghost groups in the second block
+    (64, 41, 4, 3, 3, 4),       # anymal_c's layout, an odd contact block
+    (33, 20, 5, 2, 3, 0),       # 5 legs (one idle lane), no noslip
+    (16, 30, 6, 4, 0, 4),       # noslip from f = 0 only
+    (5, 1, 6, 1, 3, 4),         # one dof row, no pair
+])
+def test_legs_kernel_edges(cuda, N, nefc, B, ns_offset, it, ns):
+    npair = min(8, nefc - ns_offset - (nefc - ns_offset) % 2)
+    args = _legs(N, nefc, B, ns_offset, N + nefc, npair_rows=npair,
+                 same_branch_rows=min(2, npair))
+    before = P.pgs_legs.launches
+    out, dq = P.pgs_legs(*args, it, ns, ns_offset)
+    assert P.pgs_legs.launches == before + 1
+    ref, dq_ref = smoke._legs_plain(tuple(args) + (it, ns, ns_offset))
+    for x, r in ((out, ref), (dq, dq_ref)):
+        scale = float(r.abs().max()) or 1.0
+        assert float((x - r).abs().max()) / scale <= 1e-10
+
+
+@pytest.mark.cuda
+def test_legs_kernel_float32_main_shape(cuda):
+    args = _legs(256, 112, 6, 0, 40, dtype=torch.float32, npair_rows=16)
+    out, _ = P.pgs_legs(*args, 3, 4, 0)
+    assert _rel_err(out, _legs_plain(args, 3, 4, 0)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_legs_kernel_passes_nan_through(cuda):
+    """A NaN in b spreads through its own env, as in the plain version."""
+    args = list(_legs(8, 112, 6, 4, 41, npair_rows=16))
+    args[4][3, 50] = math.nan
+    out, _ = P.pgs_legs(*args, 3, 4, 4)
+    ref = _legs_plain(args, 3, 4, 4)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert bool(torch.isnan(out[3]).any())
+    keep = torch.arange(8, device=cuda) != 3
+    assert _rel_err(out[keep], ref[keep]) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_legs_kernel_takes_infinite_bounds(cuda):
+    args = list(_legs(16, 112, 6, 4, 42, npair_rows=16))
+    args[6][:, :4] = -math.inf
+    args[7][:, :4] = math.inf
+    out, dq = P.pgs_legs(*args, 3, 4, 4)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(dq).all())
+    assert _rel_err(out, _legs_plain(args, 3, 4, 4)) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_legs_main_path_geometry_is_resident(cuda):
+    """The float32 main-path geometry holds at least 16 envs on an SM
+    (20 predicted: 5 blocks of 4), so 2048 envs take one wave."""
+    geo = P.legs_geometry(112, 6, 3, 6, 4, 0, 4)
+    per_sm = P.legs_envs_per_sm(geo, torch.float32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert per_sm >= 16 and per_sm * sms >= 2048
+
+
+@pytest.mark.cuda
+def test_legs_kernel_refuses_a_layout_it_does_not_take(cuda):
+    """Legs of 4 dofs: refused on the card as on the CPU, no launch."""
+    B, s, nb, nefc = 4, 4, 6, 8
+    z = lambda *sh: torch.zeros(*sh, dtype=torch.float64, device=cuda)
+    ids = torch.zeros(1, nefc, dtype=torch.int32, device=cuda)
+    mask = torch.ones(1, nefc, dtype=torch.bool, device=cuda)
+    before = P.pgs_legs.launches
+    with pytest.raises(ValueError):
+        P.pgs_legs(arrow.ArrowLayout(nb + B * s, nb, B, s),
+                   arrow.ArrowFac(z(1, B, s, s), z(1, B, s, nb), z(1, nb, nb),
+                                  z(1, B, s, nb)),
+                   z(1, nefc, nb + B * s), solver.LegMeta(ids, ids, mask, mask),
+                   z(1, nefc), z(1, nefc), z(1, nefc), z(1, nefc), 3, 4, 0)
+    assert P.pgs_legs.launches == before
+
+
+@pytest.mark.cuda
+def test_profile_pgs_reports_the_legs_phases(cuda):
+    """tools/profile_pgs.py --form legs times the prologue, a row step and
+    a pair step of the legs kernel."""
+    from nightmare_rl_tpu_torch.tools import profile_pgs
+
+    res = profile_pgs.main(["-e", "300", "--form", "legs"])
+    assert res["form"] == "legs" and res["wave_envs"] == 300
+    assert res["wave_prologue_us"] > 0
+    assert res["row_step_ns"] > 0 and res["pair_step_ns"] > 0

@@ -230,10 +230,13 @@ def test_no_warmstart_switch(monkeypatch):
                         NEWTON_ABOVE_FLOOR_TOL, no_warmstart=True)
 
 
-def test_hexapod_dense_matches_arrow():
+def test_hexapod_dense_matches_arrow(monkeypatch):
     """nightmare_v3 at 4 envs, one decimated step (2 substeps) from
     perturbed states: the dense branch (arrow layout withheld) against the
-    block-arrow path.  Exact algebra on both: 1e-10 relative."""
+    block-arrow path, both through the dense PGS form (NIGHTMARE_PGS=scan:
+    M⁻¹ from one factor or the other).  Exact algebra on both: 1e-10
+    relative."""
+    monkeypatch.setenv("NIGHTMARE_PGS", "scan")
     tsys = dataclasses.replace(loader.load_system("nightmare_v3", device="cpu"),
                                max_contacts=24)
     g = torch.Generator().manual_seed(5)

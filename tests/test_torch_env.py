@@ -7,9 +7,10 @@ env's post-reset state, and one env is put at the end of its episode so the
 next step resets it (a masked reset).  The JAX env draws commands from
 per-env keys that torch cannot reproduce, so each port step is handed the
 commands the JAX step ended with; everything else the port computes itself
-and carries from step to step.  The JAX side solves with the dense
-matrix-free PGS (NIGHTMARE_PGS=scan), the port's form, so the two agree to
-summation order: ATOL = RTOL = 1e-9 over three steps."""
+and carries from step to step.  Both sides solve with the dense
+matrix-free PGS (NIGHTMARE_PGS=scan, set around both; the port's CPU
+default is the leg-sparse form), so the two agree to summation order:
+ATOL = RTOL = 1e-9 over three steps."""
 
 import os
 import subprocess

@@ -5,7 +5,8 @@ ground so that plane and tibia-pair contacts are active.
 Inputs are made with numpy from a seed and fed to both sides in float64 on
 the CPU.  The JAX side runs once per module (one jit over every stage, one
 over the decimated step).  Its solve runs the dense matrix-free PGS
-(NIGHTMARE_PGS=scan), the form the port uses; the two sides then differ
+(NIGHTMARE_PGS=scan), and so does the port's (the same variable around its
+calls; its CPU default is the leg-sparse form); the two sides then differ
 only in summation order, so every comparison holds to ATOL=1e-10 absolute
 plus RTOL=1e-10 relative."""
 
@@ -126,8 +127,10 @@ def torch_stages(systems, inputs):
     pair = tcol.find_pair_contacts(ts, kin, con)
     asm = tsolver.assemble(ts, con, q, v, pair=pair)
     qacc_smooth = tarrow.solve_vec(lay, fac, rhs)
-    sol = tsolver.solve_contacts(ts, con, q, v, qacc_smooth, pair=pair,
-                                 lay=lay, fac=fac)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NIGHTMARE_PGS", "scan")   # the dense form, as the JAX side
+        sol = tsolver.solve_contacts(ts, con, q, v, qacc_smooth, pair=pair,
+                                     lay=lay, fac=fac)
     return dict(kin=kin, vel=vel, M=M, bias=bias, act=act,
                 passive=tdyn.passive(ts, v), fac=fac,
                 solve_vec=tarrow.solve_vec(lay, fac, rhs),
@@ -335,10 +338,10 @@ def test_pipeline_three_decimated_steps(systems, inputs):
         fn = jax.jit(jax.vmap(jstep))
         for _ in range(3):
             jstate = fn(jstate, jnp.asarray(ctrl))
-    tstate = tpipe.make_state(ts, N).replace(
-        qpos=torch.from_numpy(qpos), qvel=torch.from_numpy(qvel))
-    for _ in range(3):
-        tstate = tpipe.step(ts, tstate, torch.from_numpy(ctrl), 2)
+        tstate = tpipe.make_state(ts, N).replace(
+            qpos=torch.from_numpy(qpos), qvel=torch.from_numpy(qvel))
+        for _ in range(3):
+            tstate = tpipe.step(ts, tstate, torch.from_numpy(ctrl), 2)
     for name in dataclasses.fields(tstate):
         _close(getattr(jstate, name.name), getattr(tstate, name.name))
     assert float(tstate.sensordata.abs().max()) > 0.0
@@ -357,9 +360,9 @@ def test_validity_reset_keeps_diverged_sensordata(systems, inputs):
         mp.setenv("NIGHTMARE_PGS", "scan")
         jstate = jax.jit(jax.vmap(lambda s, c: jpipe.step(js, s, c, 1)))(
             jstate, jnp.asarray(ctrl))
-    tstate = tpipe.step(ts, tpipe.make_state(ts, N).replace(
-        qpos=torch.from_numpy(qpos), qvel=torch.from_numpy(qvel)),
-        torch.from_numpy(ctrl), 1)
+        tstate = tpipe.step(ts, tpipe.make_state(ts, N).replace(
+            qpos=torch.from_numpy(qpos), qvel=torch.from_numpy(qvel)),
+            torch.from_numpy(ctrl), 1)
     assert torch.equal(tstate.qpos[1], ts.qpos0)
     assert float(tstate.qvel[1].abs().max()) == 0.0
     for name in ("qpos", "qvel", "qacc_warmstart"):

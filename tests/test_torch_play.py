@@ -7,8 +7,8 @@ float64:
   policy mean through ``net.apply``, ``env._step_batch``) with the weights
   read by ``nightmare_rl_tpu.utils.torch_io.load_pt``; the port starts from
   the JAX env's post-reset state.  qpos, obs, vel and feet agree to 1e-9
-  (the JAX side solves with the dense matrix-free PGS, NIGHTMARE_PGS=scan,
-  the port's form);
+  (both sides solve with the dense matrix-free PGS, NIGHTMARE_PGS=scan; the
+  port's CPU default is the leg-sparse form);
 - ``print_gait_metrics`` prints the same line for the same inputs;
 - ``tools/custom_play.py``'s control step on 2 envs for 3 steps against
   the same step built from the JAX ``G.update`` + ``pipeline.step``
@@ -91,10 +91,11 @@ def _jax_rollout(N, cmd, steps):
 
 
 @pytest.mark.parametrize("N,steps", [(1, 5), (7, 3)], ids=["single", "grid"])
-def test_play_rollout_matches(N, steps):
+def test_play_rollout_matches(N, steps, monkeypatch):
     cmd = (np.array([[0.3, 0.0, 0.0]]) if N == 1
            else play.GRID.astype(np.float64))
     jstate, jobs, ref = _jax_rollout(N, cmd, steps)
+    monkeypatch.setenv("NIGHTMARE_PGS", "scan")   # the JAX side's form
     env = tenv_mod.NightmareV3Env(NightmareV3Cfg().replace(
         env=EnvCfg(num_envs=N)), dtype=torch.float64, device="cpu")
     net = play.load_policy(CKPT, env)
