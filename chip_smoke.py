@@ -22,7 +22,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              problems at the main path's shape (2048 x 112, 6 legs): with
              pair rows, dof rows, half the rows base-only, same-branch
              pairs, N=2047, N=1 and anymal_c's layout (4 legs); on each, the
-             dense kernel on the same system (U = J M⁻¹) too;
+             dense kernel on the same system (U = J M⁻¹) too; then the
+             cases of its row and pair lists (every row active, none, an
+             env with none beside full ones, a NaN in b of a pinned and of
+             an active row) in float64 and float32, NaN at the plain
+             version's positions;
 4. physics — three decimated steps of 16 envs in float64 on the card (kernel)
              against the same steps on the CPU (plain version);
 4b. physics-legs — the same with NIGHTMARE_PGS=legs: the legs kernel on
@@ -39,10 +43,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
              float32, reset + 1 PPO iteration: finite loss, the legs kernel
              on every substep and the dense one never; the legs kernel held
-             against its plain version on the inputs of its last call and
-             timed beside the dense form on the same system (M⁻¹, U = J M⁻¹,
-             the pgs kernel and M⁻¹Jᵀf), its bound counting of J the
-             values the rows need; then the env step timed in both forms, in
+             against its plain version on the inputs of its last call, the
+             rows and pairs it sweeps there printed per env and per warp,
+             and timed beside the dense form on the same system (M⁻¹, U =
+             J M⁻¹, the pgs kernel and M⁻¹Jᵀf), its bound counting of J
+             the values the rows need, and in turns with its earlier design
+             that swept every row, where a copy of that source was put; then
+             the env step timed
+             in both forms, in
              turns, from one settled state, and the host syncs of one
              physics substep counted in each;
 8. physics-anymal — anymal_c (Newton solver, elliptic cones), 16 envs in
@@ -197,6 +205,12 @@ RNN_F32_TOL = 1e-5           # the same in float32 (TF32's 10-bit mantissa fails
 MESH_ENVS = 2048             # global envs of the sharded phase
 MESH_TIMEOUT = 400           # seconds for one torch.distributed.run
 LEGS_DENSE_TOL = 1e-9        # legs against dense form, /max|f|, float64
+LEGS_F64_TOL = 1e-12         # legs kernel against its plain version, float64
+# the earlier design of csrc/pgs_legs.cu, which swept every row, where a
+# copy of it was put (not in the repo); slice-legs times it in turns with
+# the current one
+LEGS_EARLIER_SRC = os.path.join("nightmare_rl_tpu_torch", "_build",
+                                "pgs_legs_every_row.cu")
 LEGS_STEPS = 10              # float32 env steps timed per form in slice-legs
 
 
@@ -467,7 +481,7 @@ def phase_kernel() -> None:
 def _check_random_legs(label: str, prob: dict, ns_offset: int, it=3,
                        ns=4) -> None:
     """The legs kernel, f and qacc's change, against ``_legs_plain`` on the
-    card (float64, F64_TOL), and against the dense kernel and M⁻¹Jᵀf on the
+    card (float64, LEGS_F64_TOL), and against the dense kernel and M⁻¹Jᵀf on the
     same problem with U = J M⁻¹ (LEGS_DENSE_TOL: another factorization of
     the same A)."""
     import torch
@@ -491,18 +505,102 @@ def _check_random_legs(label: str, prob: dict, ns_offset: int, it=3,
           f"{(lay.nbranch, lay.branch_size, lay.nbase)} ns_offset={ns_offset}: "
           f"{int((~lm.has1).sum())} base-only rows, {int(lm.has2.sum())} "
           f"two-leg rows; max|err|/max|x| over f and dqacc = {err:.3e} "
-          f"against the plain version (tol {F64_TOL:g}), {dense:.3e} against "
+          f"against the plain version (tol {LEGS_F64_TOL:g}), {dense:.3e} against "
           f"the dense kernel and M⁻¹Jᵀf (tol {LEGS_DENSE_TOL:g})")
-    if not err <= F64_TOL:
+    if not err <= LEGS_F64_TOL:
         raise AssertionError(f"pgs_legs kernel disagrees with its plain version ({label})")
     if not dense <= LEGS_DENSE_TOL:
         raise AssertionError(f"pgs_legs kernel disagrees with the dense kernel ({label})")
 
 
+def _hold_legs_case(label: str, prob: dict, edit, dtype, it=3, ns=4,
+                    ns_offset=0) -> None:
+    """The legs kernel, f and qacc's change, against ``_legs_plain`` on the
+    card on a problem whose bounds or b ``edit`` changes in place (which
+    rows it sweeps, NaN): NaN at the same positions, and on the finite
+    positions LEGS_F64_TOL (float64) or F32_TOL (float32) of max|f| and of
+    max|dqacc|."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools.profile_pgs import list_lengths
+
+    args = _legs_args(prob, "cuda", dtype)
+    edit(*args[4:])
+    f_k, dq_k = P.pgs_legs(*args, it, ns, ns_offset)
+    f_p, dq_p = _legs_plain(args + (it, ns, ns_offset))
+    torch.cuda.synchronize()
+    tol = LEGS_F64_TOL if dtype == torch.float64 else F32_TOL
+    errs, same_nan = [], True
+    for k, p in ((f_k, f_p), (dq_k, dq_p)):
+        same_nan = same_nan and torch.equal(torch.isnan(k), torch.isnan(p))
+        fin = torch.isfinite(p)
+        scale = float(p[fin].abs().max()) if bool(fin.any()) else 0.0
+        diff = float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) else 0.0
+        errs.append(diff / (scale or 1.0))
+    lo, hi = args[6], args[7]
+    ls = list_lengths(lo, hi, ns_offset, ns)
+    print(f"kernel-legs: {str(dtype)[6:]} {label} N={lo.shape[0]} "
+          f"nefc={lo.shape[1]}: rows swept per env mean "
+          f"{ls['env_rows']['mean']:.1f} (max {ls['env_rows']['max']:.0f}), "
+          f"pairs {ls['env_pairs']['mean']:.1f}; NaN in f {int(torch.isnan(f_p).sum())}, "
+          f"at the plain version's positions: {same_nan}; max|err|/max|x| over "
+          f"the finite f and dqacc = {max(errs):.3e} (tol {tol:g})")
+    if not same_nan or not max(errs) <= tol:
+        raise AssertionError(f"pgs_legs kernel disagrees with its plain version ({label})")
+
+
+def _pin(share: float, seed: int):
+    """An edit for ``_hold_legs_case``: ``profile_pgs.pin_pairs`` in place
+    (all but a share of each env's facet pairs pinned, the rest active)."""
+    def edit(b, R, lo, hi):
+        from nightmare_rl_tpu_torch.tools.profile_pgs import pin_pairs
+
+        for x, y in zip((lo, hi), pin_pairs(lo, hi, share, seed)):
+            x.copy_(y)
+    return edit
+
+
+def _legs_list_cases() -> tuple:
+    """(label, edit) cases of the legs kernel's row and pair lists for
+    ``_hold_legs_case``: every row active, none, an env with none beside
+    full ones (the second of each warp), and a NaN in b of a pinned row
+    and of an active row (two envs each, a tenth of the pairs active)."""
+    def every_row(b, R, lo, hi):
+        _pin(1.0, 0)(b, R, lo, hi)
+
+    def no_row(b, R, lo, hi):
+        lo.zero_()
+        hi.zero_()
+
+    def one_empty_env(b, R, lo, hi):  # the second env of every warp
+        _pin(1.0, 0)(b, R, lo, hi)
+        lo[1::4] = 0.0
+        hi[1::4] = 0.0
+
+    def nan_in(active: bool):
+        def edit(b, R, lo, hi):
+            _pin(0.1, 1)(b, R, lo, hi)
+            for env in (3, lo.shape[0] - 5):
+                pinned = (lo[env] == 0) & (hi[env] == 0)
+                r = int(((~pinned) if active else pinned).nonzero()[0])
+                b[env, r] = math.nan
+        return edit
+
+    return (("every row active", every_row), ("no row active", no_row),
+            ("an env with no active row beside full ones", one_empty_env),
+            ("NaN in b of a pinned row", nan_in(False)),
+            ("NaN in b of an active row", nan_in(True)))
+
+
 def phase_kernel_legs() -> None:
     """The legs kernel on random block-arrow problems: the main path's
-    shape and its variants, the edge counts of envs, anymal_c's layout."""
+    shape and its variants, the edge counts of envs, anymal_c's layout;
+    then, in float64 and float32, the cases of its row and pair lists:
+    every row active, none, an env with none beside full ones, and a NaN
+    in b of a pinned row and of an active row."""
     import numpy as np
+    import torch
 
     rng = np.random.default_rng(30)
     main = (2048, 112, 6, 3, 6)
@@ -522,6 +620,11 @@ def phase_kernel_legs() -> None:
     _check_random_legs("anymal-shaped", _random_arrow_batch(
         rng, 2048, 96, 4, 3, 6, ns_offset=36, npair_rows=8,
         same_branch_rows=4), 36)
+
+    for dtype in (torch.float64, torch.float32):
+        for label, edit in _legs_list_cases():
+            _hold_legs_case(label, _random_arrow_batch(
+                np.random.default_rng(31), *main, npair_rows=16), edit, dtype)
 
 
 @contextlib.contextmanager
@@ -820,6 +923,21 @@ def _time_legs(args: tuple) -> dict:
     t_ops = ops / H100_F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     chain = it * nefc + (ns * ((nefc - ns_offset) // 2) if ns > 0 else 0)
+    # what device memory moves for those values: the 32-byte sectors of J
+    # that hold them, and the other inputs and outputs whole
+    cols = torch.cat([torch.arange(nb, device=J.device).expand(N, nefc, nb)]
+                     + [torch.where(m[..., None], nb + s * ids.long()[..., None]
+                                    + torch.arange(s, device=J.device), 0)
+                        for ids, m in ((lm.leg1, lm.has1), (lm.leg2, lm.has2))],
+                     dim=-1)
+    row0 = torch.arange(N * nefc, device=J.device).view(N, nefc, 1) * nv
+    sec = ((row0 + cols) * item // 32).sort(dim=-1).values
+    j_sectors = int(N * nefc + (sec[..., 1:] != sec[..., :-1]).sum())
+    moved = nbytes + 32 * j_sectors - j_vals * item
+    print(f"kernel-legs: float32 main path: J's needed values lie in "
+          f"{j_sectors / (N * nefc):.2f} sectors of 32 B a row; with the "
+          f"other operands whole, {moved / 1e6:.2f} MB move, "
+          f"{moved / H100_BYTES_PER_S * 1e6:.2f} us at the card's memory rate")
     print(f"kernel-legs: float32 main path N={N} nefc={nefc} nv={nv} ({it} "
           f"sweeps, {ns} noslip): {legs_ms:.4f} ms/launch, plain {plain_ms:.3f} "
           f"ms; bound {bound * 1e3:.2f} us by "
@@ -832,6 +950,70 @@ def _time_legs(args: tuple) -> dict:
     return dict(ms=legs_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 dense_ms=dense_ms, pgs_ms=pgs_ms)
+
+
+def _print_lists(args: tuple) -> None:
+    """The rows and pairs that the legs kernel sweeps on one call's inputs:
+    per env and per warp of 4 envs (which walks its longest lists)."""
+    from nightmare_rl_tpu_torch.tools.profile_pgs import list_lengths
+
+    lo, hi, ns_offset = args[6], args[7], args[10]
+    ls = list_lengths(lo, hi, ns_offset, args[9])
+
+    def q(d):
+        return (f"mean {d['mean']:.2f}, p50 {d['p50']:.0f}, p99 "
+                f"{d['p99']:.1f}, max {d['max']:.0f}")
+
+    it, ns = args[8], args[9]
+    print(f"kernel-legs: main-path inputs, {ls['nefc']} rows and "
+          f"{ls['npairs']} pairs per env: rows swept per env {q(ls['env_rows'])}; "
+          f"pairs {q(ls['env_pairs'])}; per warp rows {q(ls['warp_rows'])}; "
+          f"pairs {q(ls['warp_pairs'])}; the slowest warp's chain "
+          f"{it * ls['warp_rows']['max'] + ns * ls['warp_pairs']['max']:.0f} "
+          f"steps of {it * ls['nefc'] + ns * ls['npairs']}")
+
+
+def _legs_in_turns(args: tuple) -> None:
+    """The legs kernel and its earlier design that swept every row (built
+    from LEGS_EARLIER_SRC where a copy was put; the repo does not hold it)
+    on one call's float32 inputs, device ms per launch in turns
+    (``profile_pgs._device_us``: the
+    launches queued behind a spin kernel, so the host's pace is left out):
+    earlier, current, current, earlier; with every row made active too
+    (the worst case)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.tools import profile_pgs
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       LEGS_EARLIER_SRC)
+    if not os.path.exists(src):
+        print(f"kernel-legs: no {LEGS_EARLIER_SRC}: the earlier design is not "
+              f"timed in turns")
+        return
+    other = profile_pgs.load_other(src)
+    lay, fac, J, lm, b, R, lo, hi, it, ns, ns_offset = args
+    hi_all = torch.where((lo == 0) & (hi == 0), torch.full_like(hi, math.inf), hi)
+    for label, a in (("main-path inputs", args),
+                     ("every row active", (lay, fac, J, lm, b, R, lo, hi_all,
+                                           it, ns, ns_offset))):
+        f_o, _ = profile_pgs.call_other(other, *a)
+        f_n, _ = P.pgs_legs(*a)
+        torch.cuda.synchronize()
+        diff = float((f_o - f_n).abs().max() / f_n.abs().max())
+        ms = {"earlier": [], "current": []}
+        for who in ("earlier", "current", "current", "earlier"):
+            fn = ((lambda: P.pgs_legs(*a)) if who == "current"
+                  else (lambda: profile_pgs.call_other(other, *a)))
+            ms[who].append(profile_pgs._device_us(fn, reps=100) / 1e3)
+        print(f"kernel-legs: float32 {label}, the design that swept every "
+              f"row against this one in turns (earlier, current, current, "
+              f"earlier): "
+              f"{ms['earlier'][0]:.4f}, {ms['current'][0]:.4f}, "
+              f"{ms['current'][1]:.4f}, {ms['earlier'][1]:.4f} ms per launch "
+              f"(current / earlier {sum(ms['current']) / sum(ms['earlier']):.3f}); "
+              f"f apart by {diff:.3e} of max|f|")
 
 
 def _env_step_ms(env, state, acts) -> float:
@@ -889,7 +1071,9 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     del runner
     args = last["args"]
     abs_err = _hold_legs("main-path inputs (slice-legs' last call)", args)
+    _print_lists(args)
     t = _time_legs(args)
+    _legs_in_turns(args)
 
     env = NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=envs)),
                          device="cuda")

@@ -334,10 +334,12 @@ pgs_kernel(const T* __restrict__ J, const T* __restrict__ U,
       part += jr[k] * w[k];
       up[k] = T(0);
     }
-    T s1 = group_sum<L>(part), s2 = T(0), dp = T(0);
+    // row 0's record and f, read before the shuffles below so that every
+    // lane has them before the leader writes f[0]
     T bn = lds<T>(rec0), Rn = lds<T>(rec0 + tb), invn = lds<T>(rec0 + 2 * tb);
     T lon = lds<T>(rec0 + 3 * tb), hin = lds<T>(rec0 + 4 * tb);
     T fn = lds<T>(f0);
+    T s1 = group_sum<L>(part), s2 = T(0), dp = T(0);
 #pragma unroll 2
     for (int r = 0; r < nefc; ++r) {
       // this row's scalars and U, the next row's J (all read a row ago)
@@ -404,10 +406,12 @@ pgs_kernel(const T* __restrict__ J, const T* __restrict__ U,
       upi[k] = T(0);
       upj[k] = T(0);
     }
-    T s1 = group_sum<L>(part), s2 = T(0), s3 = T(0), dpi = T(0), dpj = T(0);
+    // the first pair's record and f, read before the shuffles below so that
+    // every lane has them before the leader writes f[i], f[i+1]
     T bdn = lds<T>(prec0), hinvn = lds<T>(prec0 + tb);
     T okn = lds<T>(prec0 + 2 * tb);
     T fin = lds<T>(f0 + ns_offset * tb), fjn = lds<T>(f0 + (ns_offset + 1) * tb);
+    T s1 = group_sum<L>(part), s2 = T(0), s3 = T(0), dpi = T(0), dpj = T(0);
 #pragma unroll 2
     for (int p = 0; p < npairs; ++p) {
       const int i = ns_offset + 2 * p;

@@ -1,6 +1,7 @@
 // Batched leg-block-sparse box-PGS with the noslip post-pass, for Hopper
-// (sm_90a).  One launch builds the G panels from J and the block-arrow factor
-// and runs every sweep.
+// (sm_90a).  One launch stages an env's inputs, builds the G panels from J
+// and the block-arrow factor, and sweeps only the rows and pairs that can
+// move f.
 //
 // The JAX package computes this form in XLA, not in a Pallas kernel:
 // _scan_core_legs (nightmare_rl_tpu/ops/pgs.py:133-220) fed by _leg_panels
@@ -34,17 +35,54 @@
 // refuses them).  A NaN passes through the clips as it does through
 // jnp.clip; infinite bounds clip nothing.
 //
-// What bounds it on an H100.  As for csrc/pgs.cu, a chain of 3 * 112 + 4 * 56
-// = 560 dependent row steps per env on the hexapod's main path (nefc = 112,
-// B = 6), each a dot product reduced over the env's lanes, a clip and an
-// update that the next row reads.  The bytes it needs (of J only the columns
-// a row's masks select: the base's 6 and 3 per used slot, at most 12 of 24;
+// Which rows can move f.  An inactive contact row stays in the system with
+// lo = hi = 0.  From f = 0 it gives clip(f - g inv, 0, 0) = +-0 for any
+// finite g, so its change d is a zero and u += panel * d leaves u as it was
+// (up to the sign of a zero).  A noslip pair with hi[i] <= 0 keeps f and
+// adds panel * 0 to u.  So a row is visited only where it is not pinned
+// (lo == 0 == hi) or where its diag, b or R is not finite (a finite diag
+// means a finite panel); a pair only where hi[i] > 0 or either row's diag is
+// not finite.  Both lists keep the rows' ascending order.  Skipping is then
+// exact while u stays finite; a pinned row's g is NaN once u is not, and
+// the reference's f is then NaN there.  u never becomes finite again once
+// it is not, so after the sweeps each env checks its u: a warp in which any
+// env's u is not finite sweeps again from f = 0, u = 0, those envs over
+// every row and pair (the other envs repeat their own lists and get the
+// same f).  What is not covered: a pinned row whose finite panel times a
+// finite u overflows.
+//
+// What bounds it on an H100.  The bytes it needs (of J only the columns a
+// row's masks select: the base's 6 and 3 per used slot, at most 12 of 24;
 // the factor blocks, the slot ids and masks, b, R, lo, hi, f and dq) are at
 // most ~19.7 MB per launch at N = 2048 in float32, 5.9 us at 3.35 TB/s; the
-// arithmetic is small.  So the time is the chain's length times the time of
-// one step, times the number of waves.
+// arithmetic is small.  The time is set by a serial chain per env: each
+// visited row is a dot product reduced over the env's lanes, a clip and an
+// update that the next row reads, 3 sweeps of rows and 4 of pairs.  Tensor
+// cores do not help a serial chain of 12-term dot products, each of which
+// the next one waits on.  With one wave, a launch lasts as long as its
+// slowest warp: the staging and prologue, then its longest lists.
 //
 // What the design does about it:
+//   * Short chains.  The prologue classifies every row and pair and writes
+//     the two lists (ballots over the env's lanes, 8 rows at a time, so the
+//     lists come out ascending).  The 4 envs of a warp share its shuffles,
+//     so the warp walks max(list length) steps; an env whose list is shorter
+//     walks the rest on a row of zeros (row nefc, and rows nefc, nefc + 1
+//     for pairs), whose step changes nothing.
+//   * Staging in flight at once.  Every lane issues cp.async copies for its
+//     rows' b, R, lo, hi, slot ids and J's base columns, and for the factor
+//     blocks, with no register held; then, once the ids are in, the copies
+//     of the leg columns they name.  Two rounds of memory latency, where a
+//     row-by-row prologue waited on two dependent loads per row.  The slot
+//     masks are bytes, too small for cp.async: plain loads, 8 rows a batch.
+//     The panels are then built in place from shared memory, each lane's
+//     rows 12 words apart (banks 0, 4, ..., 28) and the 4 envs one word
+//     apart, so that a warp's panel accesses take all 32 banks once.  The
+//     staging then runs at about the card's memory rate over the 32-byte
+//     sectors it touches (J's needed values lie in 2 to 3 of a row's
+//     sectors): building chunks of rows while later ones were in flight,
+//     or staging J through a ring of whole rows, did not shorten it
+//     (PERF.md section 6).
 //   * One lane per leg and two for the base: 8 lanes per env, lane l < B
 //     owning ul[l], lanes B and B+1 owning ub[0:3] and ub[3:6], the rest
 //     idle.  A row's dot product is then the sum of at most four lanes' 3-term
@@ -54,30 +92,37 @@
 //     Per row a lane takes its coefficients c = [l == leg1] g1 + [l == leg2]
 //     g2 (a leg lane; both when leg1 == leg2, as the reference accumulates
 //     both) or its half of gb (a base lane).
-//   * One wave at N = 2048.  An env keeps only its G panel (12 values a row
-//     where csrc/pgs.cu keeps J and U, 48), its records, f, its legs' factor
-//     blocks and the slot ids in shared memory: ~10.4 KB in float32, so 4
-//     envs share a warp-sized block and 5 blocks an SM, 20 envs per SM.
-//   * The chain as in csrc/pgs.cu: rows read a row ahead by loads the compiler
-//     may not sink, and one row of lookahead, g[r] = c_r.u' + (c_r.c_{r-1})
-//     d_{r-1}, both sums reduced while row r-1 is solved.  A lane's panel
-//     addresses do not depend on the slot ids (it reads g2 and its own first
-//     offset of every row); the ids only select, after the loads.  Noslip
-//     pairs do the same with the two rows of the previous pair.
-//   * The prologue works row-parallel: lane l builds rows l, l + 8, ...,
-//     reading J's 12 needed values of its row from device memory and the
-//     factor blocks from shared memory (Ls from registers), with the factor
-//     diagonals held as their reciprocals.
+//   * One wave at N = 2048.  An env keeps its G panel (12 values a row), its
+//     records, f, its factor blocks, the slot ids and masks and the two
+//     lists in shared memory: ~11.1 KB in float32, so 4 envs share a
+//     warp-sized block and 5 blocks an SM, 20 envs per SM.
+//   * The chain: rows read ahead by loads the compiler may not sink, and one
+//     row of lookahead, g[k] = c_k.u' + (c_k.c_{k-1}) d_{k-1}, where k-1 is
+//     the previous row on the list, both sums reduced while that row is
+//     solved.  List entries are read three steps ahead, the panel two steps
+//     ahead, the record and f one step ahead.  A lane's panel addresses do
+//     not depend on the slot ids (it reads g2 and its own first offset of
+//     every row); the ids only select, after the loads.  Noslip pairs do the
+//     same with the two rows of the previous pair.  The sweeps are a
+//     function of their own (sweep_and_finish), so that their schedule
+//     does not move with the prologue's code.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py slice-legs and
+// tools/profile_pgs.py, PERF.md section 6): on the main path's inputs, where
+// the slowest env keeps 72 of 112 rows active, 0.0485 ms a launch against
+// 0.0672 for the design that swept every row; with every row active 0.991x
+// that design; 66.8 ns a row step, 110.9 a pair step, 18 us of staging,
+// prologue and epilogue, of which 8.2 us of copies at ~88 % of the memory
+// rate.
 // The launch geometry (envs per block, env stride, shared bytes) is computed
 // by the Python wrapper (ops/pgs.py::legs_geometry) and passed in; launch()
 // checks it against the shape.
 //
 // Rounding: triangular solves multiply by the reciprocal of the diagonal
-// where the reference divides (but the epilogue's Ls^-T divides), a row's dot product is summed over the lanes
-// in butterfly order and split in two by the lookahead, b + R f is formed
-// apart, and nvcc contracts multiply-adds to FMAs.  The epilogue's u is the
-// one the sweeps accumulated, not G^T f formed afresh: the two differ by the
-// round-off of the row updates.
+// where the reference divides (but the epilogue's Ls^-T divides), a row's
+// dot product is summed over the lanes in butterfly order and split in two
+// by the lookahead, b + R f is formed apart, and nvcc contracts multiply-adds
+// to FMAs.  The epilogue's u is the one the sweeps accumulated, not G^T f
+// formed afresh: the two differ by the round-off of the row updates.
 
 #include <cuda_runtime.h>
 
@@ -93,8 +138,27 @@ constexpr int kMaxB = kLanes - kNb / kS;       // legs a group holds
 constexpr int kPw = 2 * kS + kNb;              // panel values per row
 constexpr int kRec = 6;   // per row: b, R, 1/(diag+R), lo, hi, diag
 constexpr int kPair = 3;  // per pair: b[i]-b[j], 1/max(h,1e-12), hi[i] > 0
+constexpr int kHasBatch = 8;  // rows per lane whose mask loads fly together
+constexpr int kMaxRows = 32000;  // list entries are 16-bit row numbers
 constexpr int kWarpLanes = 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Built with -DPGS_LEGS_TIMELINE (tools/profile_pgs.py --timeline), lane 0
+// of each of the first kTimelineBlocks blocks stamps the card's global
+// timer (ns) at the ends of the kernel's phases into g_timeline; otherwise
+// STAMP is empty.
+constexpr int kTimelineBlocks = 4096, kStamps = 8;
+#ifdef PGS_LEGS_TIMELINE
+__device__ long long g_timeline[kTimelineBlocks * kStamps];
+#define STAMP(k)                                                         \
+  if (threadIdx.x == 0 && blockIdx.x < kTimelineBlocks) {               \
+    long long t;                                                          \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                 \
+    g_timeline[blockIdx.x * kStamps + (k)] = t;                           \
+  }
+#else
+#define STAMP(k)
+#endif
 
 // Sum over the 8 lanes of a group (xor butterfly: every lane ends with the
 // bitwise same value, so all take the same clip branch).
@@ -147,6 +211,26 @@ __device__ __forceinline__ int lds_int(uint32_t a) {
   return v;
 }
 
+__device__ __forceinline__ int lds_u16(uint32_t a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// An asynchronous copy of one 4- or 8-byte element from device to shared
+// memory; cp_async_wait() waits for all of the thread's copies.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(Bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // The raw panel values a lane may need from the row at shared address `row`:
 // x from its first offset (g1, or a base lane's half of gb), y from g2.
 template <typename T>
@@ -172,8 +256,8 @@ __device__ __forceinline__ void coef(T (&c)[kS], const T (&x)[kS],
     c[k] = (w1 ? x[k] : T(0)) + (w2 ? y[k] : T(0));
 }
 
-// g = Lblk^-1 (j * h) for one leg: Lblk in shared memory, row-major 3x3 with
-// the diagonal held as its reciprocal; j in device memory.
+// g = Lblk^-1 (j * h) for one leg: Lblk row-major 3x3 with the diagonal held
+// as its reciprocal.
 template <typename T>
 __device__ __forceinline__ void leg_solve(T (&g)[kS], const T* j, T h,
                                           const T* Lblk) {
@@ -186,146 +270,18 @@ __device__ __forceinline__ void leg_solve(T (&g)[kS], const T* j, T h,
   }
 }
 
+// The sweeps over the lists, the replay and the epilogue of one env's lane
+// l (the kernel's state after its prologue), compiled apart from the
+// prologue: inlined, ptxas scheduled the sweep loops anew with every change
+// of the prologue, and some schedules put a read-ahead load's latency on
+// the chain.
 template <typename T>
-__global__ void __launch_bounds__(kWarpLanes)
-pgs_legs_kernel(const T* __restrict__ J, const T* __restrict__ Ld,
-                const T* __restrict__ W, const T* __restrict__ Ls,
-                const int* __restrict__ leg1, const int* __restrict__ leg2,
-                const unsigned char* __restrict__ has1,
-                const unsigned char* __restrict__ has2,
-                const T* __restrict__ b, const T* __restrict__ R,
-                const T* __restrict__ lo, const T* __restrict__ hi,
-                T* __restrict__ f_out, T* __restrict__ dq, int N, int nefc,
-                int nv, int B, int iterations, int noslip, int ns_offset, int envs_per_block,
-                int env_stride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-
-  const int grp = threadIdx.x / kLanes;
-  const int l = threadIdx.x % kLanes;
-  const int env0 = blockIdx.x * envs_per_block;
-  const int nenv = min(envs_per_block, N - env0);
-  const int npairs = noslip > 0 ? (nefc - ns_offset) / 2 : 0;
-  // A group without an env (past N, or past envs_per_block) runs along as a
-  // ghost of slot 0, so that every shuffle and __syncwarp has the whole
-  // warp; it writes nothing.
-  const bool active = grp < nenv;
-  const int slot = active ? grp : 0;
-  const int env = env0 + slot;
-
-  // this env's shared memory: panel | records | pair records | f | Ld | W |
-  // slot ids
-  T* const P = smem + static_cast<size_t>(slot) * env_stride;
-  T* const rec = P + kPw * nefc;
-  T* const prec = rec + kRec * nefc;
-  T* const f = prec + kPair * npairs;
-  T* const Lds = f + nefc;
-  T* const Ws = Lds + B * kS * kS;
-  int* const ids = reinterpret_cast<int*>(Ws + B * kS * kNb);
-  const size_t voff = static_cast<size_t>(env) * nefc;
-
-  // stage the legs' factor blocks, Ld's diagonal as its reciprocal
-  if (active) {
-    const T* const Ldg = Ld + static_cast<size_t>(env) * B * kS * kS;
-    const T* const Wg = W + static_cast<size_t>(env) * B * kS * kNb;
-    for (int i = l; i < B * kS * kS; i += kLanes) {
-      const T x = Ldg[i];
-      Lds[i] = (i % (kS * kS)) % (kS + 1) == 0 ? T(1) / x : x;
-    }
-    for (int i = l; i < B * kS * kNb; i += kLanes) Ws[i] = Wg[i];
-  }
-  // Ls's lower triangle in every lane's registers, diagonal as reciprocal
-  T ls[kNb * (kNb + 1) / 2];
-  {
-    const T* const Lsg = Ls + static_cast<size_t>(env) * kNb * kNb;
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < kNb; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j, ++k) {
-        const T x = Lsg[i * kNb + j];
-        ls[k] = i == j ? T(1) / x : x;
-      }
-    }
-  }
-  __syncwarp();
-
-  // prologue, row-parallel: lane l builds rows l, l + 8, ...
-#pragma unroll 2
-  for (int r = l; r < nefc && active; r += kLanes) {
-    const int l1 = min(max(leg1[voff + r], 0), B - 1);
-    const int l2 = min(max(leg2[voff + r], 0), B - 1);
-    const T h1 = has1[voff + r] ? T(1) : T(0);
-    const T h2 = has2[voff + r] ? T(1) : T(0);
-    const T* const jr = J + (voff + r) * nv;
-    T g1[kS], g2[kS], gb[kNb];
-    leg_solve(g1, jr + kNb + kS * l1, h1, Lds + l1 * kS * kS);
-    leg_solve(g2, jr + kNb + kS * l2, h2, Lds + l2 * kS * kS);
-    const T* const w1 = Ws + l1 * kS * kNb;
-    const T* const w2 = Ws + l2 * kS * kNb;
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < kNb; ++i) {
-      T a = T(0), c = T(0);
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        a += g1[s] * w1[s * kNb + i];
-        c += g2[s] * w2[s * kNb + i];
-      }
-      T acc = jr[i] - a - c;
-#pragma unroll
-      for (int j = 0; j < i; ++j) acc = acc - ls[k + j] * gb[j];
-      gb[i] = acc * ls[k + i];
-      k += i + 1;
-    }
-    T* const pr = P + kPw * r;
-    T diag = T(0);
-#pragma unroll
-    for (int s = 0; s < kS; ++s) {
-      pr[s] = g1[s];
-      pr[kS + s] = g2[s];
-    }
-#pragma unroll
-    for (int i = 0; i < kNb; ++i) pr[2 * kS + i] = gb[i];
-#pragma unroll
-    for (int s = 0; s < kS; ++s) diag += g1[s] * g1[s];
-#pragma unroll
-    for (int s = 0; s < kS; ++s) diag += g2[s] * g2[s];
-#pragma unroll
-    for (int i = 0; i < kNb; ++i) diag += gb[i] * gb[i];
-    T* const q = rec + kRec * r;
-    q[0] = b[voff + r];
-    q[1] = R[voff + r];
-    q[3] = lo[voff + r];
-    q[4] = hi[voff + r];
-    q[5] = diag;
-    f[r] = T(0);
-    ids[r] = l1 | (l2 << 8);
-  }
-  __syncwarp();
-  for (int p = l; p < npairs && active; p += kLanes) {
-    const T* const pi = P + kPw * (ns_offset + 2 * p);
-    T a = T(0);
-#pragma unroll
-    for (int k = 0; k < kPw; ++k) a += pi[k] * pi[kPw + k];
-    prec[kPair * p + 1] = a;
-  }
-  __syncwarp();
-  for (int r = l; r < nefc && active; r += kLanes) {
-    T* const q = rec + kRec * r;
-    q[2] = T(1) / at_least(q[5] + q[1], T(1e-12));
-  }
-  for (int p = l; p < npairs && active; p += kLanes) {
-    const T* const qi = rec + kRec * (ns_offset + 2 * p);
-    const T* const qj = qi + kRec;
-    T* const q = prec + kPair * p;
-    const T h = qi[5] + qj[5] - T(2) * q[1];
-    q[0] = qi[0] - qj[0];
-    q[1] = T(1) / at_least(h, T(1e-12));
-    q[2] = qi[4] > T(0) ? T(1) : T(0);
-  }
-  __syncwarp();
-
+__device__ __noinline__ void sweep_and_finish(
+    T* P, T* rec, T* prec, T* f, const T* Lds, const T* Ws, const T* Lss,
+    int* ids, uint16_t* rows, uint16_t* plist, T* __restrict__ f_out,
+    T* __restrict__ dq, int l, int B, bool active, unsigned gmask, int nrow,
+    int npr, int nefc, int npairs, int ns_offset, int iterations, int noslip,
+    int env, size_t voff, int nv) {
   // the lane's role and its panel offset
   const bool leg_lane = l < B;
   const bool base_lane = !leg_lane && l < B + kNb / kS;
@@ -333,172 +289,214 @@ pgs_legs_kernel(const T* __restrict__ J, const T* __restrict__ Ld,
       static_cast<uint32_t>((base_lane ? 2 * kS + kS * (l - B) : 0) * sizeof(T));
   const uint32_t P0 = smem_addr(P), rec0 = smem_addr(rec);
   const uint32_t prec0 = smem_addr(prec), f0 = smem_addr(f);
-  const uint32_t ids0 = smem_addr(ids);
+  const uint32_t ids0 = smem_addr(ids), rows0 = smem_addr(rows);
+  const uint32_t plist0 = smem_addr(plist);
   constexpr uint32_t rowb = kPw * sizeof(T), recb = kRec * sizeof(T);
   constexpr uint32_t pairb = kPair * sizeof(T), tb = sizeof(T);
 
   T x[kS];  // the lane's slot state: ul[l], a half of ub, or 0
-#pragma unroll
-  for (int k = 0; k < kS; ++k) x[k] = T(0);
 
-  // Main sweeps, one row of lookahead: g[r] = s1 + s2 * d', where d' is row
-  // r-1's change, s1 = c_r.u' with u' = u - c_{r-1} d' lagging a row, and
-  // s2 = c_r.c_{r-1}.  s1 and s2 are reduced while row r-1 is solved.
-  for (int it = 0; it < iterations; ++it) {
-    T cr[kS], cn[kS], cp[kS], rx[kS], ry[kS];
-    const int r1 = min(1, nefc - 1);
-    load_raw(rx, ry, P0, off1);
-    coef(cr, rx, ry, lds_int(ids0), l, leg_lane, base_lane);
-    load_raw(rx, ry, P0 + r1 * rowb, off1);
-    coef(cn, rx, ry, lds_int(ids0 + r1 * 4u), l, leg_lane, base_lane);
-    // row 0's record and f, read before the shuffles below so that every
-    // lane has them before the leader writes f[0]
-    T bn = lds<T>(rec0), Rn = lds<T>(rec0 + tb), invn = lds<T>(rec0 + 2 * tb);
-    T lon = lds<T>(rec0 + 3 * tb), hin = lds<T>(rec0 + 4 * tb);
-    T fn = lds<T>(f0);
-    T part = T(0);
-#pragma unroll
-    for (int k = 0; k < kS; ++k) {
-      part += cr[k] * x[k];
-      cp[k] = T(0);
+  for (int pass = 0;; ++pass) {
+    // the warp walks its longest lists; shorter ones end on the zero rows
+    const int L = __reduce_max_sync(kFull, nrow);
+    const int NP = __reduce_max_sync(kFull, npr);
+    if (active) {
+      for (int k = nrow + l; k < L; k += kLanes) rows[k] = nefc;
+      for (int k = npr + l; k < NP; k += kLanes) plist[k] = nefc;
     }
-    T s1 = group_sum(part), s2 = T(0), dp = T(0);
-#pragma unroll 2
-    for (int r = 0; r < nefc; ++r) {
-      const T br = bn, Rr = Rn, inv = invn, lor = lon, hir = hin, fr = fn;
-      // read ahead: row r+2's panel values and slot ids, row r+1's record
-      // and f (last written a sweep ago); past the last row the reads
-      // repeat it, unused
-      const int r2 = min(r + 2, nefc - 1);
-      load_raw(rx, ry, P0 + r2 * rowb, off1);
-      const int id2 = lds_int(ids0 + r2 * 4u);
-      const int rn = min(r + 1, nefc - 1);
-      const uint32_t q = rec0 + rn * recb;
-      bn = lds<T>(q);
-      Rn = lds<T>(q + tb);
-      invn = lds<T>(q + 2 * tb);
-      lon = lds<T>(q + 3 * tb);
-      hin = lds<T>(q + 4 * tb);
-      fn = lds<T>(f0 + rn * tb);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kS; ++k) x[k] = T(0);
 
-      // the chain
-      const T g = s1 + s2 * dp + (br + Rr * fr);
-      const T nw = clip(fr - g * inv, lor, hir);
-      const T d = nw - fr;
-      if (active && l == 0) f[r] = nw;
-
-      // off the chain: u <- u' + c_{r-1} d', then row r+1's two sums
-      T p1 = T(0), p2 = T(0);
+    // Main sweeps over the row list, one row of lookahead: g[k] = s1 + s2 *
+    // d', where d' is the change of the list's row k-1, s1 = c_k.u' with
+    // u' = u - c_{k-1} d' lagging a row, and s2 = c_k.c_{k-1}.  s1 and s2 are
+    // reduced while row k-1 is solved.
+    for (int it = 0; it < iterations && L > 0; ++it) {
+      T cr[kS], cn[kS], cp[kS], rx[kS], ry[kS];
+      int rc = lds_u16(rows0);                               // row k
+      int rn = lds_u16(rows0 + 2u * min(1, L - 1));          // row k+1
+      int rn2 = lds_u16(rows0 + 2u * min(2, L - 1));         // row k+2
+      load_raw(rx, ry, P0 + rc * rowb, off1);
+      coef(cr, rx, ry, lds_int(ids0 + rc * 4u), l, leg_lane, base_lane);
+      load_raw(rx, ry, P0 + rn * rowb, off1);
+      coef(cn, rx, ry, lds_int(ids0 + rn * 4u), l, leg_lane, base_lane);
+      // the first row's record and f, read before the shuffles below so
+      // that every lane has them before the leader writes that f
+      uint32_t q = rec0 + rc * recb;
+      T bn = lds<T>(q), Rn = lds<T>(q + tb), invn = lds<T>(q + 2 * tb);
+      T lon = lds<T>(q + 3 * tb), hin = lds<T>(q + 4 * tb);
+      T fn = lds<T>(f0 + rc * tb);
+      T part = T(0);
 #pragma unroll
       for (int k = 0; k < kS; ++k) {
-        x[k] += cp[k] * dp;
-        p1 += cn[k] * x[k];
-        p2 += cn[k] * cr[k];
-        cp[k] = cr[k];
-        cr[k] = cn[k];
+        part += cr[k] * x[k];
+        cp[k] = T(0);
       }
-      s1 = group_sum(p1);
-      s2 = group_sum(p2);
-      dp = d;
-      coef(cn, rx, ry, id2, l, leg_lane, base_lane);
-    }
+      T s1 = group_sum(part), s2 = T(0), dp = T(0);
+#pragma unroll 4
+      for (int k = 0; k < L; ++k) {
+        const T br = bn, Rr = Rn, inv = invn, lor = lon, hir = hin, fr = fn;
+        const int r = rc;
+        // read ahead: the list's entry k+3, row k+2's panel values and slot
+        // ids, row k+1's record and f (last written a sweep ago, or a zero
+        // row); past the list's end the reads repeat its last row, unused
+        const int rn3 = lds_u16(rows0 + 2u * min(k + 3, L - 1));
+        load_raw(rx, ry, P0 + rn2 * rowb, off1);
+        const int id2 = lds_int(ids0 + rn2 * 4u);
+        q = rec0 + rn * recb;
+        bn = lds<T>(q);
+        Rn = lds<T>(q + tb);
+        invn = lds<T>(q + 2 * tb);
+        lon = lds<T>(q + 3 * tb);
+        hin = lds<T>(q + 4 * tb);
+        fn = lds<T>(f0 + rn * tb);
+
+        // the chain
+        const T g = s1 + s2 * dp + (br + Rr * fr);
+        const T nw = clip(fr - g * inv, lor, hir);
+        const T d = nw - fr;
+        if (active && l == 0) f[r] = nw;
+
+        // off the chain: u <- u' + c_{k-1} d', then row k+1's two sums
+        T p1 = T(0), p2 = T(0);
 #pragma unroll
-    for (int k = 0; k < kS; ++k) x[k] += cp[k] * dp;  // the last row's change
+        for (int j = 0; j < kS; ++j) {
+          x[j] += cp[j] * dp;
+          p1 += cn[j] * x[j];
+          p2 += cn[j] * cr[j];
+          cp[j] = cr[j];
+          cr[j] = cn[j];
+        }
+        s1 = group_sum(p1);
+        s2 = group_sum(p2);
+        dp = d;
+        coef(cn, rx, ry, id2, l, leg_lane, base_lane);
+        rc = rn;
+        rn = rn2;
+        rn2 = rn3;
+      }
+#pragma unroll
+      for (int k = 0; k < kS; ++k) x[k] += cp[k] * dp;  // the last row's change
+      __syncwarp();
+    }
+
+    // Noslip sweeps over the pair list, both rows of a pair with row i's
+    // slots and the same lookahead: the change of the previous pair enters
+    // as s2 * di' + s3 * dj'.
+    for (int sw = 0; sw < noslip && NP > 0; ++sw) {
+      T ci[kS], cj[kS], cin[kS], cjn[kS], cpi[kS], cpj[kS];
+      T rxi[kS], ryi[kS], rxj[kS], ryj[kS];
+      int ic = lds_u16(plist0);                              // pair p's row i
+      int in = lds_u16(plist0 + 2u * min(1, NP - 1));
+      int in2 = lds_u16(plist0 + 2u * min(2, NP - 1));
+      int id = lds_int(ids0 + ic * 4u);
+      load_raw(rxi, ryi, P0 + ic * rowb, off1);
+      load_raw(rxj, ryj, P0 + (ic + 1) * rowb, off1);
+      coef(ci, rxi, ryi, id, l, leg_lane, base_lane);
+      coef(cj, rxj, ryj, id, l, leg_lane, base_lane);
+      id = lds_int(ids0 + in * 4u);
+      load_raw(rxi, ryi, P0 + in * rowb, off1);
+      load_raw(rxj, ryj, P0 + (in + 1) * rowb, off1);
+      coef(cin, rxi, ryi, id, l, leg_lane, base_lane);
+      coef(cjn, rxj, ryj, id, l, leg_lane, base_lane);
+      // the first pair's record and f, read before the shuffles below so
+      // that every lane has them before the leader writes them
+      uint32_t q = prec0 + ((ic - ns_offset) >> 1) * pairb;
+      T bdn = lds<T>(q), hinvn = lds<T>(q + tb), okn = lds<T>(q + 2 * tb);
+      T fin = lds<T>(f0 + ic * tb), fjn = lds<T>(f0 + (ic + 1) * tb);
+      T part = T(0);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        part += (ci[k] - cj[k]) * x[k];
+        cpi[k] = T(0);
+        cpj[k] = T(0);
+      }
+      T s1 = group_sum(part), s2 = T(0), s3 = T(0), dpi = T(0), dpj = T(0);
+#pragma unroll 4
+      for (int p = 0; p < NP; ++p) {
+        const int i = ic;
+        const T bd = bdn, hinv = hinvn, ok = okn, fi0 = fin, fj0 = fjn;
+        // read ahead: the list's entry p+3, pair p+2's panel values and slot
+        // ids (its row i's), pair p+1's record and f
+        const int in3 = lds_u16(plist0 + 2u * min(p + 3, NP - 1));
+        load_raw(rxi, ryi, P0 + in2 * rowb, off1);
+        load_raw(rxj, ryj, P0 + (in2 + 1) * rowb, off1);
+        const int id2 = lds_int(ids0 + in2 * 4u);
+        q = prec0 + ((in - ns_offset) >> 1) * pairb;
+        bdn = lds<T>(q);
+        hinvn = lds<T>(q + tb);
+        okn = lds<T>(q + 2 * tb);
+        fin = lds<T>(f0 + in * tb);
+        fjn = lds<T>(f0 + (in + 1) * tb);
+
+        // the chain
+        const T g = s1 + s2 * dpi + s3 * dpj + bd;
+        const T tot = fi0 + fj0;
+        T y = T(0.5) * (fi0 - fj0) - g * hinv;
+        y = clip(y, T(-0.5) * tot, T(0.5) * tot);
+        const bool act = ok != T(0);
+        const T fi = act ? T(0.5) * tot + y : fi0;
+        const T fj = act ? T(0.5) * tot - y : fj0;
+        if (active && l == 0) {
+          f[i] = fi;
+          f[i + 1] = fj;
+        }
+
+        // off the chain: u <- u' + c_i' di' + c_j' dj', then pair p+1's sums
+        T a1 = T(0), a2 = T(0), a3 = T(0);
+#pragma unroll
+        for (int k = 0; k < kS; ++k) {
+          x[k] = x[k] + cpi[k] * dpi + cpj[k] * dpj;
+          const T jd = cin[k] - cjn[k];
+          a1 += jd * x[k];
+          a2 += jd * ci[k];
+          a3 += jd * cj[k];
+          cpi[k] = ci[k];
+          cpj[k] = cj[k];
+          ci[k] = cin[k];
+          cj[k] = cjn[k];
+        }
+        s1 = group_sum(a1);
+        s2 = group_sum(a2);
+        s3 = group_sum(a3);
+        dpi = fi - fi0;
+        dpj = fj - fj0;
+        coef(cin, rxi, ryi, id2, l, leg_lane, base_lane);
+        coef(cjn, rxj, ryj, id2, l, leg_lane, base_lane);
+        ic = in;
+        in = in2;
+        in2 = in3;
+      }
+#pragma unroll
+      for (int k = 0; k < kS; ++k) x[k] = x[k] + cpi[k] * dpi + cpj[k] * dpj;
+      __syncwarp();
+    }
+
+    // An env whose u is not finite sweeps again over every row and pair;
+    // the warp's other envs repeat theirs from f = 0.
+    bool bad = false;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) bad = bad || !isfinite(x[k]);
+    const unsigned any = __ballot_sync(kFull, active && bad);
+    if (any == 0u || pass > 0) break;
+    if (any & gmask) {
+      if (active) {
+        for (int k = l; k < nefc; k += kLanes) rows[k] = k;
+        for (int k = l; k < npairs; k += kLanes) plist[k] = ns_offset + 2 * k;
+      }
+      nrow = nefc;
+      npr = npairs;
+    }
+    if (active)
+      for (int r = l; r < nefc + 2; r += kLanes) f[r] = T(0);
     __syncwarp();
   }
 
-  // Noslip sweeps over pairs (i, i+1), both rows with row i's slots and the
-  // same lookahead: the change of the previous pair enters as
-  // s2 * di' + s3 * dj'.
-  for (int sw = 0; sw < noslip && npairs > 0; ++sw) {
-    T ci[kS], cj[kS], cin[kS], cjn[kS], cpi[kS], cpj[kS];
-    T rxi[kS], ryi[kS], rxj[kS], ryj[kS];
-    const uint32_t a0 = P0 + ns_offset * rowb;
-    const int q1 = ns_offset + 2 * min(1, npairs - 1);
-    int id = lds_int(ids0 + ns_offset * 4u);
-    load_raw(rxi, ryi, a0, off1);
-    load_raw(rxj, ryj, a0 + rowb, off1);
-    coef(ci, rxi, ryi, id, l, leg_lane, base_lane);
-    coef(cj, rxj, ryj, id, l, leg_lane, base_lane);
-    id = lds_int(ids0 + q1 * 4u);
-    load_raw(rxi, ryi, P0 + q1 * rowb, off1);
-    load_raw(rxj, ryj, P0 + (q1 + 1) * rowb, off1);
-    coef(cin, rxi, ryi, id, l, leg_lane, base_lane);
-    coef(cjn, rxj, ryj, id, l, leg_lane, base_lane);
-    T bdn = lds<T>(prec0), hinvn = lds<T>(prec0 + tb);
-    T okn = lds<T>(prec0 + 2 * tb);
-    T fin = lds<T>(f0 + ns_offset * tb), fjn = lds<T>(f0 + (ns_offset + 1) * tb);
-    T part = T(0);
-#pragma unroll
-    for (int k = 0; k < kS; ++k) {
-      part += (ci[k] - cj[k]) * x[k];
-      cpi[k] = T(0);
-      cpj[k] = T(0);
-    }
-    T s1 = group_sum(part), s2 = T(0), s3 = T(0), dpi = T(0), dpj = T(0);
-#pragma unroll 2
-    for (int p = 0; p < npairs; ++p) {
-      const int i = ns_offset + 2 * p;
-      const T bd = bdn, hinv = hinvn, ok = okn, fi0 = fin, fj0 = fjn;
-      // read ahead: pair p+2's panel values and slot ids (its row i's),
-      // pair p+1's record and f
-      const int i2 = ns_offset + 2 * min(p + 2, npairs - 1);
-      load_raw(rxi, ryi, P0 + i2 * rowb, off1);
-      load_raw(rxj, ryj, P0 + (i2 + 1) * rowb, off1);
-      const int id2 = lds_int(ids0 + i2 * 4u);
-      const int pn = min(p + 1, npairs - 1);
-      const int i1 = ns_offset + 2 * pn;
-      const uint32_t q = prec0 + pn * pairb;
-      bdn = lds<T>(q);
-      hinvn = lds<T>(q + tb);
-      okn = lds<T>(q + 2 * tb);
-      fin = lds<T>(f0 + i1 * tb);
-      fjn = lds<T>(f0 + (i1 + 1) * tb);
-
-      // the chain
-      const T g = s1 + s2 * dpi + s3 * dpj + bd;
-      const T tot = fi0 + fj0;
-      T y = T(0.5) * (fi0 - fj0) - g * hinv;
-      y = clip(y, T(-0.5) * tot, T(0.5) * tot);
-      const bool act = ok != T(0);
-      const T fi = act ? T(0.5) * tot + y : fi0;
-      const T fj = act ? T(0.5) * tot - y : fj0;
-      if (active && l == 0) {
-        f[i] = fi;
-        f[i + 1] = fj;
-      }
-
-      // off the chain: u <- u' + c_i' di' + c_j' dj', then pair p+1's sums
-      T a1 = T(0), a2 = T(0), a3 = T(0);
-#pragma unroll
-      for (int k = 0; k < kS; ++k) {
-        x[k] = x[k] + cpi[k] * dpi + cpj[k] * dpj;
-        const T jd = cin[k] - cjn[k];
-        a1 += jd * x[k];
-        a2 += jd * ci[k];
-        a3 += jd * cj[k];
-        cpi[k] = ci[k];
-        cpj[k] = cj[k];
-        ci[k] = cin[k];
-        cj[k] = cjn[k];
-      }
-      s1 = group_sum(a1);
-      s2 = group_sum(a2);
-      s3 = group_sum(a3);
-      dpi = fi - fi0;
-      dpj = fj - fj0;
-      coef(cin, rxi, ryi, id2, l, leg_lane, base_lane);
-      coef(cjn, rxj, ryj, id2, l, leg_lane, base_lane);
-    }
-#pragma unroll
-    for (int k = 0; k < kS; ++k) x[k] = x[k] + cpi[k] * dpi + cpj[k] * dpj;
-    __syncwarp();
-  }
-
+  STAMP(6)
   // Epilogue: dq = L^-T u.  Every lane takes ub from the two base lanes and
-  // back-substitutes Ls^T xb = ub (Ls from device memory: holding it in
-  // registers through the sweeps would cost registers there); a leg lane
-  // then solves Ld[l]^T xl = ul[l] - W[l] xb.
+  // back-substitutes Ls^T xb = ub; a leg lane then solves
+  // Ld[l]^T xl = ul[l] - W[l] xb.
   {
     T xb[kNb];
 #pragma unroll
@@ -506,13 +504,12 @@ pgs_legs_kernel(const T* __restrict__ J, const T* __restrict__ Ld,
       xb[k] = __shfl_sync(kFull, x[k], B, kLanes);
       xb[kS + k] = __shfl_sync(kFull, x[k], B + 1, kLanes);
     }
-    const T* const Lsg = Ls + static_cast<size_t>(env) * kNb * kNb;
 #pragma unroll
     for (int i = kNb - 1; i >= 0; --i) {
       T acc = xb[i];
 #pragma unroll
-      for (int k = i + 1; k < kNb; ++k) acc = acc - Lsg[k * kNb + i] * xb[k];
-      xb[i] = acc / Lsg[i * kNb + i];
+      for (int k = i + 1; k < kNb; ++k) acc = acc - Lss[k * kNb + i] * xb[k];
+      xb[i] = acc / Lss[i * kNb + i];
     }
     T* const dqe = dq + static_cast<size_t>(env) * nv;
     if (active && leg_lane) {
@@ -540,14 +537,240 @@ pgs_legs_kernel(const T* __restrict__ J, const T* __restrict__ Ld,
   }
 
   for (int r = l; r < nefc && active; r += kLanes) f_out[voff + r] = f[r];
+  STAMP(7)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kWarpLanes)
+pgs_legs_kernel(const T* __restrict__ J, const T* __restrict__ Ld,
+                const T* __restrict__ W, const T* __restrict__ Ls,
+                const int* __restrict__ leg1, const int* __restrict__ leg2,
+                const unsigned char* __restrict__ has1,
+                const unsigned char* __restrict__ has2,
+                const T* __restrict__ b, const T* __restrict__ R,
+                const T* __restrict__ lo, const T* __restrict__ hi,
+                T* __restrict__ f_out, T* __restrict__ dq, int N, int nefc,
+                int nv, int B, int iterations, int noslip, int ns_offset,
+                int envs_per_block, int env_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  STAMP(0)
+
+  const int grp = threadIdx.x / kLanes;
+  const int l = threadIdx.x % kLanes;
+  const int env0 = blockIdx.x * envs_per_block;
+  const int nenv = min(envs_per_block, N - env0);
+  const int npairs = noslip > 0 ? (nefc - ns_offset) / 2 : 0;
+  // A group without an env (past N, or past envs_per_block) runs along as a
+  // ghost of slot 0, so that every shuffle and __syncwarp has the whole
+  // warp; it writes nothing.
+  const bool active = grp < nenv;
+  const int slot = active ? grp : 0;
+  const int env = env0 + slot;
+  const unsigned gmask = 0xffu << (grp * kLanes);
+
+  // this env's shared memory: panels (rows nefc, nefc + 1 zero) | records
+  // (row nefc zero) | pair records (pair npairs zero) | f | Ld | W | Ls |
+  // slot ids | row list | pair list | slot masks
+  T* const P = smem + static_cast<size_t>(slot) * env_stride;
+  T* const rec = P + kPw * (nefc + 2);
+  T* const prec = rec + kRec * (nefc + 1);
+  T* const f = prec + kPair * (npairs + 1);
+  T* const Lds = f + nefc + 2;
+  T* const Ws = Lds + B * kS * kS;
+  T* const Lss = Ws + B * kS * kNb;
+  int* const ids = reinterpret_cast<int*>(Lss + kNb * kNb);
+  uint16_t* const rows = reinterpret_cast<uint16_t*>(ids + nefc + 2);
+  uint16_t* const plist = rows + nefc;
+  unsigned char* const hm = reinterpret_cast<unsigned char*>(plist + npairs);
+  // leg2's ids wait in f's place until the prologue has read them
+  int* const raw2 = reinterpret_cast<int*>(f);
+  const size_t voff = static_cast<size_t>(env) * nefc;
+
+  // Staging, round 1: every copy that needs no slot id, all in flight
+  if (active) {
+    for (int r = l; r < nefc; r += kLanes) {
+      T* const q = rec + kRec * r;
+      const T* const jr = J + (voff + r) * nv;
+      cp_async<sizeof(T)>(q, b + voff + r);
+      cp_async<sizeof(T)>(q + 1, R + voff + r);
+      cp_async<sizeof(T)>(q + 3, lo + voff + r);
+      cp_async<sizeof(T)>(q + 4, hi + voff + r);
+      cp_async<4>(ids + r, leg1 + voff + r);
+      cp_async<4>(raw2 + r, leg2 + voff + r);
+#pragma unroll
+      for (int k = 0; k < kNb; ++k)
+        cp_async<sizeof(T)>(P + kPw * r + 2 * kS + k, jr + k);
+    }
+    const T* const Ldg = Ld + static_cast<size_t>(env) * B * kS * kS;
+    const T* const Wg = W + static_cast<size_t>(env) * B * kS * kNb;
+    const T* const Lsg = Ls + static_cast<size_t>(env) * kNb * kNb;
+    for (int i = l; i < B * kS * kS; i += kLanes) cp_async<sizeof(T)>(Lds + i, Ldg + i);
+    for (int i = l; i < B * kS * kNb; i += kLanes) cp_async<sizeof(T)>(Ws + i, Wg + i);
+    for (int i = l; i < kNb * kNb; i += kLanes) cp_async<sizeof(T)>(Lss + i, Lsg + i);
+    // the slot masks (bytes): plain loads, a batch of rows at once
+    for (int r0 = l; r0 < nefc; r0 += kLanes * kHasBatch) {
+      unsigned char h[kHasBatch];
+#pragma unroll
+      for (int k = 0; k < kHasBatch; ++k) {
+        const int r = r0 + k * kLanes;
+        h[k] = r < nefc ? static_cast<unsigned char>((has1[voff + r] ? 1 : 0) |
+                                                     (has2[voff + r] ? 2 : 0))
+                        : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kHasBatch; ++k)
+        if (r0 + k * kLanes < nefc) hm[r0 + k * kLanes] = h[k];
+    }
+  }
+  cp_async_wait();
+  STAMP(1)
+
+  // Staging, round 2: the leg columns that the lane's rows name (the lane
+  // copied those rows' ids itself)
+  if (active) {
+    for (int r = l; r < nefc; r += kLanes) {
+      const int l1 = min(max(ids[r], 0), B - 1);
+      const int l2 = min(max(raw2[r], 0), B - 1);
+      ids[r] = l1 | (l2 << 8);
+      const T* const jr = J + (voff + r) * nv + kNb;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        cp_async<sizeof(T)>(P + kPw * r + k, jr + kS * l1 + k);
+        cp_async<sizeof(T)>(P + kPw * r + kS + k, jr + kS * l2 + k);
+      }
+    }
+    // the rows of zeros that pad the lists
+    for (int i = l; i < 2 * kPw; i += kLanes) P[kPw * nefc + i] = T(0);
+    if (l < kRec) rec[kRec * nefc + l] = T(0);
+    if (l < kPair) prec[kPair * npairs + l] = T(0);
+    if (l < 2) ids[nefc + l] = 0;
+  }
+  cp_async_wait();
+  __syncwarp();
+  STAMP(2)
+
+  // Ld's diagonal as its reciprocal; Ls's lower triangle in every lane's
+  // registers, diagonal as reciprocal
+  if (active)
+    for (int i = l; i < B * kS * kS; i += kLanes)
+      if ((i % (kS * kS)) % (kS + 1) == 0) Lds[i] = T(1) / Lds[i];
+  T ls[kNb * (kNb + 1) / 2];
+  {
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < kNb; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j, ++k) {
+        const T x = Lss[i * kNb + j];
+        ls[k] = i == j ? T(1) / x : x;
+      }
+    }
+  }
+  __syncwarp();
+
+  STAMP(3)
+  // Prologue, 8 rows at a time (lane l builds row r0 + l in place from the
+  // staged values), and the row list by ballot
+  int nrow = 0;
+  for (int r0 = 0; r0 < nefc; r0 += kLanes) {
+    const int r = r0 + l;
+    bool keep = false;
+    if (active && r < nefc) {
+      T* const pr = P + kPw * r;
+      const int id = ids[r];
+      const int l1 = id & 0xff, l2 = (id >> 8) & 0xff;
+      const int hmask = hm[r];
+      T g1[kS], g2[kS], gb[kNb];
+      leg_solve(g1, pr, (hmask & 1) ? T(1) : T(0), Lds + l1 * kS * kS);
+      leg_solve(g2, pr + kS, (hmask & 2) ? T(1) : T(0), Lds + l2 * kS * kS);
+      const T* const w1 = Ws + l1 * kS * kNb;
+      const T* const w2 = Ws + l2 * kS * kNb;
+      int k = 0;
+#pragma unroll
+      for (int i = 0; i < kNb; ++i) {
+        T a = T(0), c = T(0);
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          a += g1[s] * w1[s * kNb + i];
+          c += g2[s] * w2[s * kNb + i];
+        }
+        T acc = pr[2 * kS + i] - a - c;
+#pragma unroll
+        for (int j = 0; j < i; ++j) acc = acc - ls[k + j] * gb[j];
+        gb[i] = acc * ls[k + i];
+        k += i + 1;
+      }
+      T diag = T(0);
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        pr[s] = g1[s];
+        pr[kS + s] = g2[s];
+      }
+#pragma unroll
+      for (int i = 0; i < kNb; ++i) pr[2 * kS + i] = gb[i];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) diag += g1[s] * g1[s];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) diag += g2[s] * g2[s];
+#pragma unroll
+      for (int i = 0; i < kNb; ++i) diag += gb[i] * gb[i];
+      T* const q = rec + kRec * r;
+      const T br = q[0], Rr = q[1], lor = q[3], hir = q[4];
+      q[2] = T(1) / at_least(diag + Rr, T(1e-12));
+      q[5] = diag;
+      keep = !(lor == T(0) && hir == T(0) && isfinite(diag) &&
+               isfinite(br) && isfinite(Rr));
+    }
+    const unsigned m = __ballot_sync(kFull, keep) & gmask;
+    if (keep) rows[nrow + __popc(m & ((1u << threadIdx.x) - 1u))] = r;
+    nrow += __popc(m);
+  }
+  STAMP(4)
+  // f = 0 (over leg2's staged ids, read above), the pair records and the
+  // pair list
+  __syncwarp();
+  if (active)
+    for (int r = l; r < nefc + 2; r += kLanes) f[r] = T(0);
+  int npr = 0;
+  for (int p0 = 0; p0 < npairs; p0 += kLanes) {
+    const int p = p0 + l;
+    bool keep = false;
+    if (active && p < npairs) {
+      const int i = ns_offset + 2 * p;
+      const T* const pi = P + kPw * i;
+      T a = T(0);
+#pragma unroll
+      for (int k = 0; k < kPw; ++k) a += pi[k] * pi[kPw + k];
+      const T* const qi = rec + kRec * i;
+      const T* const qj = qi + kRec;
+      T* const q = prec + kPair * p;
+      const T h = qi[5] + qj[5] - T(2) * a;
+      q[0] = qi[0] - qj[0];
+      q[1] = T(1) / at_least(h, T(1e-12));
+      q[2] = qi[4] > T(0) ? T(1) : T(0);
+      keep = qi[4] > T(0) || !isfinite(qi[5]) || !isfinite(qj[5]);
+    }
+    const unsigned m = __ballot_sync(kFull, keep) & gmask;
+    if (keep) plist[npr + __popc(m & ((1u << threadIdx.x) - 1u))] = ns_offset + 2 * p;
+    npr += __popc(m);
+  }
+
+  STAMP(5)
+  sweep_and_finish<T>(P, rec, prec, f, Lds, Ws, Lss, ids, rows, plist, f_out, dq, l, B, active, gmask, nrow, npr, nefc, npairs, ns_offset, iterations, noslip, env, voff, nv);
+}
+
+// Elements of T that one env takes in shared memory (as ops/pgs.py's
+// legs_geometry counts them).
+template <typename T>
 size_t env_elems(int nefc, int npairs, int B) {
-  return static_cast<size_t>(nefc) * (kPw + kRec + 1) +
-         static_cast<size_t>(kPair) * npairs +
-         static_cast<size_t>(B) * kS * (kS + kNb) +
-         (4 * static_cast<size_t>(nefc) + sizeof(T) - 1) / sizeof(T);
+  const size_t bytes = 4 * (static_cast<size_t>(nefc) + 2) +
+                       2 * (static_cast<size_t>(nefc) + npairs) + nefc;
+  return static_cast<size_t>(kPw) * (nefc + 2) +
+         static_cast<size_t>(kRec) * (nefc + 1) +
+         static_cast<size_t>(kPair) * (npairs + 1) + (nefc + 2) +
+         static_cast<size_t>(B) * kS * (kS + kNb) + kNb * kNb +
+         (bytes + sizeof(T) - 1) / sizeof(T);
 }
 
 template <typename T>
@@ -560,7 +783,7 @@ int launch(const T* J, const T* Ld, const T* W, const T* Ls, const int* leg1,
   if (N <= 0) return 0;
   const int npairs = noslip > 0 ? (nefc - ns_offset) / 2 : 0;
   const bool ok =
-      dq != nullptr && nefc > 0 && B >= 1 && B <= kMaxB &&
+      dq != nullptr && nefc > 0 && nefc <= kMaxRows && B >= 1 && B <= kMaxB &&
       nv == kNb + kS * B &&
       iterations >= 0 && noslip >= 0 && ns_offset >= 0 && ns_offset <= nefc &&
       envs_per_block >= 1 && envs_per_block * kLanes <= kWarpLanes &&
@@ -626,3 +849,11 @@ extern "C" int pgs_legs_blocks_per_sm(int itemsize, int smem, int* blocks) {
   return itemsize == 4 ? blocks_per_sm<float>(smem, blocks)
                        : blocks_per_sm<double>(smem, blocks);
 }
+
+#ifdef PGS_LEGS_TIMELINE
+// The stamps of the last launch: n values, block-major, kStamps a block.
+extern "C" int pgs_legs_timeline(long long* out, int n) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_timeline, sizeof(long long) * n));
+}
+#endif

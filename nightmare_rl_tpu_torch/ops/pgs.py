@@ -301,7 +301,8 @@ class LegGeometry:
     """How the legs kernel lays one shape out: ``LEG_LANES`` lanes per env,
     one warp per block holding ``envs_per_block`` envs, each env taking
     ``env_stride`` elements of shared memory (its G panel, the row and pair
-    records, f, its legs' factor blocks and the slot ids)."""
+    records, f, its factor blocks, the slot ids and masks, and the lists of
+    the rows and pairs it sweeps)."""
 
     envs_per_block: int
     env_stride: int
@@ -330,10 +331,17 @@ def legs_geometry(nefc: int, nbranch: int, s: int, nbase: int, noslip: int,
             f"nbranch={nbranch}, branch_size={s}, nbase={nbase} "
             f"(NIGHTMARE_PGS=scan or kernel solves in the dense form)")
     npairs = (nefc - ns_offset) // 2 if noslip > 0 else 0
-    raw = (nefc * (2 * s + nbase + _ROW_REC + 1) + _PAIR_REC * npairs
-           + nbranch * s * (s + nbase) + -(-4 * nefc // itemsize))
-    # the envs of one warp start LEG_LANES words apart modulo the 32 banks
-    env_stride = -(-raw // 32) * 32 + LEG_LANES
+    # panels with two rows of zeros, records with one, pair records with one
+    # zero pair, f, the factor blocks; then the int32 slot ids, the 16-bit
+    # row and pair lists and the byte slot masks
+    ints = 4 * (nefc + 2) + 2 * (nefc + npairs) + nefc
+    raw = ((2 * s + nbase) * (nefc + 2) + _ROW_REC * (nefc + 1)
+           + _PAIR_REC * (npairs + 1) + nefc + 2
+           + nbranch * s * (s + nbase) + nbase * nbase + -(-ints // itemsize))
+    # the envs of one warp start one word apart modulo the 32 banks: the
+    # prologue's lanes build rows 12 words apart (banks 0, 4, ..., 28), so
+    # the 4 envs' rows fall on all 32 banks
+    env_stride = -(-raw // 32) * 32 + 1
     envs = min(32 // LEG_LANES, MAX_SMEM // (env_stride * itemsize))
     if envs < 1:
         raise ValueError(f"the legs kernel needs {env_stride * itemsize} bytes "

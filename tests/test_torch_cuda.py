@@ -14,8 +14,10 @@ its epilogue) against ``leg_panels`` + ``pgs_legs_reference`` (+
 ``arrow.solve_lt``) on random block-arrow problems
 (``chip_smoke._random_arrow_batch``) at the edges of its design (ghost
 groups, 4 and 5 legs, an odd row count, no sweeps), float32 at the main
-path's shape, a NaN in b, infinite bounds, its occupancy, and its refusal
-of a layout it does not take.  Tests that count the dense kernel's launches
+path's shape, a NaN in b, infinite bounds, its occupancy, its refusal
+of a layout it does not take, and the cases of its row and pair lists
+(every row active, none, an empty env beside full ones, a NaN in b of a
+pinned and of an active row; float64 to 1e-12, float32 to 1e-5).  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -385,6 +387,21 @@ def test_legs_kernel_passes_nan_through(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_legs_kernel_row_and_pair_lists(cuda, case, dtype):
+    """The rows and pairs the legs kernel sweeps (``chip_smoke``'s cases:
+    every row active, none, an env with none beside full ones, a NaN in b
+    of a pinned and of an active row) at 37 envs (a ghost group): NaN at
+    the plain version's positions, the finite f and dqacc within 1e-12
+    (float64) or 1e-5 (float32) of their largest value."""
+    label, edit = smoke._legs_list_cases()[case]
+    prob = smoke._random_arrow_batch(np.random.default_rng(50 + case), 37, 112,
+                                     6, 3, 6, npair_rows=16)
+    smoke._hold_legs_case(label, prob, edit, dtype)
+
+
+@pytest.mark.cuda
 def test_legs_kernel_takes_infinite_bounds(cuda):
     args = list(_legs(16, 112, 6, 4, 42, npair_rows=16))
     args[6][:, :4] = -math.inf
@@ -424,10 +441,15 @@ def test_legs_kernel_refuses_a_layout_it_does_not_take(cuda):
 @pytest.mark.cuda
 def test_profile_pgs_reports_the_legs_phases(cuda):
     """tools/profile_pgs.py --form legs times the prologue, a row step and
-    a pair step of the legs kernel."""
+    a pair step of the legs kernel, a solve with the main path's share of
+    active pairs (shorter), and reads its phase stamps (--timeline)."""
     from nightmare_rl_tpu_torch.tools import profile_pgs
 
-    res = profile_pgs.main(["-e", "300", "--form", "legs"])
+    res = profile_pgs.main(["-e", "300", "--form", "legs", "--timeline"])
     assert res["form"] == "legs" and res["wave_envs"] == 300
     assert res["wave_prologue_us"] > 0
     assert res["row_step_ns"] > 0 and res["pair_step_ns"] > 0
+    assert res["active_us"] < res["N300_it3_ns4_us"]
+    for run in res["timeline"].values():
+        assert set(run) == set(profile_pgs.TIMELINE_PHASES) | {"block_us"}
+        assert all(v["max_us"] >= v["mean_us"] >= 0 for v in run.values())

@@ -218,14 +218,130 @@ def test_panels_reconstruct_delassus_and_prefix_metadata_breaks_it():
 def test_legs_geometry_of_the_main_path():
     """nefc=112, 6 legs, float32: 4 envs of 8 lanes per warp-sized block,
     five such blocks in one SM's 228 KB (20 envs: one wave of 2048 on 132
-    SMs), envs on different banks."""
+    SMs), envs one bank apart (the prologue's rows, 12 words apart, then
+    take all 32 banks)."""
     g = tpgs.legs_geometry(112, 6, 3, 6, 4, 0, 4)
     assert g.envs_per_block == 4
-    assert g.env_stride % 32 == tpgs.LEG_LANES
+    assert g.env_stride % 32 == 1
+    banks = {(12 * lane + env * g.env_stride) % 32
+             for env in range(4) for lane in range(tpgs.LEG_LANES)}
+    assert len(banks) == 32
     npairs = 56
     assert g.env_stride >= 112 * 19 + 3 * npairs + 6 * 27 + 112
     assert 5 * (g.smem_bytes + 1024) <= 228 * 1024
     assert g.smem_bytes <= tpgs.MAX_SMEM
+    # and since the row skip: panels with two rows of zeros, records with
+    # one, pair records with one zero pair, f with two more, the factor
+    # blocks with Ls, then the int32 slot ids (nefc + 2), the 16-bit row and
+    # pair lists and the byte slot masks
+    ints = 4 * 114 + 2 * (112 + npairs) + 112
+    assert g.env_stride >= (114 * 12 + 113 * 6 + 57 * 3 + 114 + 6 * 27 + 36
+                            + ints // 4)
+    d = tpgs.legs_geometry(112, 6, 3, 6, 4, 0, 8)
+    assert d.env_stride >= (114 * 12 + 113 * 6 + 57 * 3 + 114 + 6 * 27 + 36
+                            + -(-ints // 8))
+    assert d.env_stride % 32 == 1
+
+
+# ---------------------------------------------------------------------------
+# the rows the legs kernel skips: pinned rows and pairs with hi[i] <= 0
+
+
+def _pin(p, share, seed):
+    """Pins all but a share of each env's rows before ns_offset and of its
+    facet pairs, lo = hi = 0 on both rows (as an inactive contact's rows
+    are); the others active (hi = inf on pairs that had hi = 0)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = p["lo"], p["hi"]
+    n, nefc = lo.shape
+    ns_offset = int((lo[0] != 0).sum())
+    hi[:, ns_offset:][hi[:, ns_offset:] == 0] = np.inf
+    off = np.zeros((n, nefc), bool)
+    off[:, :ns_offset] = rng.random((n, ns_offset)) >= share
+    off[:, ns_offset:] = np.repeat(
+        rng.random((n, (nefc - ns_offset) // 2)) >= share, 2, axis=1)
+    lo[off] = 0.0
+    hi[off] = 0.0
+    return p
+
+
+@pytest.mark.parametrize("ns_offset", [0, 3])
+@pytest.mark.parametrize("share", [0.0, 0.1, 0.5, 1.0])
+def test_skipping_pinned_rows_and_idle_pairs_is_exact(share, ns_offset):
+    """The premise of the legs kernel's row and pair lists: on finite
+    inputs the plain version over the full system gives exactly
+    (``torch.equal``; a zero's sign may differ) the f and the final slot
+    state, hence the dqacc, of a run over each env's rows that are not
+    pinned and pairs with hi[i] > 0 only, f re-expanded with zeros.  The
+    full run is also held against ``_scan_core_legs``."""
+    nefc = ns_offset + 24
+    p = _pin(_problem(8, nefc=nefc, B=6, ns_offset=ns_offset, npair_rows=8,
+                      same=2), share, seed=int(share * 10) + ns_offset)
+    lay, fac, J, lm, b, R, lo, hi = _port(p)
+    Gp = tsolver.leg_panels(lay, fac, J, lm)
+    f, u = tpgs.pgs_legs_reference(Gp, lm.leg1, lm.leg2, b, R, lo, hi, 6, 3, 6,
+                                   ITERS, NOSLIP, ns_offset)
+    dq = tarrow.solve_lt(lay, fac, u)
+    ref = jax.vmap(lambda g, l1, l2, b_, r_, lo_, hi_: jpgs._scan_core_legs(
+        g, l1, l2, b_, r_, lo_, hi_, 6, 3, 6, ITERS, NOSLIP, ns_offset))(
+        jnp.asarray(Gp.numpy()), *(jnp.asarray(p[k]) for k in (
+            "leg1", "leg2", "b", "R", "lo", "hi")))
+    assert np.abs(f.numpy() - np.asarray(ref)).max() <= TOL * max(
+        float(np.abs(np.asarray(ref)).max()), 1.0)
+    pinned = (lo == 0) & (hi == 0)
+    swept = 0
+    for e in range(lo.shape[0]):
+        rows = [r for r in range(ns_offset) if not pinned[e, r]]
+        dof_rows = len(rows)
+        for i in range(ns_offset, nefc - 1, 2):
+            if hi[e, i] > 0:
+                rows += [i, i + 1]
+        swept += len(rows)
+        assert not pinned[e, rows].any() and pinned[e].sum() + len(rows) == nefc
+        fr, ur = torch.zeros(nefc, dtype=f.dtype), torch.zeros_like(u[e])
+        if rows:
+            sel = torch.tensor(rows)
+            fk, uk = tpgs.pgs_legs_reference(
+                Gp[e:e + 1, sel], lm.leg1[e:e + 1, sel], lm.leg2[e:e + 1, sel],
+                b[e:e + 1, sel], R[e:e + 1, sel], lo[e:e + 1, sel],
+                hi[e:e + 1, sel], 6, 3, 6, ITERS, NOSLIP, dof_rows)
+            fr[sel], ur = fk[0], uk[0]
+        assert torch.equal(f[e], fr) and torch.equal(u[e], ur)
+        fac_e = tarrow.ArrowFac(*(x[e:e + 1] for x in fac))
+        assert torch.equal(dq[e:e + 1], tarrow.solve_lt(lay, fac_e, ur[None]))
+    assert swept == int((~pinned).sum())
+    if share == 1.0:
+        assert swept == lo.numel()
+    if share == 0.0:
+        assert swept == 0 and not f.any()
+
+
+@pytest.mark.parametrize("where", ["pinned", "active"])
+def test_nan_in_b_matches_scan_core_legs(where):
+    """A NaN in b of a pinned row, or of an active row: the port's plain
+    version (``pgs_legs`` on CPU tensors) and the JAX package's
+    ``_scan_core_legs`` put NaN at the same positions, and the finite
+    values agree; the legs kernel, which skips pinned rows, must do the same
+    (tests/test_torch_cuda.py, chip_smoke.py kernel-legs)."""
+    p = _pin(_problem(9, nefc=27, B=6, ns_offset=3, npair_rows=8, same=2),
+             0.3, seed=9)
+    pinned = (p["lo"] == 0) & (p["hi"] == 0)
+    env = 1
+    rows = np.nonzero(pinned[env] if where == "pinned" else ~pinned[env])[0]
+    assert rows.size
+    p["b"][env, rows[len(rows) // 2]] = np.nan
+    out, dq = tpgs.pgs_legs(*_port(p), ITERS, NOSLIP, 3)
+    ref = np.asarray(jax.vmap(lambda g, l1, l2, b_, r_, lo_, hi_:
+                              jpgs._scan_core_legs(g, l1, l2, b_, r_, lo_, hi_,
+                                                   6, 3, 6, ITERS, NOSLIP, 3))(
+        jnp.asarray(_jax_panels(p)), *(jnp.asarray(p[k]) for k in (
+            "leg1", "leg2", "b", "R", "lo", "hi"))))
+    out = out.numpy()
+    assert np.array_equal(np.isnan(out), np.isnan(ref))
+    assert np.isnan(out[env]).any() and not np.isnan(np.delete(out, env, 0)).any()
+    assert np.isnan(dq.numpy()[env]).all()
+    fin = ~np.isnan(ref)
+    assert _rel(out[fin], ref[fin]) <= TOL
 
 
 @pytest.mark.parametrize("shape", [(6, 4, 6), (7, 3, 6), (4, 3, 7), (0, 3, 6)])
