@@ -31,10 +31,22 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              against the same steps on the CPU (plain version);
 4b. physics-legs — the same with NIGHTMARE_PGS=legs: the legs kernel on
              every substep against the legs form on the CPU;
+4c. graph  — the env step captured as a CUDA graph (``utils/graph.py``)
+             against the plain env step, 2048 envs, float32, in the legs and
+             the dense-kernel form: from one state and generator state, 20
+             env steps eager and 20 replays, every StepOut field equal bit
+             for bit, the env generator's state equal, no host sync in a
+             replay, ``decimation`` launches of the form's kernel per
+             replay; then wall ms per env step in turns (eager, graph,
+             graph, eager), the capture's time and the graph's pool;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
-             kernel must have run on every substep.  The inputs of the
-             slice's last PGS call are kept;
+             kernel must have run on every substep (the rollout replays one
+             captured step; its eager warm-up step counts).  The inputs of
+             the slice's last PGS call (the last replay's) are kept; after
+             recorder/resume, the slice's PPO times its rollout as graph
+             replays and as eager calls of the step the graph holds, in
+             turns, and prints both env-steps/s;
 6. main-path kernel — the PGS kernel against ``pgs_reference`` on those
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
@@ -119,9 +131,10 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              the dense mass-matrix branch steps it (dense Cholesky, the
              PGS kernel's U from the dense M⁻¹): one decimated step of
              2048 envs in float64 against the arrow path; then, once the
-             envs have landed, 10 float32 env steps of random actions,
-             finite and timed beside the arrow path; the kernel held on the
-             last dense inputs of both and timed;
+             envs have landed, 10 float32 env steps of random actions as
+             replays of the env step captured with either branch, finite,
+             without host syncs, and timed beside the arrow path; the
+             kernel held on the last dense inputs of both and timed;
 20. dense-models — the archives that ``tools/compile_model`` made from the
              port's MJCF assets (two free spheres, condim 3 and 6, PGS with
              100 sweeps; a limited hinge with frictionloss, no contact
@@ -139,7 +152,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 The phases that hold the dense kernel run with NIGHTMARE_PGS=kernel, as
 the mesh ranks do; the legs phases and the probe set the variable
-themselves.  The anymal_c path, the new tools and the recurrent, sharded,
+themselves.  The training slices (slice, slice-legs, slice-recurrent,
+sharded, external's fused PPO), play-grid, simple-test and dense-hexapod's
+float32 steps go through captured CUDA graphs, as their tools do on the
+card: each capture runs one eager warm-up step, whose launches count, and
+the kernel is held on the inputs of the last replay (clones that are nodes
+of the graph).  custom-play, the physics phases, dense-models, the curve
+tool (its ``ExternalPPO`` steps the env through a host callback) and the
+anymal_c path run eagerly.  The anymal_c path, the new tools and the recurrent, sharded,
 external and dense paths run no kernel of their own: the kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
 the curve phase, and ``pgs_legs``, whose launches are slice-legs', each
@@ -212,6 +232,8 @@ LEGS_F64_TOL = 1e-12         # legs kernel against its plain version, float64
 LEGS_EARLIER_SRC = os.path.join("nightmare_rl_tpu_torch", "_build",
                                 "pgs_legs_every_row.cu")
 LEGS_STEPS = 10              # float32 env steps timed per form in slice-legs
+GRAPH_STEPS = 20             # env steps per form in the graph phase, eager and replayed
+GRAPH_WARMUP = 1             # eager steps before a capture (utils/graph.py WARMUP)
 
 
 def _nvidia_smi() -> str:
@@ -643,17 +665,20 @@ def _pgs_mode(mode):
 
 @contextlib.contextmanager
 def _kept_pgs(name: str = "pgs"):
-    """Keeps the positional inputs of the last call of the solver's ``name``
-    (``pgs`` or ``pgs_legs``) in the yielded dict; the call goes on to the
-    wrapper."""
+    """Keeps clones of the positional inputs of the last call of the
+    solver's ``name`` (``pgs`` or ``pgs_legs``) in the yielded dict; the
+    call goes on to the wrapper.  Inside a captured step the clones are
+    nodes of the graph, so they hold the inputs of the last replay (the
+    graph's pool reuses the memory of the inputs themselves)."""
     from nightmare_rl_tpu_torch.ops import pgs as P
     from nightmare_rl_tpu_torch.physics import solver
+    from nightmare_rl_tpu_torch.utils.graph import clone
 
     last = {}
     fn = getattr(P, name)
 
     def kept(*args, **kw):
-        last["args"] = args
+        last["args"] = clone(args)
         return fn(*args, **kw)
 
     setattr(solver, name, kept)
@@ -829,7 +854,8 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     stats = runner.last_stats
     T = runner.cfg.runner.num_steps_per_env
     dec = runner.env.cfg.control.decimation
-    expected = iters * T * dec + dec  # + the reset's zero-action step
+    # + the reset's zero-action step and the rollout graph's warm-up step
+    expected = iters * T * dec + dec + GRAPH_WARMUP * dec
     iter_s = stats["rollout_s"] + stats["update_s"]
     rate = T * envs / iter_s
     print(f"slice: {iters} PPO iterations x {T} steps x {envs} envs float32: "
@@ -845,6 +871,149 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations")
     return launches, last["args"], runner
+
+
+def _leaves_equal(a, b) -> bool:
+    """Every tensor of two trees equal bit for bit (NaN where NaN)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and bool(torch.all(
+            (x == y) | (torch.isnan(x) & torch.isnan(y))
+            if x.is_floating_point() else x == y))
+        for x, y in zip(la, lb))
+
+
+def phase_graph(device_name: str, smi: str) -> dict:
+    """The env step captured as a CUDA graph (utils/graph.py) against the
+    plain env step, at 2048 envs in float32, in the leg-sparse and in the
+    dense-kernel form: from one state and one generator state,
+    GRAPH_STEPS steps eager and as replays; every StepOut field equal bit
+    for bit at every step, the env's generator equal after both runs, no
+    host sync in a replay, the form's kernel launched ``decimation`` times
+    per replay (the other never); then wall ms per env step in turns
+    (eager, graph, graph, eager).  Returns, per form, those times, the
+    capture's seconds and the graph's pool MiB."""
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
+
+    if CapturedStep.WARMUP != GRAPH_WARMUP:
+        raise AssertionError("GRAPH_WARMUP is not CapturedStep.WARMUP")
+    N, res = 2048, {}
+    for form, counter, other in (("legs", P.pgs_legs, P.pgs),
+                                 ("kernel", P.pgs, P.pgs_legs)):
+        t0 = time.perf_counter()
+        with _pgs_mode(form):
+            env = NightmareV3Env(NightmareV3Cfg().replace(
+                env=EnvCfg(num_envs=N)), device="cuda")
+            dec = env.cfg.control.decimation
+            s0, _ = env.reset(0)
+            g = torch.Generator(device="cuda").manual_seed(11)
+            acts = [0.3 * torch.randn(N, 18, device="cuda", generator=g)
+                    for _ in range(GRAPH_STEPS)]
+            gen0 = env.generator.get_state()
+            eager, state = [], s0
+            for a in acts:
+                out = env.step(state, a)
+                eager.append(clone(out))
+                state = out.state
+            gen_eager = env.generator.get_state()
+            env.generator.set_state(gen0)
+
+            P.pgs.launches = P.pgs_legs.launches = 0
+            t1 = time.perf_counter()
+            step = CapturedStep(env.step, s0, acts[0],
+                                generators=[env.generator], state_field="state")
+            capture_s = time.perf_counter() - t1
+            warm = counter.launches
+            differ, state = [], s0
+            for k, a in enumerate(acts):
+                out = step(state, a)
+                differ += [(k, f) for f in out._fields
+                           if not _leaves_equal(getattr(out, f),
+                                                getattr(eager[k], f))]
+                state = out.state
+            per_replay = (counter.launches - warm) / GRAPH_STEPS
+            same_gen = torch.equal(env.generator.get_state(), gen_eager)
+            syncs = _host_syncs(lambda: step(state, acts[0]))
+            walls = {"eager": [], "graph": []}
+            for who in ("eager", "graph", "graph", "eager"):
+                walls[who].append(_env_step_ms(
+                    env.step if who == "eager" else step, s0, acts))
+        pool = step.pool_bytes / 2**20
+        print(f"graph: {form} form, {N} envs float32, {GRAPH_STEPS} env steps "
+              f"eager and as replays of one captured step from one state: "
+              f"StepOut fields equal bit for bit at every step: {not differ} "
+              f"(differing {differ[:6]}); env generator state equal "
+              f"{same_gen}; host syncs per replay {syncs}; "
+              f"{counter.__name__} launches per replay {per_replay:g} "
+              f"(expected {dec}), {other.__name__} {other.launches}; warm-up "
+              f"{warm}; capture {capture_s:.2f} s (warm-up included), graph "
+              f"pool {pool:.1f} MiB; wall ms per env step in turns (eager, "
+              f"graph, graph, eager): {walls['eager'][0]:.2f}, "
+              f"{walls['graph'][0]:.2f}, {walls['graph'][1]:.2f}, "
+              f"{walls['eager'][1]:.2f}; {_smi_line(t0, device_name, smi)}")
+        if differ or not same_gen:
+            raise AssertionError(f"the replayed {form} step differs from the "
+                                 f"eager one: {differ[:6]}, generator equal "
+                                 f"{same_gen}")
+        if syncs or per_replay != dec or other.launches:
+            raise AssertionError(f"a {form} replay synchronized ({syncs}) or "
+                                 f"launched {per_replay} {counter.__name__} "
+                                 f"and {other.launches} {other.__name__}")
+        res[form] = dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
+                         capture_s=capture_s, pool_mib=pool)
+    return res
+
+
+def phase_slice_rates(runner, device_name: str, smi: str) -> None:
+    """The slice's PPO after the slice: its rollout of T steps at 2048 envs
+    as replays of the captured rollout step and as eager calls of the step
+    that the graph holds, in turns (eager, graph, graph, eager), each from
+    the state the one before left: env-steps/s of the rollout alone, and of
+    the iteration with the slice's last update time."""
+    import torch
+
+    t0 = time.perf_counter()
+    ppo = runner.ppo
+    T, N = ppo.cfg.runner.num_steps_per_env, ppo.env.num_envs
+    update_s = runner.last_stats["update_s"]
+
+    def eager():
+        carry = (ppo.env_state, ppo.obs, ppo.hidden, *ppo._zeros)
+        with torch.no_grad():
+            for _ in range(T):
+                carry = ppo._rollout_step(carry)
+        ppo.set_rollout_state(*carry[:3])
+
+    secs = {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager() if who == "eager" else ppo.rollout()
+        torch.cuda.synchronize()
+        secs[who].append(time.perf_counter() - t1)
+    if not torch.isfinite(ppo.obs).all():
+        raise AssertionError("non-finite observations after the rollouts")
+    rate = {k: [T * N / x for x in v] for k, v in secs.items()}
+    it = {k: [T * N / (x + update_s) for x in v] for k, v in secs.items()}
+    print(f"slice: rollout of {T} steps x {N} envs float32 (recording on), "
+          f"in turns (eager, graph, graph, eager): {secs['eager'][0]:.3f}, "
+          f"{secs['graph'][0]:.3f}, {secs['graph'][1]:.3f}, "
+          f"{secs['eager'][1]:.3f} s = rollout env-steps/s eager "
+          f"{rate['eager'][0]:,.0f} / {rate['eager'][1]:,.0f}, graph "
+          f"{rate['graph'][0]:,.0f} / {rate['graph'][1]:,.0f}; with the "
+          f"slice's update ({update_s:.3f} s) an iteration runs eager "
+          f"{it['eager'][0]:,.0f} / {it['eager'][1]:,.0f}, graph "
+          f"{it['graph'][0]:,.0f} / {it['graph'][1]:,.0f} env-steps/s; "
+          f"{_smi_line(t0, device_name, smi)}")
 
 
 def _hold_legs(label: str, args: tuple) -> float:
@@ -1016,14 +1185,15 @@ def _legs_in_turns(args: tuple) -> None:
               f"f apart by {diff:.3e} of max|f|")
 
 
-def _env_step_ms(env, state, acts) -> float:
-    """Wall ms per env step of ``env`` from ``state`` over the actions."""
+def _env_step_ms(step, state, acts) -> float:
+    """Wall ms per env step of ``step`` (``env.step``, or a captured step)
+    from ``state`` over the actions."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for a in acts:
-        state = env.step(state, a).state
+        state = step(state, a).state
     torch.cuda.synchronize()
     if not torch.isfinite(state.phys.qpos).all():
         raise AssertionError("non-finite env steps")
@@ -1055,7 +1225,8 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     stats = runner.last_stats
     T = runner.cfg.runner.num_steps_per_env
     dec = runner.env.cfg.control.decimation
-    expected = T * dec + dec  # + the reset's zero-action step
+    # + the reset's zero-action step and the rollout graph's warm-up step
+    expected = T * dec + dec + GRAPH_WARMUP * dec
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-legs: 1 PPO iteration x {T} steps x {envs} envs float32, "
           f"NIGHTMARE_PGS=legs: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, "
@@ -1087,7 +1258,7 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     walls, syncs = {"legs": [], "kernel": []}, {}
     for mode in ("legs", "kernel", "kernel", "legs"):
         with _pgs_mode(mode):
-            walls[mode].append(_env_step_ms(env, settled, acts))
+            walls[mode].append(_env_step_ms(env.step, settled, acts))
             syncs[mode] = _host_syncs(lambda: pipeline.step(
                 env.sys, settled.phys, torch.zeros(n, 18, device="cuda"), 1))
     print(f"slice-legs: env step at {n} envs float32 after {SETTLE_STEPS} "
@@ -1403,7 +1574,8 @@ def phase_play_grid(device_name: str, smi: str) -> None:
         P.pgs.launches = 0
         res = play.grid_eval(MODEL_3176, GRID_STEPS, device="cuda")
         launches = P.pgs.launches
-    expected = GRID_STEPS * 2 + 2  # 2 substeps per step + the reset's step
+    # 2 substeps per step + the reset's step and the graph's warm-up step
+    expected = GRID_STEPS * 2 + 2 + GRAPH_WARMUP * 2
     rec, s = res["record"], res["settle"]
     for i, row in enumerate(res["rows"]):
         print(f"play-grid: cmd vx {row['cmd_vx']:+.2f} wz {row['cmd_wz']:+.2f} ",
@@ -1523,9 +1695,10 @@ def phase_simple_test(device_name: str, smi: str) -> None:
         launches = P.pgs.launches
     print(f"simple-test: 2048 envs x 5 calls x 4 substeps float32, "
           f"max_contacts 16: {rate:,.0f} substeps/s, pgs launches {launches} "
-          f"(expected {(1 + 5) * 4}, the warm-up's included); "
+          f"(expected {(GRAPH_WARMUP + 1 + 5) * 4}, the graph's warm-up "
+          f"step and the warm-up call included); "
           f"{_smi_line(t0, device_name, smi)}")
-    if launches != (1 + 5) * 4:
+    if launches != (GRAPH_WARMUP + 1 + 5) * 4:
         raise AssertionError(f"pgs kernel ran {launches} times")
     _hold_kernel("simple-test inputs (its last call)", last["args"],
                  (2048, 16 * 4 + 16, 24))
@@ -1630,7 +1803,8 @@ def phase_slice_recurrent(device_name: str, smi: str) -> None:
         launches = P.pgs.launches
     stats = runner.last_stats
     T = pcfg.runner.num_steps_per_env
-    expected = T * 2 + 2  # 2 substeps per env step + the reset's step
+    # 2 substeps per env step + the reset's step and the graph's warm-up
+    expected = T * 2 + 2 + GRAPH_WARMUP * 2
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     nonzero = _hidden_nonzero(runner.ppo.hidden)
     print(f"slice-recurrent: 1 PPO iteration x {T} steps x {envs} envs "
@@ -1880,7 +2054,7 @@ def phase_sharded(device_name: str, smi: str) -> None:
         r0, r1 = _load_rank(w2, "recurrent"), _load_rank(w2, "recurrent", 1)
         T = _mesh_jobs()["recurrent"].runner.num_steps_per_env
         n = MESH_ENVS // 2
-        expected = T * 2 + 2
+        expected = T * 2 + 2 + GRAPH_WARMUP * 2
         st = r0["stats"]
         shapes = [[tuple(x.shape) for x in r["hidden"]] for r in (r0, r1)]
         nonzero = [all(float(x.abs().max()) > 0 for x in r["hidden"])
@@ -1978,14 +2152,16 @@ def phase_external(device_name: str, smi: str) -> None:
           f"{T} steps float32: loss {se['loss']:.7f} / {sf['loss']:.7f}, kl "
           f"{se['kl']:.7f} / {sf['kl']:.7f}, max|dparam| {perr:.3e}, dones "
           f"{se['dones']} / {sf['dones']}, pgs launches {se_launches} / "
-          f"{sf_launches} (expected {2 * T}); {_smi_line(t0, device_name, smi)}")
+          f"{sf_launches} (expected {2 * T} and {2 * T + GRAPH_WARMUP * 2}, "
+          f"the fused rollout graph's warm-up step included); "
+          f"{_smi_line(t0, device_name, smi)}")
     np.testing.assert_allclose(sf["loss"], se["loss"], rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(sf["kl"], se["kl"], rtol=2e-3, atol=1e-6)
     for a, b in zip(fused.net.state_dict().values(),
                     ext.ppo.net.state_dict().values()):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-3, atol=1e-4)
-    if se_launches != 2 * T or sf_launches != 2 * T:
+    if se_launches != 2 * T or sf_launches != 2 * T + GRAPH_WARMUP * 2:
         raise AssertionError("the external or fused rollout skipped the kernel")
     if not se["dones"] == sf["dones"] > 0:
         raise AssertionError("the external and fused rollouts reset differently")
@@ -2012,27 +2188,18 @@ def _rel_state(a, b) -> float:
 def _host_syncs(fn) -> int:
     """The device-to-host synchronizations that fn() makes, as counted by
     ``torch.cuda.set_sync_debug_mode("warn")``."""
-    import warnings
+    from nightmare_rl_tpu_torch.tools.profile_step import host_syncs
 
-    import torch
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return host_syncs(fn)
 
 
 def phase_dense_hexapod(device_name: str, smi: str) -> tuple:
     """nightmare_v3 with its arrow layout withheld: in float64 one decimated
     step of 2048 envs, dense against arrow; in float32, once the envs have
-    landed, 10 env steps of random actions at 2048 envs, finite, with the
-    kernel held on the last dense inputs and timed beside the arrow path."""
+    landed, 10 env steps of random actions at 2048 envs as replays of the
+    env step captured with each branch, finite, no host sync in an eager
+    substep or a replay, with the kernel held on the last replayed dense
+    inputs and timed beside the arrow path."""
     import dataclasses
 
     import torch
@@ -2041,6 +2208,7 @@ def phase_dense_hexapod(device_name: str, smi: str) -> tuple:
     from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
     from nightmare_rl_tpu_torch.ops import pgs as P
     from nightmare_rl_tpu_torch.physics import loader, pipeline
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep
 
     t0 = time.perf_counter()
     N = 2048
@@ -2075,36 +2243,46 @@ def phase_dense_hexapod(device_name: str, smi: str) -> tuple:
     for _ in range(SETTLE_STEPS):              # land on the floor first
         settled = env.step(settled, torch.zeros(N, 18, device="cuda")).state
     acts = 0.3 * torch.randn(10, N, 18, generator=g).cuda()
-    walls, syncs = {}, {}
+    walls, syncs, pools = {}, {}, {}
     for mode in ("arrow", "dense"):
         state = settled
         with (_withheld_arrow() if mode == "dense" else contextlib.nullcontext()), \
                 _kept_pgs() as last:
             P.pgs.launches = 0
+            # the env step captured with the branch of this mode
+            step = CapturedStep(env.step, settled, acts[0],
+                                generators=[env.generator], state_field="state")
+            pools[mode] = step.pool_bytes / 2**20
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for a in acts:
-                out = env.step(state, a)
+                out = step(state, a)
                 state = out.state
             torch.cuda.synchronize()
             walls[mode] = (time.perf_counter() - t1) / len(acts)
             n = P.pgs.launches
-            syncs[mode] = _host_syncs(lambda: pipeline.step(
-                env.sys, state.phys, torch.zeros(N, 18, device="cuda"), 1))
+            syncs[mode] = (_host_syncs(lambda: pipeline.step(
+                env.sys, state.phys, torch.zeros(N, 18, device="cuda"), 1)),
+                _host_syncs(lambda: step(state, acts[0])))
         if not torch.isfinite(out.obs).all() or not torch.isfinite(
                 state.phys.qpos).all():
             raise AssertionError(f"non-finite {mode} env steps")
         if mode == "dense":
             launches += n
             args32 = last["args"]
-    expected = 2 + 10 * ecfg.control.decimation
+    # + the dense capture's warm-up step
+    expected = 2 + (GRAPH_WARMUP + 10) * ecfg.control.decimation
     print(f"dense-hexapod: float32, {N} envs x 10 env steps of random actions "
-          f"after {SETTLE_STEPS} settling steps on the arrow path: "
-          f"finite; {walls['dense'] * 1e3:.1f} ms per env step dense, "
-          f"{walls['arrow'] * 1e3:.1f} ms arrow; host syncs in one physics "
-          f"substep: dense {syncs['dense']}, arrow {syncs['arrow']}; pgs "
-          f"launches {launches} "
+          f"as replays of the captured env step, after {SETTLE_STEPS} "
+          f"settling steps on the arrow path: finite; "
+          f"{walls['dense'] * 1e3:.2f} ms per env step dense, "
+          f"{walls['arrow'] * 1e3:.2f} ms arrow; graph pool {pools['dense']:.1f} "
+          f"/ {pools['arrow']:.1f} MiB; host syncs in one eager physics "
+          f"substep and in one replay: dense {syncs['dense']}, arrow "
+          f"{syncs['arrow']}; pgs launches {launches} "
           f"(expected {expected}); {_smi_line(t0, device_name, smi)}")
+    if any(n for ss in syncs.values() for n in ss):
+        raise AssertionError(f"the dense-hexapod steps synchronize: {syncs}")
     if launches != expected:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     _hold_kernel("dense-hexapod inputs (its last call)", args32, (N, 112, 24))
@@ -2264,9 +2442,11 @@ def main() -> int:
     phase_kernel_legs()
     phase_physics()
     phase_physics_legs()
+    graph = phase_graph(name, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches, pgs_args, runner = phase_slice(name, smi, tmp)
         phase_recorder_resume(runner, tmp, name, smi)
+    phase_slice_rates(runner, name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
     phase_policy(runner.ppo.obs)
     del runner
@@ -2296,6 +2476,10 @@ def main() -> int:
     print(f"kernel: pgs launches {entry['launches']} = slice {launches} + "
           f"dense-hexapod {hex_launches} + dense-models {model_launches} + "
           f"curve {curve_launches}")
+    print("graph: wall ms per env step at 2048 envs, eager / graph in turns: "
+          + "; ".join(f"{form} {min(r['eager_ms']):.2f} / "
+                      f"{min(r['graph_ms']):.2f} ms (pool {r['pool_mib']:.1f} "
+                      f"MiB)" for form, r in graph.items()))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, legs_entry]}))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from nightmare_rl_tpu_torch.utils.device import constant
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Broadcasting 3-vector cross product over the last axis."""
@@ -26,7 +28,7 @@ def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def conj(q: torch.Tensor) -> torch.Tensor:
     """Quaternion conjugate (``mju_negQuat``)."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

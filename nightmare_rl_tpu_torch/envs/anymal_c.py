@@ -112,6 +112,10 @@ class AnymalCEnv:
     """Batched lockstep env with the rsl_rl-style contract
     (num_envs/num_obs/num_actions/max_episode_length, step/reset)."""
 
+    # the Newton step is not captured as a CUDA graph yet (ROADMAP): the
+    # rollout calls it eagerly
+    graph_step = False
+
     def __init__(self, cfg: AnymalCCfg = AnymalCCfg(),
                  sys: Optional[S.System] = None,
                  dtype: torch.dtype = torch.float32, device=None,

@@ -91,6 +91,11 @@ class NightmareV3Env:
     """Batched lockstep env with the rsl_rl-style contract
     (num_envs/num_obs/num_actions/max_episode_length, step/reset)."""
 
+    # the step makes no host synchronization and draws only from
+    # ``self.generator``, so callers capture it as a CUDA graph
+    # (utils/graph.py)
+    graph_step = True
+
     def __init__(self, cfg: NightmareV3Cfg, sys: S.System | None = None,
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0, shard: Shard = Shard()):

@@ -80,6 +80,8 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -479,6 +481,37 @@ pgs_kernel(const T* __restrict__ J, const T* __restrict__ U,
 // Columns a lane owns at most, for the two group widths.
 constexpr int cols(int lanes) { return lanes == 8 ? 3 : 4; }
 
+// The dynamic shared memory a kernel may take above 48 KB is raised with
+// cudaFuncSetAttribute at the first launch that needs more, once per kernel
+// and device, and not again.  So a launch that a CUDA graph captures (after
+// an eager warm-up) is the kernel launch alone, and every replay finds the
+// attribute set on the function.
+cudaError_t allow_smem(const void* kernel, int smem) {
+  struct Allowed {
+    const void* kernel;
+    int device;
+    int smem;
+  };
+  static std::mutex mu;
+  static std::vector<Allowed> allowed;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  Allowed* hit = nullptr;
+  for (Allowed& a : allowed)
+    if (a.kernel == kernel && a.device == device) hit = &a;
+  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  if (hit != nullptr)
+    hit->smem = smem;
+  else
+    allowed.push_back({kernel, device, smem});
+  return cudaSuccess;
+}
+
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const T*, const T*,
                         const T*, T*, int, int, int, int, int, int, int, int,
@@ -514,8 +547,7 @@ int launch(const T* J, const T* U, const T* b, const T* R, const T* lo,
           static_cast<size_t>(envs_per_block) * env_stride * sizeof(T);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Kernel<T> kernel = kernel_for<T>(lanes, nv);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t P = static_cast<size_t>(nefc) * nv;
   const int bulk = (P * sizeof(T)) % 16 == 0 &&
@@ -531,8 +563,7 @@ int launch(const T* J, const T* U, const T* b, const T* R, const T* lo,
 template <typename T>
 int blocks_per_sm(int lanes, int nv, int smem, int* blocks) {
   const Kernel<T> kernel = kernel_for<T>(lanes, nv);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
                                                       kWarpLanes, smem);

@@ -128,6 +128,8 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -773,6 +775,37 @@ size_t env_elems(int nefc, int npairs, int B) {
          (bytes + sizeof(T) - 1) / sizeof(T);
 }
 
+// The dynamic shared memory a kernel may take above 48 KB is raised with
+// cudaFuncSetAttribute at the first launch that needs more, once per kernel
+// and device, and not again.  So a launch that a CUDA graph captures (after
+// an eager warm-up) is the kernel launch alone, and every replay finds the
+// attribute set on the function.
+cudaError_t allow_smem(const void* kernel, int smem) {
+  struct Allowed {
+    const void* kernel;
+    int device;
+    int smem;
+  };
+  static std::mutex mu;
+  static std::vector<Allowed> allowed;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  Allowed* hit = nullptr;
+  for (Allowed& a : allowed)
+    if (a.kernel == kernel && a.device == device) hit = &a;
+  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  if (hit != nullptr)
+    hit->smem = smem;
+  else
+    allowed.push_back({kernel, device, smem});
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const T* J, const T* Ld, const T* W, const T* Ls, const int* leg1,
            const int* leg2, const unsigned char* has1,
@@ -791,8 +824,8 @@ int launch(const T* J, const T* Ld, const T* W, const T* Ls, const int* leg1,
       static_cast<size_t>(smem) >=
           static_cast<size_t>(envs_per_block) * env_stride * sizeof(T);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      pgs_legs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(pgs_legs_kernel<T>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + envs_per_block - 1) / envs_per_block;
   pgs_legs_kernel<T><<<blocks, kWarpLanes, smem, stream>>>(
@@ -803,8 +836,8 @@ int launch(const T* J, const T* Ld, const T* W, const T* Ls, const int* leg1,
 
 template <typename T>
 int blocks_per_sm(int smem, int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute(
-      pgs_legs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(pgs_legs_kernel<T>), smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, pgs_legs_kernel<T>, kWarpLanes, smem);

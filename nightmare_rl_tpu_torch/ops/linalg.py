@@ -23,8 +23,14 @@ def chol(M: torch.Tensor) -> torch.Tensor:
 
 
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x = (L Lᵀ)⁻¹ b for one right-hand side per matrix, b (..., n)."""
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    """x = (L Lᵀ)⁻¹ b for one right-hand side per matrix, b (..., n): two
+    batched triangular solves, as ``jax.scipy.linalg.cho_solve`` forms it.
+    (``torch.cholesky_solve`` goes to MAGMA for a batch on the card, which
+    allocates device memory on every call and so cannot be captured in a
+    CUDA graph.)"""
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y,
+                                         upper=True)[..., 0]
 
 
 def spd_inv_from_chol(L: torch.Tensor) -> torch.Tensor:

@@ -641,7 +641,9 @@ def choose_mode(legs_available: bool, nefc: int, nv: int, iterations: int,
     On the card ``scan`` and ``kernel`` both name the dense form, the
     ``csrc/pgs.cu`` kernel; on the CPU both name its plain version.  The JAX
     package runs the probe only outside a jit trace (``_trace_state_clean``);
-    PyTorch runs eagerly, so any call may probe."""
+    in the port the env's constructor (``prewarm``) and a captured step's
+    eager warm-up (``utils/graph.py``) run the dispatch before a CUDA graph
+    is captured: a probe inside a capture would synchronize and fail it."""
     mode = os.environ.get("NIGHTMARE_PGS")
     if mode in ("legs", "scan", "kernel"):
         return "scan" if mode == "legs" and not legs_available else mode

@@ -16,6 +16,7 @@ import torch
 from nightmare_rl_tpu_torch.core import quat as Q
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.physics.kinematics import KinOut, body_root
+from nightmare_rl_tpu_torch.utils.device import constant
 
 
 class Contacts(NamedTuple):
@@ -102,7 +103,8 @@ def find_pair_contacts(sys: S.System, kin: KinOut,
 
     # orthonormal tangents (branchless: cross with the axis least aligned)
     ref = torch.where(torch.abs(n[..., 2:3]) < 0.9,
-                      n.new_tensor([0.0, 0.0, 1.0]), n.new_tensor([1.0, 0.0, 0.0]))
+                      constant((0.0, 0.0, 1.0), n.dtype, dev),
+                      constant((1.0, 0.0, 0.0), n.dtype, dev))
     t1 = Q.cross(ref, n)
     t1 = t1 / torch.clamp_min(
         torch.linalg.vector_norm(t1, dim=-1, keepdim=True), 1e-9)

@@ -17,6 +17,7 @@ import torch
 from nightmare_rl_tpu_torch.core import quat as Q
 from nightmare_rl_tpu_torch.core import spatial as sp
 from nightmare_rl_tpu_torch.physics import system as S
+from nightmare_rl_tpu_torch.utils.device import constant
 
 
 class KinOut(NamedTuple):
@@ -44,7 +45,7 @@ def kinematics(sys: S.System, qpos: torch.Tensor) -> KinOut:
     N, dtype, dev = qpos.shape[0], qpos.dtype, qpos.device
     zeros3 = qpos.new_zeros(N, 3)
     xpos = [zeros3]
-    xquat = [qpos.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(N, 4)]
+    xquat = [constant((1.0, 0.0, 0.0, 0.0), dtype, dev).expand(N, 4)]
     xanchor = [zeros3] * sys.njnt
     xaxis = [zeros3] * sys.njnt
 

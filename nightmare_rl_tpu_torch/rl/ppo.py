@@ -19,12 +19,25 @@ whole-env trajectories, replayed through the LSTM for all T steps from the
 rollout-start hidden state with the same done-masked resets, and
 back-propagated through all T steps.
 
-The rollout runs eagerly on the env's device; its action noise comes from
-one ``torch.Generator``, drawn at the global batch shape
+A rollout step (the policy step and its sample, ``env.step``, the
+recurrent reset, the timeout bootstrap, the episode accumulations and the
+step's rows) is one function, ``_rollout_step``.  On the card it is
+captured once as a CUDA graph (``utils/graph.py``) and replayed T times, the
+counterpart of the JAX package's ``lax.scan`` inside ``jax.jit``; an env
+whose step cannot be captured yet (``graph_step`` False: anymal_c's Newton
+solve) calls it directly.  The step writes its rows into preallocated
+(T, N, ...) trajectory buffers at an index that it keeps on the device, so
+a replay needs nothing from the host; the trajectory that ``rollout``
+returns is those buffers, which the next rollout overwrites.  The env
+state, observations and hidden state that the rollout carries are the
+graph's static buffers: ``init``, ``randomize_episode_lengths`` and a
+checkpoint restore write into them with ``copy_``.  The action noise comes
+from one ``torch.Generator``, drawn at the global batch shape
 (``parallel/shard.py``).  With ``record_states`` the rollout also keeps env
 0's pre-reset ``(qpos, qvel, action, done, commands)`` each step on the
-device and copies the stacked rows to the host once per iteration
-(``stats["record"]``), for the trajectory recorder.  The hooks ``_all_sum``,
+device and copies the rows to the host once per iteration
+(``stats["record"]``), for the trajectory recorder.  GAE and the update run
+eagerly.  The hooks ``_all_sum``,
 ``_sync_grads``, ``gather_envs`` and ``any_rank`` are the identity here;
 ``parallel/mesh.py::ShardedPPO`` makes them collectives.
 """
@@ -41,6 +54,7 @@ from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.models import actor_critic as ac
 from nightmare_rl_tpu_torch.parallel.shard import Shard
 from nightmare_rl_tpu_torch.utils.device import full_float32
+from nightmare_rl_tpu_torch.utils.graph import CapturedStep, assign, clone, leaves
 
 
 class Transition(NamedTuple):
@@ -69,13 +83,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _record_to_host(rows) -> Tuple[np.ndarray, ...]:
-    """Env 0's per-step rows [(qpos, qvel, action, done, commands)] → the
-    (T, ·) numpy arrays of each, in ONE device→host copy."""
-    widths = [r.numel() for r in rows[0]]
-    flat = torch.stack([torch.cat([x.reshape(-1).to(rows[0][0].dtype)
-                                   for x in r]) for r in rows]).cpu().numpy()
-    cols = np.split(flat, np.cumsum(widths)[:-1], axis=1)
+def _record_to_host(rows: torch.Tensor, widths) -> Tuple[np.ndarray, ...]:
+    """Env 0's rows (T, Σ widths) of [qpos | qvel | action | done |
+    commands] → the (T, ·) numpy arrays of each, in ONE device→host copy."""
+    cols = np.split(rows.cpu().numpy(), np.cumsum(widths)[:-1], axis=1)
     qpos, qvel, act, done, cmd = cols
     return qpos, qvel, act, done[:, 0] > 0.5, cmd
 
@@ -125,6 +136,8 @@ class PPO:
         self.hidden: ac.Hidden | tuple = ()
         self.iteration = 0
         self.record_states = record_states
+        self._stepper = None     # the (captured) rollout step and its key
+        self._stepper_key = None
 
     # ------------------------------------------------------------------
     # collective hooks: the identity on one process
@@ -172,16 +185,24 @@ class PPO:
         seed = self.cfg.seed if seed is None else seed
         self.init_params(seed)
         self.generator.manual_seed(seed)
-        self.env_state, self.obs = self.env.reset(seed)
-        self.hidden = (self.net.initial_state(self.env.num_envs)
-                       if self.recurrent else ())
+        state, obs = self.env.reset(seed)
+        self.set_rollout_state(state, obs, self.net.initial_state(
+            self.env.num_envs) if self.recurrent else ())
+
+    def set_rollout_state(self, env_state, obs, hidden) -> None:
+        """Write the env state, observations and recurrent hidden state that
+        the next rollout starts from into the rollout's buffers (``copy_``;
+        a first call, or one with other shapes, takes the given tensors)."""
+        self.env_state = assign(self.env_state, env_state)
+        self.obs = assign(self.obs, obs)
+        self.hidden = assign(self.hidden, hidden)
 
     def randomize_episode_lengths(self) -> None:
         """init_at_random_ep_len=True (train.py:54): spread initial episode
         lengths uniformly so resets decorrelate."""
-        self.env_state.episode_length = self.shard.randint(
+        self.env_state.episode_length.copy_(self.shard.randint(
             self.env.max_episode_length, self.env.num_envs,
-            generator=self.generator, device=self.device, dtype=torch.int32)
+            generator=self.generator, device=self.device, dtype=torch.int32))
 
     # ------------------------------------------------------------------
 
@@ -205,39 +226,87 @@ class PPO:
         (_, _, value), _ = self._forward(self.obs, self.hidden)
         return value
 
+    def _rollout_buffers(self, T: int) -> None:
+        """The (T, N, ...) trajectory buffers, env 0's (T, ·) record rows,
+        and the zeros that a rollout's step index and sums start from."""
+        N, A, dt, dev = (self.env.num_envs, self.env.num_actions, self.dtype,
+                         self.device)
+
+        def buf(*shape, dtype=dt):
+            return torch.empty(T, N, *shape, dtype=dtype, device=dev)
+
+        self._traj = Transition(buf(self.env.num_obs), buf(A), buf(), buf(
+            dtype=torch.bool), buf(), buf(), buf(A), buf(A))
+        self._rec, self._rec_widths = None, None
+        if self.record_states:
+            phys = self.env_state.phys
+            self._rec_widths = (phys.qpos.shape[1], phys.qvel.shape[1], A, 1,
+                                self.env_state.commands.shape[1])
+            self._rec = torch.empty(T, sum(self._rec_widths), dtype=dt,
+                                    device=dev)
+        n_terms = self.env_state.episode_sums.shape[1]
+        self._zeros = (torch.zeros(1, dtype=torch.long, device=dev),
+                       torch.zeros((), dtype=dt, device=dev),
+                       torch.zeros(n_terms, dtype=dt, device=dev))
+
+    def _rollout_step(self, carry):
+        """One rollout step: the policy step and its sample, env.step, the
+        recurrent reset, the timeout bootstrap, row t of the trajectory
+        (and of env 0's record), the finished episodes' count and term
+        sums.  carry = (env state, obs, hidden, t (1,), n_done, term_sums)
+        → the next carry."""
+        state, obs, hidden, t, n_done, term_sums = carry
+        action, mu, std, value, logp, hidden = self.act(obs, hidden)
+        out = self.env.step(state, action)
+        if self.recurrent:
+            hidden = ac.reset_hidden(hidden, out.done)
+        # timeout bootstrap (rsl_rl PPO.process_env_step)
+        reward = (out.reward + self.cfg.algorithm.gamma * value
+                  * out.time_out.to(value.dtype))
+        for buf, x in zip(self._traj, (obs, action, reward, out.done, value,
+                                       logp, mu, std)):
+            buf.index_copy_(0, t, x[None])
+        if self._rec is not None:
+            row = torch.cat([x.reshape(-1).to(self._rec.dtype) for x in (
+                out.record_qpos[0], out.record_qvel[0], action[0],
+                out.done[0], out.state.commands[0])])
+            self._rec.index_copy_(0, t, row[None])
+        fin = out.finished_episode_sums
+        n_done = n_done + torch.sum(~torch.isnan(fin[:, 0]))
+        term_sums = term_sums + torch.nansum(fin, dim=0)
+        return out.state, out.obs, hidden, t + 1, n_done, term_sums
+
+    def _rollout_stepper(self, T: int):
+        """The rollout step as the rollout calls it: captured (once per
+        shape of the carry and T) where the env's step can be captured,
+        else the plain function."""
+        key = (T, tuple((tuple(x.shape), x.dtype) for x in leaves(
+            (self.env_state, self.obs, self.hidden))))
+        if key != self._stepper_key:
+            self._rollout_buffers(T)
+            carry = (self.env_state, self.obs, self.hidden, *self._zeros)
+            self._stepper = (CapturedStep(self._rollout_step, carry, generators=(
+                self.generator, getattr(self.env, "generator", None)))
+                if getattr(self.env, "graph_step", False)
+                else self._rollout_step)
+            self._stepper_key = key
+        return self._stepper
+
     @torch.no_grad()
     def rollout(self):
         """One rollout of num_steps_per_env steps from the current state.
-        Returns the trajectory, the episode metrics and env 0's recorded
-        rows (host arrays, or None without ``record_states``)."""
+        Returns the trajectory (the rollout's buffers), the episode metrics
+        and env 0's recorded rows (host arrays, or None without
+        ``record_states``)."""
         T = self.cfg.runner.num_steps_per_env
-        gamma = self.cfg.algorithm.gamma
-        env = self.env
-        rows, rec = [], []
-        n_done = torch.zeros((), device=self.device)
-        term_sums = None
-        state, obs, hidden = self.env_state, self.obs, self.hidden
+        step = self._rollout_stepper(T)
+        carry = (self.env_state, self.obs, self.hidden, *self._zeros)
         for _ in range(T):
-            action, mu, std, value, logp, hidden = self.act(obs, hidden)
-            out = env.step(state, action)
-            if self.recurrent:
-                hidden = ac.reset_hidden(hidden, out.done)
-            # timeout bootstrap (rsl_rl PPO.process_env_step)
-            reward = out.reward + gamma * value * out.time_out.to(value.dtype)
-            rows.append(Transition(obs, action, reward, out.done, value, logp,
-                                   mu, std))
-            if self.record_states:
-                rec.append((out.record_qpos[0], out.record_qvel[0], action[0],
-                            out.done[0], out.state.commands[0]))
-            fin = out.finished_episode_sums
-            n_done = n_done + torch.sum(~torch.isnan(fin[:, 0]))
-            s = torch.nansum(fin, dim=0)
-            term_sums = s if term_sums is None else term_sums + s
-            state, obs = out.state, out.obs
-        self.env_state, self.obs, self.hidden = state, obs, hidden
-        traj = Transition(*[torch.stack(xs) for xs in zip(*rows)])
-        record: Optional[tuple] = _record_to_host(rec) if rec else None
-        return traj, n_done, term_sums, record
+            carry = step(carry)
+        self.env_state, self.obs, self.hidden, _, n_done, term_sums = carry
+        record: Optional[tuple] = (None if self._rec is None else
+                                   _record_to_host(self._rec, self._rec_widths))
+        return self._traj, n_done.clone(), term_sums.clone(), record
 
     def gae(self, traj: Transition, last_value: torch.Tensor):
         """Returns (advantages, returns, normalized advantages), each (T, N);
@@ -363,7 +432,8 @@ class PPO:
     def learn_step(self) -> Dict[str, object]:
         """One PPO iteration (rollout + update)."""
         t0 = time.perf_counter()
-        hidden0 = self.hidden
+        # the rollout-start hidden state (the rollout updates its buffers)
+        hidden0 = clone(self.hidden)
         traj, n_done, term_sums, record = self.rollout()
         _, returns, norm_adv = self.gae(traj, self.last_value())
         _sync(self.device)

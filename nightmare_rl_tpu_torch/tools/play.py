@@ -15,7 +15,8 @@ step the env still writes a freshly sampled command into that step's obs
 (the reference's behaviour, mirrored).  Deterministic mode acts with the
 policy mean (``act_inference``); ``--stochastic`` samples with a
 ``torch.Generator`` seeded 17.  ``--grid`` runs one env per command of the
-command envelope, in lockstep.  Runs on the card unless ``--device cpu``.
+command envelope, in lockstep.  Runs on the card unless ``--device cpu``;
+there each step of the loop is the replay of a CUDA graph (``player``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg, PPOCfg
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
 from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.graph import CapturedStep
 
 # the command envelope of --grid: vx ±0.3, wz ±0.4, combined, zero
 GRID = np.array([
@@ -99,19 +101,31 @@ def load_policy(path: Optional[str], env) -> ActorCritic:
     return net.to(device=env.device, dtype=env.dtype).eval()
 
 
-@torch.no_grad()
-def rollout(env, net, state, obs, cmd, steps: int,
-            generator: Optional[torch.Generator] = None):
-    """Step ``env`` under ``net`` for ``steps`` steps with ``cmd`` (N, 3)
-    pinned before each step.  Returns (state, obs, record): record holds the
-    host arrays qpos (T, N, nq), qvel (T, N, nv), obs (T, N, num_obs), vel
-    (T, N, 6: the body-frame velocities the tracking rewards see), feet
-    (T, N, 6: foot touch forces), done and time_out (T, N), copied once at
-    the end."""
-    cmd = torch.as_tensor(cmd, dtype=env.dtype, device=env.device)
-    keys = ("qpos", "qvel", "obs", "vel", "feet", "done", "time_out")
-    rec = {k: [] for k in keys}
-    for _ in range(steps):
+def player(env, net, cmd, steps: int,
+           generator: Optional[torch.Generator] = None):
+    """The play loop of ``steps`` steps of ``env`` under ``net`` with the
+    command ``cmd`` (N, 3) pinned before each step, as a function
+    ``run(state, obs) -> (state, obs, record)``.  One step (the pin, the
+    policy, ``env.step`` and the step's record rows, written at an index
+    kept on the device) is captured once as a CUDA graph on the card
+    (``utils/graph.py``) and replayed; ``run`` may be called again, and
+    the command tensor it reads is the one returned as ``run.cmd`` (write
+    it with ``copy_``).  The record holds the host arrays qpos (T, N, nq),
+    qvel (T, N, nv), obs (T, N, num_obs), vel (T, N, 6: the body-frame
+    velocities the tracking rewards see), feet (T, N, 6: foot touch
+    forces), done and time_out (T, N), copied once at the end."""
+    dev, dt, N = env.device, env.dtype, env.num_envs
+    cmd = torch.as_tensor(cmd, dtype=dt, device=dev).clone()
+    nq, nv = env.sys.nq, env.sys.nv
+    widths = dict(qpos=(nq, dt), qvel=(nv, dt), obs=(env.num_obs, dt),
+                  vel=(6, dt), feet=(6, dt), done=(None, torch.bool),
+                  time_out=(None, torch.bool))
+    rec = {k: torch.empty((steps, N) + ((w,) if w else ()), dtype=t,
+                          device=dev) for k, (w, t) in widths.items()}
+
+    @torch.no_grad()
+    def step(carry):
+        state, obs, t = carry
         state = state.replace(commands=cmd)
         if generator is None:
             act = net.act_inference(obs)
@@ -120,19 +134,41 @@ def rollout(env, net, state, obs, cmd, steps: int,
             act = mu + std * torch.randn(mu.shape, generator=generator,
                                          dtype=mu.dtype, device=mu.device)
         out = env.step(state, act)
-        # obs[0:3] is lin_vel * 2.0, obs[3:6] is ang_vel * 0.25 (obs scales,
-        # reference nightmare_v3_config.py:67-72)
-        rec["vel"].append(torch.cat([out.obs[:, :3] / 2.0,
-                                     out.obs[:, 3:6] / 0.25], dim=1))
-        # foot touch sensors (sensordata slots 6:12, mjmodel.xml:156-170)
-        rec["feet"].append(out.state.phys.sensordata[:, 6:12])
-        rec["qpos"].append(out.state.phys.qpos)
-        rec["qvel"].append(out.state.phys.qvel)
-        rec["obs"].append(out.obs)
-        rec["done"].append(out.done)
-        rec["time_out"].append(out.time_out)
-        state, obs = out.state, out.obs
-    return state, obs, {k: torch.stack(v).cpu().numpy() for k, v in rec.items()}
+        rows = dict(
+            # obs[0:3] is lin_vel * 2.0, obs[3:6] is ang_vel * 0.25 (obs
+            # scales, reference nightmare_v3_config.py:67-72)
+            vel=torch.cat([out.obs[:, :3] / 2.0, out.obs[:, 3:6] / 0.25],
+                          dim=1),
+            # foot touch sensors (sensordata slots 6:12, mjmodel.xml:156-170)
+            feet=out.state.phys.sensordata[:, 6:12],
+            qpos=out.state.phys.qpos, qvel=out.state.phys.qvel, obs=out.obs,
+            done=out.done, time_out=out.time_out)
+        for k, x in rows.items():
+            rec[k].index_copy_(0, t, x[None])
+        return out.state, out.obs, t + 1
+
+    t0 = torch.zeros(1, dtype=torch.long, device=dev)
+    captured = None
+
+    def run(state, obs):
+        nonlocal captured
+        if captured is None:  # the first call's state is the example
+            captured = CapturedStep(step, (state, obs, t0),
+                                    generators=(env.generator, generator))
+        carry = (state, obs, t0)
+        for _ in range(steps):
+            carry = captured(carry)
+        return carry[0], carry[1], {k: v.cpu().numpy() for k, v in rec.items()}
+
+    run.cmd = cmd
+    return run
+
+
+def rollout(env, net, state, obs, cmd, steps: int,
+            generator: Optional[torch.Generator] = None):
+    """Step ``env`` under ``net`` for ``steps`` steps with ``cmd`` (N, 3)
+    pinned before each step (``player``).  Returns (state, obs, record)."""
+    return player(env, net, cmd, steps, generator)(state, obs)
 
 
 def _settle(env, steps: int) -> int:
@@ -345,11 +381,12 @@ def live_teleop(args, device) -> None:
     m = mj.MjModel.from_xml_path(xml)
     d = mj.MjData(m)
     state, obs = env.reset(0)
+    run = player(env, net, torch.from_numpy(cmd[None].copy()), 1)
     with mjv.launch_passive(m, d) as viewer:
         frames, t0 = 0, _time.time()
         while viewer.is_running():
-            state, obs, rec = rollout(env, net, state, obs,
-                                      torch.from_numpy(cmd[None].copy()), 1)
+            run.cmd.copy_(torch.from_numpy(cmd[None].copy()))
+            state, obs, rec = run(state, obs)
             d.qpos[:] = rec["qpos"][0, 0]
             d.qvel[:] = rec["qvel"][0, 0]
             mj.mj_forward(m, d)

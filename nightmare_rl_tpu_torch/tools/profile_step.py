@@ -1,4 +1,5 @@
-"""Where the time of the training path goes on the card.
+"""Where the time of the training path goes on the card: the env step,
+eager and as the replay of a CUDA graph.
 
     python -m nightmare_rl_tpu_torch.tools.profile_step [-e 2048] [--steps 4]
         [--robot nightmare_v3|anymal_c] [--forms legs kernel]
@@ -6,24 +7,32 @@
 For the robot's env at ``-e`` envs in float32 (the training CLI's
 configuration), with the PGS form that the solver's dispatch picks
 (``NIGHTMARE_PGS=legs|kernel`` forces one; unset, the probe's verdict; with
-``--forms`` each named form in turn, in this one process), it measures,
-after warm-up:
+``--forms`` each named form in turn, in this one process), it measures the
+plain ``env.step`` ("eager") and the same step captured once as a CUDA
+graph and replayed (``utils/graph.py``, "graph") in turns (eager, graph,
+graph, eager), because the host's time per launch varies between and
+within calls:
 
-- the wall time of one env step (host clock around synchronized steps);
+- the wall time of one env step (host clock around synchronized steps) in
+  each turn;
 - with ``torch.profiler``: the device time inside those steps, hence the
-  device's busy share, the number of kernels one step and one physics
-  substep launch, the kernels that take the most device time and the PGS
-  kernels' share (zero for anymal_c, whose Newton solve runs no kernel of
-  its own);
-- the wall time of one policy forward pass on the step's observations;
-- the peak device memory that the timed env steps allocate
-  (``torch.cuda.max_memory_allocated`` from a reset of the peak).
+  device's busy share (of the faster turn's wall time), the number of
+  kernels one step and one physics substep run, the kernels that take the
+  most device time and the PGS kernels' share (zero for anymal_c, whose
+  Newton solve runs no kernel of its own);
+- the host synchronizations that one step makes
+  (``torch.cuda.set_sync_debug_mode``);
+- the peak device memory of one step (``torch.cuda.max_memory_allocated``
+  from a reset of the peak) and the graph's private pool (the memory its
+  capture reserved);
+- the wall time of one policy forward pass on the step's observations.
 
-The last line is one JSON object with these numbers, the top kernels, the
-PGS form that ran (``pgs_form``: "legs", "kernel" for the dense form, or
-"newton"; with ``--forms``, a list ``forms`` of these objects) and the
-card's name: the per-layer breakdown that PERF.md's
-"Where the time goes" quotes.  A missing card raises.
+anymal_c's step is not captured yet (``graph_step`` False): it is measured
+eagerly only.  The last line is one JSON object with these numbers (per
+form: ``eager`` and ``graph``, ``graph_pool_bytes``, ``capture_s``; with
+``--forms``, a list ``forms`` of these objects) and the card's name: the
+per-layer breakdown that PERF.md's "Where the time goes" quotes.  A missing
+card raises.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import argparse
 import json
 import os
 import time
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -44,6 +54,7 @@ from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
 from nightmare_rl_tpu_torch.ops import pgs as P
 from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.graph import CapturedStep
 
 
 def _timed(fn, steps: int) -> float:
@@ -56,27 +67,26 @@ def _timed(fn, steps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def _measure(env, net, box, env_step, dev, steps: int, substeps: int) -> dict:
-    """One form's numbers: env step wall, peak memory, the PGS form that
-    ran, the profiled device time and kernels, the policy forward."""
-    def policy():
-        with torch.no_grad():
-            net(box["obs"])
+def host_syncs(fn) -> int:
+    """The host synchronizations that fn() makes, as counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
 
-    for _ in range(3):
-        env_step()
-    launches0 = P.pgs.launches, P.pgs_legs.launches
-    torch.cuda.reset_peak_memory_stats(dev)
-    step_ms = _timed(env_step, steps)
-    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
-    dense, legs = (n - n0 for n, n0 in zip((P.pgs.launches, P.pgs_legs.launches),
-                                           launches0))
-    form = "legs" if legs else "kernel" if dense else "newton"
-    policy_ms = _timed(policy, 20)
 
+def _profiled(step, steps: int, substeps: int) -> dict:
+    """Device time, kernels and PGS time per env step of ``step``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            env_step()
+            step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
@@ -85,26 +95,88 @@ def _measure(env, net, box, env_step, dev, steps: int, substeps: int) -> dict:
                  if "pgs_kernel" in e.key or "pgs_legs_kernel" in e.key
                  ) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile: {torch.cuda.get_device_name(dev)}, {env.num_envs} envs "
-          f"float32, PGS form {form}: env step {step_ms:.3f} ms wall; device "
-          f"busy {device_ms:.3f} ms ({100 * device_ms / step_ms:.1f}%) in "
-          f"{launches:.0f} kernels ({launches / substeps:.0f} per substep); pgs "
-          f"kernel {pgs_ms:.3f} ms; policy forward {policy_ms:.3f} ms; peak "
-          f"device memory {peak_mb:.1f} MiB")
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms  "
-              f"{e.count / steps:6.0f}x  {e.key[:90]}")
-    return {
-        "pgs_form": form, "env_step_ms": step_ms, "device_busy_ms": device_ms,
-        "device_busy_share": device_ms / step_ms, "kernels_per_step": launches,
-        "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms,
-        "policy_ms": policy_ms, "peak_mem_mib": peak_mb,
-        "env_steps_per_s": env.num_envs / step_ms * 1e3,
-        "top_kernels": [
-            {"device_ms_per_step": e.self_device_time_total / 1e3 / steps,
-             "launches_per_step": e.count / steps, "name": e.key}
-            for e in top],
-    }
+    return {"device_busy_ms": device_ms, "kernels_per_step": launches,
+            "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms,
+            "top_kernels": [
+                {"device_ms_per_step": e.self_device_time_total / 1e3 / steps,
+                 "launches_per_step": e.count / steps, "name": e.key}
+                for e in top]}
+
+
+def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
+    """One PGS form's numbers, eager and graph: the env step's wall time in
+    turns, its profiled device time and kernels, host syncs and peak
+    memory, the graph's pool, the PGS form that ran, the policy forward."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def actions():
+        return 0.5 * torch.randn(env.num_envs, env.num_actions, generator=g,
+                                 device=dev)
+
+    def eager():
+        out = env.step(box["state"], actions())
+        box["state"], box["obs"] = out.state, out.obs
+
+    runs = {"eager": eager}
+    if getattr(env, "graph_step", False):
+        t0 = time.perf_counter()
+        captured = CapturedStep(env.step, box["state"], actions(),
+                                generators=[env.generator], state_field="state")
+        capture_s = time.perf_counter() - t0
+
+        def graph():
+            out = captured(box["state"], actions())
+            box["state"], box["obs"] = out.state, out.obs
+
+        runs["graph"] = graph
+
+    def policy():
+        with torch.no_grad():
+            net(box["obs"])
+
+    for fn in runs.values():
+        for _ in range(3):
+            fn()
+    res = {who: {"env_step_ms": []} for who in runs}
+    for who in ("eager", "graph", "graph", "eager"):
+        if who in runs:
+            res[who]["env_step_ms"].append(_timed(runs[who], steps))
+    launches0 = P.pgs.launches, P.pgs_legs.launches
+    for who, fn in runs.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        res[who]["peak_mem_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+        res[who]["host_syncs_per_step"] = host_syncs(fn)
+        res[who].update(_profiled(fn, steps, substeps))
+        res[who]["device_busy_share"] = (res[who]["device_busy_ms"]
+                                         / min(res[who]["env_step_ms"]))
+    dense, legs = (n - n0 for n, n0 in zip((P.pgs.launches, P.pgs_legs.launches),
+                                           launches0))
+    form = "legs" if legs else "kernel" if dense else "newton"
+    policy_ms = _timed(policy, 20)
+    name = torch.cuda.get_device_name(dev)
+    for who, r in res.items():
+        print(f"profile: {name}, {env.num_envs} envs float32, PGS form {form}, "
+              f"{who}: env step {', '.join(f'{x:.3f}' for x in r['env_step_ms'])} "
+              f"ms wall; device busy {r['device_busy_ms']:.3f} ms "
+              f"({100 * r['device_busy_share']:.1f}% of the faster turn) in "
+              f"{r['kernels_per_step']:.0f} kernels "
+              f"({r['kernels_per_substep']:.0f} per substep); pgs kernel "
+              f"{r['pgs_ms']:.3f} ms; host syncs per step "
+              f"{r['host_syncs_per_step']}; peak device memory "
+              f"{r['peak_mem_mib']:.1f} MiB")
+        for e in r["top_kernels"]:
+            print(f"  {e['device_ms_per_step']:8.3f} ms  "
+                  f"{e['launches_per_step']:6.0f}x  {e['name'][:90]}")
+    out = {"pgs_form": form, "policy_ms": policy_ms, **res}
+    if "graph" in runs:
+        out.update(graph_pool_bytes=captured.pool_bytes, capture_s=capture_s,
+                   graph_launches=captured.launches)
+        print(f"profile: graph pool {captured.pool_bytes / 2**20:.1f} MiB, "
+              f"capture {capture_s:.2f} s (its warm-up step included)")
+    print(f"profile: policy forward {policy_ms:.3f} ms")
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -129,12 +201,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     net = ActorCritic(env.num_obs, env.num_actions).to(dev)
     box = {}
     box["state"], box["obs"] = env.reset(0)
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def env_step():
-        acts = 0.5 * torch.randn(args.envs, env.num_actions, generator=g, device=dev)
-        out = env.step(box["state"], acts)
-        box["state"], box["obs"] = out.state, out.obs
 
     result = {"device": torch.cuda.get_device_name(dev), "robot": args.robot,
               "envs": args.envs}
@@ -144,14 +210,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             result["forms"] = []
             for form in args.forms:
                 os.environ["NIGHTMARE_PGS"] = form
-                result["forms"].append(_measure(env, net, box, env_step, dev,
-                                                args.steps, substeps))
+                result["forms"].append(_measure(env, net, box, dev, args.steps,
+                                                substeps))
         finally:
             os.environ.pop("NIGHTMARE_PGS")
             if prev is not None:
                 os.environ["NIGHTMARE_PGS"] = prev
     else:
-        result.update(_measure(env, net, box, env_step, dev, args.steps, substeps))
+        result.update(_measure(env, net, box, dev, args.steps, substeps))
     print(json.dumps(result))
     return result
 

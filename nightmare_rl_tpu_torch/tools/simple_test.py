@@ -4,8 +4,9 @@
 Equivalent of the reference's simple_test.py (threaded mj_step throughput,
 simple_test.py:8-47) for the batched pipeline: N lockstep nightmare_v3
 envs in float32 with ``max_contacts=16``, zero control, ``-d`` substeps per
-call; prints physics substeps/s.  One call warms up; the timed calls end in
-``torch.cuda.synchronize()`` on the card.
+call; prints physics substeps/s.  A call of ``-d`` substeps is captured
+once as a CUDA graph on the card (``utils/graph.py``) and replayed; one
+call warms up, and the timed calls end in ``torch.cuda.synchronize()``.
 
     python -m nightmare_rl_tpu_torch.tools.simple_test -e 2048 -s 10 -d 4 \\
         [--device cpu]
@@ -23,6 +24,7 @@ import torch
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.graph import CapturedStep
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:
@@ -46,11 +48,15 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    st = pipeline.step(sys_, st, ctrl, args.decimation)  # warm-up
+    def substeps(st, ctrl):
+        return pipeline.step(sys_, st, ctrl, args.decimation)
+
+    step = CapturedStep(substeps, st, ctrl)
+    st = step(st, ctrl)  # warm-up
     sync()
     t0 = time.perf_counter()
     for _ in range(args.num_steps):
-        st = pipeline.step(sys_, st, ctrl, args.decimation)
+        st = step(st, ctrl)
     sync()
     wall = time.perf_counter() - t0
     rate = N * args.num_steps * args.decimation / wall

@@ -149,12 +149,14 @@ def load(path: str, ppo) -> bool:
     # generator states are CPU byte tensors whatever the generator's device
     ppo.generator.set_state(ts["generator"].cpu())
     rows = ppo.shard.rows
-    ppo.env_state = _rebuild(ppo.env_state, ts["env_state"], dev, rows)
-    ppo.obs = rows(ts["obs"]).to(dev)
+    hidden = ()
     if ppo.recurrent:
         hid = ts["hidden"]
-        ppo.hidden = tuple((rows(hid[k]["h"]).to(dev), rows(hid[k]["c"]).to(dev))
-                           for k in ("actor", "critic"))
+        hidden = tuple((rows(hid[k]["h"]).to(dev), rows(hid[k]["c"]).to(dev))
+                       for k in ("actor", "critic"))
+    # into the rollout's buffers (a captured rollout step reads them)
+    ppo.set_rollout_state(_rebuild(ppo.env_state, ts["env_state"], dev, rows),
+                          rows(ts["obs"]).to(dev), hidden)
     env_gen = _generator(ppo)
     if env_gen is not None and ts["env_generator"] is not None:
         env_gen.set_state(ts["env_generator"].cpu())

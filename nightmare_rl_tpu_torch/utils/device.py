@@ -4,6 +4,7 @@ float32 work out of TF32."""
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -33,3 +34,13 @@ def full_float32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = prev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A small constant tensor, made once per (values, dtype, device).  A
+    tensor built from a Python list inside a step is copied to the card on
+    every call, a copy that waits for the card and that a CUDA graph cannot
+    capture.  Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

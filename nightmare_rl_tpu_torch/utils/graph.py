@@ -1,0 +1,282 @@
+"""One step of the port captured once as a CUDA graph and replayed: the
+port's counterpart of the JAX package's jitted step and scanned rollout
+(``jax.jit(jax.vmap(self._step_one))``, ``lax.scan`` over the decimation
+loop and the rollout).
+
+Eagerly, a nightmare_v3 env step launches ~6,300 kernels from Python and
+the card waits on the host for most of it.  ``CapturedStep`` records the
+kernels of one call of a step function into a ``torch.cuda.CUDAGraph``
+and then replays them with one launch:
+
+    step = CapturedStep(env.step, state, actions, generators=[env.generator],
+                        state_field="state")
+    out = step(state, actions)        # out.state is step.state
+    out = step(out.state, next_actions)
+
+The step function takes ``(state, *inputs)`` and returns the next state,
+or a NamedTuple whose ``state_field`` holds it; the state and the inputs
+are trees of tensors (dataclasses, NamedTuples, tuples, lists).  The
+object owns static buffers for them: a call copies into them the leaves
+that are not those buffers already, replays, and returns the step's
+result with its state replaced by the state buffers, which the graph
+updates at its end.  So a caller that passes back ``out.state`` copies
+nothing, and one that writes a buffer with ``copy_`` (a checkpoint
+restore) is read by the next replay.  The other outputs are the graph's
+own tensors: the next replay overwrites them, and a caller that keeps one
+across calls copies it out.
+
+Capture, in the constructor on the card:
+
+- one warm-up call of the step on clones of the state and the inputs, on
+  the capture's side stream, so that lazy set-up (kernel builds, the PGS
+  form's probe, cached index tensors, library handles and workspaces)
+  happens outside the graph; the generators' states are saved before it
+  and restored after it, so that the first replay draws what the first
+  eager step would have drawn;
+- every generator that the step draws from is registered with the graph
+  (``CUDAGraph.register_generator_state``): a replay then advances it as
+  an eager step does;
+- inside ``utils/device.full_float32`` (a graph fixes the math mode of
+  every product at capture) and with ``torch.cuda.set_sync_debug_mode``
+  at "error": a host synchronization, or an operation that capture
+  refuses, raises naming the line of the port that made it.  There is no
+  eager fallback;
+- the kernel wrappers' launch counters (``ops/pgs.py``) count the launches
+  the graph holds once per replay, not at capture.
+
+Environment variables that a step reads (``NIGHTMARE_PGS``,
+``NIGHTMARE_NO_WARMSTART``) are read at capture: the graph keeps the form
+it was captured with.
+
+On CPU tensors there is no graph: a call runs the step eagerly on the same
+buffers, which is how the CPU tests exercise this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import traceback
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from nightmare_rl_tpu_torch.ops import pgs as P
+from nightmare_rl_tpu_torch.utils.device import full_float32
+
+# the kernel wrappers whose ``launches`` attribute counts their launches
+_COUNTED = (P.pgs, P.pgs_legs)
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dataclasses, NamedTuples, tuples and lists,
+    in a fixed order (other values are not leaves)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        children = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    else:
+        return []
+    return [x for c in children for x in leaves(c)]
+
+
+def rebuild(tree, new: Sequence[torch.Tensor]):
+    """``tree`` with its leaves replaced, in ``leaves`` order, by ``new``."""
+    it = iter(new)
+
+    def go(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{f.name: go(getattr(t, f.name))
+                                             for f in dataclasses.fields(t)})
+        if isinstance(t, tuple) and hasattr(t, "_fields"):  # NamedTuple
+            return type(t)(*[go(c) for c in t])
+        if isinstance(t, (tuple, list)):
+            return type(t)(go(c) for c in t)
+        return t
+
+    return go(tree)
+
+
+def clone(tree):
+    """``tree`` with every tensor cloned (contiguous, fresh memory)."""
+    return rebuild(tree, [x.clone(memory_format=torch.contiguous_format)
+                          for x in leaves(tree)])
+
+
+def assign(dst, src):
+    """Write the leaves of ``src`` into those of ``dst`` with ``copy_`` and
+    return ``dst``, so that buffers a captured step reads stay the ones it
+    reads; where ``dst`` is None, its leaves differ in number, shape or
+    dtype, or two of them share memory, return ``src`` itself."""
+    if dst is None:
+        return src
+    d, s = leaves(dst), leaves(src)
+    if (len(d) != len(s) or any(a.shape != b.shape or a.dtype != b.dtype
+                                for a, b in zip(d, s))
+            or len({a.untyped_storage().data_ptr() for a in d}) != len(d)):
+        return src
+    for a, b in zip(d, s):
+        if a is not b:
+            a.copy_(b)
+    return dst
+
+
+def _where(err: BaseException) -> str:
+    """The innermost line of the port in an exception's traceback."""
+    frames = traceback.extract_tb(err.__traceback__)
+    ours = [f for f in frames if "nightmare_rl_tpu_torch" in f.filename
+            and not f.filename.endswith("utils/graph.py")]
+    f = (ours or frames)[-1] if frames else None
+    return "?" if f is None else f"{f.filename}:{f.lineno} ({f.line})"
+
+
+class CapturedStep:
+    """``fn(state, *inputs)`` captured once as a CUDA graph on the card and
+    replayed by each call (run eagerly on CPU tensors).  See the module's
+    docstring.
+
+    ``generators``: every ``torch.Generator`` the step draws from.
+    ``state_field``: None when ``fn`` returns the next state, else the
+    name of the field of its (NamedTuple) result that holds it.
+
+    After capture, ``launches`` maps each counted kernel wrapper's name to
+    the launches one replay makes, and ``pool_bytes`` is the device memory
+    the capture reserved (the graph's private pool: its intermediates and
+    outputs)."""
+
+    WARMUP = 1  # eager calls before capture, on clones
+
+    def __init__(self, fn: Callable, state, *inputs,
+                 generators: Sequence[Optional[torch.Generator]] = (),
+                 state_field: Optional[str] = None):
+        self.fn = fn
+        self.state_field = state_field
+        self.state = clone(state)
+        self.inputs = clone(inputs)
+        self._static = leaves((self.state, self.inputs))
+        self._n_state = len(leaves(self.state))
+        if not self._static:
+            raise ValueError("a captured step needs tensors in its state")
+        self._storages = {x.untyped_storage().data_ptr() for x in self._static}
+        self.device = self._static[0].device
+        self.launches: Dict[str, int] = {}
+        self.pool_bytes = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._result = None
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._capture([g for g in generators if g is not None])
+
+    # ------------------------------------------------------------------
+
+    def __call__(self, state, *inputs):
+        self._load(leaves((state, inputs)))
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        for fn in _COUNTED:
+            fn.launches += self.launches[fn.__name__]
+        return self._result
+
+    def _load(self, given: List[torch.Tensor]) -> None:
+        """Copy into the static buffers each given leaf that is not one."""
+        if len(given) != len(self._static):
+            raise ValueError(f"the step was captured with {len(self._static)} "
+                             f"tensors in its state and inputs, not {len(given)}")
+        for dst, src in zip(self._static, given):
+            if src is dst:
+                continue
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"a captured step's buffer is {tuple(dst.shape)} "
+                    f"{dst.dtype}, the call gives {tuple(src.shape)} "
+                    f"{src.dtype}: capture a new step for a new shape")
+            dst.copy_(src)
+
+    def _run(self):
+        """The step on the static buffers, its next state copied into the
+        state buffers; returns the result with the state buffers in it."""
+        with full_float32():
+            result = self.fn(self.state, *self.inputs)
+        new = result if self.state_field is None else getattr(result,
+                                                              self.state_field)
+        dst = self._static[:self._n_state]
+        src = leaves(new)
+        if len(src) != len(dst):
+            raise ValueError("the step's next state does not have the "
+                             "structure of its state")
+        # a result that shares memory with a state buffer (a view of the
+        # old state, not the buffer itself) is cloned before the buffers
+        # are overwritten
+        src = [s.clone() if s is not d and self._aliases(s) else s
+               for s, d in zip(src, dst)]
+        for d, s in zip(dst, src):
+            if s is not d:
+                d.copy_(s)
+        if self.state_field is None:
+            return self.state
+        others = {f: getattr(result, f) for f in result._fields
+                  if f != self.state_field}
+        others = {f: rebuild(v, [x.clone() if self._aliases(x) else x
+                                 for x in leaves(v)])
+                  for f, v in others.items()}
+        return result._replace(**{self.state_field: self.state}, **others)
+
+    def _aliases(self, x: torch.Tensor) -> bool:
+        return x.untyped_storage().data_ptr() in self._storages
+
+    def warm_up(self, generators: Sequence[torch.Generator]) -> None:
+        """``WARMUP`` calls of the step on clones of the state and inputs
+        buffers, the generators' states restored after them: the buffers
+        and the generators are left as they were."""
+        saved = [g.get_state() for g in generators]
+        try:
+            with full_float32():
+                for _ in range(self.WARMUP):
+                    self.fn(clone(self.state), *clone(self.inputs))
+        finally:
+            for g, s in zip(generators, saved):
+                g.set_state(s)
+
+    def _capture(self, generators: List[torch.Generator]) -> None:
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.warm_up(generators)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        counts = {fn: fn.launches for fn in _COUNTED}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        err: Optional[BaseException] = None
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._result = self._run()
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    err = e
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+        except Exception as e:  # noqa: BLE001 - capture_end after a failure
+            err = err or e
+        finally:
+            self.launches = {fn.__name__: fn.launches - n
+                             for fn, n in counts.items()}
+            for fn, n in counts.items():
+                fn.launches = n
+        if err is not None:
+            name = getattr(self.fn, "__qualname__", repr(self.fn))
+            raise RuntimeError(f"CUDA graph capture of {name} failed at "
+                               f"{_where(err)}: {err}") from err
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph

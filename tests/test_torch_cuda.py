@@ -17,7 +17,13 @@ groups, 4 and 5 legs, an odd row count, no sweeps), float32 at the main
 path's shape, a NaN in b, infinite bounds, its occupancy, its refusal
 of a layout it does not take, and the cases of its row and pair lists
 (every row active, none, an empty env beside full ones, a NaN in b of a
-pinned and of an active row; float64 to 1e-12, float32 to 1e-5).  Tests that count the dense kernel's launches
+pinned and of an active row; float64 to 1e-12, float32 to 1e-5).
+The captured step (``utils/graph.py``): the env step's replays against the
+eager steps in both PGS forms (every StepOut field bit for bit, the env
+generator's state after each step, no host sync in a replay, the launch
+counters counting replays), ``PPO.rollout`` against eager calls of the step
+its graph holds (feed-forward and recurrent, bit for bit), and a capture
+that fails naming the line.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -290,7 +296,9 @@ def test_play_grid_rollout_card_matches_cpu(cuda, monkeypatch):
         _, _, recs[str(dev)] = play.rollout(
             env, play.load_policy(ckpt, env), to_device(state0, dev),
             obs0.to(dev), torch.from_numpy(play.GRID), 3)
-    assert P.pgs.launches == before + 3 * 2
+    # 3 steps of 2 substeps, and the captured step's eager warm-up
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep
+    assert P.pgs.launches == before + (3 + CapturedStep.WARMUP) * 2
     for k in ("qpos", "obs", "vel", "feet"):
         a, b = recs["cpu"][k], recs[str(cuda)][k]
         assert abs(a - b).max() <= 1e-9, k
@@ -453,3 +461,135 @@ def test_profile_pgs_reports_the_legs_phases(cuda):
     for run in res["timeline"].values():
         assert set(run) == set(profile_pgs.TIMELINE_PHASES) | {"block_us"}
         assert all(v["max_us"] >= v["mean_us"] >= 0 for v in run.values())
+
+
+# ---------------------------------------------------------------------------
+# the captured step (utils/graph.py)
+
+
+def _graph_env(cuda, n=64):
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+
+    return NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=n)),
+                          device=cuda)
+
+
+def _bitwise(a, b) -> bool:
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        bool(torch.all((x == y) | (torch.isnan(x) & torch.isnan(y))
+                       if x.is_floating_point() else x == y))
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["legs", "kernel", None])
+def test_captured_env_step_replays_equal_eager(cuda, form, monkeypatch,
+                                               tmp_path):
+    """The env step captured as a CUDA graph, 64 envs, 8 replays against 8
+    eager steps from one state and generator state: every StepOut field
+    equal bit for bit, the env generator's state equal after k replays and
+    k eager steps, no host sync in a replay, and the form's launch counter
+    counting ``decimation`` launches per replay (none at capture).  With
+    NIGHTMARE_PGS unset the form is the probe's verdict, decided in the
+    env's constructor: the capture reads it from the dispatch's cache."""
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
+
+    if form is None:
+        monkeypatch.delenv("NIGHTMARE_PGS", raising=False)
+        monkeypatch.setenv("NIGHTMARE_PROBE_CACHE", str(tmp_path / "p.json"))
+        monkeypatch.setattr(P, "_MODE_CACHE", {})
+    else:
+        monkeypatch.setenv("NIGHTMARE_PGS", form)
+    env = _graph_env(cuda)
+    form = form or solver.prewarm(env.sys)
+    counter = P.pgs_legs if form == "legs" else P.pgs
+    s0, _ = env.reset(0)
+    s0.episode_length[:3] = env.max_episode_length - 3   # resets mid-run
+    g = torch.Generator(cuda).manual_seed(4)
+    acts = [0.3 * torch.randn(64, 18, device=cuda, generator=g)
+            for _ in range(8)]
+    gen0 = env.generator.get_state()
+    eager, s, gens = [], s0, []
+    for a in acts:
+        out = env.step(s, a)
+        eager.append(clone(out))
+        gens.append(env.generator.get_state())
+        s = out.state
+    env.generator.set_state(gen0)
+    n0 = counter.launches
+    step = CapturedStep(env.step, s0, acts[0], generators=[env.generator],
+                        state_field="state")
+    assert step.graph is not None
+    assert counter.launches == n0 + step.WARMUP * 2   # the warm-up's, eager
+    assert step.launches[counter.__name__] == 2
+    s = s0
+    for k, a in enumerate(acts):
+        before = counter.launches
+        out = step(s, a)
+        assert counter.launches == before + 2
+        assert _bitwise(out, eager[k]), k
+        assert torch.equal(env.generator.get_state(), gens[k]), k
+        s = out.state
+    assert bool(eager[3].done[:3].all())  # the forced time-outs
+    assert smoke._host_syncs(lambda: step(s, acts[0])) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["ActorCritic", "ActorCriticRecurrent"])
+def test_captured_rollout_equals_eager_steps(cuda, policy, monkeypatch):
+    """PPO.rollout on the card (one replay per step) against eager calls of
+    the step the graph holds, from one state and generator states, 64
+    envs x 8 steps: the trajectory, the episode sums and the final state
+    equal bit for bit (the recurrent net's cuDNN LSTM included)."""
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    monkeypatch.setenv("NIGHTMARE_PGS", "legs")
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=RunnerCfg(num_steps_per_env=8,
+                                       policy_class_name=policy),
+                      policy=dataclasses.replace(cfg.policy,
+                                                 rnn_hidden_size=64))
+    env = _graph_env(cuda)
+    ppo = PPO(env, cfg, record_states=True)
+    ppo.init(0)
+    ppo.env_state.episode_length[:3] = env.max_episode_length - 3
+    gens = [ppo.generator, env.generator]
+    g0 = [g.get_state() for g in gens]
+    start = clone((ppo.env_state, ppo.obs, ppo.hidden))
+    traj, n_done, sums, rec = clone(ppo.rollout())
+    end = clone((ppo.env_state, ppo.obs, ppo.hidden))
+    g1 = [g.get_state() for g in gens]
+
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    carry = (*start, *ppo._zeros)
+    with torch.no_grad():
+        for _ in range(8):
+            carry = ppo._rollout_step(carry)
+    assert _bitwise(ppo._traj, traj)
+    assert _bitwise(carry[3:], (torch.full((1,), 8, device=cuda), n_done,
+                                sums))
+    assert _bitwise(carry[:3], end)
+    assert all(torch.equal(g.get_state(), s) for g, s in zip(gens, g1))
+    assert bool(traj.done[:, :3].any())
+
+
+@pytest.mark.cuda
+def test_capture_failure_names_the_op(cuda):
+    """A step that synchronizes cannot be captured: the error names the
+    line, and nothing runs eagerly in its place."""
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep
+
+    def step(x):
+        return x * float(x.sum())  # a device-to-host copy
+
+    with pytest.raises(RuntimeError, match="capture of .*step failed at"):
+        CapturedStep(step, torch.ones(4, device=cuda))

@@ -206,8 +206,9 @@ def test_train_refuses_unported_robot(tmp_path):
 
 
 def test_import_hygiene():
-    """Importing every module of the port (and chip_smoke.py) pulls in
-    neither JAX, flax, optax nor the JAX package, and none of the host-side
+    """Importing every module of the port (the captured step,
+    utils/graph.py, among them) and chip_smoke.py pulls in neither JAX,
+    flax, optax nor the JAX package, and none of the host-side
     viewer and plotting packages (mujoco, pynput, matplotlib), which stay
     inside the functions that use them."""
     code = (
@@ -215,6 +216,7 @@ def test_import_hygiene():
         "import nightmare_rl_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert len(mods) > 20, mods\n"
+        "assert 'nightmare_rl_tpu_torch.utils.graph' in mods, mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
