@@ -47,6 +47,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              recorder/resume, the slice's PPO times its rollout as graph
              replays and as eager calls of the step the graph holds, in
              turns, and prints both env-steps/s;
+5b. update-graph — the slice's learning half (``PPO._learn``: last value,
+             GAE, permutation, 5×4 update), replayed from the graphs that
+             the slice's training captured (the prologue once, a minibatch
+             step per minibatch), against the same function called
+             eagerly, both from the slice's state restored in place
+             (parameters, gradients, Adam's state, the tensor lr, the
+             generator): statistics, parameters, gradients, Adam's moments
+             and step counts, lr, permutation and generator state equal bit
+             for bit; then seconds per update in turns (eager, graph, graph,
+             eager);
 6. main-path kernel — the PGS kernel against ``pgs_reference`` on those
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
@@ -72,9 +82,17 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              state before it, so the error is one decimated step's; the
              zones of the cone contacts at the last substep are counted (a
              bottom and a middle one are required);
+8b. graph-anymal — anymal_c's env step captured as a CUDA graph against the
+             plain env step at 2048 envs, float32: 20 env steps eager and
+             20 replays from one state, every StepOut field equal bit for
+             bit, the env generator's state equal, no host sync in a
+             replay; wall ms per env step in turns (eager, graph, graph,
+             eager), the warm-up's and the capture's seconds, the pool;
 9. slice-anymal — the training CLI with ``--robot anymal_c``, 2048 envs,
-             float32, reset + 1 PPO iteration; every Newton solve is counted
-             (4 per env step) and the inputs of the last one are kept;
+             float32, reset + 1 PPO iteration, the rollout replaying the
+             captured step: every Newton solve is counted (4 per env step:
+             the eager calls plus the calls made inside the capture times
+             the replays) and clones of the last one's inputs are kept;
 10. newton-converged — those inputs in float64, solved at the slice's
              budget and at 100 iterations with 50 refinements: in at least
              90 % of the envs the budget's qacc must lie within 2e-4 of the
@@ -94,10 +112,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              the CPU over an idle → get-up → walk journey (≤ 1e-9 in the
              joint angles); then ``tools/custom_play.py`` at 256 envs,
              float32, tripod, 430 control steps, four commands spread over
-             the envs (two walks, two turns): every env stands up and walks
-             and turns as the JAX tool does under its command, the envs of
-             one command agree, and the PGS kernel is held against
-             ``pgs_reference`` on the inputs of its last call;
+             the envs (two walks, two turns), its control step replayed as a
+             captured graph: every env stands up and walks and turns as the
+             JAX tool does under its command, the envs of one command agree,
+             and the PGS kernel is held against ``pgs_reference`` on the
+             inputs of its last call; control steps/s as replays and of 60
+             calls of the plain control step;
 14. simple-test — ``tools/simple_test.py -e 2048 -s 5 -d 4``: substeps/s;
              the PGS kernel held against ``pgs_reference`` on the inputs of
              its last call;
@@ -111,7 +131,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              2048 envs, float32, one full PPO iteration (80 steps, 5×4
              update); the hidden state must be nonzero, the PGS kernel must
              have run on every substep and is held against
-             ``pgs_reference`` on the inputs of its last call;
+             ``pgs_reference`` on the inputs of its last call; then its
+             learning half as update-graph holds the feed-forward one;
 17. sharded — the CLI's ``--mesh`` under ``python -m
              torch.distributed.run``: world 1 (nccl) and world 2 (gloo, both
              ranks on cuda:0), 2048 global envs, 4 steps, with a 1×1 update
@@ -152,15 +173,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 The phases that hold the dense kernel run with NIGHTMARE_PGS=kernel, as
 the mesh ranks do; the legs phases and the probe set the variable
-themselves.  The training slices (slice, slice-legs, slice-recurrent,
-sharded, external's fused PPO), play-grid, simple-test and dense-hexapod's
-float32 steps go through captured CUDA graphs, as their tools do on the
-card: each capture runs one eager warm-up step, whose launches count, and
-the kernel is held on the inputs of the last replay (clones that are nodes
-of the graph).  custom-play, the physics phases, dense-models, the curve
-tool (its ``ExternalPPO`` steps the env through a host callback) and the
-anymal_c path run eagerly.  The anymal_c path, the new tools and the recurrent, sharded,
-external and dense paths run no kernel of their own: the kernels' line
+themselves.  The training slices (slice, slice-legs, slice-anymal,
+slice-recurrent, sharded, external's fused PPO), play-grid, custom-play,
+simple-test and dense-hexapod's float32 steps go through captured CUDA
+graphs, as their tools do on the card: each capture runs one eager warm-up
+step, whose launches count, and the kernel is held on the inputs of the
+last replay (clones that are nodes of the graph).  The training slices
+also replay their learning half (GAE and the update) as a graph, except
+the sharded one, whose update stays eager.  The physics phases,
+dense-models and the curve tool (its ``ExternalPPO`` steps the env through
+a host callback) run eagerly.  The anymal_c path, the tools, the
+captured update and the recurrent, sharded, external and dense paths run
+no kernel of their own: the kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
 the curve phase, and ``pgs_legs``, whose launches are slice-legs', each
 counted from zero.
@@ -234,6 +258,9 @@ LEGS_EARLIER_SRC = os.path.join("nightmare_rl_tpu_torch", "_build",
 LEGS_STEPS = 10              # float32 env steps timed per form in slice-legs
 GRAPH_STEPS = 20             # env steps per form in the graph phase, eager and replayed
 GRAPH_WARMUP = 1             # eager steps before a capture (utils/graph.py WARMUP)
+ANYMAL_GRAPH_STEPS = 20      # anymal_c env steps eager and replayed in graph-anymal
+ANYMAL_TIMED_STEPS = 5       # anymal_c env steps per timed turn
+CUSTOM_EAGER_STEPS = 60      # custom_play control steps timed eagerly
 
 
 def _nvidia_smi() -> str:
@@ -1016,6 +1043,167 @@ def phase_slice_rates(runner, device_name: str, smi: str) -> None:
           f"{_smi_line(t0, device_name, smi)}")
 
 
+def phase_graph_anymal(device_name: str, smi: str) -> dict:
+    """anymal_c's env step (Newton, elliptic cones, decimation 4) captured
+    as a CUDA graph against the plain env step at 2048 envs in float32:
+    from one state and one generator state, ANYMAL_GRAPH_STEPS steps eager
+    and as replays, every StepOut field equal bit for bit at every step,
+    the env's generator equal after both runs, no host sync in a replay;
+    then wall ms per env step in turns (eager, graph, graph, eager), the
+    warm-up's and the capture's seconds and the graph's pool."""
+    import torch
+
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
+
+    N, steps = 2048, ANYMAL_GRAPH_STEPS
+    t0 = time.perf_counter()
+    env = AnymalCEnv(AnymalCCfg(num_envs=N), device="cuda")
+    if not env.graph_step:
+        raise AssertionError("AnymalCEnv.graph_step is off")
+    s0, _ = env.reset(0)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    acts = [0.3 * torch.randn(N, 12, device="cuda", generator=g)
+            for _ in range(steps)]
+    gen0 = env.generator.get_state()
+    eager, state = [], s0
+    for a in acts:
+        out = env.step(state, a)
+        eager.append(clone(out))
+        state = out.state
+    gen_eager = env.generator.get_state()
+    env.generator.set_state(gen0)
+
+    step = CapturedStep(env.step, s0, acts[0], generators=[env.generator],
+                        state_field="state")
+    differ, state = [], s0
+    for k, a in enumerate(acts):
+        out = step(state, a)
+        differ += [(k, f) for f in out._fields
+                   if not _leaves_equal(getattr(out, f), getattr(eager[k], f))]
+        state = out.state
+    same_gen = torch.equal(env.generator.get_state(), gen_eager)
+    dones = int(sum(int(o.done.sum()) for o in eager))
+    syncs = _host_syncs(lambda: step(state, acts[0]))
+    walls = {"eager": [], "graph": []}
+    timed = acts[:ANYMAL_TIMED_STEPS]
+    for who in ("eager", "graph", "graph", "eager"):
+        walls[who].append(_env_step_ms(env.step if who == "eager" else step,
+                                       s0, timed))
+    pool = step.pool_bytes / 2**20
+    print(f"graph-anymal: {N} envs float32, Newton {env.sys.solver_iterations} "
+          f"iterations, decimation {env.cfg.decimation}, {steps} env steps "
+          f"eager and as replays of one captured step from one state "
+          f"({dones} resets): StepOut fields equal bit for bit at every step: "
+          f"{not differ} (differing {differ[:6]}); env generator state equal "
+          f"{same_gen}; host syncs per replay {syncs}; warm-up step "
+          f"{step.warmup_s:.2f} s, capture and instantiation "
+          f"{step.capture_s:.2f} s (recording {step.record_s:.2f} s), graph "
+          f"pool {pool:.1f} MiB; wall ms per "
+          f"env step in turns (eager, graph, graph, eager; "
+          f"{ANYMAL_TIMED_STEPS} steps each): {walls['eager'][0]:.2f}, "
+          f"{walls['graph'][0]:.2f}, {walls['graph'][1]:.2f}, "
+          f"{walls['eager'][1]:.2f}; {_smi_line(t0, device_name, smi)}")
+    if differ or not same_gen:
+        raise AssertionError(f"the replayed anymal_c step differs from the "
+                             f"eager one: {differ[:6]}, generator equal "
+                             f"{same_gen}")
+    if syncs:
+        raise AssertionError(f"an anymal_c replay synchronized {syncs} times")
+    return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
+                capture_s=step.capture_s, record_s=step.record_s,
+                warmup_s=step.warmup_s, pool_mib=pool)
+
+
+def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
+    """A slice's learning half (``PPO._learn``: V of the last observations,
+    GAE, the permutation, the 5×4 update) as the slice replayed it (the
+    ``CapturedUpdate`` its training captured) against the same function
+    called eagerly, with the same optimizer (fused Adam, capturable, the
+    tensor lr), each from the slice's state (its parameters, gradients,
+    Adam's state, lr and generator, restored in place before each) on the
+    slice's last trajectory: the statistics, parameters, gradients, Adam's
+    moments and step counts, the lr, the permutation (``PPO.last_perm``)
+    and the generator's state equal bit for bit; then seconds per call in
+    turns (eager, graph, graph, eager), each from the slice's state, which
+    is left as it was."""
+    import torch
+
+    from nightmare_rl_tpu_torch.rl.ppo import STAT_KEYS, CapturedLearn
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    t0 = time.perf_counter()
+    ppo = runner.ppo
+    held = ppo._held()
+    n = len(ppo.params)
+    groups = {"params": (0, n), "grads": (n, 2 * n),
+              "adam": (2 * n, len(held) - 1), "lr": (len(held) - 1, len(held))}
+    start = [h.detach().clone() for h in held]
+    gen0 = ppo.generator.get_state()
+    inputs = (ppo._traj, ppo.obs, ppo.hidden, clone(ppo.hidden))
+    cap = ppo._learner(*inputs)
+    if not isinstance(cap, CapturedLearn) or cap.graph is None:
+        raise AssertionError(f"the {label} slice did not capture its update")
+
+    def restore():
+        with torch.no_grad():
+            for h, x in zip(held, start):
+                h.copy_(x)
+        ppo.generator.set_state(gen0)
+
+    def eager():
+        with full_float32():
+            return ppo._learn(*inputs)
+
+    def result(stats):
+        return ([h.detach().clone() for h in held], stats.clone(),
+                ppo.last_perm.clone(), ppo.generator.get_state())
+
+    try:
+        restore()
+        ref = result(eager())
+        restore()
+        got = result(cap(*inputs))
+        secs = {"eager": [], "graph": []}
+        for who in ("eager", "graph", "graph", "eager"):
+            restore()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eager() if who == "eager" else cap(*inputs)
+            torch.cuda.synchronize()
+            secs[who].append(time.perf_counter() - t1)
+    finally:
+        restore()
+    diffs = {}
+    for name, (a, b) in groups.items():
+        pairs = list(zip(ref[0][a:b], got[0][a:b]))
+        diffs[name] = (all(torch.equal(x, y) for x, y in pairs), max(
+            float((x.double() - y.double()).abs().max()) for x, y in pairs))
+    diffs["stats"] = (torch.equal(ref[1], got[1]),
+                      float((ref[1] - got[1]).abs().max()))
+    diffs["perm"] = (torch.equal(ref[2], got[2]), 0.0)
+    diffs["generator"] = (torch.equal(ref[3], got[3]), 0.0)
+    stats = dict(zip(STAT_KEYS, got[1].tolist()))
+    print(f"update-graph ({label}): {ppo.env.num_envs} envs x "
+          f"{ppo.cfg.runner.num_steps_per_env} steps, the slice's captured "
+          f"update against eager from the slice's state: equal bit for bit "
+          f"{ {k: v[0] for k, v in diffs.items()} }, max |difference| "
+          f"{ {k: v[1] for k, v in diffs.items()} }; loss "
+          f"{stats['loss']:.6f}, kl {stats['kl']:.6f}, lr {stats['lr']:.3e}; "
+          f"its warm-up {cap.warmup_s:.3f} s, capture and instantiation "
+          f"{cap.capture_s:.3f} s (recording {cap.record_s:.3f} s), pool "
+          f"{cap.pool_bytes / 2**20:.1f} MiB; "
+          f"seconds per update in turns (eager, graph, graph, eager): "
+          f"{secs['eager'][0]:.4f}, {secs['graph'][0]:.4f}, "
+          f"{secs['graph'][1]:.4f}, {secs['eager'][1]:.4f}; "
+          f"{_smi_line(t0, device_name, smi)}")
+    if not all(v[0] for v in diffs.values()):
+        raise AssertionError(f"the captured update differs from the eager "
+                             f"one: {diffs}")
+    return secs
+
+
 def _hold_legs(label: str, args: tuple) -> float:
     """The legs kernel, f and qacc's change, against ``_legs_plain`` on the
     inputs of a path's last call, float32 at F32_TOL of max|f| (and of
@@ -1438,25 +1626,58 @@ def _to(state, dev):
                             for f in dataclasses.fields(state)})
 
 
+@contextlib.contextmanager
+def _counted_replays():
+    """Counts the replays of every captured step and update (by the
+    qualified name of the function the graph holds) in the yielded dict."""
+    from nightmare_rl_tpu_torch.utils import graph
+
+    counts = {}
+    replay = graph._Captured._replay
+
+    def counted(self):
+        name = getattr(self.fn, "__qualname__", repr(self.fn))
+        counts[name] = counts.get(name, 0) + 1
+        return replay(self)
+
+    graph._Captured._replay = counted
+    try:
+        yield counts
+    finally:
+        graph._Captured._replay = replay
+
+
 def phase_slice_anymal(device_name: str, smi: str) -> tuple:
+    """The anymal_c training slice, its rollout replaying the captured env
+    step.  ``newton.solve`` is a Python function: a replay calls it no
+    more, so its calls are counted apart, eager ones (the reset's step and
+    the capture's warm-up step) and those made while the rollout step was
+    captured, which each replay of that step runs again on the card; the
+    solves the card ran are the eager calls plus the captured calls times
+    the replays (counted by wrapping the replay), which must be one per env
+    step's substep.  Clones of the last call's inputs are kept: inside the
+    capture they are nodes of the graph, so they hold the last replay's."""
     import torch
 
     from nightmare_rl_tpu_torch.physics import newton
     from nightmare_rl_tpu_torch.tools import train
+    from nightmare_rl_tpu_torch.utils.graph import clone
 
     solve = newton.solve
-    box = {"count": 0}
+    box = {"eager": 0, "captured": 0}
 
     def counted(*args, **kw):
-        box["count"] += 1
-        box["args"] = (args, kw)
+        where = ("captured" if torch.cuda.is_current_stream_capturing()
+                 else "eager")
+        box[where] += 1
+        box["args"] = (clone(args), {k: clone(v) for k, v in kw.items()})
         return solve(*args, **kw)
 
     iters, envs = 1, 2048
     t0 = time.perf_counter()
     newton.solve = counted
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep:
             runner = train.main(["--robot", "anymal_c", "-e", str(envs), "-n",
                                  str(iters), "--log_root", tmp])
             torch.cuda.synchronize()
@@ -1467,19 +1688,30 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     stats = runner.last_stats
     T = runner.cfg.runner.num_steps_per_env
     dec = runner.env.cfg.decimation
-    expected = iters * T * dec + dec  # + the reset's zero-action step
+    replays = rep.get("PPO._rollout_step", 0)
+    solves = box["eager"] + box["captured"] * replays
+    # + the reset's zero-action step and the rollout graph's warm-up step
+    expected = iters * T * dec + dec + GRAPH_WARMUP * dec
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-anymal: {iters} PPO iteration x {T} steps x {envs} envs "
-          f"float32: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, newton "
-          f"solves {box['count']} (expected {expected}); rollout "
-          f"{stats['rollout_s']:.3f} s + update {stats['update_s']:.3f} s = "
-          f"{rate:,.0f} env-steps/s (smoke figure, {device_name}, {smi}); "
-          f"dones {stats['dones']}; saved {saved}; {wall:.1f} s incl. set-up")
+          f"float32 (the rollout replays the captured step): loss "
+          f"{stats['loss']:.4f}, kl {stats['kl']:.4f}; newton.solve calls "
+          f"{box['eager']} eager + {box['captured']} captured x {replays} "
+          f"replays = {solves} solves (expected {expected}); update replays "
+          f"{rep.get('PPO._prologue', 0)} prologue + "
+          f"{rep.get('PPO._minibatch', 0)} minibatch steps; rollout "
+          f"{stats['rollout_s']:.3f} s + "
+          f"update {stats['update_s']:.3f} s = {rate:,.0f} env-steps/s "
+          f"(smoke figure, {device_name}, {smi}); dones {stats['dones']}; "
+          f"saved {saved}; {wall:.1f} s incl. set-up")
     if not math.isfinite(stats["loss"]):
         raise AssertionError("non-finite PPO loss (anymal_c)")
-    if box["count"] != expected:
-        raise AssertionError(f"newton.solve ran {box['count']} times, "
-                             f"expected {expected}")
+    if (solves != expected or box["captured"] != dec
+            or replays != iters * T):
+        raise AssertionError(
+            f"newton.solve ran {solves} times ({box['eager']} eager and "
+            f"{box['captured']} captured calls, {replays} replays), expected "
+            f"{expected}")
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
     return box["args"]
@@ -1621,6 +1853,30 @@ def _engine_journey(dev: str):
     return torch.stack(angles).cpu(), es.fsm.cpu()
 
 
+def _custom_eager_rate(lin, ang) -> float:
+    """Control steps/s of custom_play's plain ``control_step`` called from
+    Python at CUSTOM_ENVS envs (the tool replays it as a graph), from the
+    tool's initial state with its commands and clock."""
+    import torch
+
+    from nightmare_rl_tpu_torch.tools import custom_play
+
+    sys_, cfg, phys, es, limited = custom_play.make(CUSTOM_ENVS)
+    env = torch.arange(CUSTOM_ENVS)
+    lin_t, ang_t = (torch.tensor(x, dtype=sys_.dtype)[env % len(x)].cuda()
+                    for x in (lin, ang))
+    h = float(sys_.timestep) * custom_play.DECIMATION
+    clock = torch.arange(1, CUSTOM_EAGER_STEPS + 1, dtype=sys_.dtype,
+                         device="cuda") * h
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(CUSTOM_EAGER_STEPS):
+        phys, es, limited = custom_play.control_step(
+            sys_, cfg, phys, es, limited, clock[k], lin_t, ang_t)
+    torch.cuda.synchronize()
+    return CUSTOM_EAGER_STEPS / (time.perf_counter() - t0)
+
+
 def phase_custom_play(device_name: str, smi: str) -> None:
     """The gait engine card vs CPU, then the custom_play tool at 256 envs."""
     import numpy as np
@@ -1641,12 +1897,15 @@ def phase_custom_play(device_name: str, smi: str) -> None:
 
     t0 = time.perf_counter()
     lin, ang = zip(*CUSTOM_CMDS)
+    argv = (["--envs", str(CUSTOM_ENVS), "--lin"] + [str(x) for x in lin]
+            + ["--ang"] + [str(x) for x in ang])
     with _kept_pgs() as last:
         P.pgs.launches = 0
-        res = custom_play.main(
-            ["--envs", str(CUSTOM_ENVS), "--steps", str(CUSTOM_STEPS), "--lin"]
-            + [str(x) for x in lin] + ["--ang"] + [str(x) for x in ang])
+        res = custom_play.main(argv + ["--steps", str(CUSTOM_STEPS)])
         launches = P.pgs.launches
+    if res["graph"] is None:
+        raise AssertionError("custom_play did not replay a captured step")
+    eager_rate = _custom_eager_rate(lin, ang)
     q = res["qpos"]
     disp = np.hypot(q[:, 0], q[:, 1])  # qpos0 is (0, 0, 0.15)
     w, x, y, z = q[:, 3:7].T
@@ -1670,15 +1929,19 @@ def phase_custom_play(device_name: str, smi: str) -> None:
     print(f"custom-play: {CUSTOM_ENVS} envs x {CUSTOM_STEPS} control steps "
           f"float32 tripod, env i takes command i mod {len(CUSTOM_CMDS)}: "
           f"{'; '.join(rows)}; base z min {q[:, 2].min():.4f} (min "
-          f"{CUSTOM_MIN_HEIGHT}), {res['ctrl_steps_per_s']:.1f} control "
-          f"steps/s ({res['wall_s']:.1f} s), pgs launches {launches} "
-          f"(expected {CUSTOM_STEPS * 2}); {_smi_line(t0, device_name, smi)}")
+          f"{CUSTOM_MIN_HEIGHT}); as replays of the captured control step "
+          f"{res['ctrl_steps_per_s']:.1f} control steps/s ({res['wall_s']:.1f} "
+          f"s; capture {res['capture_s']:.2f} s before it), eager "
+          f"{eager_rate:.1f} (the plain control step, {CUSTOM_EAGER_STEPS} "
+          f"steps); pgs launches {launches} (expected "
+          f"{CUSTOM_STEPS * 2 + GRAPH_WARMUP * 2}, the capture's warm-up "
+          f"step included); {_smi_line(t0, device_name, smi)}")
     if not np.isfinite(q).all() or q[:, 2].min() < CUSTOM_MIN_HEIGHT:
         raise AssertionError("the engine-driven hexapods are not standing")
     if bad:
         raise AssertionError(f"the engine-driven hexapods do not walk as the "
                              f"JAX tool does under the commands {bad}")
-    if launches != CUSTOM_STEPS * 2:
+    if launches != CUSTOM_STEPS * 2 + GRAPH_WARMUP * 2:
         raise AssertionError(f"pgs kernel ran {launches} times")
     _hold_kernel("custom-play inputs (its last call)", last["args"],
                  (CUSTOM_ENVS, 16 * 4 + 16, 24))
@@ -1785,7 +2048,7 @@ def _hidden_nonzero(hidden) -> bool:
     return all(float(x.abs().max()) > 0 for carry in hidden for x in carry)
 
 
-def phase_slice_recurrent(device_name: str, smi: str) -> None:
+def phase_slice_recurrent(device_name: str, smi: str):
     import torch
 
     from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
@@ -1820,6 +2083,7 @@ def phase_slice_recurrent(device_name: str, smi: str) -> None:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     _hold_kernel("slice-recurrent inputs (its last call)", last["args"],
                  (envs, 112, 24))
+    return runner
 
 
 def _mesh_jobs(rnn: int = 512, recurrent_steps: int = 80) -> dict:
@@ -2447,18 +2711,22 @@ def main() -> int:
         launches, pgs_args, runner = phase_slice(name, smi, tmp)
         phase_recorder_resume(runner, tmp, name, smi)
     phase_slice_rates(runner, name, smi)
+    phase_update_graph(runner, "nightmare_v3 feed-forward", name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
     phase_physics_anymal()
+    graph_anymal = phase_graph_anymal(name, smi)
     newton_args = phase_slice_anymal(name, smi)
     phase_newton_converged(newton_args)
     phase_play_grid(name, smi)
     phase_custom_play(name, smi)
     phase_simple_test(name, smi)
     phase_recurrent_net(name, smi)
-    phase_slice_recurrent(name, smi)
+    recurrent = phase_slice_recurrent(name, smi)
+    phase_update_graph(recurrent, "nightmare_v3 recurrent", name, smi)
+    del recurrent
     phase_sharded(name, smi)
     phase_external(name, smi)
     hex_launches, hex_t = phase_dense_hexapod(name, smi)
@@ -2479,7 +2747,10 @@ def main() -> int:
     print("graph: wall ms per env step at 2048 envs, eager / graph in turns: "
           + "; ".join(f"{form} {min(r['eager_ms']):.2f} / "
                       f"{min(r['graph_ms']):.2f} ms (pool {r['pool_mib']:.1f} "
-                      f"MiB)" for form, r in graph.items()))
+                      f"MiB)" for form, r in graph.items())
+          + f"; anymal_c {min(graph_anymal['eager_ms']):.2f} / "
+          f"{min(graph_anymal['graph_ms']):.2f} ms (pool "
+          f"{graph_anymal['pool_mib']:.1f} MiB)")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, legs_entry]}))

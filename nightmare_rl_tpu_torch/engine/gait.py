@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from nightmare_rl_tpu_torch.utils.device import full_float32
+from nightmare_rl_tpu_torch.utils.device import constant, full_float32
 
 # FSM state ids
 IDLE, ADJ_GET_UP, GET_UP, SIT, ADJ_SIT, STAND, WALK = range(7)
@@ -334,8 +334,10 @@ def walk_reduction(cfg: EngineCfg, es: EngineState, walk_trasl, walk_rot):
 def _walk(cfg: EngineCfg, es: EngineState, lin_speed, ang_speed):
     n_gait = cfg.gait.shape[0]
     dt, dev = es.pose.dtype, es.pose.device
-    walk_trasl = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev) * lin_speed[:, None]
-    walk_rot = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev) * ang_speed[:, None]
+    # constants made once: a tensor built here would be a host-to-device
+    # copy on every tick
+    walk_trasl = constant((0.0, 1.0, 0.0), dt, dev) * lin_speed[:, None]
+    walk_rot = constant((0.0, 0.0, 1.0), dt, dev) * ang_speed[:, None]
     gait_mask = cfg.gait[es.gait_step]
     red = walk_reduction(cfg, es, walk_trasl, walk_rot)
 
@@ -347,7 +349,7 @@ def _walk(cfg: EngineCfg, es: EngineState, lin_speed, ang_speed):
 
     # swing legs: cubic Bezier toward the predicted target (:612-622)
     target = _step_target(cfg, walk_trasl, walk_rot, red * cfg.step_time)
-    lift = torch.tensor([0.0, 0.0, cfg.step_height], dtype=dt, device=dev)
+    lift = constant((0.0, 0.0, cfg.step_height), dt, dev)
     sw = _bezier4(
         es.gait_phase[:, None, None],
         es.last_step_pose,
@@ -379,7 +381,7 @@ def update(cfg: EngineCfg, es: EngineState, t, lin_speed, ang_speed,
            ) -> Tuple[EngineState, torch.Tensor]:
     """One engine tick of N envs (EngineNode.update, engine.py:710-715).
 
-    t: the clock (a float or (N,)); lin_speed, ang_speed (N,);
+    t: the clock (a float, a 0-dim tensor or (N,)); lin_speed, ang_speed (N,);
     cmd_state (N,): CMD_IDLE | CMD_AWAKE;  cmd_mode (N,): MODE_STAND |
     MODE_WALK.  Returns (new_state, joint angles (N, 18))."""
     N = es.fsm.shape[0]

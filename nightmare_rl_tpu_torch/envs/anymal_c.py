@@ -112,9 +112,9 @@ class AnymalCEnv:
     """Batched lockstep env with the rsl_rl-style contract
     (num_envs/num_obs/num_actions/max_episode_length, step/reset)."""
 
-    # the Newton step is not captured as a CUDA graph yet (ROADMAP): the
-    # rollout calls it eagerly
-    graph_step = False
+    # the step makes no host synchronization (the Newton loops have fixed
+    # budgets, as the JAX scans): the rollout replays it as a CUDA graph
+    graph_step = True
 
     def __init__(self, cfg: AnymalCCfg = AnymalCCfg(),
                  sys: Optional[S.System] = None,

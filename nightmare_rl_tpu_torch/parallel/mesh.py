@@ -122,6 +122,10 @@ class ShardedPPO(PPO):
     rank 0 alone) and stays off."""
 
     distributed = True
+    # the update's all_reduce runs under gloo where two ranks share a card,
+    # and a CUDA graph cannot hold a gloo collective: the update stays eager
+    # (ROADMAP queues its capture with NCCL)
+    graph_update = False
 
     def __init__(self, env, cfg: PPOCfg, mesh: Mesh):
         if getattr(env, "shard", Shard()) != mesh.shard:

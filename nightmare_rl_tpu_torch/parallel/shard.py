@@ -57,6 +57,10 @@ class Shard(NamedTuple):
         world size."""
         g = torch.randperm(T * n * self.world, generator=generator,
                            device=device)
+        if self.world == 1:
+            # every sample is this shard's: no mask, whose length the host
+            # would have to read
+            return g
         t, e = g // (n * self.world), g % (n * self.world) - self.rank * n
         mine = (e >= 0) & (e < n)
         return t[mine] * n + e[mine]

@@ -26,6 +26,7 @@ instead: elliptic cones get one row per friction direction (condim 3, 4 or
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -37,6 +38,7 @@ from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.physics.collision import (
     Contacts, PairContacts, topk_smallest,
 )
+from nightmare_rl_tpu_torch.utils.device import constant
 
 
 class Efc(NamedTuple):
@@ -167,7 +169,11 @@ def _elliptic_rows(Jn, fdirs, mus, dist, active, solref, solimp, iw,
     R0 = torch.clamp_min((1.0 - imp) / torch.clamp_min(imp, 1e-12) * iw, 1e-12)
     Rf = R0[..., None] * (mu1[..., None] / mus_arr) ** 2 / impratio
     R = torch.cat([R0[..., None], Rf], dim=-1)
-    mu_bar = mu1 / torch.sqrt(J.new_tensor(impratio))
+    # a constant made once (a tensor made of impratio here would be a
+    # host-to-device copy on every substep); a tensor, not a Python float,
+    # because the card divides by a Python scalar as a product with its
+    # reciprocal, which rounds differently
+    mu_bar = mu1 / constant((math.sqrt(impratio),), J.dtype, J.device)
 
     efc = Efc(
         J.reshape(N, n * d, nv),

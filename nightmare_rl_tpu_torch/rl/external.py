@@ -82,7 +82,7 @@ class ExternalPPO:
             obs = self._tensor(obs_next)
         traj = Transition(*[torch.stack(xs) for xs in zip(*rows)])
         ppo.obs = obs
-        _, returns, norm_adv = ppo.gae(traj, ppo.last_value())
+        _, returns, norm_adv = ppo.gae(traj, ppo.last_value(obs, ()))
         stats = ppo.update(traj, returns, norm_adv,
                            ppo.draw_perm(T, self.num_envs))
         ppo.iteration += 1

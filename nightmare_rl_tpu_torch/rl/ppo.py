@@ -23,9 +23,9 @@ A rollout step (the policy step and its sample, ``env.step``, the
 recurrent reset, the timeout bootstrap, the episode accumulations and the
 step's rows) is one function, ``_rollout_step``.  On the card it is
 captured once as a CUDA graph (``utils/graph.py``) and replayed T times, the
-counterpart of the JAX package's ``lax.scan`` inside ``jax.jit``; an env
-whose step cannot be captured yet (``graph_step`` False: anymal_c's Newton
-solve) calls it directly.  The step writes its rows into preallocated
+counterpart of the JAX package's ``lax.scan`` inside ``jax.jit``, for both
+robots' envs (``graph_step``; an env without it is called directly).  The
+step writes its rows into preallocated
 (T, N, ...) trajectory buffers at an index that it keeps on the device, so
 a replay needs nothing from the host; the trajectory that ``rollout``
 returns is those buffers, which the next rollout overwrites.  The env
@@ -36,10 +36,26 @@ from one ``torch.Generator``, drawn at the global batch shape
 (``parallel/shard.py``).  With ``record_states`` the rollout also keeps env
 0's pre-reset ``(qpos, qvel, action, done, commands)`` each step on the
 device and copies the rows to the host once per iteration
-(``stats["record"]``), for the trajectory recorder.  GAE and the update run
-eagerly.  The hooks ``_all_sum``,
-``_sync_grads``, ``gather_envs`` and ``any_rank`` are the identity here;
-``parallel/mesh.py::ShardedPPO`` makes them collectives.
+(``stats["record"]``), for the trajectory recorder.
+
+The learning half of an iteration (``_learn``: the last value, GAE, the
+update's permutation and the 5×4 minibatch steps) runs on the card as two
+more graphs (``CapturedLearn``, through ``utils/graph.py::CapturedUpdate``):
+the prologue (last value, GAE, permutation), replayed once per iteration,
+and one minibatch step (``_minibatch``), replayed once per minibatch with
+its indices copied in, as the JAX update's ``lax.scan`` runs its compiled
+body: the rest of the JAX package's ``jax.jit(self._iteration)``.  As that
+scan carries ``(params, opt_state, lr)``, nothing of it leaves the device:
+the learning rate is a 0-dim tensor that the adaptive
+rule updates with ``torch.where`` and Adam reads (``fused=True``, and
+``capturable=True`` on the card), the gradients are zeroed in place, Adam's
+state is made with the optimizer and reset in place, and the statistics
+(loss, surrogate, value loss, KL, lr) come back as one tensor that
+``learn_step`` reads with its episode sums, the iteration's one read.
+``graph_update`` False (``ShardedPPO``, whose ``all_reduce`` runs under gloo
+on one card, which a graph cannot hold) runs the same function eagerly.  The
+hooks ``_all_sum``, ``_sync_grads``, ``gather_envs`` and ``any_rank`` are the
+identity here; ``parallel/mesh.py::ShardedPPO`` makes them collectives.
 """
 
 from __future__ import annotations
@@ -53,8 +69,13 @@ import torch
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.models import actor_critic as ac
 from nightmare_rl_tpu_torch.parallel.shard import Shard
-from nightmare_rl_tpu_torch.utils.device import full_float32
-from nightmare_rl_tpu_torch.utils.graph import CapturedStep, assign, clone, leaves
+from nightmare_rl_tpu_torch.utils.device import constant, full_float32
+from nightmare_rl_tpu_torch.utils.graph import (
+    CapturedStep, CapturedUpdate, assign, clone, leaves,
+)
+
+# the update's statistics, in the order of the tensor that ``_update`` returns
+STAT_KEYS = ("loss", "surrogate_loss", "value_loss", "kl", "lr")
 
 
 class Transition(NamedTuple):
@@ -93,6 +114,8 @@ def _record_to_host(rows: torch.Tensor, widths) -> Tuple[np.ndarray, ...]:
 
 class PPO:
     distributed = False  # ShardedPPO reduces over the ranks of a mesh
+    # the learning half of the iteration runs as a captured graph on the card
+    graph_update = True
 
     def __init__(self, env, cfg: PPOCfg, record_states: bool = False):
         self.env = env
@@ -128,6 +151,7 @@ class PPO:
         self.net.to(device=self.device, dtype=self.dtype)
         # the trained parameters (the LSTMs' bias_ih stays frozen)
         self.params = [p for p in self.net.parameters() if p.requires_grad]
+        self.optimizer: Optional[torch.optim.Adam] = None
         self._reset_optimizer()
         self.generator = torch.Generator(device=self.device)
         self.env_state = None
@@ -138,6 +162,11 @@ class PPO:
         self.record_states = record_states
         self._stepper = None     # the (captured) rollout step and its key
         self._stepper_key = None
+        self._learner_obj = None  # the (captured) learning half and its key
+        self._learner_key = None
+        # the permutation of the last update (inside a graph: the tensor
+        # that each replay draws into)
+        self.last_perm: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     # collective hooks: the identity on one process
@@ -173,10 +202,68 @@ class PPO:
         self.iteration = 0
 
     def _reset_optimizer(self) -> None:
-        """Adam from a fresh state at the configured learning rate."""
-        self.lr = self.cfg.algorithm.learning_rate
-        self.optimizer = torch.optim.Adam(self.params, lr=self.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        """Adam from a fresh state at the configured learning rate.  The
+        first call makes the optimizer, the learning rate (a 0-dim tensor
+        that Adam reads), zero gradients and Adam's state (zero moments,
+        step 0: what Adam would make at its first step); later calls reset
+        them in place, so that a captured update keeps its tensors."""
+        lr = self.cfg.algorithm.learning_rate
+        if self.optimizer is None:
+            self._lr = torch.tensor(lr, dtype=self.dtype, device=self.device)
+            self.optimizer = torch.optim.Adam(
+                self.params, lr=self._lr, betas=(0.9, 0.999), eps=1e-8,
+                fused=True, capturable=self.device.type == "cuda")
+            for p in self.params:
+                p.grad = torch.zeros_like(p)
+                self.optimizer.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float32,
+                                        device=self.device),
+                    "exp_avg": torch.zeros_like(p),
+                    "exp_avg_sq": torch.zeros_like(p)}
+            return
+        self.lr = lr
+        with torch.no_grad():
+            for st in self.optimizer.state.values():
+                for x in st.values():
+                    x.zero_()
+
+    @property
+    def lr(self) -> torch.Tensor:
+        """The adaptive learning rate: a 0-dim tensor on the PPO's device,
+        the ``lr`` of Adam's param group.  Assigning a number (or a 0-dim
+        tensor) writes it in place."""
+        return self._lr
+
+    @lr.setter
+    def lr(self, value) -> None:
+        with torch.no_grad():
+            self._lr.fill_(value)
+
+    def load_optimizer_state(self, sd: Dict) -> None:
+        """Restore an Adam ``state_dict`` (rsl_rl's ``optimizer_state_dict``)
+        in place: each parameter's moments and step count (a fresh state
+        where the file holds none) and the learning rate."""
+        groups = sd["param_groups"]
+        if len(groups) != 1 or len(groups[0]["params"]) != len(self.params):
+            raise ValueError("the optimizer state is not of this PPO's "
+                             "parameters")
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                saved = sd["state"].get(groups[0]["params"][i])
+                for k, x in self.optimizer.state[p].items():
+                    if saved is None:
+                        x.zero_()
+                    else:
+                        x.copy_(saved[k])
+        self.lr = groups[0]["lr"]
+
+    def optimizer_state(self) -> Dict:
+        """Adam's ``state_dict`` as rsl_rl writes it: the learning rate a
+        number."""
+        sd = self.optimizer.state_dict()
+        for g in sd["param_groups"]:
+            g["lr"] = float(g["lr"])
+        return sd
 
     def init(self, seed: int | None = None) -> None:
         """The train state of ``seed`` (the config's seed when None): fresh
@@ -220,10 +307,11 @@ class PPO:
         return action, mu, std, value, ac.log_prob(mu, std, action), hidden
 
     @torch.no_grad()
-    def last_value(self) -> torch.Tensor:
-        """V of the current observations; a recurrent net takes one extra
-        LSTM step whose carry is discarded."""
-        (_, _, value), _ = self._forward(self.obs, self.hidden)
+    def last_value(self, obs: torch.Tensor, hidden) -> torch.Tensor:
+        """V of the observations ``obs`` (the rollout's last); a recurrent
+        net takes one extra LSTM step from ``hidden`` whose carry is
+        discarded."""
+        (_, _, value), _ = self._forward(obs, hidden)
         return value
 
     def _rollout_buffers(self, T: int) -> None:
@@ -348,15 +436,20 @@ class PPO:
         kl = ac.gaussian_kl(mb.mu, mb.sigma, mu, std).mean()
         return loss, surrogate, v_loss, kl
 
-    def _adapt_lr(self, kl: float) -> float:
+    def _adapt_lr(self, lr: torch.Tensor, kl: torch.Tensor) -> torch.Tensor:
+        """rsl_rl's adaptive rule on the device (the JAX ``_adapt_lr``):
+        lr ÷ 1.5 (at least 1e-5) where kl > 2·desired, lr × 1.5 (at most
+        1e-2) where 0 < kl < desired / 2, else lr."""
         a = self.cfg.algorithm
         if a.schedule != "adaptive":
-            return self.lr
-        if kl > a.desired_kl * 2.0:
-            return max(1e-5, self.lr / 1.5)
-        if a.desired_kl / 2.0 > kl > 0.0:
-            return min(1e-2, self.lr * 1.5)
-        return self.lr
+            return lr
+        # a 0-dim tensor: the card divides by a Python scalar as a product
+        # with its reciprocal, which rounds differently
+        by = constant((1.5,), lr.dtype, lr.device)[0]
+        return torch.where(
+            kl > a.desired_kl * 2.0, torch.clamp_min(lr / by, 1e-5),
+            torch.where((kl < a.desired_kl / 2.0) & (kl > 0.0),
+                        torch.clamp_max(lr * 1.5, 1e-2), lr))
 
     def _replay(self, mb: Transition, hidden):
         """The recurrent net over a minibatch of whole trajectories (T, n),
@@ -377,70 +470,112 @@ class PPO:
     def update(self, traj: Transition, returns: torch.Tensor,
                norm_adv: torch.Tensor, perm: torch.Tensor,
                hidden0=None) -> Dict[str, float]:
+        """``_update``, its statistics read to the host by name."""
+        return dict(zip(STAT_KEYS, self._update(
+            traj, returns, norm_adv, perm, hidden0).tolist()))
+
+    def _update(self, traj: Transition, returns: torch.Tensor,
+                norm_adv: torch.Tensor, perm: torch.Tensor,
+                hidden0=None, step=None) -> torch.Tensor:
         """The 5×4 minibatch update over the permutation ``perm``, shared by
         every epoch: of the T·N samples, or for the recurrent net of the N
         envs, whose trajectories replay from ``hidden0`` (the rollout-start
-        hidden state)."""
+        hidden state).  ``step`` runs one minibatch (``_minibatch``, or its
+        captured graph).  Returns the statistics (``STAT_KEYS``) as one
+        tensor; nothing is read to the host."""
         a = self.cfg.algorithm
-        nmb = a.num_mini_batches
-        if self.recurrent:
-            idxs = perm.reshape(nmb, -1)
+        step = step or self._minibatch
+        idxs = perm.reshape(a.num_mini_batches, -1)
+        # clones: a captured step's result is overwritten by its next replay
+        rows = torch.stack([step(traj, returns, norm_adv, hidden0, idx).clone()
+                            for _ in range(a.num_learning_epochs)
+                            for idx in idxs])
+        m = self._all_sum(rows[:, :3].mean(dim=0)) / self.shard.world
+        return torch.cat([m, rows[:, 3].mean().reshape(1),
+                          self._lr.reshape(1).to(m.dtype)])
 
-            def minibatch(idx):
-                mb = Transition(*[x[:, idx] for x in traj])
-                h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
-                return mb, returns[:, idx], norm_adv[:, idx], self._replay(mb, h0)
+    def _minibatch(self, traj: Transition, returns: torch.Tensor,
+                   norm_adv: torch.Tensor, hidden0,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """One minibatch step, the body of the JAX update's ``lax.scan``:
+        the losses on the samples ``idx`` (for the recurrent net the envs
+        ``idx``, replayed from ``hidden0``), the gradients, the adaptive lr
+        from this minibatch's KL, the clip by global norm and Adam's step.
+        Returns (loss, surrogate loss, value loss, kl)."""
+        if self.recurrent:
+            mb = Transition(*[x[:, idx] for x in traj])
+            h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
+            mb_ret, mb_adv = returns[:, idx], norm_adv[:, idx]
+            mu, std, value = self._replay(mb, h0)
         else:
             B = returns.numel()
-            flat = Transition(*[x.reshape((B,) + x.shape[2:]) for x in traj])
-            flat_ret, flat_adv = returns.reshape(B), norm_adv.reshape(B)
-            idxs = perm.reshape(nmb, B // nmb)
+            mb = Transition(*[x.reshape((B,) + x.shape[2:])[idx] for x in traj])
+            mb_ret, mb_adv = returns.reshape(B)[idx], norm_adv.reshape(B)[idx]
+            mu, std, value = self.net(mb.obs)
+        loss, surr, v_loss, kl = self._loss_terms(mb, mb_ret, mb_adv, mu, std,
+                                                  value)
+        # in place: backward accumulates into the same storage
+        self.optimizer.zero_grad(set_to_none=False)
+        with full_float32():  # the LSTM's backward, no TF32
+            loss.backward()
+        kl = self._sync_grads(kl.detach())
+        # adaptive lr from this minibatch's KL, applied to its step (Adam's
+        # param group holds the same tensor)
+        with torch.no_grad():
+            self._lr.copy_(self._adapt_lr(self._lr, kl))
+        clip_by_global_norm(self.params, self.cfg.algorithm.max_grad_norm)
+        self.optimizer.step()
+        return torch.stack([loss.detach(), surr.detach(), v_loss.detach(), kl])
 
-            def minibatch(idx):
-                mb = Transition(*[x[idx] for x in flat])
-                return mb, flat_ret[idx], flat_adv[idx], self.net(mb.obs)
-        losses, surrs, v_losses, kls = [], [], [], []
-        for _ in range(a.num_learning_epochs):
-            for idx in idxs:
-                mb, mb_ret, mb_adv, (mu, std, value) = minibatch(idx)
-                loss, surr, v_loss, kl = self._loss_terms(
-                    mb, mb_ret, mb_adv, mu, std, value)
-                self.optimizer.zero_grad(set_to_none=True)
-                with full_float32():  # the LSTM's backward, no TF32
-                    loss.backward()
-                kl = self._sync_grads(kl.detach())
-                # adaptive lr from this minibatch's KL, applied to its step
-                self.lr = self._adapt_lr(float(kl))
-                for group in self.optimizer.param_groups:
-                    group["lr"] = self.lr
-                clip_by_global_norm(self.params, a.max_grad_norm)
-                self.optimizer.step()
-                losses.append(loss.detach())
-                surrs.append(surr.detach())
-                v_losses.append(v_loss.detach())
-                kls.append(kl)
-        m = torch.stack([torch.stack(x).mean() for x in (losses, surrs, v_losses)])
-        m = self._all_sum(m) / self.shard.world
-        return {
-            "loss": float(m[0]),
-            "surrogate_loss": float(m[1]),
-            "value_loss": float(m[2]),
-            "kl": float(torch.stack(kls).mean()),
-            "lr": self.lr,
-        }
+    def _prologue(self, traj: Transition, obs: torch.Tensor, hidden):
+        """What the minibatch steps read: the returns and normalized
+        advantages (GAE from V of the rollout's last observations ``obs``)
+        and the update's permutation."""
+        _, returns, norm_adv = self.gae(traj, self.last_value(obs, hidden))
+        T, N = traj.reward.shape
+        return returns, norm_adv, self.draw_perm(T, N)
+
+    def _learn(self, traj: Transition, obs: torch.Tensor, hidden,
+               hidden0) -> torch.Tensor:
+        """The learning half of an iteration, all on the device: V of the
+        rollout's last observations, GAE, the update's permutation and the
+        update from the rollout-start hidden state ``hidden0``.  Returns the
+        update's statistics (``_update``)."""
+        returns, norm_adv, self.last_perm = self._prologue(traj, obs, hidden)
+        return self._update(traj, returns, norm_adv, self.last_perm, hidden0)
+
+    def _held(self):
+        """Every tensor that a minibatch step writes and that outlives it:
+        the trained parameters, their gradients, Adam's state and the lr."""
+        return [*self.params, *(p.grad for p in self.params),
+                *(x for p in self.params
+                  for x in self.optimizer.state[p].values()), self._lr]
+
+    def _learner(self, *inputs):
+        """``_learn`` as the iteration calls it: captured (``CapturedLearn``,
+        once per shape of its inputs and set of held tensors) where
+        ``graph_update`` holds, else the plain function."""
+        if not self.graph_update:
+            return self._learn
+        held = self._held()
+        key = (tuple((tuple(x.shape), x.dtype) for x in leaves(inputs)),
+               tuple(x.data_ptr() for x in held))
+        if key != self._learner_key:
+            self._learner_obj = CapturedLearn(self, *inputs)
+            self._learner_key = key
+        return self._learner_obj
 
     def learn_step(self) -> Dict[str, object]:
-        """One PPO iteration (rollout + update)."""
+        """One PPO iteration (rollout + update); the statistics are read to
+        the host once, at its end."""
         t0 = time.perf_counter()
         # the rollout-start hidden state (the rollout updates its buffers)
         hidden0 = clone(self.hidden)
         traj, n_done, term_sums, record = self.rollout()
-        _, returns, norm_adv = self.gae(traj, self.last_value())
         _sync(self.device)
         t1 = time.perf_counter()
-        T, N = traj.reward.shape
-        stats = self.update(traj, returns, norm_adv, self.draw_perm(T, N),
-                            hidden0)
+        inputs = (traj, self.obs, self.hidden, hidden0)
+        learned = self._learner(*inputs)(*inputs)
         _sync(self.device)
         t2 = time.perf_counter()
         self.iteration += 1
@@ -449,15 +584,19 @@ class PPO:
             n_done.reshape(1).to(term_sums.dtype), term_sums,
             (traj.reward.mean() / self.shard.world).reshape(1),
             traj.done.sum().reshape(1).to(term_sums.dtype)]))
-        n, term_sums = float(red[0]), red[1:-2]
+        host = torch.cat([learned.to(red.dtype), self._noise_std().reshape(
+            1).to(red.dtype), red]).cpu()
+        k = len(STAT_KEYS)
+        stats = dict(zip(STAT_KEYS, host[:k].tolist()))
+        n, term_sums = float(host[k + 1]), host[k + 2:-2]
         # mean finished-episode sums per reward term, per episode second
         ep_means = (term_sums / max(n, 1.0) / self.env.max_episode_length_s
                     if n > 0 else torch.zeros_like(term_sums))
         stats.update(
-            mean_reward=float(red[-2]),
-            dones=int(red[-1]),
-            episode_reward_means=ep_means.cpu().tolist(),
-            mean_noise_std=self.mean_noise_std(),
+            mean_reward=float(host[-2]),
+            dones=int(host[-1]),
+            episode_reward_means=ep_means.tolist(),
+            mean_noise_std=float(host[k]),
             rollout_s=t1 - t0,
             update_s=t2 - t1,
         )
@@ -466,7 +605,54 @@ class PPO:
             stats["record"] = record
         return stats
 
+    def _noise_std(self) -> torch.Tensor:
+        return torch.clamp_min(torch.abs(self.net.std.detach()),
+                               self.cfg.policy.std_floor).mean()
+
     def mean_noise_std(self) -> float:
         """The std that sampling sees (the std_floor clamp applied)."""
-        return float(torch.clamp_min(torch.abs(self.net.std.detach()),
-                                     self.cfg.policy.std_floor).mean())
+        return float(self._noise_std())
+
+
+class CapturedLearn:
+    """``PPO._learn`` as CUDA graphs (``utils/graph.py::CapturedUpdate``):
+    the prologue (V of the last observations, GAE, the permutation) and one
+    minibatch step, each captured once; a call replays the prologue and
+    then the step once per minibatch, its indices copied into the step's
+    buffer, as the JAX update's ``lax.scan`` runs one compiled body per
+    minibatch.  (One graph of the whole update holds every minibatch's
+    kernels, ~235k for the recurrent net, whose capture took minutes; a
+    step's graph is a twentieth of it.)  Called like ``_learn``; on the CPU
+    both parts run eagerly.  ``graph``, ``warmup_s``, ``capture_s``,
+    ``record_s`` and ``pool_bytes`` sum or stand for the two parts."""
+
+    def __init__(self, ppo: PPO, traj: Transition, obs: torch.Tensor, hidden,
+                 hidden0):
+        self.ppo = ppo
+        self.prologue = CapturedUpdate(ppo._prologue, traj, obs, hidden,
+                                       held=(), generators=(ppo.generator,))
+        # the step's buffers: the prologue graph's returns and advantages
+        # (on the CPU, which has no graph, tensors of their shape) and
+        # indices of a minibatch's size (valid ones: the warm-up indexes
+        # with them)
+        if self.prologue.graph is not None:
+            returns, norm_adv, _ = self.prologue._result
+        else:
+            returns, norm_adv = (torch.zeros_like(traj.reward)
+                                 for _ in range(2))
+        samples = traj.reward.shape[1] if ppo.recurrent else traj.reward.numel()
+        idx = torch.arange(samples // ppo.cfg.algorithm.num_mini_batches,
+                           device=traj.reward.device)
+        self.step = CapturedUpdate(ppo._minibatch, traj, returns, norm_adv,
+                                   hidden0, idx, held=ppo._held())
+        self.parts = (self.prologue, self.step)
+        self.graph = self.step.graph
+        for k in ("warmup_s", "capture_s", "record_s", "pool_bytes"):
+            setattr(self, k, sum(getattr(x, k) for x in self.parts))
+
+    def __call__(self, traj: Transition, obs: torch.Tensor, hidden,
+                 hidden0) -> torch.Tensor:
+        ppo = self.ppo
+        returns, norm_adv, ppo.last_perm = self.prologue(traj, obs, hidden)
+        return ppo._update(traj, returns, norm_adv, ppo.last_perm, hidden0,
+                           step=self.step)

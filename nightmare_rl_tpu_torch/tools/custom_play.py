@@ -13,7 +13,12 @@ over many envs: ``--envs N``, one batched engine call per control step).
 
 The engine ticks once per control step (``engine_fps = 1/(dt·2)``) and the
 physics runs 2 substeps per control step with ``max_contacts=16``.  Runs on
-the card unless ``--device cpu``.
+the card unless ``--device cpu``.  On the card the control step is captured
+once as a CUDA graph (``utils/graph.py``) and replayed, the counterpart of
+the JAX tool's ``@jax.jit`` step; the clock is a device input of the graph,
+taken from a table of the step times made once; the CPU runs the step
+eagerly.  The print every 100 steps reads the card and stays outside the
+graph.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from nightmare_rl_tpu_torch.engine import gait as G
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.utils.device import resolve_device
+from nightmare_rl_tpu_torch.utils.graph import CapturedStep
 
 KP = 12.0
 RATE_LIMIT = 0.08   # action-rate limit (custom_play.py:72-74)
@@ -56,7 +62,9 @@ def make(num_envs: int, gait: str = "tripod", device=None,
 
 def control_step(sys_, cfg, phys, es, limited, t, lin, ang):
     """One control step of every env: an engine tick (awake, walking at
-    lin/ang, each (N,)), the rate limit, the P controller and the physics."""
+    lin/ang, each (N,)), the rate limit, the P controller and the physics.
+    ``t`` is the clock, a number or a 0-dim tensor of the physics dtype on
+    its device (which keeps the step free of host copies)."""
     N = lin.shape[0]
     awake = torch.full((N,), G.CMD_AWAKE, dtype=torch.long, device=lin.device)
     walk = torch.full((N,), G.MODE_WALK, dtype=torch.long, device=lin.device)
@@ -94,27 +102,41 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     lin = torch.tensor(args.lin, dtype=dtype)[env % len(args.lin)].to(dev)
     ang = torch.tensor(args.ang, dtype=dtype)[env % len(args.ang)].to(dev)
 
-    qs, vs, ts = [], [], []
-    t = 0.0
+    ts, t = [], 0.0
+    for _ in range(args.steps):
+        t += dt * DECIMATION
+        ts.append(t)
+    # the clock of every step on the device, in one copy
+    clock = torch.tensor(ts, dtype=dtype, device=dev)
+
+    def tick(carry, t, lin, ang):
+        return control_step(sys_, cfg, *carry, t, lin, ang)
+
+    carry = (phys, es, limited)
+    t0 = time.time()
+    step = CapturedStep(tick, carry, clock[0], lin, ang)
+    capture_s = time.time() - t0
+    nq, nv = phys.qpos.shape[1], phys.qvel.shape[1]
+    rows = torch.empty(args.steps, nq + nv, dtype=dtype, device=dev)
     t_wall = time.time()
     for k in range(args.steps):
-        t += dt * DECIMATION
-        phys, es, limited = control_step(sys_, cfg, phys, es, limited, t,
-                                         lin, ang)
-        qs.append(phys.qpos[0])
-        vs.append(phys.qvel[0])
-        ts.append(t)
+        carry = step(carry, clock[k], lin, ang)
+        phys, es, limited = carry
+        # env 0's row; the captured step's buffers change on every replay
+        rows[k, :nq].copy_(phys.qpos[0])
+        rows[k, nq:].copy_(phys.qvel[0])
         if (k + 1) % 100 == 0:
-            fps = (k + 1) / (time.time() - t_wall)
+            # the read waits for the card, so the rate counts finished steps
             forces = phys.sensordata[0].cpu().numpy()
+            fps = (k + 1) / (time.time() - t_wall)
             print(f"step {k+1}: {fps:.1f} ctrl-steps/s  base z "
                   f"{float(phys.qpos[0, 2]):.3f}  feet forces "
                   f"{forces[6:12].round(2)}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t_wall
-    qpos = torch.stack(qs).cpu().numpy().astype(np.float64)
-    qvel = torch.stack(vs).cpu().numpy().astype(np.float64)
+    host = rows.cpu().numpy().astype(np.float64)
+    qpos, qvel = host[:, :nq], host[:, nq:]
     traj = [(ts[k], qpos[k], qvel[k], np.zeros(0)) for k in range(args.steps)]
 
     print(f"final base pos {qpos[-1, :3].round(3)}")
@@ -127,7 +149,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         replay_in_viewer(traj, xml=args.xml)
     return {"traj": traj, "qpos": phys.qpos.cpu().numpy(), "engine": es,
-            "wall_s": wall, "ctrl_steps_per_s": args.steps / wall}
+            "wall_s": wall, "ctrl_steps_per_s": args.steps / wall,
+            "capture_s": capture_s, "graph": step.graph}
 
 
 if __name__ == "__main__":

@@ -27,8 +27,10 @@ within calls:
   capture reserved);
 - the wall time of one policy forward pass on the step's observations.
 
-anymal_c's step is not captured yet (``graph_step`` False): it is measured
-eagerly only.  The last line is one JSON object with these numbers (per
+Both robots' steps are captured (anymal_c's since its Newton step makes no
+host synchronization); an env without ``graph_step`` is measured eagerly
+only.  ``capture_s`` is the capture and the graph's instantiation,
+``warmup_s`` the eager warm-up step before it.  The last line is one JSON object with these numbers (per
 form: ``eager`` and ``graph``, ``graph_pool_bytes``, ``capture_s``; with
 ``--forms``, a list ``forms`` of these objects) and the card's name: the
 per-layer breakdown that PERF.md's "Where the time goes" quotes.  A missing
@@ -171,10 +173,14 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
                   f"{e['launches_per_step']:6.0f}x  {e['name'][:90]}")
     out = {"pgs_form": form, "policy_ms": policy_ms, **res}
     if "graph" in runs:
-        out.update(graph_pool_bytes=captured.pool_bytes, capture_s=capture_s,
-                   graph_launches=captured.launches)
+        out.update(graph_pool_bytes=captured.pool_bytes,
+                   capture_s=captured.capture_s, record_s=captured.record_s,
+                   warmup_s=captured.warmup_s,
+                   construct_s=capture_s, graph_launches=captured.launches)
         print(f"profile: graph pool {captured.pool_bytes / 2**20:.1f} MiB, "
-              f"capture {capture_s:.2f} s (its warm-up step included)")
+              f"warm-up step {captured.warmup_s:.2f} s, capture and "
+              f"instantiation {captured.capture_s:.2f} s (recording "
+              f"{captured.record_s:.2f} s; {capture_s:.2f} s in all)")
     print(f"profile: policy forward {policy_ms:.3f} ms")
     return out
 

@@ -8,7 +8,12 @@ one ``train_state`` entry for a deterministic resume: the learning rate, the
 PPO generator's state, every field of the env state, the last observation,
 the recurrent policy's hidden state and the env's own generator state.  A
 file without ``train_state`` (for example ``artifacts/model_3176.pt``)
-restores the weights, and the optimizer where present.
+restores the weights, and the optimizer where present.  The learning rate,
+a tensor in the PPO, is a number in the file (in ``optimizer_state_dict``
+as rsl_rl writes it, and in ``train_state``).  A load writes every tensor
+of the train state into the PPO's own with ``copy_`` (the weights, Adam's
+state, the learning rate, the rollout's buffers): the captured rollout
+step and update read and write those.
 
 Under a mesh (``parallel/mesh.py``) the file holds the GLOBAL env state: every
 rank takes part in gathering it and rank 0 writes it; a load gives each rank
@@ -88,11 +93,11 @@ def save(path: str, ppo, infos=None) -> None:
     env_gen = _generator(ppo)
     torch.save({
         "model_state_dict": ppo.net.state_dict(),
-        "optimizer_state_dict": ppo.optimizer.state_dict(),
+        "optimizer_state_dict": ppo.optimizer_state(),
         "iter": ppo.iteration,
         "infos": infos,
         "train_state": {
-            "lr": ppo.lr,
+            "lr": float(ppo.lr),
             "generator": ppo.generator.get_state(),
             **glob,
             "env_generator": None if env_gen is None else env_gen.get_state(),
@@ -138,14 +143,11 @@ def load(path: str, ppo) -> bool:
         ppo.init()
     ppo.net.load_state_dict(blob["model_state_dict"])
     if "optimizer_state_dict" in blob:
-        ppo.optimizer.load_state_dict(blob["optimizer_state_dict"])
-        ppo.lr = ppo.optimizer.param_groups[0]["lr"]
+        ppo.load_optimizer_state(blob["optimizer_state_dict"])
     ppo.iteration = int(blob.get("iter", 0))
     if ts is None:
         return False
     ppo.lr = ts["lr"]
-    for group in ppo.optimizer.param_groups:
-        group["lr"] = ppo.lr
     # generator states are CPU byte tensors whatever the generator's device
     ppo.generator.set_state(ts["generator"].cpu())
     rows = ppo.shard.rows

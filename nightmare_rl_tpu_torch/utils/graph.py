@@ -50,11 +50,23 @@ it was captured with.
 
 On CPU tensors there is no graph: a call runs the step eagerly on the same
 buffers, which is how the CPU tests exercise this module.
+
+``CapturedUpdate`` captures a call that writes tensors in place rather than
+returning a next state: a PPO minibatch step, which moves an ``nn.Module``'s
+parameters and gradients, Adam's moments and step count and the learning
+rate (the body of the JAX update's ``lax.scan``, which carries ``(params,
+opt_state, lr)``; ``rl/ppo.py::CapturedLearn`` replays it per minibatch
+after a captured prologue).  Its warm-up cannot run on clones of a module's
+parameters, so it saves those tensors (``held``), runs the call, and writes
+them back with ``copy_``: it moves nothing.  The tensors keep their storage
+for the life of the graph, which reads and writes them at their addresses
+on every replay.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -133,7 +145,114 @@ def _where(err: BaseException) -> str:
     return "?" if f is None else f"{f.filename}:{f.lineno} ({f.line})"
 
 
-class CapturedStep:
+def _load(static: List[torch.Tensor], given: List[torch.Tensor]) -> None:
+    """Copy into the static buffers each given leaf that is not one."""
+    if len(given) != len(static):
+        raise ValueError(f"the step was captured with {len(static)} "
+                         f"tensors in its state and inputs, not {len(given)}")
+    for dst, src in zip(static, given):
+        if src is dst:
+            continue
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"a captured step's buffer is {tuple(dst.shape)} "
+                f"{dst.dtype}, the call gives {tuple(src.shape)} "
+                f"{src.dtype}: capture a new step for a new shape")
+        dst.copy_(src)
+
+
+class _Captured:
+    """What both captures share: the warm-up on the capture's side stream,
+    the generators registered, the capture under the sync check, the
+    launch counters and the pool.  A subclass gives ``fn``, ``_run`` (the
+    call that the graph records; eager on the CPU) and ``_warm`` (the
+    warm-up calls)."""
+
+    WARMUP = 1  # eager calls before capture
+
+    def _init_graph(self, device: torch.device,
+                    generators: Sequence[Optional[torch.Generator]]) -> None:
+        self.device = device
+        self.launches: Dict[str, int] = {}
+        self.pool_bytes = 0
+        self.warmup_s = self.capture_s = self.record_s = 0.0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._result = None
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                self._capture([g for g in generators if g is not None])
+
+    def __call__(self, *args):
+        """Copy the given state and inputs into the buffers, then replay
+        the graph (run the call eagerly on the CPU)."""
+        _load(self._static, leaves(args))
+        return self._run() if self.graph is None else self._replay()
+
+    def _replay(self):
+        self.graph.replay()
+        for fn in _COUNTED:
+            fn.launches += self.launches[fn.__name__]
+        return self._result
+
+    def warm_up(self, generators: Sequence[torch.Generator]) -> None:
+        """``WARMUP`` eager calls, the generators' states restored after
+        them (with what ``_warm`` restores itself)."""
+        saved = [g.get_state() for g in generators]
+        try:
+            with full_float32():
+                self._warm()
+        finally:
+            for g, s in zip(generators, saved):
+                g.set_state(s)
+
+    def _capture(self, generators: List[torch.Generator]) -> None:
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            self.warm_up(generators)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        counts = {fn: fn.launches for fn in _COUNTED}
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        err: Optional[BaseException] = None
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._result = self._run()
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    err = e
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                    self.record_s = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - capture_end after a failure
+            err = err or e
+        finally:
+            self.launches = {fn.__name__: fn.launches - n
+                             for fn, n in counts.items()}
+            for fn, n in counts.items():
+                fn.launches = n
+        if err is not None:
+            name = getattr(self.fn, "__qualname__", repr(self.fn))
+            raise RuntimeError(f"CUDA graph capture of {name} failed at "
+                               f"{_where(err)}: {err}") from err
+        # capture_end instantiated the graph
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph
+
+
+class CapturedStep(_Captured):
     """``fn(state, *inputs)`` captured once as a CUDA graph on the card and
     replayed by each call (run eagerly on CPU tensors).  See the module's
     docstring.
@@ -143,11 +262,11 @@ class CapturedStep:
     name of the field of its (NamedTuple) result that holds it.
 
     After capture, ``launches`` maps each counted kernel wrapper's name to
-    the launches one replay makes, and ``pool_bytes`` is the device memory
+    the launches one replay makes, ``pool_bytes`` is the device memory
     the capture reserved (the graph's private pool: its intermediates and
-    outputs)."""
-
-    WARMUP = 1  # eager calls before capture, on clones
+    outputs), ``warmup_s`` the warm-up's seconds, ``capture_s`` those of
+    the capture and the graph's instantiation, and ``record_s`` those of
+    the capture alone (the step's call while the stream records)."""
 
     def __init__(self, fn: Callable, state, *inputs,
                  generators: Sequence[Optional[torch.Generator]] = (),
@@ -161,40 +280,7 @@ class CapturedStep:
         if not self._static:
             raise ValueError("a captured step needs tensors in its state")
         self._storages = {x.untyped_storage().data_ptr() for x in self._static}
-        self.device = self._static[0].device
-        self.launches: Dict[str, int] = {}
-        self.pool_bytes = 0
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self._result = None
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                self._capture([g for g in generators if g is not None])
-
-    # ------------------------------------------------------------------
-
-    def __call__(self, state, *inputs):
-        self._load(leaves((state, inputs)))
-        if self.graph is None:
-            return self._run()
-        self.graph.replay()
-        for fn in _COUNTED:
-            fn.launches += self.launches[fn.__name__]
-        return self._result
-
-    def _load(self, given: List[torch.Tensor]) -> None:
-        """Copy into the static buffers each given leaf that is not one."""
-        if len(given) != len(self._static):
-            raise ValueError(f"the step was captured with {len(self._static)} "
-                             f"tensors in its state and inputs, not {len(given)}")
-        for dst, src in zip(self._static, given):
-            if src is dst:
-                continue
-            if src.shape != dst.shape or src.dtype != dst.dtype:
-                raise ValueError(
-                    f"a captured step's buffer is {tuple(dst.shape)} "
-                    f"{dst.dtype}, the call gives {tuple(src.shape)} "
-                    f"{src.dtype}: capture a new step for a new shape")
-            dst.copy_(src)
+        self._init_graph(self._static[0].device, generators)
 
     def _run(self):
         """The step on the static buffers, its next state copied into the
@@ -228,55 +314,59 @@ class CapturedStep:
     def _aliases(self, x: torch.Tensor) -> bool:
         return x.untyped_storage().data_ptr() in self._storages
 
-    def warm_up(self, generators: Sequence[torch.Generator]) -> None:
-        """``WARMUP`` calls of the step on clones of the state and inputs
-        buffers, the generators' states restored after them: the buffers
-        and the generators are left as they were."""
-        saved = [g.get_state() for g in generators]
-        try:
-            with full_float32():
-                for _ in range(self.WARMUP):
-                    self.fn(clone(self.state), *clone(self.inputs))
-        finally:
-            for g, s in zip(generators, saved):
-                g.set_state(s)
+    def _warm(self) -> None:
+        """The step on clones of the state and inputs buffers, which are
+        left as they were."""
+        for _ in range(self.WARMUP):
+            self.fn(clone(self.state), *clone(self.inputs))
 
-    def _capture(self, generators: List[torch.Generator]) -> None:
-        dev = self.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self.warm_up(generators)
-        torch.cuda.current_stream(dev).wait_stream(stream)
 
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        counts = {fn: fn.launches for fn in _COUNTED}
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        err: Optional[BaseException] = None
+class CapturedUpdate(_Captured):
+    """``fn(*inputs)``, a call that writes the tensors ``held`` in place
+    (a module's parameters and gradients, an optimizer's state, a learning
+    rate) and returns a tree of tensors, captured once as a CUDA graph on
+    the card and replayed by each call (run eagerly on CPU tensors).  See
+    the module's docstring.
+
+    ``fn`` must not write its inputs.  The tensors of the inputs given here
+    are the object's buffers, not copies of them (an update reads large
+    buffers that persist, such as a rollout's trajectory, or another
+    graph's outputs): a call copies into them each given leaf that is not
+    one of them, as ``CapturedStep`` does.  ``held`` lists every tensor that
+    ``fn`` writes and that outlives a call; they must keep their storage
+    while the object is used (write into them with ``copy_``), and the
+    caller makes them before the capture (an optimizer's state included:
+    a lazily made state would be made by the warm-up outside the graph and
+    then reset by it).  Gradients are among them: ``fn`` zeroes them in
+    place rather than setting them to None, so that backward accumulates
+    into the same storage on every replay.  ``generators`` as for
+    ``CapturedStep``, and so are the attributes it sets at capture.  The
+    result is the graph's own tensors on the card: the next replay
+    overwrites them."""
+
+    def __init__(self, fn: Callable, *inputs, held: Sequence[torch.Tensor],
+                 generators: Sequence[Optional[torch.Generator]] = ()):
+        self.fn = fn
+        self.inputs = inputs
+        self._static = leaves(self.inputs)
+        self.held = list(held)
+        if not self._static:
+            raise ValueError("a captured update needs tensors in its inputs")
+        self._init_graph(self._static[0].device, generators)
+
+    def _run(self):
+        with full_float32():
+            return self.fn(*self.inputs)
+
+    def _warm(self) -> None:
+        """The call on clones of the inputs; every held tensor written back
+        as it was before."""
+        with torch.no_grad():
+            saved = [h.detach().clone() for h in self.held]
         try:
-            with torch.cuda.graph(graph, stream=stream):
-                prev = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._result = self._run()
-                except Exception as e:  # noqa: BLE001 - re-raised below
-                    err = e
-                finally:
-                    torch.cuda.set_sync_debug_mode(prev)
-        except Exception as e:  # noqa: BLE001 - capture_end after a failure
-            err = err or e
+            for _ in range(self.WARMUP):
+                self.fn(*clone(self.inputs))
         finally:
-            self.launches = {fn.__name__: fn.launches - n
-                             for fn, n in counts.items()}
-            for fn, n in counts.items():
-                fn.launches = n
-        if err is not None:
-            name = getattr(self.fn, "__qualname__", repr(self.fn))
-            raise RuntimeError(f"CUDA graph capture of {name} failed at "
-                               f"{_where(err)}: {err}") from err
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.graph = graph
+            with torch.no_grad():
+                for h, x in zip(self.held, saved):
+                    h.copy_(x)

@@ -498,3 +498,60 @@ def test_anymal_model_122_carried_across():
     np.testing.assert_allclose(mu.numpy(), np.asarray(mu_j), rtol=0, atol=1e-12)
     np.testing.assert_allclose(std.numpy(), np.asarray(std_j), rtol=0, atol=0)
     np.testing.assert_allclose(v.numpy(), np.asarray(v_j), rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the captured step (utils/graph.py; the CUDA graph itself is held on the
+# card by chip_smoke.py's graph-anymal phase)
+# ---------------------------------------------------------------------------
+
+
+def _bitwise_equal(a, b) -> bool:
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(torch.all((x == y) | (torch.isnan(x) & torch.isnan(y))
+                           if x.is_floating_point() else x == y))
+        for x, y in zip(la, lb))
+
+
+def test_captured_step_equals_env_step():
+    """``CapturedStep`` of the anymal_c step (float32, 4 envs, the env's
+    own budget of 8) gives every StepOut field of ``env.step`` bit for bit
+    over 4 steps with a masked reset at the first, and draws the same
+    numbers from the env's generator; its warm-up leaves the state buffers
+    and the generator as they were.  On the CPU the captured step runs
+    eagerly on its own buffers: tolerance 0, bit for bit."""
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
+
+    env = tenv_mod.AnymalCEnv(tenv_mod.AnymalCCfg(num_envs=N), device="cpu")
+    s0, _ = env.reset(0)
+    s0.episode_length[RESET_ENV] = env.max_episode_length  # resets at step 1
+    rng = np.random.default_rng(12)
+    acts = [torch.from_numpy((rng.normal(size=(N, 12)) * 0.3).astype(
+        np.float32)) for _ in range(4)]
+    gen0 = env.generator.get_state()
+    eager, s = [], s0
+    for a in acts:
+        out = env.step(s, a)
+        eager.append(clone(out))
+        s = out.state
+    gen_eager = env.generator.get_state()
+    assert bool(eager[0].done[RESET_ENV]) and bool(eager[0].time_out[RESET_ENV])
+
+    env.generator.set_state(gen0)
+    step = CapturedStep(env.step, s0, acts[0], generators=[env.generator],
+                        state_field="state")
+    before = clone(step.state)
+    step.warm_up([env.generator])
+    assert _bitwise_equal(step.state, before)
+    assert torch.equal(env.generator.get_state(), gen0)
+    s = s0
+    for k, a in enumerate(acts):
+        out = step(s, a)
+        assert out.state is step.state
+        assert _bitwise_equal(out, eager[k]), k
+        s = out.state
+    assert torch.equal(env.generator.get_state(), gen_eager)

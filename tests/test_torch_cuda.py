@@ -23,7 +23,11 @@ eager steps in both PGS forms (every StepOut field bit for bit, the env
 generator's state after each step, no host sync in a replay, the launch
 counters counting replays), ``PPO.rollout`` against eager calls of the step
 its graph holds (feed-forward and recurrent, bit for bit), and a capture
-that fails naming the line.  Tests that count the dense kernel's launches
+that fails naming the line; anymal_c's step captured against its eager
+steps, and the PPO's learning half (``CapturedLearn`` of ``PPO._learn``)
+against the same call made eagerly from one state (feed-forward and
+recurrent: statistics, parameters, gradients, Adam's state, the lr, the
+permutation and the generator bit for bit).  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -593,3 +597,87 @@ def test_capture_failure_names_the_op(cuda):
 
     with pytest.raises(RuntimeError, match="capture of .*step failed at"):
         CapturedStep(step, torch.ones(4, device=cuda))
+
+
+@pytest.mark.cuda
+def test_captured_anymal_step_equals_eager(cuda):
+    """anymal_c's env step (Newton, elliptic cones) captured and replayed
+    against the eager steps from one state and generator state, 64 envs x
+    4 steps with a forced time-out at the second: every StepOut field bit
+    for bit, the generator's state equal, no host sync in a replay."""
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
+
+    env = AnymalCEnv(AnymalCCfg(num_envs=64), device=cuda)
+    s0, _ = env.reset(0)
+    s0.episode_length[:3] = env.max_episode_length - 1
+    g = torch.Generator(device=cuda).manual_seed(4)
+    acts = [0.3 * torch.randn(64, 12, device=cuda, generator=g)
+            for _ in range(4)]
+    gen0 = env.generator.get_state()
+    eager, s = [], s0
+    for a in acts:
+        out = env.step(s, a)
+        eager.append(clone(out))
+        s = out.state
+    gen1 = env.generator.get_state()
+    env.generator.set_state(gen0)
+    step = CapturedStep(env.step, s0, acts[0], generators=[env.generator],
+                        state_field="state")
+    s = s0
+    for k, a in enumerate(acts):
+        out = step(s, a)
+        assert _bitwise(out, eager[k]), k
+        s = out.state
+    assert torch.equal(env.generator.get_state(), gen1)
+    assert bool(eager[1].done[:3].all())
+    assert smoke._host_syncs(lambda: step(s, acts[0])) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["ActorCritic", "ActorCriticRecurrent"])
+def test_captured_update_equals_eager_update(cuda, policy, monkeypatch):
+    """The PPO's learning half captured (``CapturedLearn``: the prologue
+    and a minibatch step, as ``learn_step`` replays them) against the same
+    call made eagerly, both from one state after a rollout of 64 envs x 8
+    steps: the statistics, every held tensor (parameters, gradients, Adam's
+    state, the lr), the permutation and the generator's state equal bit for
+    bit; the captures' warm-ups left the held tensors and the generator as
+    they were."""
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
+    from nightmare_rl_tpu_torch.rl.ppo import PPO, CapturedLearn
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    monkeypatch.setenv("NIGHTMARE_PGS", "legs")
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=RunnerCfg(num_steps_per_env=8,
+                                       policy_class_name=policy),
+                      policy=dataclasses.replace(cfg.policy,
+                                                 rnn_hidden_size=64))
+    ppo = PPO(_graph_env(cuda), cfg)
+    ppo.init(0)
+    hidden0 = clone(ppo.hidden)
+    traj = ppo.rollout()[0]
+    inputs = (traj, ppo.obs, ppo.hidden, hidden0)
+    held = ppo._held()
+    start = [h.detach().clone() for h in held]
+    gen0 = ppo.generator.get_state()
+    eager = ppo._learn(*inputs).clone()
+    want = ([h.detach().clone() for h in held], ppo.last_perm.clone(),
+            ppo.generator.get_state())
+    with torch.no_grad():
+        for h, x in zip(held, start):
+            h.copy_(x)
+    ppo.generator.set_state(gen0)
+    cap = ppo._learner(*inputs)
+    assert isinstance(cap, CapturedLearn) and cap.graph is not None
+    assert all(torch.equal(h, x) for h, x in zip(held, start))
+    assert torch.equal(ppo.generator.get_state(), gen0)
+    got = cap(*inputs)
+    assert torch.equal(got, eager)
+    assert all(torch.equal(a, b) for a, b in zip(held, want[0]))
+    assert torch.equal(ppo.last_perm, want[1])
+    assert torch.equal(ppo.generator.get_state(), want[2])
+    assert not all(torch.equal(a, b) for a, b in zip(held, start))

@@ -16,7 +16,19 @@ graph is held in tests/test_torch_cuda.py and chip_smoke.py):
   fresh PPO (not rebound) gives the same next rollout as the uninterrupted
   run;
 - the buffers refuse a call of another shape, and ``assign`` writes into
-  buffers rather than rebinding them.
+  buffers rather than rebinding them;
+- no captured step talks to the host: the nightmare_v3 and anymal_c env
+  steps, custom_play's control step and the PPO's learning half
+  (``PPO._learn``), each called once to warm up and then once under a
+  ``TorchDispatchMode`` that records every op reading a value to the host
+  (``_local_scalar_dense``: ``item``, ``float``, ``bool`` of a tensor;
+  ``nonzero``, whose length the host reads) or making a tensor from host
+  data (``lift_fresh``/``lift_fresh_copy``: ``torch.tensor`` of a list or
+  a number).  On the card each is a synchronization that a CUDA graph's
+  capture refuses; here the CPU shows them on every PR.  The plain
+  versions that stand in for the CUDA kernels on the CPU (``ops/pgs.py``,
+  which checks the legs form's slot ids there) are left out: on the card
+  those calls are the kernels' launches.
 
 The JAX-parity tests of the same paths (test_torch_env.py, test_torch_ppo.py,
 test_torch_play.py's rollout, test_torch_recurrent.py,
@@ -24,14 +36,17 @@ test_torch_checkpoint.py) run through the same code.
 """
 
 import dataclasses
+import traceback
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from nightmare_rl_tpu_torch.core.config import (
     EnvCfg, NightmareV3Cfg, PPOCfg, RunnerCfg,
 )
+from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models import actor_critic as ac
 from nightmare_rl_tpu_torch.physics import pipeline
@@ -239,3 +254,86 @@ def test_buffers_refuse_another_shape_and_assign_copies():
     z = torch.zeros(2)
     new = (torch.ones(2), torch.full((2,), 3.0))
     assert assign((z, z), new) is new
+
+
+class HostTransfers(TorchDispatchMode):
+    """Records every op that reads a tensor's value to the host or makes a
+    tensor from host data, with the innermost line of the port that called
+    it; ops called from the kernels' CPU stand-ins (``ops/pgs.py``) are
+    left out."""
+
+    OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.lift_fresh")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name.startswith(self.OPS):  # lift_fresh and lift_fresh_copy
+            ours = [f for f in traceback.extract_stack()
+                    if "nightmare_rl_tpu_torch" in f.filename]
+            if not any(f.filename.endswith("ops/pgs.py") for f in ours):
+                self.seen.append((name, f"{ours[-1].filename}:"
+                                  f"{ours[-1].lineno}" if ours else "?"))
+        return func(*args, **(kwargs or {}))
+
+
+def _nightmare_step():
+    env = _env(4)
+    state, _ = env.reset(0)
+    acts = _actions(2)
+
+    def call(k):
+        nonlocal state
+        state = env.step(state, acts[k][:4]).state
+    return call
+
+
+def _anymal_step():
+    env = AnymalCEnv(AnymalCCfg(num_envs=4), device="cpu")
+    state, _ = env.reset(0)
+    a = torch.full((4, 12), 0.1)
+
+    def call(k):
+        nonlocal state
+        state = env.step(state, a * k).state
+    return call
+
+
+def _control_step():
+    from nightmare_rl_tpu_torch.tools import custom_play
+
+    sys_, cfg, phys, es, limited = custom_play.make(4, device="cpu")
+    lin, ang = torch.full((4,), 0.08), torch.zeros(4)
+    carry = (phys, es, limited)
+    clock = torch.tensor([0.02, 0.04])  # the tool's clock, made once
+
+    def call(k):
+        nonlocal carry
+        carry = custom_play.control_step(sys_, cfg, *carry, clock[k], lin, ang)
+    return call
+
+
+def _ppo_learn():
+    env = _env(4)
+    ppo = PPO(env, PPOCfg().replace(runner=RunnerCfg(num_steps_per_env=4)))
+    ppo.init(0)
+    traj = ppo.rollout()[0]
+
+    def call(k):
+        ppo._learn(traj, ppo.obs, ppo.hidden, ())
+    return call
+
+
+@pytest.mark.parametrize("make", [_nightmare_step, _anymal_step,
+                                  _control_step, _ppo_learn],
+                         ids=["nightmare_v3-step", "anymal_c-step",
+                              "custom_play-control_step", "ppo-update"])
+def test_step_makes_no_host_transfer(make):
+    call = make()
+    call(0)  # the warm-up: caches and constants are made here, as on the card
+    watch = HostTransfers()
+    with watch:
+        call(1)
+    assert not watch.seen, watch.seen

@@ -195,3 +195,118 @@ def test_runner_trains_saves_and_resumes(tmp_path):
     assert other.ppo.iteration == 1 and other.ppo.lr == runner.ppo.lr
     for a, b in zip(other.ppo.net.parameters(), runner.ppo.net.parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kl_scale", [2.5, 0.25, 1.0, 0.0],
+                         ids=["above-2x", "below-half", "inside", "zero"])
+def test_adapt_lr_matches_jax(kl_scale):
+    """The port's device-side adaptive rule (``torch.where`` on 0-dim
+    tensors) against the JAX ``_adapt_lr``, float64: kl above twice the
+    target, below half of it, inside the band and 0 (no change).
+    Tolerance 0: the same divisions and products in float64."""
+    cfg = JPPOCfg()
+    a = cfg.algorithm
+    jppo = JPPO(types.SimpleNamespace(num_actions=18), cfg)
+    env = types.SimpleNamespace(device=torch.device("cpu"), dtype=torch.float64,
+                                num_obs=66, num_actions=18)
+    tp = tppo.PPO(env, PPOCfg())
+    lr, kl = 3e-3, a.desired_kl * kl_scale
+    want = float(jppo._adapt_lr(a, jnp.asarray(lr, jnp.float64),
+                                jnp.asarray(kl, jnp.float64)))
+    got = tp._adapt_lr(torch.tensor(lr, dtype=torch.float64),
+                       torch.tensor(kl, dtype=torch.float64))
+    assert got.shape == () and got.dtype == torch.float64
+    assert float(got) == want
+    assert (want != lr) == (kl_scale in (2.5, 0.25))
+
+
+def _held_copy(ppo):
+    return [x.detach().clone() for x in ppo._held()]
+
+
+def test_captured_update_equals_update():
+    """``CapturedLearn``, the PPO's learning half as ``learn_step`` calls it
+    on the card (a captured prologue: V of the last observations, GAE, the
+    permutation drawn from the PPO's generator; and a captured minibatch
+    step replayed per minibatch), which the CPU runs eagerly on its
+    buffers, against the same steps called one by one ending in
+    ``PPO.update``, from two PPOs in one state, float64: the statistics,
+    every parameter, Adam's state, the lr and the generator's state equal
+    bit for bit (tolerance 0).  Both parts' warm-ups leave the parameters,
+    gradients, Adam's state, the lr and the generator as they were."""
+    T, N = 8, 16
+    env = types.SimpleNamespace(device=torch.device("cpu"), dtype=torch.float64,
+                                num_obs=66, num_actions=18)
+    pair = []
+    for _ in range(2):
+        tp = tppo.PPO(env, PPOCfg())
+        tp.init_params(3)
+        tp.generator.manual_seed(5)
+        pair.append(tp)
+    cap_ppo, ref = pair
+    rng = np.random.default_rng(9)
+    obs = torch.from_numpy(rng.normal(size=(T, N, 66)))
+    with torch.no_grad():
+        mu, std, value = ref.net(obs)
+        action = mu + std * torch.from_numpy(rng.normal(size=(T, N, 18)))
+        # clones: std is a view of the net's std parameter
+        traj = tppo.Transition(*[x.detach().clone() for x in (
+            obs, action, torch.from_numpy(rng.normal(size=(T, N))),
+            torch.from_numpy(rng.random((T, N)) < 0.1), value,
+            tac.log_prob(mu, std, action), mu, std)])
+    last_obs = torch.from_numpy(rng.normal(size=(N, 66)))
+
+    before, gen0 = _held_copy(cap_ppo), cap_ppo.generator.get_state()
+    cap = tppo.CapturedLearn(cap_ppo, traj, last_obs, (), ())
+    assert cap.graph is None  # the CPU runs the update eagerly
+    assert torch.equal(cap_ppo.generator.get_state(), gen0)
+    cap.prologue.warm_up([cap_ppo.generator])
+    cap.step.warm_up([])
+    assert all(torch.equal(a, b) for a, b in zip(_held_copy(cap_ppo), before))
+    assert torch.equal(cap_ppo.generator.get_state(), gen0)
+    got = dict(zip(tppo.STAT_KEYS, cap(traj, last_obs, (), ()).tolist()))
+
+    _, returns, norm_adv = ref.gae(traj, ref.last_value(last_obs, ()))
+    want = ref.update(traj, returns, norm_adv, ref.draw_perm(T, N))
+    assert got == want
+    assert float(want["lr"]) != PPOCfg().algorithm.learning_rate
+    assert all(torch.equal(a, b) for a, b in zip(_held_copy(cap_ppo),
+                                                 _held_copy(ref)))
+    assert not all(torch.equal(a, b) for a, b in zip(_held_copy(cap_ppo),
+                                                     before))
+    assert torch.equal(cap_ppo.generator.get_state(), ref.generator.get_state())
+
+
+def test_checkpoint_resume_restores_tensor_lr(tmp_path):
+    """A resume writes the saved learning rate and Adam's state into the
+    PPO's own tensors (the ones a captured update holds): the lr tensor and
+    every Adam tensor keep their storage and take the saved values; the
+    file keeps rsl_rl's ``optimizer_state_dict`` with the lr a number."""
+    from nightmare_rl_tpu_torch.utils import checkpoint
+
+    env = NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=4)),
+                         device="cpu")
+    cfg = PPOCfg().replace(runner=RunnerCfg(num_steps_per_env=4))
+    ref = tppo.PPO(env, cfg)
+    ref.init(0)
+    ref.learn_step()
+    ref.lr = 3.7e-4  # away from both the initial and any adapted value
+    path = str(tmp_path / "model_1.pt")
+    checkpoint.save(path, ref)
+    blob = torch.load(path, weights_only=True)
+    assert isinstance(blob["optimizer_state_dict"]["param_groups"][0]["lr"],
+                      float)
+    assert isinstance(blob["train_state"]["lr"], float)
+
+    fresh = tppo.PPO(env, cfg)
+    fresh.init(7)
+    ptrs = [x.data_ptr() for x in fresh._held()]
+    assert float(fresh.lr) != float(ref.lr)
+    assert checkpoint.load(path, fresh) is True
+    assert [x.data_ptr() for x in fresh._held()] == ptrs
+    assert fresh.optimizer.param_groups[0]["lr"] is fresh.lr
+    assert torch.equal(fresh.lr, ref.lr)
+    for p, q in zip(fresh.params, ref.params):
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(fresh.optimizer.state[p][k],
+                               ref.optimizer.state[q][k]), k

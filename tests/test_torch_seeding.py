@@ -46,6 +46,16 @@ def _equal(a, b):
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
+def _fresh_adam(ppo) -> bool:
+    """Adam's state as a fresh optimizer's: every step count 0 and every
+    moment zero (the port makes the state with the optimizer and resets it
+    in place, so that a captured update keeps its tensors)."""
+    states = [ppo.optimizer.state[p] for p in ppo.params]
+    return bool(states) and all(
+        set(st) == {"step", "exp_avg", "exp_avg_sq"}
+        and not any(bool(x.any()) for x in st.values()) for st in states)
+
+
 def _distinct(a, b):
     """Every randomly drawn tensor differs (zero biases and the std do not)."""
     drawn = [k for k in a if k.endswith("weight") or "weight_" in k]
@@ -58,9 +68,9 @@ def test_ppo_init_fixes_the_weights(cfg):
     torch.manual_seed(123)
     ppo.init(1)
     w1 = _weights(ppo.net)
-    lr0 = ppo.lr
+    lr0 = ppo.lr.clone()
     ppo.learn_step()                 # moves weights, Adam state, lr, iteration
-    assert ppo.iteration == 1 and ppo.optimizer.state
+    assert ppo.iteration == 1 and not _fresh_adam(ppo)
     assert not _equal(w1, _weights(ppo.net))
 
     torch.manual_seed(456)           # another global RNG state
@@ -68,8 +78,8 @@ def test_ppo_init_fixes_the_weights(cfg):
     ppo.init(1)
     assert _equal(w1, _weights(ppo.net))
     assert ppo.iteration == 0 and ppo.lr == lr0 == cfg.algorithm.learning_rate
-    assert not ppo.optimizer.state
-    assert all(g["lr"] == lr0 for g in ppo.optimizer.param_groups)
+    assert _fresh_adam(ppo)
+    assert all(g["lr"] is ppo.lr for g in ppo.optimizer.param_groups)
 
     other = PPO(_env(), cfg)         # a second instance, same seed
     other.init(1)
@@ -92,7 +102,7 @@ def test_external_init_fixes_the_weights():
     ext.init(1, obs0)
     assert _equal(w1, _weights(ext.ppo.net))
     assert ext.ppo.lr == FF.algorithm.learning_rate and ext.ppo.iteration == 0
-    assert not ext.ppo.optimizer.state
+    assert _fresh_adam(ext.ppo)
     ext.init(2, obs0)
     assert _distinct(w1, _weights(ext.ppo.net))
 
