@@ -49,14 +49,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              turns, and prints both env-steps/s;
 5b. update-graph — the slice's learning half (``PPO._learn``: last value,
              GAE, permutation, 5×4 update), replayed from the graphs that
-             the slice's training captured (the prologue once, a minibatch
-             step per minibatch), against the same function called
-             eagerly, both from the slice's state restored in place
+             the slice's training captured (its parts split at the
+             reductions over the ranks: the prologue's three once, a
+             minibatch step's two per minibatch), against the same function
+             called eagerly, both from the slice's state restored in place
              (parameters, gradients, Adam's state, the tensor lr, the
              generator): statistics, parameters, gradients, Adam's moments
              and step counts, lr, permutation and generator state equal bit
-             for bit; then seconds per update in turns (eager, graph, graph,
-             eager);
+             for bit, no host sync inside the parts; then seconds per update
+             in turns (eager, graph, graph, eager), the parts' capture
+             seconds and pools;
 6. main-path kernel — the PGS kernel against ``pgs_reference`` on those
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
@@ -98,6 +100,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              90 % of the envs the budget's qacc must lie within 2e-4 of the
              converged one (relative to 1 + |qacc|; the rest are envs whose
              line search stalls on its round-off floor, PERF.md §6);
+10b. eval-anymal — ``tools/eval_anymal.py`` on the committed
+             ``anymal_model_122.pt``: 300 steps at vx 0.5, deterministic,
+             each a replay of the captured play step; its two lines printed
+             beside the JAX script's on the CPU, and held to that outcome:
+             no fall or timeout, base height's mean in [0.599, 0.609],
+             |v_avg| ≤ 0.02 m/s in x and y, every foot's duty ≥ 0.95;
 11. recorder/resume (right after the slice) — the slice's runner recorded
              env 0: it received 2 × 80 frames with finite qpos; the
              ``model_2.pt`` it saved, loaded into a fresh runner on the card,
@@ -137,8 +145,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              torch.distributed.run``: world 1 (nccl) and world 2 (gloo, both
              ranks on cuda:0), 2048 global envs, 4 steps, with a 1×1 update
              (rollout stats, loss and parameters agree) and the default 5×4
-             update (rollout stats agree); then world 2 with the recurrent
-             policy for one full iteration: the hidden state is sharded,
+             update (rollout stats agree); on each rank of both worlds, one
+             full feed-forward iteration (80 steps, 5×4 update) whose
+             learning half, as the ranks replayed it (the captured parts,
+             the reductions between them), is held against eager from one
+             state as update-graph holds it (bit for bit, no host sync
+             inside the parts, seconds in turns, capture seconds and
+             pools); then world 2 with the recurrent
+             policy for one full iteration, its update replayed and then
+             held per rank as the learn job's: the hidden
+             state is sharded, each rank's captured pool is printed,
              each rank counts its PGS launches and rank 1's last PGS inputs
              hold the kernel against ``pgs_reference``; the world-2
              checkpoint reloaded at world 1 restores every field of the
@@ -178,9 +194,10 @@ slice-recurrent, sharded, external's fused PPO), play-grid, custom-play,
 simple-test and dense-hexapod's float32 steps go through captured CUDA
 graphs, as their tools do on the card: each capture runs one eager warm-up
 step, whose launches count, and the kernel is held on the inputs of the
-last replay (clones that are nodes of the graph).  The training slices
-also replay their learning half (GAE and the update) as a graph, except
-the sharded one, whose update stays eager.  The physics phases,
+last replay (clones that are nodes of the graph).  The training slices,
+the sharded ranks' included, also replay their learning half (GAE and the
+update) as graphs, the sharded ranks' reductions between them; so does
+eval-anymal its play step.  The physics phases,
 dense-models and the curve tool (its ``ExternalPPO`` steps the env through
 a host callback) run eagerly.  The anymal_c path, the tools, the
 captured update and the recurrent, sharded, external and dense paths run
@@ -261,6 +278,15 @@ GRAPH_WARMUP = 1             # eager steps before a capture (utils/graph.py WARM
 ANYMAL_GRAPH_STEPS = 20      # anymal_c env steps eager and replayed in graph-anymal
 ANYMAL_TIMED_STEPS = 5       # anymal_c env steps per timed turn
 CUSTOM_EAGER_STEPS = 60      # custom_play control steps timed eagerly
+EVAL_STEPS = 300             # eval-anymal: steps at vx 0.5, deterministic
+EVAL_JAX = (                 # scripts/eval_anymal.py, JAX on the CPU, same run
+    "eval: cmd (+0.50,+0.00,+0.00) | displacement v (-0.002,-0.000) m/s | "
+    "falls=0 timeouts=0",
+    "gait: duty=1.00/1.00/1.00/1.00 | feet_down mean=4.00 | base_z "
+    "mean=0.604 min=0.604")
+EVAL_BASE_Z = (0.599, 0.609)  # band of the base height's mean after settling
+EVAL_MAX_V = 0.02            # |v_avg| in x and in y, m/s
+EVAL_MIN_DUTY = 0.95         # every foot's share of steps down
 
 
 def _nvidia_smi() -> str:
@@ -1115,26 +1141,30 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
                 warmup_s=step.warmup_s, pool_mib=pool)
 
 
-def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
-    """A slice's learning half (``PPO._learn``: V of the last observations,
-    GAE, the permutation, the 5×4 update) as the slice replayed it (the
-    ``CapturedUpdate`` its training captured) against the same function
-    called eagerly, with the same optimizer (fused Adam, capturable, the
-    tensor lr), each from the slice's state (its parameters, gradients,
-    Adam's state, lr and generator, restored in place before each) on the
-    slice's last trajectory: the statistics, parameters, gradients, Adam's
-    moments and step counts, the lr, the permutation (``PPO.last_perm``)
-    and the generator's state equal bit for bit; then seconds per call in
-    turns (eager, graph, graph, eager), each from the slice's state, which
-    is left as it was."""
+def _hold_learner(ppo) -> dict:
+    """A PPO's learning half (``PPO._learn``: V of the last observations,
+    GAE, the permutation, the 5×4 update) as its training replayed it (the
+    ``CapturedLearn`` that ``ppo._learner`` keeps: the parts split at the
+    reductions over the ranks, the reductions between them) against the
+    same function called eagerly, each from the PPO's state (parameters,
+    gradients, Adam's state, lr and generator, restored in place before
+    each) on its last trajectory; then seconds per call in turns (eager,
+    graph, graph, eager), each from that state, which is left as it was.
+    Under a mesh every rank calls this in step (both calls reduce).
+    Returns both results (host copies of the held tensors by group, the
+    statistics, ``PPO.last_perm`` and the generator's state), the seconds,
+    the host syncs made inside the parts during one captured call (the
+    reductions between them left out; None on the CPU), and each part's
+    warm-up, capture and pool."""
+    import warnings
+
     import torch
 
-    from nightmare_rl_tpu_torch.rl.ppo import STAT_KEYS, CapturedLearn
+    from nightmare_rl_tpu_torch.rl.ppo import CapturedLearn, Parts
     from nightmare_rl_tpu_torch.utils.device import full_float32
     from nightmare_rl_tpu_torch.utils.graph import clone
 
-    t0 = time.perf_counter()
-    ppo = runner.ppo
+    cuda = ppo.device.type == "cuda"
     held = ppo._held()
     n = len(ppo.params)
     groups = {"params": (0, n), "grads": (n, 2 * n),
@@ -1143,8 +1173,12 @@ def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
     gen0 = ppo.generator.get_state()
     inputs = (ppo._traj, ppo.obs, ppo.hidden, clone(ppo.hidden))
     cap = ppo._learner(*inputs)
-    if not isinstance(cap, CapturedLearn) or cap.graph is None:
-        raise AssertionError(f"the {label} slice did not capture its update")
+    if not isinstance(cap, CapturedLearn) or (cuda and cap.graph is None):
+        raise AssertionError("the training did not capture its learning half")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
 
     def restore():
         with torch.no_grad():
@@ -1157,43 +1191,103 @@ def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
             return ppo._learn(*inputs)
 
     def result(stats):
-        return ([h.detach().clone() for h in held], stats.clone(),
-                ppo.last_perm.clone(), ppo.generator.get_state())
+        sync()
+        out = {k: [h.detach().cpu().clone() for h in held[a:b]]
+               for k, (a, b) in groups.items()}
+        out.update(stats=stats.cpu().clone(), perm=ppo.last_perm.cpu().clone(),
+                   generator=ppo.generator.get_state())
+        return out
 
+    syncs = [] if cuda else None
+
+    def counted(part):
+        def call(*args):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return part(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs.append(sum("synchroniz" in str(w.message)
+                                     for w in caught))
+        return call
+
+    secs = {"eager": [], "graph": []}
     try:
         restore()
         ref = result(eager())
         restore()
         got = result(cap(*inputs))
-        secs = {"eager": [], "graph": []}
+        if cuda:
+            restore()
+            sync()
+            ppo._learn(*inputs, parts=Parts(*map(counted, cap.parts)))
+            sync()
         for who in ("eager", "graph", "graph", "eager"):
             restore()
-            torch.cuda.synchronize()
+            sync()
             t1 = time.perf_counter()
             eager() if who == "eager" else cap(*inputs)
-            torch.cuda.synchronize()
+            sync()
             secs[who].append(time.perf_counter() - t1)
     finally:
         restore()
+    return {"eager": ref, "graph": got, "secs": secs,
+            "syncs": None if syncs is None else sum(syncs),
+            "parts": {name: {k: getattr(part, k) for k in (
+                "warmup_s", "capture_s", "record_s", "pool_bytes")}
+                for name, part in zip(Parts._fields, cap.parts)},
+            **{k: getattr(cap, k) for k in ("warmup_s", "capture_s",
+                                            "record_s", "pool_bytes")}}
+
+
+def _learner_diffs(held: dict) -> dict:
+    """``_hold_learner``'s two results compared: per part of the state,
+    (equal bit for bit, max |difference|)."""
+    import torch
+
+    ref, got = held["eager"], held["graph"]
     diffs = {}
-    for name, (a, b) in groups.items():
-        pairs = list(zip(ref[0][a:b], got[0][a:b]))
-        diffs[name] = (all(torch.equal(x, y) for x, y in pairs), max(
+    for k in ("params", "grads", "adam", "lr", "stats", "perm", "generator"):
+        a, b = ref[k], got[k]
+        pairs = list(zip(a, b)) if isinstance(a, list) else [(a, b)]
+        diffs[k] = (all(torch.equal(x, y) for x, y in pairs), max(
             float((x.double() - y.double()).abs().max()) for x, y in pairs))
-    diffs["stats"] = (torch.equal(ref[1], got[1]),
-                      float((ref[1] - got[1]).abs().max()))
-    diffs["perm"] = (torch.equal(ref[2], got[2]), 0.0)
-    diffs["generator"] = (torch.equal(ref[3], got[3]), 0.0)
-    stats = dict(zip(STAT_KEYS, got[1].tolist()))
+    return diffs
+
+
+def _learner_line(held: dict) -> str:
+    """The capture's seconds and pools, per part and in all."""
+    parts = ", ".join(f"{k} {v['capture_s']:.3f} s / "
+                      f"{v['pool_bytes'] / 2**20:.1f} MiB"
+                      for k, v in held["parts"].items())
+    return (f"warm-ups {held['warmup_s']:.3f} s, capture and instantiation "
+            f"{held['capture_s']:.3f} s (recording {held['record_s']:.3f} s), "
+            f"pools {held['pool_bytes'] / 2**20:.1f} MiB (per part: {parts})")
+
+
+def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
+    """A slice's learning half as the slice replayed it against eager
+    (``_hold_learner``): the statistics, parameters, gradients, Adam's
+    moments and step counts, the lr, the permutation and the generator's
+    state equal bit for bit, no host sync inside the parts; seconds per
+    update in turns."""
+    from nightmare_rl_tpu_torch.rl.ppo import STAT_KEYS
+
+    t0 = time.perf_counter()
+    ppo = runner.ppo
+    held = _hold_learner(ppo)
+    diffs = _learner_diffs(held)
+    secs = held["secs"]
+    stats = dict(zip(STAT_KEYS, held["graph"]["stats"].tolist()))
     print(f"update-graph ({label}): {ppo.env.num_envs} envs x "
           f"{ppo.cfg.runner.num_steps_per_env} steps, the slice's captured "
           f"update against eager from the slice's state: equal bit for bit "
           f"{ {k: v[0] for k, v in diffs.items()} }, max |difference| "
           f"{ {k: v[1] for k, v in diffs.items()} }; loss "
           f"{stats['loss']:.6f}, kl {stats['kl']:.6f}, lr {stats['lr']:.3e}; "
-          f"its warm-up {cap.warmup_s:.3f} s, capture and instantiation "
-          f"{cap.capture_s:.3f} s (recording {cap.record_s:.3f} s), pool "
-          f"{cap.pool_bytes / 2**20:.1f} MiB; "
+          f"host syncs inside the parts {held['syncs']}; {_learner_line(held)}; "
           f"seconds per update in turns (eager, graph, graph, eager): "
           f"{secs['eager'][0]:.4f}, {secs['graph'][0]:.4f}, "
           f"{secs['graph'][1]:.4f}, {secs['eager'][1]:.4f}; "
@@ -1201,6 +1295,8 @@ def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
     if not all(v[0] for v in diffs.values()):
         raise AssertionError(f"the captured update differs from the eager "
                              f"one: {diffs}")
+    if held["syncs"] != 0:
+        raise AssertionError(f"the captured parts synced {held['syncs']} times")
     return secs
 
 
@@ -1698,8 +1794,8 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
           f"{stats['loss']:.4f}, kl {stats['kl']:.4f}; newton.solve calls "
           f"{box['eager']} eager + {box['captured']} captured x {replays} "
           f"replays = {solves} solves (expected {expected}); update replays "
-          f"{rep.get('PPO._prologue', 0)} prologue + "
-          f"{rep.get('PPO._minibatch', 0)} minibatch steps; rollout "
+          f"{rep.get('PPO._head', 0)} prologue heads + "
+          f"{rep.get('PPO._step', 0)} minibatch steps; rollout "
           f"{stats['rollout_s']:.3f} s + "
           f"update {stats['update_s']:.3f} s = {rate:,.0f} env-steps/s "
           f"(smoke figure, {device_name}, {smi}); dones {stats['dones']}; "
@@ -1715,6 +1811,44 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
     return box["args"]
+
+
+def phase_eval_anymal(device_name: str, smi: str) -> None:
+    """``tools/eval_anymal.py`` on the card: the committed
+    ``anymal_model_122.pt`` (the JAX package's export of
+    ``artifacts/anymal_model_122``), 300 steps at vx 0.5, deterministic,
+    every step a replay of the captured play step; held to the JAX
+    script's outcome on the CPU (``EVAL_JAX``, the policy stands): no fall
+    and no timeout, the base height's mean in ``EVAL_BASE_Z``, |v_avg| at
+    most ``EVAL_MAX_V`` in x and in y, every foot down at least
+    ``EVAL_MIN_DUTY`` of the steps."""
+    import numpy as np
+    import torch
+
+    from nightmare_rl_tpu_torch.tools import eval_anymal
+
+    path = os.path.join("nightmare_rl_tpu_torch", "assets",
+                        "anymal_model_122.pt")
+    t0 = time.perf_counter()
+    with _counted_replays() as rep:
+        res = eval_anymal.main(["--ckpt", path, "--steps", str(EVAL_STEPS),
+                                "--vx", "0.5"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = res["stats"]
+    replays = rep.get("player.<locals>.step", 0)
+    print(f"eval-anymal: {path}, {EVAL_STEPS} steps at vx 0.5, "
+          f"deterministic, {replays} replays of the captured step: the "
+          f"port on the card: {res['lines'][0]} / {res['lines'][1]}; the JAX "
+          f"script on the CPU: {EVAL_JAX[0]} / {EVAL_JAX[1]}; wall {wall:.1f} "
+          f"s (capture included; {device_name}, {smi})")
+    v = np.abs(s["v_avg"][:2])
+    if (s["falls"] or s["timeouts"]
+            or not EVAL_BASE_Z[0] <= s["base_z_mean"] <= EVAL_BASE_Z[1]
+            or (v > EVAL_MAX_V).any() or (s["duty"] < EVAL_MIN_DUTY).any()
+            or replays != EVAL_STEPS):
+        raise AssertionError(f"anymal_model_122 leaves the JAX eval's band: "
+                             f"{s}, {replays} replays")
 
 
 def phase_newton_converged(kept: tuple) -> None:
@@ -2086,10 +2220,12 @@ def phase_slice_recurrent(device_name: str, smi: str):
     return runner
 
 
-def _mesh_jobs(rnn: int = 512, recurrent_steps: int = 80) -> dict:
+def _mesh_jobs(rnn: int = 512, steps: int = 80) -> dict:
     """The sharded checks' PPO configs: 4 steps with a 1×1 update
-    (``single``) and with the default 5×4 update (``default``), and the
-    recurrent policy (``recurrent``)."""
+    (``single``) and with the default 5×4 update (``default``); ``steps``
+    steps with the default update for the feed-forward net (``learn``,
+    whose learning half is then held against eager) and the recurrent
+    policy (``recurrent``)."""
     from nightmare_rl_tpu_torch.core.config import (
         AlgorithmCfg, PolicyCfg, PPOCfg, RunnerCfg,
     )
@@ -2099,8 +2235,9 @@ def _mesh_jobs(rnn: int = 512, recurrent_steps: int = 80) -> dict:
         "single": PPOCfg(runner=short, algorithm=AlgorithmCfg(
             num_mini_batches=1, num_learning_epochs=1)),
         "default": PPOCfg(runner=short),
+        "learn": PPOCfg(runner=RunnerCfg(num_steps_per_env=steps)),
         "recurrent": PPOCfg(
-            runner=RunnerCfg(num_steps_per_env=recurrent_steps,
+            runner=RunnerCfg(num_steps_per_env=steps,
                              policy_class_name="ActorCriticRecurrent"),
             policy=PolicyCfg(rnn_hidden_size=rnn)),
     }
@@ -2118,6 +2255,7 @@ def _mesh_dump(path: str, runner, **extra) -> None:
     from nightmare_rl_tpu_torch.utils.checkpoint import state_items
 
     ppo = runner.ppo
+    cap = ppo._learner_obj
     torch.save({
         "stats": {k: v for k, v in (runner.last_stats or {}).items()
                   if k != "record"},
@@ -2125,7 +2263,12 @@ def _mesh_dump(path: str, runner, **extra) -> None:
         "obs": ppo.obs.cpu(),
         "hidden": [x.cpu() for carry in ppo.hidden for x in carry],
         "world": ppo.shard.world, "num_envs": runner.env.num_envs,
-        "device": str(ppo.device), "backend": ppo.mesh.backend, **extra,
+        "device": str(ppo.device), "backend": ppo.mesh.backend,
+        "steps": runner.cfg.runner.num_steps_per_env,
+        "learner": None if cap is None else {
+            "captured": cap.graph is not None, **{k: getattr(cap, k) for k in (
+                "warmup_s", "capture_s", "record_s", "pool_bytes")}},
+        **extra,
     }, path)
 
 
@@ -2136,11 +2279,14 @@ def mesh_worker(argv) -> int:
     ``OUT/<job>_rank<r>.pt``: the statistics, the global train state
     (``checkpoint.state_items``), its own rows of the observations and of
     the hidden state (h_a, c_a, h_c, c_c), its PGS launches and wall
-    seconds and, for ``recurrent``, the inputs of its last PGS call.  With
-    ``--resume ROOT`` it then restores the newest recurrent checkpoint
-    under ROOT and saves the state before (``loaded``) and after
-    (``continued``) one more iteration.  The sharded phase runs it on the
-    card; tests/test_torch_sharded.py runs it with ``--device cpu``."""
+    seconds, its captured learning half's warm-up, capture and pool, for
+    ``recurrent`` the inputs of its last PGS call, and for ``learn`` and
+    ``recurrent`` the learning half replayed against eager from the state
+    after the iteration (``_hold_learner``).  With ``--resume ROOT`` it then restores
+    the newest recurrent checkpoint under ROOT and saves the state before
+    (``loaded``) and after (``continued``) one more iteration.  The sharded
+    phase runs it on the card; tests/test_torch_sharded.py runs it with
+    ``--device cpu``."""
     import argparse
 
     import torch
@@ -2151,20 +2297,21 @@ def mesh_worker(argv) -> int:
 
     p = argparse.ArgumentParser(prog="chip_smoke.py --mesh-worker")
     p.add_argument("out")
-    p.add_argument("jobs", nargs="+", choices=("single", "default",
+    p.add_argument("jobs", nargs="+", choices=("single", "default", "learn",
                                                "recurrent"))
     p.add_argument("--device", default="cuda")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
     p.add_argument("--envs", type=int, default=MESH_ENVS)
     p.add_argument("--rnn", type=int, default=512)
-    p.add_argument("--recurrent-steps", type=int, default=80)
+    p.add_argument("--steps", type=int, default=80,
+                   help="rollout steps of the learn and recurrent jobs")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--resume", default=None)
     a = p.parse_args(argv)
     os.environ["NIGHTMARE_PGS"] = "kernel"   # the ranks hold the dense kernel
     cli = ["--mesh", "--device", a.device, "-e", str(a.envs), "--seed",
            str(a.seed)] + (["--backend", a.backend] if a.backend else [])
-    jobs = _mesh_jobs(a.rnn, a.recurrent_steps)
+    jobs = _mesh_jobs(a.rnn, a.steps)
 
     def dump(job, runner, **extra):
         _mesh_dump(os.path.join(a.out, f"{job}_rank{runner.ppo.shard.rank}.pt"),
@@ -2184,7 +2331,9 @@ def mesh_worker(argv) -> int:
                 launches = P.pgs.launches
             dump(job, runner, wall=wall, launches=launches,
                  pgs_args=(tuple(_cpu(x) for x in last["args"])
-                           if job == "recurrent" else None))
+                           if job == "recurrent" else None),
+                 held=(_hold_learner(runner.ppo)
+                       if job in ("learn", "recurrent") else None))
         if a.resume:
             runner = train.main(cli + ["-n", "0", "-r", "-p", a.resume,
                                        "--log_root",
@@ -2281,6 +2430,40 @@ def _hold_worlds(w1: str, wn: str, world: int) -> None:
     assert sa["dones"] == sb["dones"], (sa["dones"], sb["dones"])
 
 
+def _hold_sharded_learners(wdir: str, world: int, job: str = "learn") -> None:
+    """Each rank's ``job`` (``learn`` or ``recurrent``): its captured
+    learning half (the parts replayed, the reductions between them)
+    against eager from one state, bit for bit, no host sync inside the
+    parts; seconds in turns, capture seconds and pools."""
+    from nightmare_rl_tpu_torch.rl.ppo import STAT_KEYS
+
+    for rank in range(world):
+        r = _load_rank(wdir, job, rank)
+        held = r["held"]
+        diffs = _learner_diffs(held)
+        secs = held["secs"]
+        stats = dict(zip(STAT_KEYS, held["graph"]["stats"].tolist()))
+        print(f"sharded: world {world} ({r['backend']}, {r['device']}) rank "
+              f"{rank}, {job}: {r['num_envs']} of {MESH_ENVS} envs x "
+              f"{r['steps']} steps, 5x4 "
+              f"update, captured against eager: equal bit for "
+              f"bit {all(v[0] for v in diffs.values())} "
+              f"{ {k: v[0] for k, v in diffs.items()} }; loss "
+              f"{stats['loss']:.6f}, kl {stats['kl']:.6f}; host syncs inside "
+              f"the parts {held['syncs']}; seconds per update in turns "
+              f"(eager, graph, graph, eager): {secs['eager'][0]:.4f}, "
+              f"{secs['graph'][0]:.4f}, {secs['graph'][1]:.4f}, "
+              f"{secs['eager'][1]:.4f}; the iteration's update "
+              f"{r['stats']['update_s']:.4f} s (capture included); "
+              f"{_learner_line(held)}")
+        if not all(v[0] for v in diffs.values()):
+            raise AssertionError(f"world {world} rank {rank}: the captured "
+                                 f"learning half differs: {diffs}")
+        if held["syncs"] != 0:
+            raise AssertionError(f"world {world} rank {rank}: the captured "
+                                 f"parts synced {held['syncs']} times")
+
+
 def _sharded_over_cards(w1: str, tmp: str) -> None:
     """Where the machine has several cards: world 1 (run in ``w1``) against
     one NCCL rank per card."""
@@ -2310,10 +2493,14 @@ def phase_sharded(device_name: str, smi: str) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         w1, w2 = os.path.join(tmp, "w1"), os.path.join(tmp, "w2")
-        wall1 = _torchrun(1, w1, "--backend", "nccl", "single", "default")
+        wall1 = _torchrun(1, w1, "--backend", "nccl", "single", "default",
+                          "learn")
         wall2 = _torchrun(2, w2, "--backend", "gloo", "single", "default",
-                          "recurrent")
+                          "learn", "recurrent")
         _hold_worlds(w1, w2, 2)
+        _hold_sharded_learners(w1, 1)
+        _hold_sharded_learners(w2, 2)
+        _hold_sharded_learners(w2, 2, "recurrent")
 
         r0, r1 = _load_rank(w2, "recurrent"), _load_rank(w2, "recurrent", 1)
         T = _mesh_jobs()["recurrent"].runner.num_steps_per_env
@@ -2329,11 +2516,18 @@ def phase_sharded(device_name: str, smi: str) -> None:
               f"{nonzero[1]}, pgs launches per rank {r0['launches']} / "
               f"{r1['launches']} (expected {expected}); rollout "
               f"{st['rollout_s']:.3f} s + update {st['update_s']:.3f} s per "
-              f"rank; torch.distributed.run wall {wall1:.1f} s (world 1, 2 "
-              f"jobs) and {wall2:.1f} s (world 2, 3 jobs) incl. start-up")
+              f"rank (replays); its captured learning half per rank: "
+              + "; ".join(f"rank {i} capture {r['learner']['capture_s']:.3f} s,"
+                          f" pool {r['learner']['pool_bytes'] / 2**20:.1f} MiB"
+                          for i, r in enumerate((r0, r1)))
+              + f"; torch.distributed.run wall {wall1:.1f} s (world 1, 3 "
+              f"jobs) and {wall2:.1f} s (world 2, 4 jobs) incl. start-up")
         if not math.isfinite(st["loss"]):
             raise AssertionError("sharded recurrent PPO: non-finite loss")
         for r, s, nz in zip((r0, r1), shapes, nonzero):
+            if not r["learner"]["captured"]:
+                raise AssertionError("a rank did not capture its recurrent "
+                                     "learning half")
             if s != [(n, 512)] * 4 or not nz:
                 raise AssertionError(f"the hidden state is not sharded: {s}")
             if r["launches"] != expected:
@@ -2720,6 +2914,7 @@ def main() -> int:
     graph_anymal = phase_graph_anymal(name, smi)
     newton_args = phase_slice_anymal(name, smi)
     phase_newton_converged(newton_args)
+    phase_eval_anymal(name, smi)
     phase_play_grid(name, smi)
     phase_custom_play(name, smi)
     phase_simple_test(name, smi)

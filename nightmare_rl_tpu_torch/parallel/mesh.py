@@ -8,12 +8,19 @@ recurrent hidden state are sharded on the env axis (each rank steps
 broadcast at start), and where the JAX package reduces with
 ``pmean``/``psum`` inside its shard_map the port calls ``all_reduce``:
 
-- per minibatch, the gradients and the KL in ONE flat buffer, averaged
-  before the clip by global norm and before the adaptive learning rate, so
-  every rank takes the same step with the same lr;
+- per minibatch, the gradients and the KL in ONE flat buffer (the PPO's,
+  whose views the gradients are), averaged before the clip by global norm
+  and before the adaptive learning rate, so every rank takes the same step
+  with the same lr;
 - the advantage mean and variance (over n_global − 1);
 - the loss statistics, finished-episode counts and sums, dones and the
   mean reward.
+
+These reductions run eagerly between the replays of the learning half's
+captured parts (``rl/ppo.py::CapturedLearn``), each in place on the tensor
+that one part wrote and the next reads, so no graph holds a collective:
+every rank captures alone, and gloo (which a graph cannot hold) and NCCL
+take one code path.
 
 Random draws are made at the global shape and cut per rank
 (``parallel/shard.py``), so the rollout does not depend on the world size;
@@ -122,10 +129,6 @@ class ShardedPPO(PPO):
     rank 0 alone) and stays off."""
 
     distributed = True
-    # the update's all_reduce runs under gloo where two ranks share a card,
-    # and a CUDA graph cannot hold a gloo collective: the update stays eager
-    # (ROADMAP queues its capture with NCCL)
-    graph_update = False
 
     def __init__(self, env, cfg: PPOCfg, mesh: Mesh):
         if getattr(env, "shard", Shard()) != mesh.shard:
@@ -139,21 +142,10 @@ class ShardedPPO(PPO):
             dist.broadcast(t, src=0)
 
     def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.clone()
+        # synchronous: ordered after the replay that wrote x and before the
+        # next, which are on the current stream
         dist.all_reduce(x)
         return x
-
-    def _sync_grads(self, kl: torch.Tensor) -> torch.Tensor:
-        grads = [p.grad for p in self.params]
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [kl.reshape(1).to(grads[0].dtype)])
-        dist.all_reduce(flat)
-        flat /= self.shard.world
-        i = 0
-        for g in grads:
-            g.copy_(flat[i:i + g.numel()].view_as(g))
-            i += g.numel()
-        return flat[-1]
 
     def gather_envs(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's rows in rank order, by one broadcast per rank (gloo

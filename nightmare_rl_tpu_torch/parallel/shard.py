@@ -63,4 +63,8 @@ class Shard(NamedTuple):
             return g
         t, e = g // (n * self.world), g % (n * self.world) - self.rank * n
         mine = (e >= 0) & (e < n)
-        return t[mine] * n + e[mine]
+        # this shard's T·n samples in the global order: a stable sort that
+        # puts them first, in place of a mask, whose length the host would
+        # have to read (a captured learning half holds this)
+        order = torch.argsort((~mine).to(torch.uint8), stable=True)[:T * n]
+        return t[order] * n + e[order]

@@ -39,23 +39,30 @@ device and copies the rows to the host once per iteration
 (``stats["record"]``), for the trajectory recorder.
 
 The learning half of an iteration (``_learn``: the last value, GAE, the
-update's permutation and the 5×4 minibatch steps) runs on the card as two
-more graphs (``CapturedLearn``, through ``utils/graph.py::CapturedUpdate``):
-the prologue (last value, GAE, permutation), replayed once per iteration,
-and one minibatch step (``_minibatch``), replayed once per minibatch with
-its indices copied in, as the JAX update's ``lax.scan`` runs its compiled
-body: the rest of the JAX package's ``jax.jit(self._iteration)``.  As that
-scan carries ``(params, opt_state, lr)``, nothing of it leaves the device:
-the learning rate is a 0-dim tensor that the adaptive
-rule updates with ``torch.where`` and Adam reads (``fused=True``, and
-``capturable=True`` on the card), the gradients are zeroed in place, Adam's
-state is made with the optimizer and reset in place, and the statistics
-(loss, surrogate, value loss, KL, lr) come back as one tensor that
-``learn_step`` reads with its episode sums, the iteration's one read.
-``graph_update`` False (``ShardedPPO``, whose ``all_reduce`` runs under gloo
-on one card, which a graph cannot hold) runs the same function eagerly.  The
-hooks ``_all_sum``, ``_sync_grads``, ``gather_envs`` and ``any_rank`` are the
-identity here; ``parallel/mesh.py::ShardedPPO`` makes them collectives.
+update's permutation and the 5×4 minibatch steps) is split at its
+reductions over the ranks into five parts (``Parts``): the prologue's
+``head`` (last value, GAE's recursion, the local mean advantage), ``spread``
+(the sum of squares about the global mean) and ``tail`` (normalization,
+permutation), and a minibatch step's ``grads`` (losses, backward, the KL)
+and ``step`` (the mean over the ranks, the adaptive lr, the clip, Adam).
+On the card each part runs as a CUDA graph (``CapturedLearn``, through
+``utils/graph.py::CapturedUpdate``), captured once and replayed, the
+prologue's once per iteration and a step's once per minibatch with its
+indices copied in, as the JAX update's ``lax.scan`` runs its compiled
+body: the rest of the JAX package's ``jax.jit(self._iteration)``, whose
+``shard_map`` holds the reductions that here run eagerly between the
+replays (``_all_sum``, in place on the tensor one part wrote and the next
+reads; the identity on one process).  As that scan carries ``(params,
+opt_state, lr)``, nothing of it leaves the device: the learning rate is a
+0-dim tensor that the adaptive rule updates with ``torch.where`` and Adam
+reads (``fused=True``, and ``capturable=True`` on the card), the gradients
+are views of one flat buffer (its last element a minibatch's KL) zeroed in
+place, Adam's state is made with the optimizer and reset in place, and the
+statistics (loss, surrogate, value loss, KL, lr) come back as one tensor
+that ``learn_step`` reads with its episode sums, the iteration's one read.
+The hooks ``_all_sum``, ``gather_envs`` and ``any_rank`` are the identity
+here; ``parallel/mesh.py::ShardedPPO`` makes them collectives, and its
+learning half replays the same graphs.
 """
 
 from __future__ import annotations
@@ -114,7 +121,8 @@ def _record_to_host(rows: torch.Tensor, widths) -> Tuple[np.ndarray, ...]:
 
 class PPO:
     distributed = False  # ShardedPPO reduces over the ranks of a mesh
-    # the learning half of the iteration runs as a captured graph on the card
+    # the learning half of the iteration runs as captured graphs on the card
+    # (``CapturedLearn``), at any world size
     graph_update = True
 
     def __init__(self, env, cfg: PPOCfg, record_states: bool = False):
@@ -172,13 +180,10 @@ class PPO:
     # collective hooks: the identity on one process
 
     def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the ranks."""
+        """x summed over the ranks, in place (x is returned): the learning
+        half's reductions write the tensor that the next of its parts reads
+        (``CapturedLearn``)."""
         return x
-
-    def _sync_grads(self, kl: torch.Tensor) -> torch.Tensor:
-        """Average the .grad of every parameter, and ``kl``, over the ranks;
-        returns the averaged kl."""
-        return kl
 
     def gather_envs(self, x: torch.Tensor) -> torch.Tensor:
         """A tensor of this shard's envs (env axis first) → the global one."""
@@ -213,8 +218,16 @@ class PPO:
             self.optimizer = torch.optim.Adam(
                 self.params, lr=self._lr, betas=(0.9, 0.999), eps=1e-8,
                 fused=True, capturable=self.device.type == "cuda")
+            # the gradients are views of one flat buffer whose last element
+            # holds a minibatch's KL: the buffer that the ranks' all_reduce
+            # averages in place (``_update``)
+            self._flat = torch.zeros(sum(p.numel() for p in self.params) + 1,
+                                     dtype=self.dtype, device=self.device)
+            i = 0
             for p in self.params:
-                p.grad = torch.zeros_like(p)
+                p.grad = self._flat[i:i + p.numel()].view_as(p)
+                i += p.numel()
+            for p in self.params:
                 self.optimizer.state[p] = {
                     "step": torch.zeros((), dtype=torch.float32,
                                         device=self.device),
@@ -222,6 +235,11 @@ class PPO:
                     "exp_avg_sq": torch.zeros_like(p)}
             return
         self.lr = lr
+        self.reset_adam_state()
+
+    def reset_adam_state(self) -> None:
+        """Adam's state as at its first step (zero moments, step 0),
+        written in place; the learning rate stays as it is."""
         with torch.no_grad():
             for st in self.optimizer.state.values():
                 for x in st.values():
@@ -396,9 +414,9 @@ class PPO:
                                    _record_to_host(self._rec, self._rec_widths))
         return self._traj, n_done.clone(), term_sums.clone(), record
 
-    def gae(self, traj: Transition, last_value: torch.Tensor):
-        """Returns (advantages, returns, normalized advantages), each (T, N);
-        the normalization's mean and variance are over the global batch."""
+    def _advantages(self, traj: Transition, last_value: torch.Tensor):
+        """GAE's recursion from V of the rollout's last observations:
+        (advantages, returns, this shard's mean advantage)."""
         a = self.cfg.algorithm
         next_values = torch.cat([traj.value[1:], last_value[None]], dim=0)
         adv = torch.zeros_like(last_value)
@@ -409,13 +427,40 @@ class PPO:
                      - traj.value[t])
             adv = delta + a.gamma * a.lam * nonterminal * adv
             advantages[t] = adv
-        returns = advantages + traj.value
-        world = self.shard.world
-        n = advantages.numel() * world
-        mean = self._all_sum(advantages.mean()) / world
-        var = self._all_sum(torch.square(advantages - mean).sum()) / max(n - 1, 1)
-        norm_adv = (advantages - mean) / (torch.sqrt(var) + 1e-8)
-        return advantages, returns, norm_adv
+        return advantages, advantages + traj.value, advantages.mean()
+
+    def _spread(self, advantages: torch.Tensor, mean_sum: torch.Tensor):
+        """The global mean advantage (from the ranks' summed means) and this
+        shard's sum of squares about it: the two passes of the JAX
+        package's mean-then-variance, kept apart."""
+        mean = mean_sum / self.shard.world
+        return mean, torch.square(advantages - mean).sum()
+
+    def _normalize(self, advantages: torch.Tensor, mean: torch.Tensor,
+                   sq_sum: torch.Tensor) -> torch.Tensor:
+        """The advantages normalized by the global batch's mean and variance
+        (ddof=1; ``sq_sum`` summed over the ranks)."""
+        n = advantages.numel() * self.shard.world
+        var = sq_sum / max(n - 1, 1)
+        return (advantages - mean) / (torch.sqrt(var) + 1e-8)
+
+    def _normalized(self, advantages: torch.Tensor, mean: torch.Tensor,
+                    spread, normalize):
+        """The advantages normalized by the global batch's mean and
+        variance, as ``normalize`` gives them: this shard's mean advantage
+        ``mean`` summed over the ranks, ``spread`` (this shard's sum of
+        squares about the global mean), that sum summed over the ranks;
+        each reduction in place on the tensor that the next function reads
+        (``spread`` and ``normalize``: plain functions or their graphs)."""
+        mean, sq = spread(advantages, self._all_sum(mean))
+        return normalize(advantages, mean, self._all_sum(sq))
+
+    def gae(self, traj: Transition, last_value: torch.Tensor):
+        """Returns (advantages, returns, normalized advantages), each (T, N);
+        the normalization's mean and variance are over the global batch."""
+        advantages, returns, mean = self._advantages(traj, last_value)
+        return advantages, returns, self._normalized(
+            advantages, mean, self._spread, self._normalize)
 
     def _loss_terms(self, mb: Transition, mb_ret, mb_adv, mu, std, value):
         a = self.cfg.algorithm
@@ -474,34 +519,47 @@ class PPO:
         return dict(zip(STAT_KEYS, self._update(
             traj, returns, norm_adv, perm, hidden0).tolist()))
 
+    def _parts(self) -> "Parts":
+        """The learning half's parts as plain functions."""
+        return Parts(self._head, self._spread, self._tail, self._grads,
+                     self._step)
+
     def _update(self, traj: Transition, returns: torch.Tensor,
                 norm_adv: torch.Tensor, perm: torch.Tensor,
-                hidden0=None, step=None) -> torch.Tensor:
+                hidden0=None, parts: Optional["Parts"] = None) -> torch.Tensor:
         """The 5×4 minibatch update over the permutation ``perm``, shared by
         every epoch: of the T·N samples, or for the recurrent net of the N
         envs, whose trajectories replay from ``hidden0`` (the rollout-start
-        hidden state).  ``step`` runs one minibatch (``_minibatch``, or its
-        captured graph).  Returns the statistics (``STAT_KEYS``) as one
-        tensor; nothing is read to the host."""
+        hidden state).  A minibatch is ``parts.grads`` (the losses and the
+        gradients), the gradients and KL summed over the ranks in place,
+        and ``parts.step`` (their mean, the lr, the clip, Adam's step);
+        ``parts`` are the plain functions or their captured graphs.
+        Returns the statistics (``STAT_KEYS``) as one tensor; nothing is
+        read to the host."""
         a = self.cfg.algorithm
-        step = step or self._minibatch
+        parts = parts or self._parts()
         idxs = perm.reshape(a.num_mini_batches, -1)
-        # clones: a captured step's result is overwritten by its next replay
-        rows = torch.stack([step(traj, returns, norm_adv, hidden0, idx).clone()
-                            for _ in range(a.num_learning_epochs)
-                            for idx in idxs])
+        rows = []
+        for _ in range(a.num_learning_epochs):
+            for idx in idxs:
+                losses = parts.grads(traj, returns, norm_adv, hidden0, idx)
+                self._all_sum(self._flat)
+                # clones: a captured part's result is overwritten by its
+                # next replay
+                rows.append(parts.step(losses).clone())
+        rows = torch.stack(rows)
         m = self._all_sum(rows[:, :3].mean(dim=0)) / self.shard.world
         return torch.cat([m, rows[:, 3].mean().reshape(1),
                           self._lr.reshape(1).to(m.dtype)])
 
-    def _minibatch(self, traj: Transition, returns: torch.Tensor,
-                   norm_adv: torch.Tensor, hidden0,
-                   idx: torch.Tensor) -> torch.Tensor:
-        """One minibatch step, the body of the JAX update's ``lax.scan``:
-        the losses on the samples ``idx`` (for the recurrent net the envs
-        ``idx``, replayed from ``hidden0``), the gradients, the adaptive lr
-        from this minibatch's KL, the clip by global norm and Adam's step.
-        Returns (loss, surrogate loss, value loss, kl)."""
+    def _grads(self, traj: Transition, returns: torch.Tensor,
+               norm_adv: torch.Tensor, hidden0,
+               idx: torch.Tensor) -> torch.Tensor:
+        """A minibatch step's first part, the first half of the body of the
+        JAX update's ``lax.scan``: the losses on the samples ``idx`` (for
+        the recurrent net the envs ``idx``, replayed from ``hidden0``), the
+        gradients (into the flat buffer, whose last element takes the KL).
+        Returns (loss, surrogate loss, value loss)."""
         if self.recurrent:
             mb = Transition(*[x[:, idx] for x in traj])
             h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
@@ -514,35 +572,56 @@ class PPO:
             mu, std, value = self.net(mb.obs)
         loss, surr, v_loss, kl = self._loss_terms(mb, mb_ret, mb_adv, mu, std,
                                                   value)
-        # in place: backward accumulates into the same storage
+        # in place: backward accumulates into the flat buffer's views
         self.optimizer.zero_grad(set_to_none=False)
         with full_float32():  # the LSTM's backward, no TF32
             loss.backward()
-        kl = self._sync_grads(kl.detach())
-        # adaptive lr from this minibatch's KL, applied to its step (Adam's
-        # param group holds the same tensor)
         with torch.no_grad():
-            self._lr.copy_(self._adapt_lr(self._lr, kl))
+            self._flat[-1].copy_(kl)
+        return torch.stack([loss.detach(), surr.detach(), v_loss.detach()])
+
+    def _step(self, losses: torch.Tensor) -> torch.Tensor:
+        """A minibatch step's second part, after the gradients and KL were
+        summed over the ranks: their mean, the adaptive lr from this
+        minibatch's KL, the clip by global norm and Adam's step.  Returns
+        (loss, surrogate loss, value loss, kl)."""
+        flat = self._flat
+        with torch.no_grad():
+            flat /= self.shard.world
+            # adaptive lr from this minibatch's KL, applied to its step
+            # (Adam's param group holds the same tensor)
+            self._lr.copy_(self._adapt_lr(self._lr, flat[-1]))
         clip_by_global_norm(self.params, self.cfg.algorithm.max_grad_norm)
         self.optimizer.step()
-        return torch.stack([loss.detach(), surr.detach(), v_loss.detach(), kl])
+        return torch.cat([losses, flat[-1:]])
 
-    def _prologue(self, traj: Transition, obs: torch.Tensor, hidden):
-        """What the minibatch steps read: the returns and normalized
-        advantages (GAE from V of the rollout's last observations ``obs``)
-        and the update's permutation."""
-        _, returns, norm_adv = self.gae(traj, self.last_value(obs, hidden))
-        T, N = traj.reward.shape
-        return returns, norm_adv, self.draw_perm(T, N)
+    def _head(self, traj: Transition, obs: torch.Tensor, hidden):
+        """The prologue's first part: V of the rollout's last observations
+        ``obs`` and GAE's recursion (``_advantages``)."""
+        return self._advantages(traj, self.last_value(obs, hidden))
+
+    def _tail(self, advantages: torch.Tensor, mean: torch.Tensor,
+              sq_sum: torch.Tensor):
+        """The prologue's last part: the normalized advantages and the
+        update's permutation."""
+        T, N = advantages.shape
+        return (self._normalize(advantages, mean, sq_sum),
+                self.draw_perm(T, N))
 
     def _learn(self, traj: Transition, obs: torch.Tensor, hidden,
-               hidden0) -> torch.Tensor:
+               hidden0, parts: Optional["Parts"] = None) -> torch.Tensor:
         """The learning half of an iteration, all on the device: V of the
         rollout's last observations, GAE, the update's permutation and the
-        update from the rollout-start hidden state ``hidden0``.  Returns the
-        update's statistics (``_update``)."""
-        returns, norm_adv, self.last_perm = self._prologue(traj, obs, hidden)
-        return self._update(traj, returns, norm_adv, self.last_perm, hidden0)
+        update from the rollout-start hidden state ``hidden0``, as
+        ``parts`` (the plain functions, or ``CapturedLearn``'s graphs) with
+        the reductions over the ranks between them.  Returns the update's
+        statistics (``_update``)."""
+        parts = parts or self._parts()
+        advantages, returns, mean = parts.head(traj, obs, hidden)
+        norm_adv, self.last_perm = self._normalized(advantages, mean,
+                                                    parts.spread, parts.tail)
+        return self._update(traj, returns, norm_adv, self.last_perm, hidden0,
+                            parts)
 
     def _held(self):
         """Every tensor that a minibatch step writes and that outlives it:
@@ -614,45 +693,74 @@ class PPO:
         return float(self._noise_std())
 
 
+class Parts(NamedTuple):
+    """The learning half split at its reductions over the ranks: the
+    prologue's ``head`` (V of the last observations, GAE's recursion, the
+    local mean advantage), ``spread`` (the local sum of squares about the
+    global mean) and ``tail`` (the normalized advantages, the permutation);
+    a minibatch step's ``grads`` (the losses and the gradients with the
+    KL) and ``step`` (their mean, the lr, the clip, Adam's step)."""
+    head: object
+    spread: object
+    tail: object
+    grads: object
+    step: object
+
+
 class CapturedLearn:
     """``PPO._learn`` as CUDA graphs (``utils/graph.py::CapturedUpdate``):
-    the prologue (V of the last observations, GAE, the permutation) and one
-    minibatch step, each captured once; a call replays the prologue and
-    then the step once per minibatch, its indices copied into the step's
-    buffer, as the JAX update's ``lax.scan`` runs one compiled body per
-    minibatch.  (One graph of the whole update holds every minibatch's
-    kernels, ~235k for the recurrent net, whose capture took minutes; a
-    step's graph is a twentieth of it.)  Called like ``_learn``; on the CPU
-    both parts run eagerly.  ``graph``, ``warmup_s``, ``capture_s``,
-    ``record_s`` and ``pool_bytes`` sum or stand for the two parts."""
+    each of its ``Parts`` captured once; a call runs ``_learn`` on them,
+    replaying the prologue's three parts once and a minibatch step's two
+    parts per minibatch, its indices copied in, as the JAX update's
+    ``lax.scan`` runs its compiled body.  The reductions over the ranks
+    (``PPO._all_sum``: the mean and the sum of squares of the advantages,
+    the gradients and KL of each minibatch) run between the replays, in
+    place on the tensor that a part wrote and the next reads: a part's
+    outputs are the next part's input buffers, and the gradients and KL
+    live in the PPO's flat buffer.  No part holds a collective, so every
+    rank captures its parts alone and the same code serves gloo and NCCL;
+    on one process the reductions are the identity.  (One graph of the
+    whole update holds every minibatch's kernels, ~235k for the recurrent
+    net, whose capture took minutes; a step's parts are a twentieth of
+    it.)  Called like ``_learn``; on the CPU every part runs eagerly.
+    ``graph`` is the minibatch step's last part's (None on the CPU);
+    ``warmup_s``, ``capture_s``, ``record_s`` and ``pool_bytes`` sum the
+    parts'."""
 
     def __init__(self, ppo: PPO, traj: Transition, obs: torch.Tensor, hidden,
                  hidden0):
         self.ppo = ppo
-        self.prologue = CapturedUpdate(ppo._prologue, traj, obs, hidden,
-                                       held=(), generators=(ppo.generator,))
-        # the step's buffers: the prologue graph's returns and advantages
-        # (on the CPU, which has no graph, tensors of their shape) and
+
+        def out(part, like):
+            # a part's outputs are the next part's buffers: the graph's own
+            # tensors on the card; on the CPU, which has no graph, tensors of
+            # their shape
+            return part._result if part.graph is not None else like
+
+        adv = torch.zeros_like(traj.reward)
+        scalar = traj.reward.new_zeros(())
+        head = CapturedUpdate(ppo._head, traj, obs, hidden, held=())
+        adv, returns, mean = out(head, (adv, torch.zeros_like(adv), scalar))
+        spread = CapturedUpdate(ppo._spread, adv, mean, held=())
+        mean, sq = out(spread, (scalar, scalar.clone()))
+        tail = CapturedUpdate(ppo._tail, adv, mean, sq, held=(),
+                              generators=(ppo.generator,))
+        norm_adv, _ = out(tail, (torch.zeros_like(adv), None))
         # indices of a minibatch's size (valid ones: the warm-up indexes
         # with them)
-        if self.prologue.graph is not None:
-            returns, norm_adv, _ = self.prologue._result
-        else:
-            returns, norm_adv = (torch.zeros_like(traj.reward)
-                                 for _ in range(2))
         samples = traj.reward.shape[1] if ppo.recurrent else traj.reward.numel()
         idx = torch.arange(samples // ppo.cfg.algorithm.num_mini_batches,
                            device=traj.reward.device)
-        self.step = CapturedUpdate(ppo._minibatch, traj, returns, norm_adv,
-                                   hidden0, idx, held=ppo._held())
-        self.parts = (self.prologue, self.step)
-        self.graph = self.step.graph
+        held = ppo._held()
+        grads = CapturedUpdate(ppo._grads, traj, returns, norm_adv, hidden0,
+                               idx, held=held)
+        losses = out(grads, traj.reward.new_zeros(3))
+        step = CapturedUpdate(ppo._step, losses, held=held)
+        self.parts = Parts(head, spread, tail, grads, step)
+        self.graph = step.graph
         for k in ("warmup_s", "capture_s", "record_s", "pool_bytes"):
             setattr(self, k, sum(getattr(x, k) for x in self.parts))
 
     def __call__(self, traj: Transition, obs: torch.Tensor, hidden,
                  hidden0) -> torch.Tensor:
-        ppo = self.ppo
-        returns, norm_adv, ppo.last_perm = self.prologue(traj, obs, hidden)
-        return ppo._update(traj, returns, norm_adv, ppo.last_perm, hidden0,
-                           step=self.step)
+        return self.ppo._learn(traj, obs, hidden, hidden0, self.parts)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
-from typing import Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,8 +101,32 @@ def load_policy(path: Optional[str], env) -> ActorCritic:
     return net.to(device=env.device, dtype=env.dtype).eval()
 
 
+def hexapod_rows(out) -> dict:
+    """The record rows of one nightmare_v3 step: qpos, qvel, obs, vel (the
+    body-frame velocities the tracking rewards see), feet (foot touch
+    forces), done and time_out."""
+    return dict(
+        # obs[0:3] is lin_vel * 2.0, obs[3:6] is ang_vel * 0.25 (obs scales,
+        # reference nightmare_v3_config.py:67-72)
+        vel=torch.cat([out.obs[:, :3] / 2.0, out.obs[:, 3:6] / 0.25], dim=1),
+        # foot touch sensors (sensordata slots 6:12, mjmodel.xml:156-170)
+        feet=out.state.phys.sensordata[:, 6:12],
+        qpos=out.state.phys.qpos, qvel=out.state.phys.qvel, obs=out.obs,
+        done=out.done, time_out=out.time_out)
+
+
+class _Rows(NamedTuple):
+    """The fields of a step's output that a record's rows read: a reset's
+    state and observations stand in for a step's to size the record."""
+    state: object
+    obs: torch.Tensor
+    done: torch.Tensor
+    time_out: torch.Tensor
+
+
 def player(env, net, cmd, steps: int,
-           generator: Optional[torch.Generator] = None):
+           generator: Optional[torch.Generator] = None,
+           rows: Callable[..., dict] = hexapod_rows):
     """The play loop of ``steps`` steps of ``env`` under ``net`` with the
     command ``cmd`` (N, 3) pinned before each step, as a function
     ``run(state, obs) -> (state, obs, record)``.  One step (the pin, the
@@ -110,18 +134,14 @@ def player(env, net, cmd, steps: int,
     kept on the device) is captured once as a CUDA graph on the card
     (``utils/graph.py``) and replayed; ``run`` may be called again, and
     the command tensor it reads is the one returned as ``run.cmd`` (write
-    it with ``copy_``).  The record holds the host arrays qpos (T, N, nq),
-    qvel (T, N, nv), obs (T, N, num_obs), vel (T, N, 6: the body-frame
-    velocities the tracking rewards see), feet (T, N, 6: foot touch
-    forces), done and time_out (T, N), copied once at the end."""
-    dev, dt, N = env.device, env.dtype, env.num_envs
+    it with ``copy_``).  ``rows(out)`` gives a step's rows by name, each
+    (N, ...) (default ``hexapod_rows``); the record holds them as host
+    arrays (T, N, ...), copied once at the end of a call.  Deterministic
+    without ``generator`` (``act_inference``), else ``mu + std · noise``
+    drawn from it."""
+    dev, dt = env.device, env.dtype
     cmd = torch.as_tensor(cmd, dtype=dt, device=dev).clone()
-    nq, nv = env.sys.nq, env.sys.nv
-    widths = dict(qpos=(nq, dt), qvel=(nv, dt), obs=(env.num_obs, dt),
-                  vel=(6, dt), feet=(6, dt), done=(None, torch.bool),
-                  time_out=(None, torch.bool))
-    rec = {k: torch.empty((steps, N) + ((w,) if w else ()), dtype=t,
-                          device=dev) for k, (w, t) in widths.items()}
+    rec = {}
 
     @torch.no_grad()
     def step(carry):
@@ -134,16 +154,7 @@ def player(env, net, cmd, steps: int,
             act = mu + std * torch.randn(mu.shape, generator=generator,
                                          dtype=mu.dtype, device=mu.device)
         out = env.step(state, act)
-        rows = dict(
-            # obs[0:3] is lin_vel * 2.0, obs[3:6] is ang_vel * 0.25 (obs
-            # scales, reference nightmare_v3_config.py:67-72)
-            vel=torch.cat([out.obs[:, :3] / 2.0, out.obs[:, 3:6] / 0.25],
-                          dim=1),
-            # foot touch sensors (sensordata slots 6:12, mjmodel.xml:156-170)
-            feet=out.state.phys.sensordata[:, 6:12],
-            qpos=out.state.phys.qpos, qvel=out.state.phys.qvel, obs=out.obs,
-            done=out.done, time_out=out.time_out)
-        for k, x in rows.items():
+        for k, x in rows(out).items():
             rec[k].index_copy_(0, t, x[None])
         return out.state, out.obs, t + 1
 
@@ -153,6 +164,10 @@ def player(env, net, cmd, steps: int,
     def run(state, obs):
         nonlocal captured
         if captured is None:  # the first call's state is the example
+            done = torch.zeros(env.num_envs, dtype=torch.bool, device=dev)
+            rec.update({k: torch.empty((steps,) + x.shape, dtype=x.dtype,
+                                       device=dev)
+                        for k, x in rows(_Rows(state, obs, done, done)).items()})
             captured = CapturedStep(step, (state, obs, t0),
                                     generators=(env.generator, generator))
         carry = (state, obs, t0)
@@ -165,10 +180,11 @@ def player(env, net, cmd, steps: int,
 
 
 def rollout(env, net, state, obs, cmd, steps: int,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None,
+            rows: Callable[..., dict] = hexapod_rows):
     """Step ``env`` under ``net`` for ``steps`` steps with ``cmd`` (N, 3)
     pinned before each step (``player``).  Returns (state, obs, record)."""
-    return player(env, net, cmd, steps, generator)(state, obs)
+    return player(env, net, cmd, steps, generator, rows)(state, obs)
 
 
 def _settle(env, steps: int) -> int:

@@ -25,13 +25,17 @@ within calls:
 - the peak device memory of one step (``torch.cuda.max_memory_allocated``
   from a reset of the peak) and the graph's private pool (the memory its
   capture reserved);
-- the wall time of one policy forward pass on the step's observations.
+- the wall time of one policy forward pass on the step's observations;
+- the captured graph's nodes by type (``CapturedStep.node_counts``, from
+  the graph's DOT dump): its kernel nodes are the kernels one replay
+  launches, beside the profiler's count of the replays' kernels.
 
 Both robots' steps are captured (anymal_c's since its Newton step makes no
 host synchronization); an env without ``graph_step`` is measured eagerly
 only.  ``capture_s`` is the capture and the graph's instantiation,
-``warmup_s`` the eager warm-up step before it.  The last line is one JSON object with these numbers (per
-form: ``eager`` and ``graph``, ``graph_pool_bytes``, ``capture_s``; with
+``warmup_s`` the eager warm-up step before it.  The last line is one JSON
+object with these numbers (per form: ``eager`` and ``graph``,
+``graph_nodes``, ``graph_pool_bytes``, ``capture_s``; with
 ``--forms``, a list ``forms`` of these objects) and the card's name: the
 per-layer breakdown that PERF.md's "Where the time goes" quotes.  A missing
 card raises.
@@ -123,7 +127,8 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
     if getattr(env, "graph_step", False):
         t0 = time.perf_counter()
         captured = CapturedStep(env.step, box["state"], actions(),
-                                generators=[env.generator], state_field="state")
+                                generators=[env.generator], state_field="state",
+                                debug=True)
         capture_s = time.perf_counter() - t0
 
         def graph():
@@ -173,7 +178,12 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
                   f"{e['launches_per_step']:6.0f}x  {e['name'][:90]}")
     out = {"pgs_form": form, "policy_ms": policy_ms, **res}
     if "graph" in runs:
-        out.update(graph_pool_bytes=captured.pool_bytes,
+        nodes = captured.node_counts()
+        print(f"profile: the captured graph holds {nodes.get('KERNEL', 0)} "
+              f"kernel nodes ({sum(nodes.values())} nodes: {nodes}); the "
+              f"profiler counted {res['graph']['kernels_per_step']:.0f} "
+              f"kernels per replayed step")
+        out.update(graph_nodes=nodes, graph_pool_bytes=captured.pool_bytes,
                    capture_s=captured.capture_s, record_s=captured.record_s,
                    warmup_s=captured.warmup_s,
                    construct_s=capture_s, graph_launches=captured.launches)

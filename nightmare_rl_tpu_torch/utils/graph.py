@@ -55,8 +55,9 @@ buffers, which is how the CPU tests exercise this module.
 returning a next state: a PPO minibatch step, which moves an ``nn.Module``'s
 parameters and gradients, Adam's moments and step count and the learning
 rate (the body of the JAX update's ``lax.scan``, which carries ``(params,
-opt_state, lr)``; ``rl/ppo.py::CapturedLearn`` replays it per minibatch
-after a captured prologue).  Its warm-up cannot run on clones of a module's
+opt_state, lr)``; ``rl/ppo.py::CapturedLearn`` replays a minibatch step's
+two parts per minibatch after the prologue's three, the reductions over
+the ranks between them).  Its warm-up cannot run on clones of a module's
 parameters, so it saves those tensors (``held``), runs the call, and writes
 them back with ``copy_``: it moves nothing.  The tensors keep their storage
 for the life of the graph, which reads and writes them at their addresses
@@ -171,8 +172,10 @@ class _Captured:
     WARMUP = 1  # eager calls before capture
 
     def _init_graph(self, device: torch.device,
-                    generators: Sequence[Optional[torch.Generator]]) -> None:
+                    generators: Sequence[Optional[torch.Generator]],
+                    debug: bool = False) -> None:
         self.device = device
+        self.debug = debug
         self.launches: Dict[str, int] = {}
         self.pool_bytes = 0
         self.warmup_s = self.capture_s = self.record_s = 0.0
@@ -216,7 +219,8 @@ class _Captured:
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
 
-        graph = torch.cuda.CUDAGraph()
+        # with debug, the graph's nodes are kept after instantiation
+        graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
         for g in generators:
             graph.register_generator_state(g)
         counts = {fn: fn.launches for fn in _COUNTED}
@@ -235,6 +239,8 @@ class _Captured:
                 finally:
                     torch.cuda.set_sync_debug_mode(prev)
                     self.record_s = time.perf_counter() - t0
+            if err is None and self.debug:
+                graph.instantiate()
         except Exception as e:  # noqa: BLE001 - capture_end after a failure
             err = err or e
         finally:
@@ -246,10 +252,51 @@ class _Captured:
             name = getattr(self.fn, "__qualname__", repr(self.fn))
             raise RuntimeError(f"CUDA graph capture of {name} failed at "
                                f"{_where(err)}: {err}") from err
-        # capture_end instantiated the graph
+        # capture_end (or, with debug, instantiate) instantiated the graph
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = graph
+
+    def node_counts(self) -> Dict[str, int]:
+        """The captured graph's nodes by type (``KERNEL``, ``MEMCPY``,
+        ``MEMSET``, ...), read through the CUDA driver
+        (``cuGraphGetNodes``, ``cuGraphNodeGetType``); needs ``debug=True``
+        at construction, which keeps the graph's nodes."""
+        import ctypes
+
+        if self.graph is None or not self.debug:
+            raise ValueError("node_counts needs a graph captured with "
+                             "debug=True")
+        cu = ctypes.CDLL("libcuda.so.1")
+        cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+        cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int)]
+        cu.cuGraphGetNodes.restype = cu.cuGraphNodeGetType.restype = ctypes.c_int
+
+        def check(rc: int) -> None:
+            if rc != 0:
+                raise RuntimeError(f"CUDA driver error {rc}")
+
+        g = ctypes.c_void_p(self.graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)))
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)))
+        counts: Dict[str, int] = {}
+        kind = ctypes.c_int()
+        for node in nodes:
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)))
+            name = _NODE_TYPES.get(kind.value, str(kind.value))
+            counts[name] = counts.get(name, 0) + 1
+        return counts
+
+
+# CUgraphNodeType (cuda.h)
+_NODE_TYPES = {0: "KERNEL", 1: "MEMCPY", 2: "MEMSET", 3: "HOST", 4: "GRAPH",
+               5: "EMPTY", 6: "WAIT_EVENT", 7: "EVENT_RECORD",
+               8: "EXT_SEMAS_SIGNAL", 9: "EXT_SEMAS_WAIT", 10: "MEM_ALLOC",
+               11: "MEM_FREE", 12: "BATCH_MEM_OP", 13: "CONDITIONAL"}
 
 
 class CapturedStep(_Captured):
@@ -260,6 +307,8 @@ class CapturedStep(_Captured):
     ``generators``: every ``torch.Generator`` the step draws from.
     ``state_field``: None when ``fn`` returns the next state, else the
     name of the field of its (NamedTuple) result that holds it.
+    ``debug``: keep the graph's nodes (``keep_graph``) for
+    ``node_counts``.
 
     After capture, ``launches`` maps each counted kernel wrapper's name to
     the launches one replay makes, ``pool_bytes`` is the device memory
@@ -270,7 +319,7 @@ class CapturedStep(_Captured):
 
     def __init__(self, fn: Callable, state, *inputs,
                  generators: Sequence[Optional[torch.Generator]] = (),
-                 state_field: Optional[str] = None):
+                 state_field: Optional[str] = None, debug: bool = False):
         self.fn = fn
         self.state_field = state_field
         self.state = clone(state)
@@ -280,7 +329,7 @@ class CapturedStep(_Captured):
         if not self._static:
             raise ValueError("a captured step needs tensors in its state")
         self._storages = {x.untyped_storage().data_ptr() for x in self._static}
-        self._init_graph(self._static[0].device, generators)
+        self._init_graph(self._static[0].device, generators, debug)
 
     def _run(self):
         """The step on the static buffers, its next state copied into the

@@ -27,7 +27,9 @@ that fails naming the line; anymal_c's step captured against its eager
 steps, and the PPO's learning half (``CapturedLearn`` of ``PPO._learn``)
 against the same call made eagerly from one state (feed-forward and
 recurrent: statistics, parameters, gradients, Adam's state, the lr, the
-permutation and the generator bit for bit).  Tests that count the dense kernel's launches
+permutation and the generator bit for bit), and the same for a
+``ShardedPPO`` on an in-process world-1 NCCL mesh (its parts replayed,
+the all_reduce between them).  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -681,3 +683,45 @@ def test_captured_update_equals_eager_update(cuda, policy, monkeypatch):
     assert torch.equal(ppo.last_perm, want[1])
     assert torch.equal(ppo.generator.get_state(), want[2])
     assert not all(torch.equal(a, b) for a, b in zip(held, start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["ActorCritic", "ActorCriticRecurrent"])
+def test_sharded_captured_update_equals_eager_update(cuda, policy,
+                                                     monkeypatch):
+    """A ``ShardedPPO`` on an in-process world-1 NCCL mesh, 64 envs x 8
+    steps, after one iteration: its learning half as ``learn_step`` replays
+    it (``CapturedLearn``'s parts, the all_reduce between them) against
+    the same call made eagerly from one state (``chip_smoke._hold_learner``):
+    statistics, parameters, gradients, Adam's state, the lr, the
+    permutation and the generator bit for bit, no host sync inside the
+    parts."""
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.parallel import mesh as M
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("NIGHTMARE_PGS", "legs")
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=RunnerCfg(num_steps_per_env=8,
+                                       policy_class_name=policy),
+                      policy=dataclasses.replace(cfg.policy,
+                                                 rnn_hidden_size=64))
+    mesh = M.make_mesh("cuda", "nccl")
+    try:
+        env = _graph_env(cuda)
+        env = NightmareV3Env(env.cfg, device=mesh.device, shard=mesh.shard)
+        ppo = M.ShardedPPO(env, cfg, mesh)
+        ppo.init(0)
+        ppo.learn_step()  # captures the rollout step and the learning half
+        held = smoke._hold_learner(ppo)
+    finally:
+        M.close()
+    diffs = smoke._learner_diffs(held)
+    assert all(v[0] for v in diffs.values()), diffs
+    assert held["syncs"] == 0
+    assert held["pool_bytes"] > 0

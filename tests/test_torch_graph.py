@@ -18,17 +18,21 @@ graph is held in tests/test_torch_cuda.py and chip_smoke.py):
 - the buffers refuse a call of another shape, and ``assign`` writes into
   buffers rather than rebinding them;
 - no captured step talks to the host: the nightmare_v3 and anymal_c env
-  steps, custom_play's control step and the PPO's learning half
-  (``PPO._learn``), each called once to warm up and then once under a
+  steps, custom_play's control step, the PPO's learning half
+  (``PPO._learn``), a ``ShardedPPO``'s (its captured parts, the
+  reductions between them left out) and a rank's permutation at world 2
+  (``Shard.perm``), each called once to warm up and then once under a
   ``TorchDispatchMode`` that records every op reading a value to the host
   (``_local_scalar_dense``: ``item``, ``float``, ``bool`` of a tensor;
-  ``nonzero``, whose length the host reads) or making a tensor from host
+  ``nonzero`` and indexing by a boolean mask, whose length the host
+  reads) or making a tensor from host
   data (``lift_fresh``/``lift_fresh_copy``: ``torch.tensor`` of a list or
   a number).  On the card each is a synchronization that a CUDA graph's
   capture refuses; here the CPU shows them on every PR.  The plain
   versions that stand in for the CUDA kernels on the CPU (``ops/pgs.py``,
   which checks the legs form's slot ids there) are left out: on the card
-  those calls are the kernels' launches.
+  those calls are the kernels' launches.  So are the reductions
+  (``parallel/mesh.py``), which run between the graphs.
 
 The JAX-parity tests of the same paths (test_torch_env.py, test_torch_ppo.py,
 test_torch_play.py's rollout, test_torch_recurrent.py,
@@ -257,10 +261,14 @@ def test_buffers_refuse_another_shape_and_assign_copies():
 
 
 class HostTransfers(TorchDispatchMode):
-    """Records every op that reads a tensor's value to the host or makes a
-    tensor from host data, with the innermost line of the port that called
-    it; ops called from the kernels' CPU stand-ins (``ops/pgs.py``) are
-    left out."""
+    """Records every op that reads a tensor's value to the host (a boolean
+    mask's indexing included) or makes a tensor from host data, with the
+    innermost line of the port that called
+    it; ops called from the kernels' CPU stand-ins (``ops/pgs.py``) and
+    from the reductions over the ranks (``parallel/mesh.py``, which run
+    between the captured parts) are left out."""
+
+    LEFT_OUT = ("ops/pgs.py", "parallel/mesh.py")
 
     OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.lift_fresh")
 
@@ -270,10 +278,14 @@ class HostTransfers(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = str(func)
-        if name.startswith(self.OPS):  # lift_fresh and lift_fresh_copy
+        # indexing with a boolean mask: its length is read to the host
+        masked = name.startswith("aten.index") and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool
+            for a in args if isinstance(a, (list, tuple)) for i in a)
+        if name.startswith(self.OPS) or masked:  # lift_fresh(_copy) too
             ours = [f for f in traceback.extract_stack()
                     if "nightmare_rl_tpu_torch" in f.filename]
-            if not any(f.filename.endswith("ops/pgs.py") for f in ours):
+            if not any(f.filename.endswith(self.LEFT_OUT) for f in ours):
                 self.seen.append((name, f"{ours[-1].filename}:"
                                   f"{ours[-1].lineno}" if ours else "?"))
         return func(*args, **(kwargs or {}))
@@ -326,14 +338,56 @@ def _ppo_learn():
     return call
 
 
+def _sharded_learn():
+    """The parts of a ``ShardedPPO``'s learning half (``CapturedLearn``, run
+    eagerly on the CPU) on an in-process world-1 gloo mesh; the reductions
+    between them (``parallel/mesh.py``) are left out of the watch."""
+    from nightmare_rl_tpu_torch.parallel import mesh as M
+    from nightmare_rl_tpu_torch.rl.ppo import CapturedLearn
+
+    mesh = M.make_mesh(device="cpu")
+    env = NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=4)),
+                         device="cpu", shard=mesh.shard)
+    ppo = M.ShardedPPO(env, PPOCfg().replace(
+        runner=RunnerCfg(num_steps_per_env=4)), mesh)
+    ppo.init(0)
+    traj = ppo.rollout()[0]
+    inputs = (traj, ppo.obs, ppo.hidden, ())
+    cap = ppo._learner(*inputs)
+    assert isinstance(cap, CapturedLearn)
+
+    def call(k):
+        cap(*inputs)
+    call.close = M.close
+    return call
+
+
+def _shard_perm():
+    """A rank's permutation at world 2 (``Shard.perm``), which the sharded
+    learning half's captured tail draws: the in-process mesh above is a
+    world of one, whose permutation takes no mask."""
+    from nightmare_rl_tpu_torch.parallel.shard import Shard
+
+    g = torch.Generator().manual_seed(0)
+
+    def call(k):
+        Shard(1, 2).perm(4, 3, g, "cpu")
+    return call
+
+
 @pytest.mark.parametrize("make", [_nightmare_step, _anymal_step,
-                                  _control_step, _ppo_learn],
+                                  _control_step, _ppo_learn, _sharded_learn,
+                                  _shard_perm],
                          ids=["nightmare_v3-step", "anymal_c-step",
-                              "custom_play-control_step", "ppo-update"])
+                              "custom_play-control_step", "ppo-update",
+                              "sharded-update", "shard-perm"])
 def test_step_makes_no_host_transfer(make):
     call = make()
-    call(0)  # the warm-up: caches and constants are made here, as on the card
-    watch = HostTransfers()
-    with watch:
-        call(1)
+    try:
+        call(0)  # the warm-up: caches and constants are made here, as on the card
+        watch = HostTransfers()
+        with watch:
+            call(1)
+    finally:
+        getattr(call, "close", lambda: None)()  # the sharded case's mesh
     assert not watch.seen, watch.seen

@@ -226,14 +226,16 @@ def _held_copy(ppo):
 
 def test_captured_update_equals_update():
     """``CapturedLearn``, the PPO's learning half as ``learn_step`` calls it
-    on the card (a captured prologue: V of the last observations, GAE, the
-    permutation drawn from the PPO's generator; and a captured minibatch
-    step replayed per minibatch), which the CPU runs eagerly on its
-    buffers, against the same steps called one by one ending in
-    ``PPO.update``, from two PPOs in one state, float64: the statistics,
-    every parameter, Adam's state, the lr and the generator's state equal
-    bit for bit (tolerance 0).  Both parts' warm-ups leave the parameters,
-    gradients, Adam's state, the lr and the generator as they were."""
+    on the card (the prologue's three captured parts: V of the last
+    observations and GAE's recursion, the sum of squares, the
+    normalization and the permutation drawn from the PPO's generator; and
+    a minibatch step's two captured parts replayed per minibatch), which
+    the CPU runs eagerly on its buffers, against the same steps called one
+    by one ending in ``PPO.update``, from two PPOs in one state, float64:
+    the statistics, every parameter, Adam's state, the lr and the
+    generator's state equal bit for bit (tolerance 0).  Every part's
+    warm-up leaves the parameters, gradients, Adam's state, the lr and the
+    generator as they were."""
     T, N = 8, 16
     env = types.SimpleNamespace(device=torch.device("cpu"), dtype=torch.float64,
                                 num_obs=66, num_actions=18)
@@ -260,8 +262,8 @@ def test_captured_update_equals_update():
     cap = tppo.CapturedLearn(cap_ppo, traj, last_obs, (), ())
     assert cap.graph is None  # the CPU runs the update eagerly
     assert torch.equal(cap_ppo.generator.get_state(), gen0)
-    cap.prologue.warm_up([cap_ppo.generator])
-    cap.step.warm_up([])
+    for part in cap.parts:
+        part.warm_up([cap_ppo.generator])
     assert all(torch.equal(a, b) for a, b in zip(_held_copy(cap_ppo), before))
     assert torch.equal(cap_ppo.generator.get_state(), gen0)
     got = dict(zip(tppo.STAT_KEYS, cap(traj, last_obs, (), ()).tolist()))

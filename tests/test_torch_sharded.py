@@ -13,8 +13,13 @@ and only the rollout statistics must agree.
 The CLI runs under ``python -m torch.distributed.run`` in two subprocess
 runs shared by the module, as the ranks that chip_smoke.py's sharded phase
 runs on the card (``chip_smoke.mesh_worker``), here with ``--device cpu``
-at 16 global envs, rnn 32 and 4 recurrent steps: world 2, then world 1,
-which also resumes world 2's recurrent checkpoint.
+at 16 global envs, rnn 32 and 4 steps in the learn and recurrent jobs:
+world 2, then world 1, which also resumes world 2's recurrent checkpoint.
+
+The ranks' learning half is ``rl/ppo.py::CapturedLearn``, its parts split
+at the reductions over the ranks (on the CPU each part runs eagerly on its
+buffers); the ``learn`` job holds it against the plain ``PPO._learn`` on
+each rank from one state (``chip_smoke._hold_learner``).
 """
 
 import importlib.util
@@ -36,8 +41,8 @@ smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
 WORKER_ARGS = ("--device", "cpu", "--envs", "16", "--rnn", "32",
-               "--recurrent-steps", "4", "--seed", "3",
-               "single", "default", "recurrent")
+               "--steps", "4", "--seed", "3",
+               "single", "default", "learn", "recurrent")
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +169,38 @@ def test_single_minibatch_world1_equals_world2(runs):
                                b["items"]["obs"].numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("world", [1, 2])
+def test_segmented_learner_equals_learn(runs, world):
+    """On every rank, from one state (restored in place): the learning half
+    as ``learn_step`` runs it under a mesh (``CapturedLearn``: its parts,
+    the reductions between them in place on the parts' buffers) against
+    ``PPO._learn`` called with the plain functions: statistics,
+    parameters, gradients, Adam's state, the lr, the permutation and the
+    generator's state equal bit for bit (``torch.equal``), for the
+    feed-forward ``learn`` job and, at world 2, the recurrent one.  Every
+    job's rank trained through the segmented learner."""
+    assert M.ShardedPPO.graph_update is True
+    jobs = ("learn", "recurrent") if world == 2 else ("learn",)
+    for rank, job in ((r, j) for r in range(world) for j in jobs):
+        held = runs["load"](runs[f"w{world}"], job, rank)["held"]
+        ref, got = held["eager"], held["graph"]
+        for k in ("params", "grads", "adam", "lr"):
+            assert len(ref[k]) == len(got[k]) > 0
+            for a, b in zip(ref[k], got[k]):
+                assert torch.equal(a, b), (world, rank, job, k)
+        for k in ("stats", "perm", "generator"):
+            assert torch.equal(ref[k], got[k]), (world, rank, job, k)
+        assert np.isfinite(ref["stats"].numpy()).all()
+        for job in ("single", "default", "learn", "recurrent"):
+            assert runs["load"](runs[f"w{world}"], job, rank)["learner"], job
+    # the ranks took the same step from replicated parameters
+    if world == 2:
+        h0, h1 = (runs["load"](runs["w2"], "learn", r)["held"]["graph"]
+                  for r in (0, 1))
+        for k in ("params", "grads", "adam", "lr"):
+            assert all(torch.equal(a, b) for a, b in zip(h0[k], h1[k])), k
+
+
 def test_default_minibatching_rollout_stats_equal(runs):
     a, b = runs["load"](runs["w1"], "default"), runs["load"](runs["w2"], "default")
     sa, sb = a["stats"], b["stats"]
@@ -178,7 +215,7 @@ def test_ranks_hold_replicas_and_their_shards(runs):
     """Parameters, optimizer, lr and generators are equal on both ranks;
     each rank holds its 8 of the 16 envs and of the recurrent state, and
     the gathered state is the ranks' rows in rank order."""
-    for job in ("single", "default", "recurrent"):
+    for job in ("single", "default", "learn", "recurrent"):
         r0, r1 = (runs["load"](runs["w2"], job, r) for r in (0, 1))
         assert r0["world"] == 2 and r0["num_envs"] == r1["num_envs"] == 8
         assert r0["items"].keys() == r1["items"].keys()
