@@ -6,11 +6,12 @@
 Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
-2. build   — nvcc builds ``ops/csrc/pgs.cu`` and ``ops/csrc/pgs_legs.cu``
-             for sm_90a from the checkout, both at once; prints ptxas's
-             registers and spills (the float32 kernels must not spill) and
-             each kernel's main-path launch geometry: lanes per env, shared
-             memory per block and envs resident per SM;
+2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu`` and
+             ``ops/csrc/newton.cu`` for sm_90a from the checkout, all at
+             once; prints ptxas's registers and spills (the float32 kernels
+             must not spill) and each kernel's main-path launch geometry:
+             lanes per env, shared memory per block and envs resident per
+             SM;
 3. kernel  — the PGS kernel against ``pgs_reference`` on the card, float64
              random systems: the main path's shapes with and without dof
              rows, then the design's edge shapes (N not a multiple of the
@@ -80,7 +81,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 8. physics-anymal — anymal_c (Newton solver, elliptic cones), 16 envs in
              float64 from the reference pose with perturbed joints and
              velocities, 3 decimated steps (12 substeps) at a converged
-             Newton budget: each step of the card starts from the CPU's
+             Newton budget, the card's solves the Newton kernel and the
+             CPU's the plain version: each step of the card starts from the CPU's
              state before it, so the error is one decimated step's; the
              zones of the cone contacts at the last substep are counted (a
              bottom and a middle one are required);
@@ -88,24 +90,45 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              plain env step at 2048 envs, float32: 20 env steps eager and
              20 replays from one state, every StepOut field equal bit for
              bit, the env generator's state equal, no host sync in a
-             replay; wall ms per env step in turns (eager, graph, graph,
-             eager), the warm-up's and the capture's seconds, the pool;
+             replay, 4 launches of the Newton kernel per replay; the
+             graph's nodes by type; wall ms per env step in turns (eager,
+             graph, graph, eager), the warm-up's and the capture's seconds,
+             the pool;
 9. slice-anymal — the training CLI with ``--robot anymal_c``, 2048 envs,
              float32, reset + 1 PPO iteration, the rollout replaying the
-             captured step: every Newton solve is counted (4 per env step:
-             the eager calls plus the calls made inside the capture times
-             the replays) and clones of the last one's inputs are kept;
-10. newton-converged — those inputs in float64, solved at the slice's
-             budget and at 100 iterations with 50 refinements: in at least
-             90 % of the envs the budget's qacc must lie within 2e-4 of the
-             converged one (relative to 1 + |qacc|; the rest are envs whose
-             line search stalls on its round-off floor, PERF.md §6);
+             captured step: every substep's Newton solve is one launch of
+             the Newton kernel (4 per env step, the replays' counted by the
+             graph) and clones of the last solve's inputs are kept;
+10. newton-converged — those inputs in float64, solved by the kernel at
+             the slice's budget and by the plain solve at 100 iterations
+             with 50 refinements: in at least 90 % of the envs the budget's
+             qacc must lie within 2e-4 of the converged one (relative to
+             1 + |qacc|; the rest are envs whose line search stalls on its
+             round-off floor, PERF.md §6);
 10b. eval-anymal — ``tools/eval_anymal.py`` on the committed
              ``anymal_model_122.pt``: 300 steps at vx 0.5, deterministic,
              each a replay of the captured play step; its two lines printed
              beside the JAX script's on the CPU, and held to that outcome:
              no fall or timeout, base height's mean in [0.599, 0.609],
-             |v_avg| ≤ 0.02 m/s in x and y, every foot's duty ≥ 0.95;
+             |v_avg| ≤ 0.02 m/s in x and y, every foot's duty ≥ 0.95; every
+             substep a launch of the Newton kernel;
+10c. newton-kernel — the Newton kernel against the plain ``newton.solve``
+             on the card, on the slice's last solve (2048 envs of anymal_c's
+             rows; every cone zone must occur on the solve's path): in
+             float64 at 1 iteration with 1 refinement and at 2 iterations
+             with none, where the line search's decisions stand above the
+             round-off floor of φ' (each env within 1e-9 of the plain solve
+             relative to 1 + max|field| of force, qfrc and qacc, unless a
+             decision is on the floor; the smallest margin over the floor
+             printed), and at N=1, cold, N=37; in float32 at the model's
+             budget (8 / 8) by total cost (no more than the plain version's
+             plus 1e-5 of it in 99 % of the envs; the plain solve's own
+             float32-against-float64 spread printed beside it) and NaN
+             pattern, the largest qacc gap printed; at least 90 % of the
+             envs held in float64; nightmare_v3_mjx
+             (pyramidal, no cone group, then noslip) card against CPU, one
+             step at a converged budget (1e-9); then the kernel's and the
+             plain version's CUDA-event times and its bound;
 11. recorder/resume (right after the slice) — the slice's runner recorded
              env 0: it received 2 × 80 frames with finite qpos; the
              ``model_2.pt`` it saved, loaded into a fresh runner on the card,
@@ -199,12 +222,14 @@ the sharded ranks' included, also replay their learning half (GAE and the
 update) as graphs, the sharded ranks' reductions between them; so does
 eval-anymal its play step.  The physics phases,
 dense-models and the curve tool (its ``ExternalPPO`` steps the env through
-a host callback) run eagerly.  The anymal_c path, the tools, the
-captured update and the recurrent, sharded, external and dense paths run
-no kernel of their own: the kernels' line
+a host callback) run eagerly.  The anymal_c path runs the Newton kernel on
+every substep; the tools, the captured update and the recurrent, sharded,
+external and dense paths run no kernel of their own.  The kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
-the curve phase, and ``pgs_legs``, whose launches are slice-legs', each
-counted from zero.
+the curve phase, ``pgs_legs``, whose launches are slice-legs', and
+``newton``, whose launches are graph-anymal's, slice-anymal's and
+eval-anymal's, each counted from zero (the launches that hold a kernel
+against its plain version are not counted).
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -240,6 +265,23 @@ ANYMAL_STEP_TOL = 2e-8
 ANYMAL_PHYS_ITERATIONS = 30
 NEWTON_CONVERGED_TOL = 2e-4  # budget vs converged qacc, /(1 + |qacc|)
 NEWTON_CONVERGED_SHARE = 0.9  # least share of envs within it
+# the Newton kernel against newton.solve: float64 at budgets whose
+# line-search decisions stand above the round-off floor of φ' (one Newton
+# step with a refinement; two steps on the grid alone), per env max |Δ| /
+# (1 + max |plain|) of force, qfrc and qacc; an env with a decision whose
+# |φ'| is under NEWTON_FLOOR round-off scales is not held (an env in free
+# flight has a quadratic φ whose root is the grid's α = αmax itself); at
+# least NEWTON_HELD_SHARE of the envs held.  Float32 at the model's budget,
+# where every env takes decisions on the floor: the total cost no more
+# than the plain version's plus NEWTON_COST_TOL of it in at least
+# NEWTON_COST_SHARE of the envs (the plain solve's own float32 and float64
+# results part by more on a few envs too, printed beside it).
+NEWTON_HELD_BUDGETS = ((1, 1), (2, 0))
+NEWTON_F64_TOL = 1e-9
+NEWTON_FLOOR = 4.0
+NEWTON_HELD_SHARE = 0.9
+NEWTON_COST_TOL = 1e-5
+NEWTON_COST_SHARE = 0.99
 MODEL_3176 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "artifacts", "model_3176.pt")
 GRID_STEPS = 400
@@ -477,18 +519,19 @@ def _ptxas(log: str, pattern: str, label) -> list:
 
 
 def phase_build() -> None:
-    """Build both kernels (one nvcc each, started together) and report what
+    """Build the kernels (one nvcc each, started together) and report what
     ptxas and the occupancy queries say."""
     import concurrent.futures
 
     import torch
 
     from nightmare_rl_tpu_torch.ops import build
+    from nightmare_rl_tpu_torch.ops import newton as K
     from nightmare_rl_tpu_torch.ops import pgs as P
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        infos = dict(zip(("pgs", "pgs_legs"),
-                         pool.map(build.build, ("pgs", "pgs_legs"))))
+    names = ("pgs", "pgs_legs", "newton")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
         "pgs": _ptxas(infos["pgs"]["log"],
                       r"pgs_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E",
@@ -497,6 +540,9 @@ def phase_build() -> None:
         "pgs_legs": _ptxas(infos["pgs_legs"]["log"], r"pgs_legs_kernelI([fd])E",
                            lambda m: "pgs_legs_kernel<"
                                      f"{'float' if m[1] == 'f' else 'double'}>"),
+        "newton": _ptxas(infos["newton"]["log"], r"newton_kernelI([fd])E",
+                         lambda m: "newton_kernel<"
+                                   f"{'float' if m[1] == 'f' else 'double'}>"),
     }
     for name, ks in kernels.items():
         ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
@@ -523,7 +569,15 @@ def phase_build() -> None:
           f"{lgeo.smem_bytes} B shared per block, {legs_sm} envs resident per "
           f"SM x {sms} SMs = {legs_sm * sms} per wave "
           f"({math.ceil(2048 / (legs_sm * sms))} waves at N=2048)")
-    if per_sm < 1 or legs_sm < 1:
+    spans = ((36, 3, 8), (60, 6, 4), (84, 3, 4))
+    ngeo = K.geometry(96, 18, spans, 4)
+    newton_sm = K.envs_per_sm(ngeo, torch.float32)
+    print(f"build: newton anymal_c (nefc=96, nv=18, cone groups {spans}, "
+          f"float32): one warp per env, {ngeo.envs_per_block} envs per block, "
+          f"{ngeo.smem_bytes} B shared per block, {newton_sm} envs resident "
+          f"per SM x {sms} SMs = {newton_sm * sms} per wave "
+          f"({math.ceil(2048 / (newton_sm * sms))} waves at N=2048)")
+    if per_sm < 1 or legs_sm < 1 or newton_sm < 1:
         raise AssertionError("a kernel fits no env on an SM")
 
 
@@ -1074,16 +1128,20 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     as a CUDA graph against the plain env step at 2048 envs in float32:
     from one state and one generator state, ANYMAL_GRAPH_STEPS steps eager
     and as replays, every StepOut field equal bit for bit at every step,
-    the env's generator equal after both runs, no host sync in a replay;
-    then wall ms per env step in turns (eager, graph, graph, eager), the
-    warm-up's and the capture's seconds and the graph's pool."""
+    the env's generator equal after both runs, no host sync in a replay,
+    ``decimation`` launches of the Newton kernel per replay; then wall ms
+    per env step in turns (eager, graph, graph, eager), the warm-up's and
+    the capture's seconds, the graph's pool and its nodes by type.  Returns
+    the kernel's launches in the phase with the rest."""
     import torch
 
     from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+    from nightmare_rl_tpu_torch.ops.newton import newton_solve
     from nightmare_rl_tpu_torch.utils.graph import CapturedStep, clone
 
     N, steps = 2048, ANYMAL_GRAPH_STEPS
     t0 = time.perf_counter()
+    newton_solve.launches = 0
     env = AnymalCEnv(AnymalCCfg(num_envs=N), device="cuda")
     if not env.graph_step:
         raise AssertionError("AnymalCEnv.graph_step is off")
@@ -1101,7 +1159,8 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     env.generator.set_state(gen0)
 
     step = CapturedStep(env.step, s0, acts[0], generators=[env.generator],
-                        state_field="state")
+                        state_field="state", debug=True)
+    nodes = step.node_counts()
     differ, state = [], s0
     for k, a in enumerate(acts):
         out = step(state, a)
@@ -1109,6 +1168,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
                    if not _leaves_equal(getattr(out, f), getattr(eager[k], f))]
         state = out.state
     same_gen = torch.equal(env.generator.get_state(), gen_eager)
+    per_replay = step.launches.get("newton_solve", 0)
     dones = int(sum(int(o.done.sum()) for o in eager))
     syncs = _host_syncs(lambda: step(state, acts[0]))
     walls = {"eager": [], "graph": []}
@@ -1122,7 +1182,10 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
           f"eager and as replays of one captured step from one state "
           f"({dones} resets): StepOut fields equal bit for bit at every step: "
           f"{not differ} (differing {differ[:6]}); env generator state equal "
-          f"{same_gen}; host syncs per replay {syncs}; warm-up step "
+          f"{same_gen}; host syncs per replay {syncs}; newton kernel "
+          f"launches per replay {per_replay}; the graph holds "
+          f"{nodes.get('KERNEL', 0)} kernel nodes ({sum(nodes.values())} "
+          f"nodes: {nodes}); warm-up step "
           f"{step.warmup_s:.2f} s, capture and instantiation "
           f"{step.capture_s:.2f} s (recording {step.record_s:.2f} s), graph "
           f"pool {pool:.1f} MiB; wall ms per "
@@ -1136,9 +1199,13 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
                              f"{same_gen}")
     if syncs:
         raise AssertionError(f"an anymal_c replay synchronized {syncs} times")
+    if per_replay != env.cfg.decimation:
+        raise AssertionError(f"an anymal_c replay launches the newton kernel "
+                             f"{per_replay} times, not {env.cfg.decimation}")
     return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                 capture_s=step.capture_s, record_s=step.record_s,
-                warmup_s=step.warmup_s, pool_mib=pool)
+                warmup_s=step.warmup_s, pool_mib=pool, nodes=nodes,
+                launches=newton_solve.launches)
 
 
 def _hold_learner(ppo) -> dict:
@@ -1745,33 +1812,31 @@ def _counted_replays():
 
 def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     """The anymal_c training slice, its rollout replaying the captured env
-    step.  ``newton.solve`` is a Python function: a replay calls it no
-    more, so its calls are counted apart, eager ones (the reset's step and
-    the capture's warm-up step) and those made while the rollout step was
-    captured, which each replay of that step runs again on the card; the
-    solves the card ran are the eager calls plus the captured calls times
-    the replays (counted by wrapping the replay), which must be one per env
-    step's substep.  Clones of the last call's inputs are kept: inside the
-    capture they are nodes of the graph, so they hold the last replay's."""
+    step.  Every substep's Newton solve must be one launch of the Newton
+    kernel (counted from zero by ``newton_solve.launches``, to which each
+    replay adds its graph's launches): the reset's step, the capture's
+    warm-up step and the rollout's replays.  Clones of the last solve's
+    inputs are kept (the wrapper is wrapped where the solver calls it):
+    inside the capture they are nodes of the graph, so they hold the last
+    replay's.  Returns them and the launches."""
     import torch
 
-    from nightmare_rl_tpu_torch.physics import newton
+    from nightmare_rl_tpu_torch.ops import newton as K
+    from nightmare_rl_tpu_torch.physics import solver
     from nightmare_rl_tpu_torch.tools import train
     from nightmare_rl_tpu_torch.utils.graph import clone
 
-    solve = newton.solve
-    box = {"eager": 0, "captured": 0}
+    wrapped = solver.newton_solve
+    box = {}
 
-    def counted(*args, **kw):
-        where = ("captured" if torch.cuda.is_current_stream_capturing()
-                 else "eager")
-        box[where] += 1
+    def kept(*args, **kw):
         box["args"] = (clone(args), {k: clone(v) for k, v in kw.items()})
-        return solve(*args, **kw)
+        return wrapped(*args, **kw)
 
     iters, envs = 1, 2048
     t0 = time.perf_counter()
-    newton.solve = counted
+    K.newton_solve.launches = 0
+    solver.newton_solve = kept
     try:
         with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep:
             runner = train.main(["--robot", "anymal_c", "-e", str(envs), "-n",
@@ -1779,21 +1844,21 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
             torch.cuda.synchronize()
             saved = sorted(f for d, _, fs in os.walk(tmp) for f in fs)
     finally:
-        newton.solve = solve
+        solver.newton_solve = wrapped
+    launches = K.newton_solve.launches
     wall = time.perf_counter() - t0
     stats = runner.last_stats
     T = runner.cfg.runner.num_steps_per_env
     dec = runner.env.cfg.decimation
     replays = rep.get("PPO._rollout_step", 0)
-    solves = box["eager"] + box["captured"] * replays
     # + the reset's zero-action step and the rollout graph's warm-up step
     expected = iters * T * dec + dec + GRAPH_WARMUP * dec
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-anymal: {iters} PPO iteration x {T} steps x {envs} envs "
           f"float32 (the rollout replays the captured step): loss "
-          f"{stats['loss']:.4f}, kl {stats['kl']:.4f}; newton.solve calls "
-          f"{box['eager']} eager + {box['captured']} captured x {replays} "
-          f"replays = {solves} solves (expected {expected}); update replays "
+          f"{stats['loss']:.4f}, kl {stats['kl']:.4f}; newton kernel "
+          f"launches {launches} (expected {expected}: {replays} replays x "
+          f"{dec} + the reset's and the warm-up's steps); update replays "
           f"{rep.get('PPO._head', 0)} prologue heads + "
           f"{rep.get('PPO._step', 0)} minibatch steps; rollout "
           f"{stats['rollout_s']:.3f} s + "
@@ -1802,18 +1867,16 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
           f"saved {saved}; {wall:.1f} s incl. set-up")
     if not math.isfinite(stats["loss"]):
         raise AssertionError("non-finite PPO loss (anymal_c)")
-    if (solves != expected or box["captured"] != dec
-            or replays != iters * T):
+    if launches != expected or replays != iters * T:
         raise AssertionError(
-            f"newton.solve ran {solves} times ({box['eager']} eager and "
-            f"{box['captured']} captured calls, {replays} replays), expected "
-            f"{expected}")
+            f"the newton kernel ran {launches} times over {replays} replays, "
+            f"expected {expected}")
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
-    return box["args"]
+    return box["args"], launches
 
 
-def phase_eval_anymal(device_name: str, smi: str) -> None:
+def phase_eval_anymal(device_name: str, smi: str) -> int:
     """``tools/eval_anymal.py`` on the card: the committed
     ``anymal_model_122.pt`` (the JAX package's export of
     ``artifacts/anymal_model_122``), 300 steps at vx 0.5, deterministic,
@@ -1821,63 +1884,70 @@ def phase_eval_anymal(device_name: str, smi: str) -> None:
     script's outcome on the CPU (``EVAL_JAX``, the policy stands): no fall
     and no timeout, the base height's mean in ``EVAL_BASE_Z``, |v_avg| at
     most ``EVAL_MAX_V`` in x and in y, every foot down at least
-    ``EVAL_MIN_DUTY`` of the steps."""
+    ``EVAL_MIN_DUTY`` of the steps, every substep a launch of the Newton
+    kernel.  Returns the kernel's launches."""
     import numpy as np
     import torch
 
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg
+    from nightmare_rl_tpu_torch.ops.newton import newton_solve
     from nightmare_rl_tpu_torch.tools import eval_anymal
 
     path = os.path.join("nightmare_rl_tpu_torch", "assets",
                         "anymal_model_122.pt")
     t0 = time.perf_counter()
+    newton_solve.launches = 0
     with _counted_replays() as rep:
         res = eval_anymal.main(["--ckpt", path, "--steps", str(EVAL_STEPS),
                                 "--vx", "0.5"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = newton_solve.launches
     s = res["stats"]
     replays = rep.get("player.<locals>.step", 0)
     print(f"eval-anymal: {path}, {EVAL_STEPS} steps at vx 0.5, "
           f"deterministic, {replays} replays of the captured step: the "
           f"port on the card: {res['lines'][0]} / {res['lines'][1]}; the JAX "
-          f"script on the CPU: {EVAL_JAX[0]} / {EVAL_JAX[1]}; wall {wall:.1f} "
+          f"script on the CPU: {EVAL_JAX[0]} / {EVAL_JAX[1]}; newton kernel "
+          f"launches {launches}; wall {wall:.1f} "
           f"s (capture included; {device_name}, {smi})")
     v = np.abs(s["v_avg"][:2])
     if (s["falls"] or s["timeouts"]
             or not EVAL_BASE_Z[0] <= s["base_z_mean"] <= EVAL_BASE_Z[1]
             or (v > EVAL_MAX_V).any() or (s["duty"] < EVAL_MIN_DUTY).any()
-            or replays != EVAL_STEPS):
+            or replays != EVAL_STEPS
+            or launches < EVAL_STEPS * AnymalCCfg().decimation):
         raise AssertionError(f"anymal_model_122 leaves the JAX eval's band: "
-                             f"{s}, {replays} replays")
+                             f"{s}, {replays} replays, {launches} newton "
+                             f"kernel launches")
+    return launches
 
 
 def phase_newton_converged(kept: tuple) -> None:
+    """The slice's last Newton solve in float64: the kernel at the slice's
+    budget against the plain solve at 100 iterations and 50 refinements."""
     import torch
 
+    from nightmare_rl_tpu_torch.ops.newton import newton_solve
     from nightmare_rl_tpu_torch.physics import newton
 
     t0 = time.perf_counter()
     (efc, M, a0, iterations, ls_refine), kw = kept
     x0 = kw.get("x0")
-
-    def f64(x):
-        return x.double() if x.is_floating_point() else x
-
-    efc64 = newton.NewtonEfc(*[f64(x) for x in efc[:5]], cones=tuple(
-        newton.ConeGroup(g.start, g.dim, f64(g.mu), f64(g.mus), g.active)
-        for g in efc.cones))
-    args64 = (efc64, f64(M), f64(a0))
-    x64 = None if x0 is None else f64(x0)
-    budget = newton.solve(*args64, iterations, ls_refine, x0=x64).qacc
+    efc64 = _newton_f64(efc)
+    args64 = (efc64, M.double(), a0.double())
+    x64 = None if x0 is None else x0.double()
+    budget = newton_solve(*args64, iterations, ls_refine, x0=x64).qacc
     conv = newton.solve(*args64, 100, 50, x0=x64).qacc
     per_env = ((budget - conv).abs() / (1.0 + conv.abs())).amax(dim=1).cpu()
-    q32 = newton.solve(efc, M, a0, iterations, ls_refine, x0=x0).qacc
+    q32 = newton_solve(efc, M, a0, iterations, ls_refine, x0=x0).qacc
     e32 = float(((q32.double() - budget).abs() / (1.0 + budget.abs())).max())
     share = float((per_env <= NEWTON_CONVERGED_TOL).double().mean())
     q = torch.quantile(per_env, torch.tensor([0.5, 0.9, 0.99], dtype=per_env.dtype))
     print(f"newton-converged: the slice's last solve ({per_env.numel()} envs, "
-          f"budget {iterations} iterations / {ls_refine} refinements) in "
-          f"float64 vs 100 / 50: max |dqacc|/(1+|qacc|) per env: median "
+          f"budget {iterations} iterations / {ls_refine} refinements, the "
+          f"kernel) in float64 vs the plain solve at 100 / 50: max "
+          f"|dqacc|/(1+|qacc|) per env: median "
           f"{q[0]:.3e}, p90 {q[1]:.3e}, p99 {q[2]:.3e}, max "
           f"{float(per_env.max()):.3e}; {share:.1%} of envs within "
           f"{NEWTON_CONVERGED_TOL:g} (required {NEWTON_CONVERGED_SHARE:.0%}); "
@@ -1885,6 +1955,304 @@ def phase_newton_converged(kept: tuple) -> None:
           f"{time.perf_counter() - t0:.1f} s")
     if not share >= NEWTON_CONVERGED_SHARE:
         raise AssertionError("the slice's Newton budget is not converged")
+
+def _newton_f64(efc):
+    """A NewtonEfc with every floating field in float64."""
+    from nightmare_rl_tpu_torch.physics import newton
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    return newton.NewtonEfc(*[f64(x) for x in efc[:5]], cones=tuple(
+        newton.ConeGroup(g.start, g.dim, f64(g.mu), f64(g.mus), g.active)
+        for g in efc.cones))
+
+
+def _newton_cost(efc, M, a0, x):
+    """Per env, the total cost 0.5 (x - a0)ᵀM(x - a0) + Σ s(Jx - aref) in
+    float64."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+
+    efc, M, a0, x = _newton_f64(efc), M.double(), a0.double(), x.double()
+    dx = x - a0
+    jar = torch.einsum("nkv,nv->nk", efc.J, x) - efc.aref
+    return (0.5 * torch.sum(dx * torch.einsum("nij,nj->ni", M, dx), dim=-1)
+            + newton.constraint_cost(efc, jar))
+
+
+def _newton_gap(ref, out):
+    """Per env, the largest of force, qfrc and qacc's |out - ref| over
+    1 + max|ref| of the field."""
+    import torch
+
+    gap = None
+    for name in ("force", "qfrc_constraint", "qacc"):
+        a, b = getattr(ref, name), getattr(out, name)
+        g = (b - a).abs().amax(dim=1) / (1.0 + a.abs().amax(dim=1))
+        gap = g if gap is None else torch.maximum(gap, g)
+    return gap
+
+
+def _newton_floor(efc, M, a0, x0, iterations, ls_refine):
+    """The plain solve traced (``newton.solve(..., trace=...)``): per env
+    the smallest margin over the round-off floor of φ' (|φ'| over its
+    round-off scale) among the line-search decisions of the Newton steps
+    that can move x by more than NEWTON_F64_TOL; and the plain result."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+
+    trace = []
+    out = newton.solve(efc, M, a0, iterations, ls_refine, x0=x0, trace=trace)
+    big = NEWTON_F64_TOL * (1.0 + out.qacc.abs().amax(dim=1))
+    margin = torch.stack([torch.where(t["reach"] > big, t["margin"], torch.inf)
+                          for t in trace]).amin(dim=0)
+    return margin, out
+
+
+def _newton_ops(efc, x, iterations: int, ls_refine: int, warm: bool) -> float:
+    """Floating-point operations the solve needs on these inputs: per
+    Newton step the residual, the gradient, H over the rows with curvature
+    (the active rows and two per middle-zone contact, counted at the
+    solution x), its Cholesky factor and two triangular solves, Jp, pᵀMp
+    and gᵀMp, and 1 + 12 + ls_refine evaluations of φ' and φ'' (10 per
+    row outside the cones, 8 per cone row and 20 per contact); the
+    warmstart's two costs and the final forces and Jᵀf."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+
+    N, nefc, nv = efc.J.shape
+    nc = sum(g.mus.shape[-2] for g in efc.cones)
+    ncone = sum(g.mus.shape[-2] * g.dim for g in efc.cones)
+    jar = torch.einsum("nkv,nv->nk", efc.J, x) - efc.aref
+    _, diag = newton.forces(efc, jar)
+    rows = float((diag != 0).sum())
+    for g in efc.cones:
+        rows += 2.0 * float(newton._cone_terms(efc, g, jar).mid.sum())
+    per_env_rows = rows / N
+    phi = 10 * (nefc - ncone) + 8 * ncone + 20 * nc
+    step = (2 * nefc * nv + 2 * nv * nv + 2 * nefc * nv
+            + per_env_rows * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv
+            + 2 * nefc * nv + 2 * nv * nv + 4 * nv
+            + (1 + 12 + ls_refine) * phi + 2 * nv)
+    warm_ops = 2 * (2 * nv * nv + 2 * nefc * nv + phi) if warm else 0
+    return N * (iterations * step + warm_ops + 4 * nefc * nv)
+
+
+def _newton_bytes(efc, x0) -> int:
+    """Bytes the solve must move: its inputs read once, its outputs
+    (force, qfrc, qacc) written once."""
+    N, nefc, nv = efc.J.shape
+    it = efc.J.element_size()
+    nc = sum(g.mus.shape[-2] for g in efc.cones)
+    nmus = sum(g.mus.shape[-2] * (g.dim - 1) for g in efc.cones)
+    vals = (N * nefc * nv + 3 * N * nefc + N * nc + N * nmus + N * nv * nv
+            + N * nv * (2 if x0 is not None else 1) + N * nefc + 2 * N * nv)
+    return vals * it + N * nefc + N * nc     # + the boolean masks
+
+
+def _newton_zones(efc, x) -> dict:
+    """Cone contacts per zone at qacc = x, over the envs."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import newton
+
+    jar = torch.einsum("nkv,nv->nk", efc.J, x) - efc.aref
+    zones = {"bottom": 0, "middle": 0, "top": 0, "inactive": 0}
+    for g in efc.cones:
+        c = newton._cone_terms(efc, g, jar)
+        zones["bottom"] += int(c.bottom.sum())
+        zones["middle"] += int(c.mid.sum())
+        zones["inactive"] += int((~g.active).sum())
+        zones["top"] += int((g.active & ~c.bottom & ~c.mid).sum())
+    return zones
+
+
+def _newton_mjx_steps() -> float:
+    """nightmare_v3_mjx (pyramidal cones: no cone group, then noslip): one
+    step of 2 substeps at 16 envs in float64, the card (the kernel) against
+    the CPU (the plain solve) at a converged budget, as
+    tests/test_torch_anymal.py holds the JAX package; the largest error
+    relative to each field's scale."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import loader, pipeline
+
+    N = 16
+    out = {}
+    g = torch.Generator().manual_seed(2)
+    st0 = None
+    for dev in ("cpu", "cuda"):
+        sys_ = dataclasses.replace(loader.load_system("nightmare_v3_mjx",
+                                                      device=dev),
+                                   solver_iterations=30, ls_iterations=50)
+        if st0 is None:
+            st0 = pipeline.make_state(sys_, N)
+            qpos = st0.qpos.clone()
+            qpos[:, 7:] += 0.2 * torch.randn(N, 18, generator=g,
+                                             dtype=torch.float64)
+            qpos[:, 2] -= 0.09
+            qvel = 0.3 * torch.randn(N, 24, generator=g, dtype=torch.float64)
+            st0 = st0.replace(qpos=qpos, qvel=qvel)
+            ctrl = torch.randn(N, 18, generator=g, dtype=torch.float64)
+        out[dev] = pipeline.step(sys_, _to(st0, dev), ctrl.to(dev), 2)
+    return max(_rel(getattr(out["cpu"], f), getattr(out["cuda"], f))
+               for f in ("qpos", "qvel", "qacc_warmstart"))
+
+
+def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
+    """The Newton kernel (``ops/csrc/newton.cu``) on the inputs of
+    slice-anymal's last solve (2048 envs, anymal_c's rows), held three
+    ways against the plain ``newton.solve`` on the card: in float64 at
+    NEWTON_HELD_BUDGETS, budgets whose line-search decisions stand above
+    the round-off floor of φ' (every env not on the floor within
+    NEWTON_F64_TOL, the smallest margin printed); in float32 at the model's
+    own budget by cost (no more than the plain version's plus
+    NEWTON_COST_TOL of it in NEWTON_COST_SHARE of the envs, the plain
+    solve's own float32-against-float64 spread printed as the yardstick)
+    and NaN pattern; and timed with CUDA events
+    beside its plain version and its bound.  Then the edges: N=1, a cold
+    start, N=37 (ghost warps) at the first of those budgets, and
+    nightmare_v3_mjx's pyramidal rows (no cone group) through the
+    pipeline, card against CPU."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import newton as K
+    from nightmare_rl_tpu_torch.physics import newton
+
+    t0 = time.perf_counter()
+    (efc, M, a0, iterations, ls_refine), kw = kept
+    x0 = kw.get("x0")
+    N = M.shape[0]
+    # contacts per zone at qacc_smooth, the warmstart and the cold and warm
+    # solutions: the largest count of each over these points
+    points = [a0] + ([] if x0 is None else [x0]) + [
+        newton.solve(efc, M, a0, iterations, ls_refine, x0=x).qacc
+        for x in (None, x0)]
+    zones = {}
+    for x in points:
+        for k, v in _newton_zones(efc, x).items():
+            zones[k] = max(zones.get(k, 0), v)
+
+    # float64 above the floor
+    e64, M64, a64 = _newton_f64(efc), M.double(), a0.double()
+    x64 = None if x0 is None else x0.double()
+    held64 = {}
+    for budget in NEWTON_HELD_BUDGETS:
+        margin, ref = _newton_floor(e64, M64, a64, x64, *budget)
+        out = K.newton_solve(e64, M64, a64, *budget, x0=x64)
+        held = margin >= NEWTON_FLOOR
+        held64[budget] = dict(
+            gap=float(_newton_gap(ref, out)[held].max()),
+            abs=max(float((getattr(out, f) - getattr(ref, f))[held].abs().max())
+                    for f in ("force", "qfrc_constraint", "qacc")),
+            floor=int((~held).sum()), margin=float(margin[held].min()))
+    abs_err = max(h["abs"] for h in held64.values())
+    edges = {}
+    it_h, ls_h = NEWTON_HELD_BUDGETS[0]
+    for label, sl, warm in (("N=1", slice(0, 1), True),
+                            ("cold", slice(0, N), False),
+                            ("N=37", slice(5, 42), True)):
+        def cut(x):
+            return x[sl].contiguous()
+
+        ee = newton.NewtonEfc(*[cut(x) for x in e64[:5]], cones=tuple(
+            newton.ConeGroup(g.start, g.dim, cut(g.mu), cut(g.mus),
+                             cut(g.active)) for g in e64.cones))
+        xe = cut(x64) if warm and x64 is not None else None
+        m_e, r_e = _newton_floor(ee, cut(M64), cut(a64), xe, it_h, ls_h)
+        o_e = K.newton_solve(ee, cut(M64), cut(a64), it_h, ls_h, x0=xe)
+        g_e = _newton_gap(r_e, o_e)
+        edges[label] = float(g_e[m_e >= NEWTON_FLOOR].max()) if bool(
+            (m_e >= NEWTON_FLOOR).any()) else 0.0
+    mjx = _newton_mjx_steps()
+
+    # float32 at the model's budget, by cost and NaN pattern
+    k32 = K.newton_solve(efc, M, a0, iterations, ls_refine, x0=x0)
+    p32 = newton.solve(efc, M, a0, iterations, ls_refine, x0=x0)
+    p64 = newton.solve(e64, M64, a64, iterations, ls_refine, x0=x64)
+    nan_k = torch.isnan(k32.qacc).any(dim=1)
+    nan_p = torch.isnan(p32.qacc).any(dim=1)
+    ck, cp, cp64 = (_newton_cost(efc, M, a0, x) for x in (
+        k32.qacc, p32.qacc, p64.qacc))
+
+    def rel(a, b):
+        return (a - b) / b.abs().clamp_min(1e-30)
+
+    fin = ~nan_p & ~nan_k
+    excess = rel(ck, cp)[fin]
+    over = int((excess > NEWTON_COST_TOL).sum())
+    # the yardstick: the plain solve against itself in float64, whose line
+    # search takes its floor decisions with other round-off
+    own = rel(cp, cp64)[fin]
+    qgap = float(((k32.qacc - p32.qacc).abs().amax(dim=1)
+                  / (1.0 + p32.qacc.abs().amax(dim=1)))[fin].max())
+
+    # times and the bound
+    args = (efc, M, a0, iterations, ls_refine)
+    kern_ms = _cuda_ms(lambda: K.newton_solve(*args, x0=x0), reps=20)
+    plain_ms = _cuda_ms(lambda: newton.solve(*args, x0=x0), reps=2, warmup=1)
+    nbytes = _newton_bytes(efc, x0)
+    ops = _newton_ops(efc, p32.qacc, iterations, ls_refine, x0 is not None)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    geo = K.geometry(efc.J.shape[1], efc.J.shape[2], K._spans(efc), 4)
+    print(f"newton-kernel: slice-anymal's last solve, {N} envs x "
+          f"{efc.J.shape[1]} rows x nv {efc.J.shape[2]}, cone groups "
+          f"{K._spans(efc)}; contacts per zone (most at qacc_smooth, the "
+          f"warmstart, the cold and warm plain solutions) {zones}; float64, "
+          f"kernel vs plain (tol {NEWTON_F64_TOL:g}): " + "; ".join(
+              f"{b[0]} iteration(s) / {b[1]} refinement(s): max gap "
+              f"{h['gap']:.3e} over {N - h['floor']} envs (max abs "
+              f"{h['abs']:.3e}), {h['floor']} envs with a decision on the "
+              f"line-search floor (margin < {NEWTON_FLOOR:g}), smallest "
+              f"margin over the floor among the held {h['margin']:.3g}"
+              for b, h in held64.items())
+          + f"; edges at {it_h} / {ls_h} {edges}, "
+          f"nightmare_v3_mjx card vs CPU {mjx:.3e}; float32 at the model's "
+          f"{iterations} / {ls_refine}: NaN envs kernel {int(nan_k.sum())} / "
+          f"plain {int(nan_p.sum())}, total cost kernel vs plain: "
+          f"{int(fin.sum()) - over} envs within {NEWTON_COST_TOL:g} of the "
+          f"plain cost, {over} above it (largest excess "
+          f"{float(excess.max()):.3e}), {int((excess < 0).sum())} lower, "
+          f"{int((excess > 0).sum())} higher, largest relative qacc gap "
+          f"{qgap:.3e}; the plain solve in float32 against float64: "
+          f"{int((own.abs() > NEWTON_COST_TOL).sum())} envs apart by more "
+          f"than {NEWTON_COST_TOL:g} (largest {float(own.abs().max()):.3e}); "
+          f"{kern_ms:.4f} ms/launch ({geo.envs_per_block} envs "
+          f"per block, {geo.smem_bytes} B shared), plain {plain_ms:.2f} ms; "
+          f"bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} GFLOP) = {bound / kern_ms:.1%} of it; "
+          f"{_smi_line(t0, device_name, smi)}")
+    if zones["middle"] < 1 or zones["top"] < 1 or zones["inactive"] < 1 \
+            or zones["bottom"] < 1:
+        raise AssertionError(f"the rows do not reach every cone zone: {zones}")
+    if any(not h["gap"] <= NEWTON_F64_TOL for h in held64.values()) or any(
+            not v <= NEWTON_F64_TOL for v in edges.values()):
+        raise AssertionError(f"the newton kernel disagrees with newton.solve "
+                             f"in float64: {held64}, edges {edges}")
+    if any(N - h["floor"] < NEWTON_HELD_SHARE * N for h in held64.values()):
+        raise AssertionError(f"fewer than {NEWTON_HELD_SHARE:.0%} of the envs "
+                             f"stand above the line-search floor: {held64}")
+    if not mjx <= PHYS_TOL:
+        raise AssertionError(f"nightmare_v3_mjx on the card disagrees with "
+                             f"the CPU: {mjx:.3e}")
+    if not torch.equal(nan_k, nan_p):
+        raise AssertionError("the newton kernel's NaN envs differ from the "
+                             "plain version's")
+    if int(fin.sum()) - over < NEWTON_COST_SHARE * N:
+        raise AssertionError(f"the newton kernel's cost exceeds the plain "
+                             f"version's by more than {NEWTON_COST_TOL:g} in "
+                             f"{over} envs")
+    return dict(max_abs_err=abs_err, ms=kern_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
@@ -2912,9 +3280,18 @@ def main() -> int:
     legs_entry = phase_slice_legs(name, smi)
     phase_physics_anymal()
     graph_anymal = phase_graph_anymal(name, smi)
-    newton_args = phase_slice_anymal(name, smi)
+    newton_args, slice_newton = phase_slice_anymal(name, smi)
     phase_newton_converged(newton_args)
-    phase_eval_anymal(name, smi)
+    eval_newton = phase_eval_anymal(name, smi)
+    newton_entry = dict(
+        name="newton", route="cuda",
+        source="nightmare_rl_tpu_torch/ops/csrc/newton.cu",
+        replaces="nightmare_rl_tpu/physics/newton.py:214",
+        launches=graph_anymal["launches"] + slice_newton + eval_newton,
+        **phase_newton_kernel(newton_args, name, smi), library_ms=None)
+    print(f"kernel: newton launches {newton_entry['launches']} = "
+          f"graph-anymal {graph_anymal['launches']} + slice-anymal "
+          f"{slice_newton} + eval-anymal {eval_newton}")
     phase_play_grid(name, smi)
     phase_custom_play(name, smi)
     phase_simple_test(name, smi)
@@ -2948,7 +3325,7 @@ def main() -> int:
           f"{graph_anymal['pool_mib']:.1f} MiB)")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [entry, legs_entry]}))
+    print(json.dumps({"kernels": [entry, legs_entry, newton_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
-``_build/lib<name>_<hash>.so`` (the hash is of the source, so an edited
-source builds anew).  The build runs at first use, never at import, and
-only where the CUDA toolkit is installed.
+``_build/lib<name>_<hash>.so`` (the hash is of the source and of the
+headers in ``csrc/``, so an edited source builds anew).  The build runs at
+first use, never at import, and only where the CUDA toolkit is installed.
+
+``build_host`` compiles a ``csrc/<name>.cpp`` with g++ the same way: the
+host driver of a kernel's per-env arithmetic, which the CPU tests run.
 """
 
 from __future__ import annotations
@@ -30,14 +33,22 @@ def _nvcc() -> str:
     return path
 
 
+def _digest(src: str) -> str:
+    """Hash of a source and of every header in ``csrc/``."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
     library path, the seconds spent and nvcc's output (ptxas registers,
     shared memory and spills)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
     log = lib + ".log"
     if os.path.exists(lib):
         with open(log) as fh:
@@ -60,3 +71,30 @@ def build(name: str) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if needed."""
     return ctypes.CDLL(build(name)["path"])
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cpp`` with g++ unless its library exists;
+    returns its path.  Raises RuntimeError where g++ is missing."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found (needed to build the host driver)")
+    src = os.path.join(CSRC_DIR, name + ".cpp")
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                           "-o", tmp, src],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """The built host library of ``csrc/<name>.cpp``."""
+    return ctypes.CDLL(build_host(name))

@@ -25,11 +25,14 @@ last refinement is > 0 it takes the bracket's low end.  Where the
 refinements converge on the root from above, φ' sits on its round-off
 floor and that choice is noise; the port keeps the rule.
 
-The eager port is bound by kernel launches, so ``solve`` reads the rows in
-its own order (``_prep``): the rows outside the cones, then the cone groups
-merged per condim (anymal_c's pair cones join its condim-3 group), with what
-does not depend on jar computed once per solve.  Forces come back in the
-efc's order.
+On the card the solve runs as one CUDA kernel per call (``ops/csrc/
+newton.cu`` through ``ops/newton.py::newton_solve``, which the solver
+calls); ``solve`` here is its plain version, run on the CPU and held
+against the kernel.  Eagerly it is bound by launches, so ``solve`` reads
+the rows in its own order (``_prep``): the rows outside the cones, then the
+cone groups merged per condim (anymal_c's pair cones join its condim-3
+group), with what does not depend on jar computed once per solve.  Forces
+come back in the efc's order.
 
 Every function takes jar with any leading axes that broadcast against the
 efc's (N, nefc) fields: (N, nefc) for one point per env, (C, N, nefc) for C
@@ -328,11 +331,21 @@ def _grid(dtype: torch.dtype, device: torch.device
 
 def solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
           iterations: int, ls_refine: int,
-          x0: Optional[torch.Tensor] = None) -> NewtonOut:
+          x0: Optional[torch.Tensor] = None,
+          trace: Optional[list] = None) -> NewtonOut:
     """Newton solve with the bracketed exact line search, M (N, nv, nv).
 
     ``x0`` is a warmstart candidate (mjData.qacc_warmstart): each env starts
-    from whichever of x0 and qacc_smooth has the lower total cost."""
+    from whichever of x0 and qacc_smooth has the lower total cost.
+
+    ``trace``, where given, receives per Newton step a dict of per-env
+    tensors about the line search's decisions, each a sign of φ'(α):
+    ``margin``, the smallest |φ'(α)| over its round-off scale
+    ε·(|gᵀMp| + |α·pᵀMp| + Σ|Jp·f| + |α|·φ''(α)) (the terms of φ', and
+    φ' moved by α's own rounding) among φ'(0), the grid's candidates and
+    the refinements; and ``reach``, the farthest the step can move x,
+    |αmax|·max|p|.  Where a margin is of order 1, two correct
+    implementations may decide apart by up to the reach."""
     p = _prep(efc)
     J = efc.J if p.perm is None else efc.J[:, p.perm]
     aref = _take(p, efc.aref)
@@ -364,9 +377,18 @@ def solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
         pMp = _dot(step, _mv(M, step))
         gMp = _dot(step, Mdx)
 
+        margins = []
+
         def phi_derivs(alpha):
             f_a, curv = _curv(p, jar + alpha[..., None] * Jp, Jp)
-            return gMp + alpha * pMp - _dot(Jp, f_a), pMp + curv
+            d1, d2 = gMp + alpha * pMp - _dot(Jp, f_a), pMp + curv
+            if trace is not None:
+                scale = (gMp.abs() + (alpha * pMp).abs()
+                         + torch.sum((Jp * f_a).abs(), dim=-1)
+                         + alpha.abs() * d2.abs())
+                m = d1.abs() / (torch.finfo(d1.dtype).eps * scale)
+                margins.append(m.amin(dim=0) if m.dim() > 1 else m)
+            return d1, d2
 
         d1_0, d2_0 = phi_derivs(torch.zeros_like(pMp))
         # φ'(α) ≥ φ'(0) + α·pᵀMp (every constraint cost is convex), so the
@@ -393,6 +415,10 @@ def solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
             inside = (a_newton > lo) & (a_newton < hi)
             alpha = torch.where(inside, a_newton, 0.5 * (lo + hi))
             d1, d2 = phi_derivs(alpha)
+        if trace is not None:
+            trace.append(dict(
+                margin=torch.stack(margins).amin(dim=0),
+                reach=alpha_max.abs() * step.abs().amax(dim=-1)))
         # land on the descent side of the bracket when φ'(final) > 0; a
         # converged iterate (φ'(0) ≥ 0) takes a null step
         alpha = torch.where(d1 <= 0.0, alpha, lo)

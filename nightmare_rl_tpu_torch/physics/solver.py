@@ -18,8 +18,9 @@ matrix is block-arrow (``physics/arrow.py``), the leg-block-sparse form
 ``LegMeta``), which forms neither U nor M⁻¹.  ``prewarm`` runs the
 dispatch's probe before the first step.
 
-Newton models (``solver_type`` Newton or CG) solve with ``physics/newton.py``
-instead: elliptic cones get one row per friction direction (condim 3, 4 or
+Newton models (``solver_type`` Newton or CG) solve with
+``ops/newton.py::newton_solve`` instead (the kernel ``ops/csrc/newton.cu`` on
+the card, the plain ``physics/newton.py`` on the CPU): elliptic cones get one row per friction direction (condim 3, 4 or
 6), pyramidal cones the same facets as PGS followed by the noslip pass.
 """
 
@@ -32,6 +33,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nightmare_rl_tpu_torch.ops import linalg
+from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.pgs import choose_mode, dtype_key, pgs, pgs_legs
 from nightmare_rl_tpu_torch.physics import arrow, newton
 from nightmare_rl_tpu_torch.physics import system as S
@@ -639,8 +641,9 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                    warmstart: Optional[torch.Tensor] = None,
                    M_chol: Optional[torch.Tensor] = None) -> ContactSolveOut:
     """Full constraint solve with top-K candidate selection.  PGS models run
-    the PGS solve; Newton models run ``newton.solve`` from the warmstart
-    (then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
+    the PGS solve; Newton models run ``ops/newton.py::newton_solve`` from
+    the warmstart (the CUDA kernel on the card, ``newton.solve`` on the
+    CPU; then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
     the normal row of an elliptic cone) are scattered back to the full
     candidate set for the touch sensors.  The PGS solve runs in the form
     ``choose_mode`` picks, and only the legs form has the rows' slot
@@ -657,8 +660,15 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
     if asm.nefc is not None:
         if M is None:
             raise ValueError("the Newton solve needs the mass matrix M")
-        nsol = newton.solve(asm.nefc, M, qacc_smooth, sys.solver_iterations,
-                            min(sys.ls_iterations, sys.ls_refine), x0=warmstart)
+        ne = asm.nefc
+        nefc = ne._replace(J=ne.J.contiguous(), aref=ne.aref.contiguous(),
+                           R=ne.R.contiguous(), fl=ne.fl.contiguous(),
+                           quad_active=ne.quad_active.contiguous())
+        nsol = newton_solve(nefc, M.contiguous(), qacc_smooth.contiguous(),
+                            sys.solver_iterations,
+                            min(sys.ls_iterations, sys.ls_refine),
+                            x0=None if warmstart is None
+                            else warmstart.contiguous())
         sol = SolveOut(nsol.force, nsol.qfrc_constraint, nsol.qacc)
         if sys.noslip_iterations > 0 and not elliptic:
             Minv = minv(lay, fac, M_chol)

@@ -18,8 +18,9 @@ within calls:
 - with ``torch.profiler``: the device time inside those steps, hence the
   device's busy share (of the faster turn's wall time), the number of
   kernels one step and one physics substep run, the kernels that take the
-  most device time and the PGS kernels' share (zero for anymal_c, whose
-  Newton solve runs no kernel of its own);
+  most device time, the PGS kernels' time (nightmare_v3) and the Newton
+  kernel's (``ops/csrc/newton.cu``, anymal_c's constraint solve) with its
+  share of the step's device time;
 - the host synchronizations that one step makes
   (``torch.cuda.set_sync_debug_mode``);
 - the peak device memory of one step (``torch.cuda.max_memory_allocated``
@@ -89,7 +90,8 @@ def host_syncs(fn) -> int:
 
 
 def _profiled(step, steps: int, substeps: int) -> dict:
-    """Device time, kernels and PGS time per env step of ``step``."""
+    """Device time, kernels, PGS and Newton kernel time per env step of
+    ``step``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
@@ -100,9 +102,14 @@ def _profiled(step, steps: int, substeps: int) -> dict:
     pgs_ms = sum(e.self_device_time_total for e in kernels
                  if "pgs_kernel" in e.key or "pgs_legs_kernel" in e.key
                  ) / 1e3 / steps
+    newton = [e for e in kernels if "newton_kernel" in e.key]
+    newton_ms = sum(e.self_device_time_total for e in newton) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"device_busy_ms": device_ms, "kernels_per_step": launches,
             "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms,
+            "newton_ms": newton_ms,
+            "newton_launches_per_step": sum(e.count for e in newton) / steps,
+            "newton_share": newton_ms / device_ms if device_ms else 0.0,
             "top_kernels": [
                 {"device_ms_per_step": e.self_device_time_total / 1e3 / steps,
                  "launches_per_step": e.count / steps, "name": e.key}
@@ -170,7 +177,10 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
               f"({100 * r['device_busy_share']:.1f}% of the faster turn) in "
               f"{r['kernels_per_step']:.0f} kernels "
               f"({r['kernels_per_substep']:.0f} per substep); pgs kernel "
-              f"{r['pgs_ms']:.3f} ms; host syncs per step "
+              f"{r['pgs_ms']:.3f} ms; newton kernel {r['newton_ms']:.3f} ms "
+              f"in {r['newton_launches_per_step']:.0f} launches "
+              f"({100 * r['newton_share']:.1f}% of the device time); host "
+              f"syncs per step "
               f"{r['host_syncs_per_step']}; peak device memory "
               f"{r['peak_mem_mib']:.1f} MiB")
         for e in r["top_kernels"]:

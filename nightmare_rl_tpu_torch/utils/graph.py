@@ -41,8 +41,8 @@ Capture, in the constructor on the card:
   at "error": a host synchronization, or an operation that capture
   refuses, raises naming the line of the port that made it.  There is no
   eager fallback;
-- the kernel wrappers' launch counters (``ops/pgs.py``) count the launches
-  the graph holds once per replay, not at capture.
+- the kernel wrappers' launch counters (``ops/pgs.py``, ``ops/newton.py``)
+  count the launches the graph holds once per replay, not at capture.
 
 Environment variables that a step reads (``NIGHTMARE_PGS``,
 ``NIGHTMARE_NO_WARMSTART``) are read at capture: the graph keeps the form
@@ -74,10 +74,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from nightmare_rl_tpu_torch.ops import pgs as P
+from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
-_COUNTED = (P.pgs, P.pgs_legs)
+_COUNTED = (P.pgs, P.pgs_legs, newton_solve)
 
 
 def leaves(tree) -> List[torch.Tensor]:

@@ -5,7 +5,10 @@ NaN in b, infinite bounds, the occupancy of the main path's geometry); the
 anymal_c step under a process-wide TF32 setting, and the nightmare_v3
 step, the actor-critic, the gait engine and custom_play's control step
 under ``torch.set_float32_matmul_precision("high")``; the Newton solve on the
-card against the CPU (float64, 1e-10); tools/play.py's grid rollout of
+card against the CPU (float64, 1e-10); the Newton kernel against the
+plain solve on the card (float64 random batches, 64, 37 and 1 envs, cold
+and warmstarted, 1e-9 above the line search's round-off floor);
+tools/play.py's grid rollout of
 model_3176 on the card against the CPU (float64, 3 steps, 1e-9); the
 kernel on the inputs of custom_play's contact cap (max_contacts=16, float32,
 1e-5 of max|f|).
@@ -277,6 +280,56 @@ def test_newton_solve_card_matches_cpu(cuda):
     for name in ("force", "qfrc_constraint", "qacc"):
         a, b = getattr(ref, name), getattr(out, name).cpu()
         assert float((a - b).abs().max() / (1 + a.abs().max())) <= 1e-10, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 37, 1])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warmstart"])
+def test_newton_kernel_matches_plain(cuda, N, warm):
+    """The Newton kernel (ops/csrc/newton.cu) against the plain
+    newton.solve on the card, float64 random batches with dim-3 and dim-6
+    cone groups, dof-friction and one-sided rows, at 2 Newton steps with 1
+    refinement: every env whose line-search decisions stand above the
+    round-off floor of φ' agrees to chip_smoke.NEWTON_F64_TOL
+    (chip_smoke._newton_floor);
+    N=37 and N=1 leave warps of a block without an env."""
+    from nightmare_rl_tpu_torch.ops import newton as K
+    from nightmare_rl_tpu_torch.physics import newton
+
+    g = torch.Generator().manual_seed(5)
+    nv, n3, n6 = 12, 4, 3
+    nefc = 10 + 3 * n3 + 6 * n6
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    J, aref = rnd(N, nefc, nv), rnd(N, nefc)
+    R = 0.05 + 0.45 * torch.rand(N, nefc, generator=g, dtype=torch.float64)
+    fl = torch.zeros(N, nefc, dtype=torch.float64)
+    fl[:, :4] = 0.5
+    qa = torch.zeros(N, nefc, dtype=torch.bool)
+    qa[:, 4:10] = True
+    mus3 = 0.05 + torch.rand(N, n3, 2, generator=g, dtype=torch.float64)
+    mus6 = 0.05 + torch.rand(N, n6, 5, generator=g, dtype=torch.float64)
+    G = rnd(N, nv, nv)
+    M = 0.2 * (G @ G.transpose(1, 2) + nv * torch.eye(nv, dtype=torch.float64))
+    a0, x0 = 3.0 * rnd(N, nv), 3.0 * rnd(N, nv)
+    act3 = torch.rand(N, n3, generator=g) < 0.8
+    act6 = torch.rand(N, n6, generator=g) < 0.8
+    t = lambda x: x.to(cuda)
+    cones = (newton.ConeGroup(10, 3, t(mus3[..., 0] / 10), t(mus3), t(act3)),
+             newton.ConeGroup(10 + 3 * n3, 6, t(mus6[..., 0] / 10), t(mus6),
+                              t(act6)))
+    efc = newton.NewtonEfc(t(J), t(aref), t(R), t(qa), t(fl), cones)
+    x = t(x0) if warm else None
+    launches = K.newton_solve.launches
+    out = K.newton_solve(efc, t(M), t(a0), 2, 1, x0=x)
+    assert K.newton_solve.launches == launches + 1
+    margin, ref = smoke._newton_floor(efc, t(M), t(a0), x, 2, 1)
+    gap = smoke._newton_gap(ref, out)
+    held = margin >= smoke.NEWTON_FLOOR
+    assert int(held.sum()) * 2 > N
+    assert float(gap[held].max()) <= smoke.NEWTON_F64_TOL, gap.tolist()
 
 
 @pytest.mark.cuda

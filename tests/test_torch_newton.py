@@ -59,6 +59,10 @@ def _zone_jar(rng, mu, mus, zone):
 
 @pytest.fixture(scope="module")
 def batch():
+    return make_batch()
+
+
+def make_batch():
     """A random batch: the efc arrays, jar, a direction Jp and the zones."""
     rng = np.random.default_rng(7)
     J = rng.normal(size=(N, NEFC, NV))
@@ -218,6 +222,10 @@ def test_chol_gives_nan_where_not_spd():
 
 @pytest.fixture(scope="module")
 def solve_inputs(batch):
+    return make_solve_inputs(batch)
+
+
+def make_solve_inputs(batch):
     """M, qacc_smooth and a warmstart that is the converged solution for
     the first half of the envs and far off for the rest."""
     rng = np.random.default_rng(9)
