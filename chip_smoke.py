@@ -2013,33 +2013,40 @@ def _newton_floor(efc, M, a0, x0, iterations, ls_refine):
 
 
 def _newton_ops(efc, x, iterations: int, ls_refine: int, warm: bool) -> float:
-    """Floating-point operations the solve needs on these inputs: per
-    Newton step the residual, the gradient, H over the rows with curvature
-    (the active rows and two per middle-zone contact, counted at the
-    solution x), its Cholesky factor and two triangular solves, Jp, pᵀMp
-    and gᵀMp, and 1 + 12 + ls_refine evaluations of φ' and φ'' (10 per
-    row outside the cones, 8 per cone row and 20 per contact); the
-    warmstart's two costs and the final forces and Jᵀf."""
+    """Floating-point operations the solve needs on these inputs, over the
+    live rows and items only (a row outside the cones with dof friction or
+    one-sided activity, an active contact and its rows: the others' force
+    is 0 at every x and adds nothing): per Newton step the residual, the
+    gradient, H over the rows with curvature (the active rows and two per
+    middle-zone contact, counted at the solution x), its Cholesky factor
+    and two triangular solves, Jp, pᵀMp and gᵀMp, and 1 + 12 + ls_refine
+    evaluations of φ' and φ'' (10 per row outside the cones, 8 per cone
+    row and 20 per contact); the warmstart's two costs and the final
+    forces and Jᵀf."""
     import torch
 
     from nightmare_rl_tpu_torch.physics import newton
 
     N, nefc, nv = efc.J.shape
-    nc = sum(g.mus.shape[-2] for g in efc.cones)
-    ncone = sum(g.mus.shape[-2] * g.dim for g in efc.cones)
     jar = torch.einsum("nkv,nv->nk", efc.J, x) - efc.aref
     _, diag = newton.forces(efc, jar)
     rows = float((diag != 0).sum())
     for g in efc.cones:
         rows += 2.0 * float(newton._cone_terms(efc, g, jar).mid.sum())
-    per_env_rows = rows / N
-    phi = 10 * (nefc - ncone) + 8 * ncone + 20 * nc
-    step = (2 * nefc * nv + 2 * nv * nv + 2 * nefc * nv
-            + per_env_rows * nv * (nv + 1) + nv ** 3 / 3 + 2 * nv * nv
-            + 2 * nefc * nv + 2 * nv * nv + 4 * nv
-            + (1 + 12 + ls_refine) * phi + 2 * nv)
-    warm_ops = 2 * (2 * nv * nv + 2 * nefc * nv + phi) if warm else 0
-    return N * (iterations * step + warm_ops + 4 * nefc * nv)
+    in_cone = torch.zeros(nefc, dtype=torch.bool, device=jar.device)
+    for g in efc.cones:
+        in_cone[g.start:g.start + g.dim * g.mus.shape[-2]] = True
+    plain = float(((efc.fl > 0) | efc.quad_active)[:, ~in_cone].sum())
+    contacts = sum(float(g.active.sum()) for g in efc.cones)
+    cone_rows = sum(float(g.active.sum()) * g.dim for g in efc.cones)
+    live = plain + cone_rows                   # over the envs
+    phi = 10 * plain + 8 * cone_rows + 20 * contacts
+    step = (N * (2 * nv * nv + nv ** 3 / 3 + 2 * nv * nv + 2 * nv * nv
+                 + 4 * nv + 2 * nv)
+            + 6 * live * nv + rows * nv * (nv + 1)
+            + (1 + 12 + ls_refine) * phi)
+    warm_ops = 2 * (N * 2 * nv * nv + 2 * live * nv + phi) if warm else 0
+    return iterations * step + warm_ops + 4 * live * nv
 
 
 def _newton_bytes(efc, x0) -> int:

@@ -85,7 +85,7 @@ def build_host(name: str) -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+    proc = subprocess.run([gxx, "-std=c++17", "-O2", "-pthread", "-shared", "-fPIC",
                            "-o", tmp, src],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:

@@ -7,49 +7,64 @@
 // program; the JAX package has no Pallas kernel for it.  Eagerly, the
 // port's plain version (physics/newton.py::solve) is tens of thousands of
 // small launches per env step.  The arithmetic is newton_env.cuh's, which
-// the CPU tests also run through the host driver csrc/newton_host.cpp.
+// the CPU tests also run through the host driver csrc/newton_host.cpp with
+// teams of host threads that split the loops as the lanes do.
 //
-// What bounds it on an H100.  Per env a solve is a chain: `iterations`
-// Newton steps (8 on anymal_c), each forming H = M + J^T D J + the cone
-// blocks (nv = 18, nefc = 96: ~34k multiply-adds), factoring it (nv^3/6),
-// and 1 + 12 + ls_refine evaluations of phi'(alpha) over the rows and
-// contacts, each ended by reductions over the env's rows.  The bytes (J,
-// M and the row data once, the outputs once) are ~9.8 MB at 2048 envs in
-// float32, ~3 us at 3.35 TB/s; the operations ~1 GFLOP, ~15 us at 67
-// TFLOP/s.  So the operations bound it, and with the chain of dependent
-// steps and reductions the time is issue and latency of that chain, times
-// the waves of envs.
+// What bounds it on an H100.  Not the operations or the bytes: on
+// anymal_c's rows (nv = 18, nefc = 96, 8 Newton steps, 8 refinements, 2048
+// envs, float32) they bound it at ~6-10 us, and one launch takes ~0.3 ms.
+// Per env a solve is a chain of dependent steps (the factor's columns, the
+// solves' columns, each phi' evaluation ended by a reduction over the env,
+// each refinement waiting on the last), so the time is the latency of
+// that chain and the issue slots of the 16 warps that share an SM.  Every
+// choice below shortens the chain or takes instructions out of it.  One
+// wave: 16 envs resident per SM (132 x 16 = 2112 >= 2048): float32 is held
+// to 128 registers (MinBlocks) and has no spill (float64: 206 registers),
+// and the workspace to ~14 KB an env (13,968 B on anymal_c's shape).
 //
-// What the design does about it (a simple design first):
-//   * One warp per env, several envs per block (one warp each); a warp
-//     without an env returns whole, so no shuffle waits on it and no
-//     block-wide barrier is needed.
-//   * The env's J, M, row and contact data, H and the vectors live in
-//     shared memory for the whole solve (newton_env.cuh's layout, 14.3 KB
-//     an env on anymal_c's shape in float32, so that 16 envs share an SM
-//     and 2048 envs run in one wave; the dynamic shared memory is raised
-//     above 48 KB once per kernel and device, as in pgs.cu, so a captured
-//     launch is the launch alone).
-//   * A middle-zone contact's Hessian block is two rank-one terms, added
-//     one contact at a time from two vectors of nv elements, so the
-//     workspace holds no per-contact vectors.
-//   * Rows and contacts are spread over the lanes for the residual, the
-//     forces and each phi' evaluation; the 12 grid candidates are
-//     evaluated in one pass over the rows; every reduction is an xor
-//     butterfly that leaves the same sum in each lane, so the line
-//     search's branches are uniform.
-//   * H's lower triangle is spread over the lanes, factored column by
-//     column in place, and the triangular solves go column by column with
-//     __syncwarp between columns.
-//   * Divisions by a contact's mu_c and T are taken once, as s_i =
-//     mus_i / mu_c per solve and 1/T per zone evaluation.
+// What the design does (the first design, measured before this one: a
+// Newton step was 61 us, of it the Hessian 18, the grid 15, the factor 11
+// and the solves 7; tools/profile_newton.py --timeline):
+//   * Live items only.  Most rows of a solve add nothing (on the main path
+//     ~85 % of the contacts are inactive, and one-sided rows are rarely
+//     active): an item whose force is 0 at every x is dropped once per
+//     solve, where all of J is finite (newton_env.cuh), so the residual,
+//     the gradient, Jp and the line search walk ~a quarter of the rows.
+//   * The Hessian: each lane forms 3x3 tiles of H's lower triangle in
+//     registers, one shared load of a J entry feeding 3 FMAs, in one pass
+//     over the items with curvature (listed by the forces pass); a middle-
+//     zone contact's rank-one terms come from the rows the tile has loaded
+//     (no __syncwarp per contact).
+//   * The factor and the solves in registers: lane i holds row i of H, the
+//     slots sized at compile time to nv rounded up to 4 (float32: one
+//     instantiation per size up to 32; float64, no speed path, the largest
+//     only; above 32 the workspace path).  Column j's entries go to the
+//     lanes by __shfl_sync, with no branch between a column's shuffles (so
+//     they overlap) and no division where the entry is 0 (the division's
+//     slow path takes zero dividends, and H has many exact zeros); each
+//     lane keeps 1 / L_ii for the solves, which then have no division; the
+//     factor's columns reach the back solve through shared memory once.
+//   * The line search: no global load (the cone layout and mus are staged
+//     once per solve); the 12 grid candidates go to the lanes, each lane
+//     one candidate and a share of the items, so a dozen live items keep 24
+//     lanes busy, and each candidate's sums are gathered from its two lanes
+//     by shuffles; the contact's force and curvature take both zones' terms
+//     and select, without a branch per row; each lane holds its first item
+//     in registers across the refinements.
+//   * Loops over nv are unrolled by 6, so their loads (M's rows from
+//     device memory) overlap.
+//   * One warp per env, four envs per block; a warp without an env returns
+//     whole, so no shuffle waits on it and no block-wide barrier is
+//     needed.  The dynamic shared memory is raised above 48 KB once per
+//     kernel and device, as in pgs.cu, so a captured launch is the launch
+//     alone.
 // No tensor cores and no TF32: the kernel is held to float64 round-off.
 //
-// Rounding: sums run in other orders than the plain version's and nvcc
-// contracts multiply-adds into FMAs.  Where the refinements end on the
-// round-off floor of phi', the rule "take the bracket's low end when
-// phi' > 0" is decided by that noise, as it is between the JAX package's
-// own vmapped and per-env solves.
+// Rounding: sums run in other orders than the plain version's, nvcc
+// contracts multiply-adds into FMAs, and the solves multiply by 1 / L_ii.
+// Where the refinements end on the round-off floor of phi', the rule "take
+// the bracket's low end when phi' > 0" is decided by that noise, as it is
+// between the JAX package's own vmapped and per-env solves.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +78,7 @@ namespace {
 using newton_env::Args;
 
 constexpr int kWarpLanes = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxEnvsPerBlock = 4;
 // Blocks of kMaxEnvsPerBlock envs that one SM must hold at once: in float32
 // the registers are held to 128 a thread so that 16 envs (512 threads)
@@ -73,9 +89,21 @@ struct MinBlocks {
   static constexpr int value = sizeof(T) == 4 ? 4 : 1;
 };
 
+// Built with -DNEWTON_TIMELINE (tools/profile_newton.py --timeline), lane 0
+// of the warp of each of the first kTimelineEnvs envs stamps the card's
+// global timer (ns) at newton_env's stamp points into g_timeline;
+// otherwise a stamp is nothing.
+#ifdef NEWTON_TIMELINE
+constexpr int kTimelineEnvs = 8192, kStamps = newton_env::kStampEnd + 1;
+__device__ long long g_timeline[kTimelineEnvs * kStamps];
+#endif
+
 // A warp as newton_env's team (host and device, as newton_env's functions
-// are; only the device side ever runs).
+// are; only the device side ever runs): lane i holds row i of the factor.
+// `env` is the warp's env, for the timeline's stamps.
 struct WarpTeam {
+  static constexpr int kRows = 1;
+  int env;
   __host__ __device__ int rank() const {
 #ifdef __CUDA_ARCH__
     return threadIdx.x & (kWarpLanes - 1);
@@ -84,18 +112,57 @@ struct WarpTeam {
 #endif
   }
   __host__ __device__ int size() const { return kWarpLanes; }
-  template <typename T>
-  __host__ __device__ T sum(T v) const {
+  // K xor butterflies, one level at a time over all K, so that their
+  // shuffles overlap; every lane ends with the bitwise same sums.
+  template <int K, typename T>
+  __host__ __device__ void sum_n(T (&v)[K]) const {
 #ifdef __CUDA_ARCH__
 #pragma unroll
     for (int o = kWarpLanes / 2; o > 0; o >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, o);
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(kFull, v[k], o);
 #endif
+  }
+  template <typename T>
+  __host__ __device__ T sum(T v) const {
+    T one[1] = {v};
+    sum_n(one);
+    return one[0];
+  }
+  template <typename T>
+  __host__ __device__ T bcast(T v, int src) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(kFull, v, src);
+#else
+    (void)src;
     return v;
+#endif
+  }
+  __host__ __device__ int prefix(bool p, int& total) const {
+#ifdef __CUDA_ARCH__
+    const unsigned b = __ballot_sync(kFull, p);
+    total = __popc(b);
+    return __popc(b & ((1u << rank()) - 1u));
+#else
+    total = p ? 1 : 0;
+    return 0;
+#endif
   }
   __host__ __device__ void sync() const {
 #ifdef __CUDA_ARCH__
     __syncwarp();
+#endif
+  }
+  __host__ __device__ void stamp(int k) const {
+#if defined(__CUDA_ARCH__) && defined(NEWTON_TIMELINE)
+    if (k >= 0 && (threadIdx.x & (kWarpLanes - 1)) == 0 &&
+        env < kTimelineEnvs) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      g_timeline[env * kStamps + k] = t;
+    }
+#else
+    (void)k;
 #endif
   }
 };
@@ -110,7 +177,7 @@ __global__ void __launch_bounds__(kWarpLanes * kMaxEnvsPerBlock,
   if (n >= a.N) return;
   T* work = reinterpret_cast<T*>(smem_raw) +
             static_cast<size_t>(warp) * env_elems;
-  newton_env::solve_one(WarpTeam(), a, n, work);
+  newton_env::solve_one(WarpTeam{n}, a, n, work);
 }
 
 // The dynamic shared memory a kernel may take above 48 KB is raised once
@@ -195,6 +262,19 @@ Args<T> args(const T* J, const T* aref, const T* R, const T* fl,
 
 NEWTON_ENTRY(newton_f32, float)
 NEWTON_ENTRY(newton_f64, double)
+
+#ifdef NEWTON_TIMELINE
+// The stamps of the last launch's first envs (kStamps per env) into out[n]
+// on the host.
+extern "C" int newton_timeline(long long* out, int n) {
+  if (n > kTimelineEnvs * kStamps) n = kTimelineEnvs * kStamps;
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_timeline, static_cast<size_t>(n) * sizeof(long long)));
+}
+
+// Stamps per env.
+extern "C" int newton_timeline_stamps() { return kStamps; }
+#endif
 
 // Elements of one env's shared-memory workspace (newton_env.cuh's layout),
 // for tools that size another build's launch.

@@ -1,7 +1,7 @@
 // One env's Newton/elliptic constraint solve, written once for the CUDA
 // kernel (csrc/newton.cu, one warp per env) and for the host driver
-// (csrc/newton_host.cpp, one thread, the envs in series), which the CPU
-// tests hold against the JAX package.
+// (csrc/newton_host.cpp, a team of host threads), which the CPU tests hold
+// against the JAX package.
 //
 // What it computes is nightmare_rl_tpu/physics/newton.py::solve (:214-340)
 // for one env, rule for rule: the warmstart choice by total cost, then
@@ -11,19 +11,39 @@
 // choices), with no early exit.  The plain PyTorch version of the same
 // function is nightmare_rl_tpu_torch/physics/newton.py::solve.
 //
-// The work is shared by a Team: `rank()` and `size()` split the loops,
-// `sum()` reduces a partial sum over the team and leaves the same value in
-// every member, `sync()` orders the members' shared-memory writes before
-// the reads that follow.  The kernel's team is a warp (xor-shuffle
-// butterfly, __syncwarp); the host driver's is one thread.  Every value
-// that decides a branch (the line search's scalars) comes out of `sum()`,
-// so all members of a team take the same branches.
+// The work is shared by a Team of size() members:
+//   rank(), size()   member rank (0 <= rank < size) and the team's size; a
+//                    member owns the items rank + k * size of a list, and
+//                    row i of the factor belongs to member i % size, in its
+//                    slot i / size (at most kRows slots, the loops over them
+//                    unrolled, so a warp keeps them in registers);
+//   sum(v)           the team's sum of v, the same value in every member;
+//   sum_n(v[K])      K such sums at once (a warp interleaves them);
+//   bcast(v, src)    member src's v, in every member;
+//   prefix(p, total) the number of members before this one whose p is true,
+//                    and in total the number of all whose p is true;
+//   sync()           orders the members' workspace writes before the reads
+//                    that follow;
+//   stamp(k)         records timer stamp k (nothing outside a timeline
+//                    build; a negative k is nothing).
+// The kernel's team is a warp (shuffles, ballots, __syncwarp), kRows 1; the
+// host driver's is a number of threads (a barrier, slots in memory), kRows
+// kRegNv.  Every value that decides a branch (the lists' lengths, the line
+// search's scalars) comes out of sum(), bcast() or prefix(), so all members
+// take the same branches.
 //
 // The rows are read in efc order.  Work items are the rows outside the
 // cones (a static list) and the contacts of the cones, each contact a
 // static (first row, condim, offset of its mus); per env the contact's mu,
 // activity and physical friction per direction mus_i, with
-// s_i = mus_i / max(mu, 1e-12) formed once per solve.  The Hessian is
+// s_i = mus_i / max(mu, 1e-12) formed once per solve.  An item whose force
+// is 0 at every x (a one-sided row that is not active and no dof friction,
+// an inactive contact) adds exactly 0 (or -0) to every sum below as long as
+// its J is finite, so where all of J is finite the solve walks only the
+// live items and their rows (lists built once per solve), and the Hessian
+// only those with curvature (listed at every Newton step); where J is not
+// finite every item is walked, so NaN and inf reach the same outputs as in
+// the plain version.  The Hessian is
 //     H = M + sum_r wgt_r J_r J_r^T + sum_{middle-zone contacts}
 //             (c2 u u^T - c2 gap mu/T v v^T)
 // with the diagonal curvature wgt (D on active one-sided and quadratic
@@ -32,10 +52,12 @@
 //     v = sum_i s_i what_i J_{c,i},   u = Jc^T (-1, mus_i what_i)
 //                                       = mu_c v - J_{c,0}:
 // the JAX package's Jc^T B Jc with B = c2 dg dg^T + c2 gap mu/T
-// S (I - what what^T) S written out, its rank-one terms added one contact
-// at a time.  The sums run in another order than the plain version's, and
-// w_i = jar_i s_i and the divisions by T are products with s_i and 1/T:
-// round-off only.
+// S (I - what what^T) S written out.  Each member owns 3x3 tiles of H's
+// lower triangle and forms them in one pass over the items with
+// curvature, a contact's u and v on the tile's columns from the rows it
+// has loaded.  The sums run
+// in another order than the plain version's, and w_i = jar_i s_i and the
+// divisions by T are products with s_i and 1/T: round-off only.
 //
 // NaN semantics follow torch's: comparisons with NaN are false, maximum,
 // minimum and clamp_min propagate NaN, and a Hessian with a pivot that is
@@ -49,15 +71,27 @@
 #ifdef __CUDACC__
 #define NEWTON_HD __host__ __device__ __forceinline__
 #define NEWTON_UNROLL _Pragma("unroll")
+#define NEWTON_UNROLL6 _Pragma("unroll 6")   // loads of a loop over nv overlap
 #else
 #define NEWTON_HD inline
 #define NEWTON_UNROLL
+#define NEWTON_UNROLL6
 #endif
 
 namespace newton_env {
 
 constexpr int kMaxDim = 6;   // largest condim of a cone contact
 constexpr int kGrid = 12;    // line-search candidates: 7 fractions, 5 multiples
+constexpr int kRegNv = 32;   // largest nv whose factor the members hold in
+                             // their slots (above it: the workspace)
+constexpr int kTile = 3;     // a member's tiles of H are kTile x kTile
+
+// Timer stamps (Team::stamp; only a kernel built with -DNEWTON_TIMELINE
+// records them): 0 the start, 1 the staging's end, 2 the warmstart's, then
+// per Newton step (the first kStampSteps) the ends of its kStampsPerStep
+// phases, and kStampEnd the outputs'.
+constexpr int kStampSteps = 8, kStampsPerStep = 11, kStampStep0 = 3;
+constexpr int kStampEnd = kStampStep0 + kStampSteps * kStampsPerStep;
 
 NEWTON_HD float nsqrt(float x) { return sqrtf(x); }
 NEWTON_HD double nsqrt(double x) { return sqrt(x); }
@@ -67,6 +101,11 @@ NEWTON_HD double nabs(double x) { return fabs(x); }
 template <typename T>
 NEWTON_HD T nan_of() {
   return T(NAN);
+}
+
+template <typename T>
+NEWTON_HD bool finite(T x) {
+  return x - x == T(0);   // NaN - NaN and inf - inf are NaN
 }
 
 // torch.maximum / torch.minimum: NaN if either operand is NaN
@@ -121,43 +160,50 @@ struct Args {
 };
 
 // Elements of T that one env's workspace takes (a multiple of 4, so that
-// consecutive envs start 16-byte aligned in either precision).
+// consecutive envs start 16-byte aligned in either precision).  The int
+// lists take one element of T per int (the live rows, the live items, those
+// with curvature, and per contact its first row, condim and offset into
+// mus).
 NEWTON_HD int env_elems(int nefc, int nv, int nc, int nmus) {
   const int e = nefc * nv              // J
-                + 2 * nv * nv          // M, H (factored in place)
-                + 9 * nefc             // aref R D fl quad jar Jp f wgt
+                + nv * nv              // H
+                + 8 * nefc             // aref D fl quad jar Jp f wgt
                 + 6 * nc               // mu act c2 muc cu cv
-                + 2 * nmus             // s, sw
-                + 8 * nv;              // x a0 Mdx vec y Ld ub vb
+                + 3 * nmus             // mus, s, sw
+                + 6 * nv               // x a0 Mdx vec y Ld
+                + 3 * nefc + 3 * nc;   // rows items hitems | cst cdim cmus
   return (e + 3) & ~3;
 }
 
-// One env's workspace (shared memory in the kernel, the heap on the host).
+// One env's workspace (shared memory in the kernel, the heap on the host),
+// with M and R read where they lie (device memory, the caller's arrays).
 template <typename T>
 struct Env {
   int nefc, nv, nc, nplain;
-  const int* plain;
-  const int* cstart;
-  const int* cdim;
-  const int* cmus;
-  const T* mus;                        // global: (nmus) of this env
-  T *J, *M, *H, *aref, *R, *D, *fl, *quad, *jar, *Jp, *f, *wgt;
+  const T* Mg;                         // (nv, nv) of this env
+  const T* Rg;                         // (nefc) of this env
+  T *J, *H, *aref, *D, *fl, *quad, *jar, *Jp, *f, *wgt;
   T *mu, *act, *c2, *muc, *cu, *cv;    // per contact; cu = c2, cv = c2 gap
                                        // mu / T where middle-zone, else 0
-  T *s, *sw;                           // per friction direction: s_i, and
-                                       // s_i what_i where middle-zone
-  T *x, *a0, *Mdx, *vec, *y, *Ld, *ub, *vb;
+  T *mus, *s, *sw;                     // per friction direction: mus_i, s_i,
+                                       // and s_i what_i where middle-zone
+  T *x, *a0, *Mdx, *vec, *y, *Ld;
+  int *rows;    // the live rows, in efc order
+  int *items;   // the live items: a row r < nefc outside the cones, or
+                // nefc + c for contact c
+  int *hitems;  // the live items with curvature (all live ones where J is
+                // not finite), rebuilt at every Newton step
+  int *cst, *cdim, *cmus;
+  int nrows = 0, nitems = 0, nh = 0;
+  bool skip = false;   // all of J is finite: rows of weight 0 may be skipped
 
   NEWTON_HD Env(const Args<T>& a, int n, T* w)
-      : nefc(a.nefc), nv(a.nv), nc(a.nc), nplain(a.nplain), plain(a.desc),
-        cstart(a.desc + a.nplain), cdim(a.desc + a.nplain + a.nc),
-        cmus(a.desc + a.nplain + 2 * a.nc),
-        mus(a.mus + static_cast<long long>(n) * a.nmus) {
+      : nefc(a.nefc), nv(a.nv), nc(a.nc), nplain(a.nplain),
+        Mg(a.M + static_cast<long long>(n) * a.nv * a.nv),
+        Rg(a.R + static_cast<long long>(n) * a.nefc) {
     J = w;         w += nefc * nv;
-    M = w;         w += nv * nv;
     H = w;         w += nv * nv;
     aref = w;      w += nefc;
-    R = w;         w += nefc;
     D = w;         w += nefc;
     fl = w;        w += nefc;
     quad = w;      w += nefc;
@@ -171,6 +217,7 @@ struct Env {
     muc = w;       w += nc;
     cu = w;        w += nc;
     cv = w;        w += nc;
+    mus = w;       w += a.nmus;
     s = w;         w += a.nmus;
     sw = w;        w += a.nmus;
     x = w;         w += nv;
@@ -179,44 +226,55 @@ struct Env {
     vec = w;       w += nv;
     y = w;         w += nv;
     Ld = w;        w += nv;
-    ub = w;        w += nv;
-    vb = w;
+    rows = reinterpret_cast<int*>(w);
+    items = rows + nefc;
+    hitems = items + nefc;
+    cst = hitems + nefc;
+    cdim = cst + nc;
+    cmus = cdim + nc;
   }
 };
 
 // ---------------------------------------------------------------------------
-// sums over the rows, in four interleaved partial sums (a sequential sum of
-// nefc float32 terms loses ~nefc/4 times more than this)
+// sums over the live rows, in four interleaved partial sums (a sequential
+// sum of nefc float32 terms loses ~nefc/4 times more than this)
 // ---------------------------------------------------------------------------
 
-// sum_r J[r][i] w[r] over n rows of J (nv columns)
+// sum over the live rows r of J[r][i] w[r]
 template <typename T>
-NEWTON_HD T col_dot(const T* J, int nv, int i, const T* w, int n) {
+NEWTON_HD T rows_dot(const Env<T>& e, int i, const T* w) {
   T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-  int r = 0;
-  for (; r + 3 < n; r += 4) {
-    s0 += J[r * nv + i] * w[r];
-    s1 += J[(r + 1) * nv + i] * w[r + 1];
-    s2 += J[(r + 2) * nv + i] * w[r + 2];
-    s3 += J[(r + 3) * nv + i] * w[r + 3];
+  const int n = e.nrows, nv = e.nv;
+  int q = 0;
+  for (; q + 3 < n; q += 4) {
+    const int r0 = e.rows[q], r1 = e.rows[q + 1];
+    const int r2 = e.rows[q + 2], r3 = e.rows[q + 3];
+    s0 += e.J[r0 * nv + i] * w[r0];
+    s1 += e.J[r1 * nv + i] * w[r1];
+    s2 += e.J[r2 * nv + i] * w[r2];
+    s3 += e.J[r3 * nv + i] * w[r3];
   }
-  for (; r < n; ++r) s0 += J[r * nv + i] * w[r];
+  for (; q < n; ++q) {
+    const int r = e.rows[q];
+    s0 += e.J[r * nv + i] * w[r];
+  }
   return (s0 + s1) + (s2 + s3);
 }
 
-// sum_r w[r] J[r][i] J[r][j] over n rows of J (nv columns)
-template <typename T>
-NEWTON_HD T col_dot2(const T* J, int nv, int i, int j, const T* w, int n) {
-  T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-  int r = 0;
-  for (; r + 3 < n; r += 4) {
-    s0 += w[r] * J[r * nv + i] * J[r * nv + j];
-    s1 += w[r + 1] * J[(r + 1) * nv + i] * J[(r + 1) * nv + j];
-    s2 += w[r + 2] * J[(r + 2) * nv + i] * J[(r + 2) * nv + j];
-    s3 += w[r + 3] * J[(r + 3) * nv + i] * J[(r + 3) * nv + j];
+// The indices t < n that satisfy pred, into out in order; returns their
+// number (the same in every member).
+template <typename Team, typename Pred>
+NEWTON_HD int compact(const Team& tm, int n, const Pred& pred, int* out) {
+  int base = 0;
+  for (int t0 = 0; t0 < n; t0 += tm.size()) {
+    const int t = t0 + tm.rank();
+    const bool p = t < n && pred(t);
+    int total = 0;
+    const int before = tm.prefix(p, total);
+    if (p) out[base + before] = t;
+    base += total;
   }
-  for (; r < n; ++r) s0 += w[r] * J[r * nv + i] * J[r * nv + j];
-  return (s0 + s1) + (s2 + s3);
+  return base;
 }
 
 // ---------------------------------------------------------------------------
@@ -281,98 +339,195 @@ NEWTON_HD Zone<T> zone(const T* jc, int d, T mu, bool act, const T* s) {
   return z;
 }
 
-// The contact's force on row a of its d rows.
+// The contact's force on row a of its d rows (both zones' values, then the
+// zone picks: no branch per row).
 template <typename T>
 NEWTON_HD T cone_force(const Zone<T>& z, int a, T jca, T Da, T c2, T musa) {
-  if (z.bottom) return (-Da) * jca;
-  if (!z.mid) return T(0);
   const T f0 = c2 * z.gap;
-  return a == 0 ? f0 : (-f0) * musa * z.w[a - 1] * z.inv_ts;
+  const T fm = a == 0 ? f0 : (-f0) * musa * z.w[a - 1] * z.inv_ts;
+  return z.bottom ? (-Da) * jca : (z.mid ? fm : T(0));
 }
 
 // ---------------------------------------------------------------------------
-// the line search's phi'(alpha) and phi''(alpha) for K step lengths at once
+// the line search's phi'(alpha) and phi''(alpha) for K step lengths at once,
+// over the live items
 // ---------------------------------------------------------------------------
 
+
+// One live item's data along the step (a member loads it once and may
+// keep it for the refinements; D stays in the workspace): a row outside
+// the cones has d = 0 and jar, jp, fl, one-sided activity in jar[0],
+// jp[0], mus[0], s[0]; a contact its d rows from row st, mus_a and s_a on
+// its friction rows (a >= 1).
+template <typename T>
+struct Item {
+  T jar[kMaxDim], jp[kMaxDim], mus[kMaxDim], s[kMaxDim];
+  T mu, c2;
+  int st, d;
+  bool act;
+};
+
+template <typename T>
+NEWTON_HD Item<T> load_item(const Env<T>& e, int it) {
+  Item<T> o;
+  NEWTON_UNROLL
+  for (int a = 0; a < kMaxDim; ++a)
+    o.jar[a] = o.jp[a] = o.mus[a] = o.s[a] = T(0);
+  o.mu = o.c2 = T(0);
+  o.act = false;
+  if (it < e.nefc) {
+    o.st = it;
+    o.d = 0;
+    o.jar[0] = e.jar[it];
+    o.jp[0] = e.Jp[it];
+    o.mus[0] = e.fl[it];
+    o.s[0] = e.quad[it];
+    return o;
+  }
+  const int c = it - e.nefc, st = e.cst[c], d = e.cdim[c], m = e.cmus[c];
+  o.st = st;
+  o.d = d;
+  o.mu = e.mu[c];
+  o.c2 = e.c2[c];
+  o.act = e.act[c] != T(0);
+  NEWTON_UNROLL
+  for (int a = 0; a < kMaxDim; ++a) {
+    if (a < d) {
+      o.jar[a] = e.jar[st + a];
+      o.jp[a] = e.Jp[st + a];
+      if (a > 0) {
+        o.mus[a] = e.mus[m + a - 1];
+        o.s[a] = e.s[m + a - 1];
+      }
+    }
+  }
+  return o;
+}
+
+// Its phi'(alpha) and phi''(alpha) terms at one step length:
+// dot = Jp . f(jar + alpha Jp), cv = the curvature along Jp.
+template <typename T>
+NEWTON_HD void item_phi(const Env<T>& e, const Item<T>& o, T al, T& dot,
+                        T& cv) {
+  if (o.d == 0) {
+    const T jp = o.jp[0];
+    T f, diag;
+    row_force(o.jar[0] + al * jp, e.D[o.st], o.mus[0], o.s[0] != T(0), f,
+              diag);
+    dot = jp * f;
+    cv = diag * jp * jp;
+    return;
+  }
+  const int d = o.d;
+  const T mu = o.mu, c2 = o.c2;
+  const T *jp = o.jp, *mus = o.mus, *s = o.s;
+  T jc[kMaxDim], D[kMaxDim];
+  NEWTON_UNROLL
+  for (int a = 0; a < kMaxDim; ++a) {
+    jc[a] = o.jar[a] + al * o.jp[a];
+    D[a] = a < d ? e.D[o.st + a] : T(0);
+  }
+  const Zone<T> z = zone(jc, d, mu, o.act, s + 1);
+  // both zones' curvature terms, then the contact's zone picks
+  T fdot = T(0), cb = T(0);
+  // c2 (dg.h)^2 + c2 gap mu / T (|S h|^2 - (what . S h)^2)
+  T dgh = -jp[0], shsh = T(0), wsh = T(0);
+  NEWTON_UNROLL
+  for (int a = 0; a < kMaxDim; ++a) {
+    if (a < d) {
+      if (a > 0) {
+        const T what = z.w[a - 1] * z.inv_ts;
+        dgh += mus[a] * what * jp[a];
+        const T sh = s[a] * jp[a];
+        shsh += sh * sh;
+        wsh += what * sh;
+      }
+      fdot += jp[a] * cone_force(z, a, jc[a], D[a], c2, mus[a]);
+      cb += D[a] * jp[a] * jp[a];
+    }
+  }
+  const T perp = shsh - wsh * wsh;
+  const T cm = c2 * (dgh * dgh) + c2 * z.gap * mu * z.inv_ts * perp;
+  dot = fdot;
+  cv = z.bottom ? cb : (z.mid ? cm : T(0));
+}
+
+// The team's work is the (item, step length) pairs.  A team of K or more
+// members gives each member one step length, r % K, and the items
+// r / K + m (size / K) (the members past (size / K) K sit out), and where
+// a step length's sums lie in fewer than 5 members they are gathered by
+// bcast; a smaller team walks the pairs item-major.  With K = 1 a member may pass its first
+// item, loaded already (`held`: item rank).
 template <int K, typename T, typename Team>
 NEWTON_HD void phi(const Team& tm, const Env<T>& e, const T (&al)[K], T gMp,
-                   T pMp, T (&d1)[K], T (&d2)[K]) {
-  T dot[K], cv[K];
+                   T pMp, T (&d1)[K], T (&d2)[K],
+                   const Item<T>* held = nullptr) {
+  T acc[2 * K];   // dot (K), then curvature (K)
   NEWTON_UNROLL
-  for (int k = 0; k < K; ++k) dot[k] = cv[k] = T(0);
-  const int items = e.nplain + e.nc;
-  for (int t = tm.rank(); t < items; t += tm.size()) {
-    if (t < e.nplain) {
-      const int r = e.plain[t];
-      const T jar = e.jar[r], jp = e.Jp[r], D = e.D[r], fl = e.fl[r];
-      const bool qa = e.quad[r] != T(0);
-      NEWTON_UNROLL
-      for (int k = 0; k < K; ++k) {
-        T f, diag;
-        row_force(jar + al[k] * jp, D, fl, qa, f, diag);
-        dot[k] += jp * f;
-        cv[k] += diag * jp * jp;
+  for (int k = 0; k < 2 * K; ++k) acc[k] = T(0);
+  const int sz = tm.size();
+  if (sz >= K) {
+    const int groups = sz / K, k = tm.rank() % K;
+    T alk = al[0];
+    NEWTON_UNROLL
+    for (int kk = 1; kk < K; ++kk) alk = k == kk ? al[kk] : alk;
+    T dot = T(0), cv = T(0);
+    if (tm.rank() < groups * K) {
+      int q = tm.rank() / K;
+      if (held != nullptr && q < e.nitems) {   // K == 1: item q = rank
+        item_phi(e, *held, alk, dot, cv);
+        q += groups;
       }
-    } else {
-      const int c = t - e.nplain, st = e.cstart[c], d = e.cdim[c];
-      const int m = e.cmus[c];
-      const T mu = e.mu[c], c2 = e.c2[c];
-      const bool act = e.act[c] != T(0);
-      // per row of the contact; mus_a, s_a on its friction rows (a >= 1)
-      T jar[kMaxDim], jp[kMaxDim], D[kMaxDim], mus[kMaxDim], s[kMaxDim];
+      for (; q < e.nitems; q += groups) {
+        T dq, cq;
+        item_phi(e, load_item(e, e.items[q]), alk, dq, cq);
+        dot += dq;
+        cv += cq;
+      }
+    }
+    if (groups < 5) {
+      // a step length's sums lie in `groups` members: gather them by
+      // bcast, the same order in every member, instead of 2K butterflies
       NEWTON_UNROLL
-      for (int a = 0; a < kMaxDim; ++a) {
-        jar[a] = jp[a] = D[a] = mus[a] = s[a] = T(0);
-        if (a < d) {
-          jar[a] = e.jar[st + a];
-          jp[a] = e.Jp[st + a];
-          D[a] = e.D[st + a];
-          if (a > 0) {
-            mus[a] = e.mus[m + a - 1];
-            s[a] = e.s[m + a - 1];
-          }
+      for (int kk = 0; kk < K; ++kk) {
+        T sd = T(0), sc = T(0);
+        for (int g = 0; g < groups; ++g) {
+          sd += tm.bcast(dot, kk + g * K);
+          sc += tm.bcast(cv, kk + g * K);
         }
+        d1[kk] = gMp + al[kk] * pMp - sd;
+        d2[kk] = pMp + sc;
       }
+      return;
+    }
+    NEWTON_UNROLL
+    for (int kk = 0; kk < K; ++kk) {
+      acc[kk] = k == kk ? dot : T(0);
+      acc[K + kk] = k == kk ? cv : T(0);
+    }
+  } else {
+    const int units = e.nitems * K;
+    for (int u = tm.rank(); u < units; u += sz) {
+      const int q = u / K, k = u - q * K;
+      T alk = al[0];
       NEWTON_UNROLL
-      for (int k = 0; k < K; ++k) {
-        T jc[kMaxDim];
-        NEWTON_UNROLL
-        for (int a = 0; a < kMaxDim; ++a) jc[a] = jar[a] + al[k] * jp[a];
-        const Zone<T> z = zone(jc, d, mu, act, s + 1);
-        T fdot = T(0);
-        NEWTON_UNROLL
-        for (int a = 0; a < kMaxDim; ++a)
-          if (a < d) fdot += jp[a] * cone_force(z, a, jc[a], D[a], c2, mus[a]);
-        dot[k] += fdot;
-        if (z.bottom) {
-          T b = T(0);
-          NEWTON_UNROLL
-          for (int a = 0; a < kMaxDim; ++a)
-            if (a < d) b += D[a] * jp[a] * jp[a];
-          cv[k] += b;
-        } else if (z.mid) {
-          // c2 (dg.h)^2 + c2 gap mu / T (|S h|^2 - (what . S h)^2)
-          T dgh = -jp[0], shsh = T(0), wsh = T(0);
-          NEWTON_UNROLL
-          for (int i = 1; i < kMaxDim; ++i) {
-            if (i < d) {
-              const T what = z.w[i - 1] * z.inv_ts;
-              dgh += mus[i] * what * jp[i];
-              const T sh = s[i] * jp[i];
-              shsh += sh * sh;
-              wsh += what * sh;
-            }
-          }
-          const T perp = shsh - wsh * wsh;
-          cv[k] += c2 * (dgh * dgh) + c2 * z.gap * mu * z.inv_ts * perp;
+      for (int kk = 1; kk < K; ++kk) alk = k == kk ? al[kk] : alk;
+      T dot, cv;
+      item_phi(e, load_item(e, e.items[q]), alk, dot, cv);
+      NEWTON_UNROLL
+      for (int kk = 0; kk < K; ++kk) {
+        if (k == kk) {
+          acc[kk] += dot;
+          acc[K + kk] += cv;
         }
       }
     }
   }
+  tm.sum_n(acc);
   NEWTON_UNROLL
   for (int k = 0; k < K; ++k) {
-    d1[k] = gMp + al[k] * pMp - tm.sum(dot[k]);
-    d2[k] = pMp + tm.sum(cv[k]);
+    d1[k] = gMp + al[k] * pMp - acc[k];
+    d2[k] = pMp + acc[K + k];
   }
 }
 
@@ -380,12 +535,14 @@ NEWTON_HD void phi(const Team& tm, const Env<T>& e, const T (&al)[K], T gMp,
 // the pieces of a step
 // ---------------------------------------------------------------------------
 
-// e.jar = J xv - aref, rows over the team.
+// e.jar = J xv - aref on the live rows, over the team.
 template <typename T, typename Team>
 NEWTON_HD void residual(const Team& tm, const Env<T>& e, const T* xv) {
-  for (int r = tm.rank(); r < e.nefc; r += tm.size()) {
+  for (int q = tm.rank(); q < e.nrows; q += tm.size()) {
+    const int r = e.rows[q];
     const T* Jr = e.J + r * e.nv;
     T acc = T(0);
+    NEWTON_UNROLL6
     for (int v = 0; v < e.nv; ++v) acc += Jr[v] * xv[v];
     e.jar[r] = acc - e.aref[r];
   }
@@ -395,13 +552,13 @@ NEWTON_HD void residual(const Team& tm, const Env<T>& e, const T* xv) {
 template <typename T, typename Team>
 NEWTON_HD T constraint_cost(const Team& tm, const Env<T>& e) {
   T acc = T(0);
-  const int items = e.nplain + e.nc;
-  for (int t = tm.rank(); t < items; t += tm.size()) {
-    if (t < e.nplain) {
-      const int r = e.plain[t];
-      acc += row_cost(e.jar[r], e.D[r], e.R[r], e.fl[r], e.quad[r] != T(0));
+  for (int q = tm.rank(); q < e.nitems; q += tm.size()) {
+    const int it = e.items[q];
+    if (it < e.nefc) {
+      const int r = it;
+      acc += row_cost(e.jar[r], e.D[r], e.Rg[r], e.fl[r], e.quad[r] != T(0));
     } else {
-      const int c = t - e.nplain, st = e.cstart[c], d = e.cdim[c];
+      const int c = it - e.nefc, st = e.cst[c], d = e.cdim[c];
       T jc[kMaxDim];
       NEWTON_UNROLL
       for (int a = 0; a < kMaxDim; ++a) jc[a] = a < d ? e.jar[st + a] : T(0);
@@ -426,8 +583,9 @@ template <typename T, typename Team>
 NEWTON_HD T quad_cost(const Team& tm, const Env<T>& e, const T* xv) {
   T acc = T(0);
   for (int i = tm.rank(); i < e.nv; i += tm.size()) {
-    const T* Mi = e.M + i * e.nv;
+    const T* Mi = e.Mg + i * e.nv;
     T mdx = T(0);
+    NEWTON_UNROLL6
     for (int v = 0; v < e.nv; ++v) mdx += Mi[v] * (xv[v] - e.a0[v]);
     acc += (xv[i] - e.a0[i]) * mdx;
   }
@@ -435,41 +593,55 @@ NEWTON_HD T quad_cost(const Team& tm, const Env<T>& e, const T* xv) {
 }
 
 // Forces at e.jar into e.f, the rows' diagonal curvature into e.wgt and
-// each contact's middle-zone terms into cu, cv and sw; items over the team.
+// each contact's middle-zone terms into cu, cv and sw; live items over the
+// team (the other rows keep f = wgt = 0 from the staging).  Returns the
+// number of items with curvature, listed in e.hitems (the same in every
+// member).
 template <typename T, typename Team>
-NEWTON_HD void forces_and_curvature(const Team& tm, const Env<T>& e) {
-  const int items = e.nplain + e.nc;
-  for (int t = tm.rank(); t < items; t += tm.size()) {
-    if (t < e.nplain) {
-      const int r = e.plain[t];
+NEWTON_HD int forces_and_curvature(const Team& tm, const Env<T>& e) {
+  int nh = 0;
+  for (int t0 = 0; t0 < e.nitems; t0 += tm.size()) {
+    const int q = t0 + tm.rank();
+    bool curved = false;
+    const int it = q < e.nitems ? e.items[q] : 0;
+    if (q < e.nitems && it < e.nefc) {
+      const int r = it;
       T f, diag;
       row_force(e.jar[r], e.D[r], e.fl[r], e.quad[r] != T(0), f, diag);
       e.f[r] = f;
       e.wgt[r] = diag;
-      continue;
+      curved = diag != T(0);
+    } else if (q < e.nitems) {
+      const int c = it - e.nefc, st = e.cst[c], d = e.cdim[c];
+      const int m = e.cmus[c];
+      const T mu = e.mu[c], c2 = e.c2[c];
+      T jc[kMaxDim];
+      NEWTON_UNROLL
+      for (int a = 0; a < kMaxDim; ++a) jc[a] = a < d ? e.jar[st + a] : T(0);
+      const Zone<T> z = zone(jc, d, mu, e.act[c] != T(0), e.s + m);
+      const T coef = z.mid ? c2 * z.gap * mu * z.inv_ts : T(0);
+      for (int a = 0; a < d; ++a) {
+        const T musa = a > 0 ? e.mus[m + a - 1] : T(0);
+        const T sa = a > 0 ? e.s[m + a - 1] : T(0);
+        e.f[st + a] = cone_force(z, a, jc[a], e.D[st + a], c2, musa);
+        e.wgt[st + a] = z.bottom ? e.D[st + a]
+                                 : (z.mid && a > 0 ? coef * sa * sa : T(0));
+        if (a > 0) e.sw[m + a - 1] = z.mid ? sa * z.w[a - 1] * z.inv_ts : T(0);
+      }
+      e.cu[c] = z.mid ? c2 : T(0);
+      e.cv[c] = coef;
+      curved = z.bottom || z.mid;
     }
-    const int c = t - e.nplain, st = e.cstart[c], d = e.cdim[c];
-    const int m = e.cmus[c];
-    const T mu = e.mu[c], c2 = e.c2[c];
-    T jc[kMaxDim];
-    NEWTON_UNROLL
-    for (int a = 0; a < kMaxDim; ++a) jc[a] = a < d ? e.jar[st + a] : T(0);
-    const Zone<T> z = zone(jc, d, mu, e.act[c] != T(0), e.s + m);
-    const T coef = z.mid ? c2 * z.gap * mu * z.inv_ts : T(0);
-    for (int a = 0; a < d; ++a) {
-      const T musa = a > 0 ? e.mus[m + a - 1] : T(0);
-      const T sa = a > 0 ? e.s[m + a - 1] : T(0);
-      e.f[st + a] = cone_force(z, a, jc[a], e.D[st + a], c2, musa);
-      e.wgt[st + a] = z.bottom ? e.D[st + a]
-                               : (z.mid && a > 0 ? coef * sa * sa : T(0));
-      if (a > 0) e.sw[m + a - 1] = z.mid ? sa * z.w[a - 1] * z.inv_ts : T(0);
-    }
-    e.cu[c] = z.mid ? c2 : T(0);
-    e.cv[c] = coef;
+    const bool p = q < e.nitems && (curved || !e.skip);
+    int total = 0;
+    const int before = tm.prefix(p, total);
+    if (p) e.hitems[nh + before] = it;
+    nh += total;
   }
+  return nh;
 }
 
-// The next lower-triangle entry (i, j) of H that this member owns.
+// The next entry (i, j), j <= i, of a lower triangle that this member owns.
 template <typename Team>
 NEWTON_HD void next_entry(const Team& tm, int& i, int& j) {
   j += tm.size();
@@ -479,46 +651,219 @@ NEWTON_HD void next_entry(const Team& tm, int& i, int& j) {
   }
 }
 
+// kTile entries of row r of J from column c0 (0 past nv).
+template <typename T>
+NEWTON_HD void tile_row(const Env<T>& e, int r, int c0, T (&out)[kTile]) {
+  NEWTON_UNROLL
+  for (int a = 0; a < kTile; ++a)
+    out[a] = c0 + a < e.nv ? e.J[r * e.nv + c0 + a] : T(0);
+}
+
 // Lower triangle of H = M + sum_r wgt_r J_r J_r^T + the middle-zone
-// contacts' c2 u u^T - c2 gap mu/T v v^T, entries over the team.
+// contacts' c2 u u^T - c2 gap mu/T v v^T into e.H: each member forms its
+// kTile x kTile tiles in registers in one pass over the items with
+// curvature (e.hitems).
 template <typename T, typename Team>
 NEWTON_HD void hessian(const Team& tm, const Env<T>& e) {
-  const int nv = e.nv, ntri = nv * (nv + 1) / 2;
-  {
-    int i = 0, j = tm.rank() - tm.size();
-    next_entry(tm, i, j);
-    for (int t = tm.rank(); t < ntri; t += tm.size()) {
-      e.H[i * nv + j] = e.M[i * nv + j] + col_dot2(e.J, nv, i, j, e.wgt, e.nefc);
-      next_entry(tm, i, j);
+  const int nv = e.nv, nb = (nv + kTile - 1) / kTile;
+  const int ntiles = nb * (nb + 1) / 2;
+  int bi = 0, bj = tm.rank() - tm.size();
+  next_entry(tm, bi, bj);
+  for (int t = tm.rank(); t < ntiles; t += tm.size()) {
+    const int i0 = kTile * bi, j0 = kTile * bj;
+    T acc[kTile][kTile];
+    NEWTON_UNROLL
+    for (int a = 0; a < kTile; ++a)
+      NEWTON_UNROLL
+      for (int b = 0; b < kTile; ++b)
+        acc[a][b] = (i0 + a < nv && j0 + b < nv)
+                        ? e.Mg[(i0 + a) * nv + j0 + b] : T(0);
+    for (int q = 0; q < e.nh; ++q) {   // every member walks every item
+      const int it = e.hitems[q];
+      if (it < e.nefc) {
+        const T w = e.wgt[it];
+        T ri[kTile], rj[kTile];
+        tile_row(e, it, i0, ri);
+        tile_row(e, it, j0, rj);
+        NEWTON_UNROLL
+        for (int a = 0; a < kTile; ++a) {
+          const T wa = w * ri[a];
+          NEWTON_UNROLL
+          for (int b = 0; b < kTile; ++b) acc[a][b] += wa * rj[b];
+        }
+        continue;
+      }
+      const int c = it - e.nefc, st = e.cst[c], d = e.cdim[c];
+      const int m = e.cmus[c];
+      const T cu = e.cu[c], cv = e.cv[c];
+      const bool mid = cu != T(0) || cv != T(0);
+      T vi[kTile], vj[kTile], ui[kTile], uj[kTile];
+      NEWTON_UNROLL
+      for (int a = 0; a < kTile; ++a) vi[a] = vj[a] = ui[a] = uj[a] = T(0);
+      NEWTON_UNROLL
+      for (int a = 0; a < kMaxDim; ++a) {
+        if (a < d) {
+          const int r = st + a;
+          const T w = e.wgt[r];
+          T ri[kTile], rj[kTile];
+          tile_row(e, r, i0, ri);
+          tile_row(e, r, j0, rj);
+          if (!(e.skip && w == T(0))) {
+            NEWTON_UNROLL
+            for (int p = 0; p < kTile; ++p) {
+              const T wp = w * ri[p];
+              NEWTON_UNROLL
+              for (int b = 0; b < kTile; ++b) acc[p][b] += wp * rj[b];
+            }
+          }
+          if (mid) {
+            const T sw = a > 0 ? e.sw[m + a - 1] : T(0);
+            NEWTON_UNROLL
+            for (int p = 0; p < kTile; ++p) {
+              if (a == 0) {
+                ui[p] = ri[p];
+                uj[p] = rj[p];
+              } else {
+                vi[p] += sw * ri[p];
+                vj[p] += sw * rj[p];
+              }
+            }
+          }
+        }
+      }
+      if (!mid) continue;
+      const T muc = e.muc[c];
+      NEWTON_UNROLL
+      for (int p = 0; p < kTile; ++p) {
+        ui[p] = muc * vi[p] - ui[p];
+        uj[p] = muc * vj[p] - uj[p];
+      }
+      NEWTON_UNROLL
+      for (int p = 0; p < kTile; ++p)
+        NEWTON_UNROLL
+        for (int b = 0; b < kTile; ++b)
+          acc[p][b] += cu * ui[p] * uj[b] - cv * vi[p] * vj[b];
     }
-  }
-  for (int c = 0; c < e.nc; ++c) {
-    const T cu = e.cu[c], cv = e.cv[c];
-    if (!(cu != T(0) || cv != T(0))) continue;   // not in the middle zone
-    const int st = e.cstart[c], d = e.cdim[c], m = e.cmus[c];
-    const T muc = e.muc[c];
-    tm.sync();   // the previous contact's u and v are read
-    for (int q = tm.rank(); q < nv; q += tm.size()) {
-      T v = T(0);
-      for (int a = 1; a < d; ++a) v += e.sw[m + a - 1] * e.J[(st + a) * nv + q];
-      e.vb[q] = v;
-      e.ub[q] = muc * v - e.J[st * nv + q];
-    }
-    tm.sync();
-    int i = 0, j = tm.rank() - tm.size();
-    next_entry(tm, i, j);
-    for (int t = tm.rank(); t < ntri; t += tm.size()) {
-      e.H[i * nv + j] += cu * e.ub[i] * e.ub[j] - cv * e.vb[i] * e.vb[j];
-      next_entry(tm, i, j);
-    }
+    NEWTON_UNROLL
+    for (int a = 0; a < kTile; ++a)
+      NEWTON_UNROLL
+      for (int b = 0; b < kTile; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i < nv && j <= i) e.H[i * nv + j] = acc[a][b];
+      }
+    next_entry(tm, bi, bj);
   }
 }
 
-// Cholesky factor of H in place (lower, the diagonal in e.Ld), then
-// e.vec = -H^-1 e.vec.  Where a pivot is not positive, every entry of the
-// step is NaN.
+// Cholesky factor of H (lower) and e.vec = -H^-1 e.vec with the factor in
+// the members' slots: row i of H in member i % size's slot i / size, NVB
+// (>= nv) entries a row.  Column j's pivot and entries reach the other
+// members by bcast(); every slot takes the update of every column (its
+// part above the diagonal gathers values that nothing reads, so no
+// predicate sits between the column's bcasts, which overlap).  Each column
+// takes one reciprocal of its pivot, and its owner keeps it for the
+// solves.  The factor then goes through the workspace once, so that for
+// the back solve slot i holds column i of L.  Where a pivot is not
+// positive, every entry of the step is NaN.
+template <int NVB, typename T, typename Team>
+NEWTON_HD void newton_step_slots(const Team& tm, const Env<T>& e, int st0) {
+  constexpr int R = Team::kRows;
+  const int nv = e.nv, rk = tm.rank(), sz = tm.size();
+  T h[R][NVB], rd[R];   // rows of H, then of L; L_ii, then 1 / L_ii
+  NEWTON_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const int i = rk + k * sz;
+    rd[k] = T(1);
+    NEWTON_UNROLL
+    for (int j = 0; j < NVB; ++j)
+      h[k][j] = (i < nv && j <= i) ? e.H[i * nv + j] : T(0);
+  }
+  bool bad = false;
+  NEWTON_UNROLL
+  for (int j = 0; j < NVB; ++j) {
+    if (j < nv) {
+      const T d = tm.bcast(h[j / sz][j], j % sz);
+      bad = bad || !(d > T(0));
+      const T ljj = nsqrt(d);
+      NEWTON_UNROLL
+      for (int k = 0; k < R; ++k) {
+        const int i = rk + k * sz;
+        // 0 / ljj is 0 (a bad pivot makes the step NaN whatever L holds):
+        // the division's slow path, which a zero dividend takes, is left
+        // to the entries that need it
+        if (i > j && i < nv && h[k][j] != T(0)) h[k][j] = h[k][j] / ljj;
+        if (i == j) {
+          h[k][j] = ljj;
+          rd[k] = ljj;
+        }
+      }
+      NEWTON_UNROLL
+      for (int c = j + 1; c < NVB; ++c) {
+        const T lcj = tm.bcast(h[c / sz][j], c % sz);
+        NEWTON_UNROLL
+        for (int k = 0; k < R; ++k) h[k][c] -= h[k][j] * lcj;
+      }
+    }
+  }
+  tm.stamp(st0 + 4);
+  NEWTON_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const int i = rk + k * sz;
+    NEWTON_UNROLL
+    for (int j = 0; j < NVB; ++j)
+      if (i < nv && j <= i) e.H[i * nv + j] = h[k][j];
+    rd[k] = T(1) / rd[k];
+  }
+  // L y = grad: g holds what is left of grad, then y
+  T g[R];
+  NEWTON_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const int i = rk + k * sz;
+    g[k] = i < nv ? e.vec[i] : T(0);
+  }
+  NEWTON_UNROLL
+  for (int j = 0; j < NVB; ++j) {
+    if (j < nv) {
+      const T yj = tm.bcast(g[j / sz] * rd[j / sz], j % sz);
+      NEWTON_UNROLL
+      for (int k = 0; k < R; ++k) {
+        const int i = rk + k * sz;
+        g[k] = i > j ? g[k] - h[k][j] * yj : (i == j ? yj : g[k]);
+      }
+    }
+  }
+  tm.sync();   // the factor's rows are in e.H
+  NEWTON_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const int i = rk + k * sz;
+    NEWTON_UNROLL
+    for (int j = 0; j < NVB; ++j)
+      if (i < j && j < nv) h[k][j] = e.H[j * nv + i];   // L_ji
+  }
+  // L^T z = y, p = -z: g holds what is left of y, then z
+  NEWTON_UNROLL
+  for (int j = NVB - 1; j >= 0; --j) {
+    if (j < nv) {
+      const T zj = tm.bcast(g[j / sz] * rd[j / sz], j % sz);
+      NEWTON_UNROLL
+      for (int k = 0; k < R; ++k) {
+        const int i = rk + k * sz;
+        g[k] = i < j ? g[k] - h[k][j] * zj : (i == j ? zj : g[k]);
+      }
+    }
+  }
+  NEWTON_UNROLL
+  for (int k = 0; k < R; ++k) {
+    const int i = rk + k * sz;
+    if (i < nv) e.vec[i] = bad ? nan_of<T>() : -g[k];
+  }
+  tm.stamp(st0 + 5);
+}
+
+// The same in the workspace, for nv above what the slots hold: H factored
+// in place column by column (the diagonal in e.Ld), then the solves.
 template <typename T, typename Team>
-NEWTON_HD void newton_step(const Team& tm, const Env<T>& e) {
+NEWTON_HD void newton_step_shared(const Team& tm, const Env<T>& e, int st0) {
   const int nv = e.nv;
   bool bad = false;
   for (int j = 0; j < nv; ++j) {
@@ -535,6 +880,7 @@ NEWTON_HD void newton_step(const Team& tm, const Env<T>& e) {
     }
     tm.sync();
   }
+  tm.stamp(st0 + 4);
   // L y = grad (column by column: vec holds what is left of grad)
   for (int j = 0; j < nv; ++j) {
     const T yj = e.vec[j] / e.Ld[j];
@@ -551,6 +897,40 @@ NEWTON_HD void newton_step(const Team& tm, const Env<T>& e) {
       e.y[i] -= e.H[j * nv + i] * zj;
     tm.sync();
   }
+  tm.stamp(st0 + 5);
+}
+
+// e.vec = -H^-1 e.vec: in the slots, sized to nv rounded up to a multiple
+// of 4, where they hold nv rows; else in the workspace.  The kernel's
+// float64 (no speed path) takes the largest slots for every nv, which
+// keeps its build short; the host driver builds every size in either
+// precision, so the CPU tests run the sizes the float32 kernel runs.
+template <typename T, typename Team>
+NEWTON_HD void newton_step(const Team& tm, const Env<T>& e, int st0) {
+  const int nv = e.nv;
+  if (nv > kRegNv || nv > Team::kRows * tm.size()) {
+    newton_step_shared(tm, e, st0);
+    return;
+  }
+#ifdef __CUDA_ARCH__
+  constexpr bool every_size = sizeof(T) == 4;
+#else
+  constexpr bool every_size = true;
+#endif
+  if constexpr (!every_size) {
+    newton_step_slots<kRegNv>(tm, e, st0);
+  } else {
+    switch ((nv + 3) / 4) {
+      case 1: newton_step_slots<4>(tm, e, st0); break;
+      case 2: newton_step_slots<8>(tm, e, st0); break;
+      case 3: newton_step_slots<12>(tm, e, st0); break;
+      case 4: newton_step_slots<16>(tm, e, st0); break;
+      case 5: newton_step_slots<20>(tm, e, st0); break;
+      case 6: newton_step_slots<24>(tm, e, st0); break;
+      case 7: newton_step_slots<28>(tm, e, st0); break;
+      default: newton_step_slots<32>(tm, e, st0); break;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -558,40 +938,92 @@ NEWTON_HD void newton_step(const Team& tm, const Env<T>& e) {
 // ---------------------------------------------------------------------------
 
 template <typename T, typename Team>
-NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
-  const Env<T> e(a, n, work);
+NEWTON_HD void stage(const Team& tm, const Args<T>& a, int n, Env<T>& e) {
   const int nefc = a.nefc, nv = a.nv, nc = a.nc;
   const long long en = n;
-  {
-    const T* J = a.J + en * nefc * nv;
-    for (int q = tm.rank(); q < nefc * nv; q += tm.size()) e.J[q] = J[q];
-    const T* M = a.M + en * nv * nv;
-    for (int q = tm.rank(); q < nv * nv; q += tm.size()) e.M[q] = M[q];
-    for (int r = tm.rank(); r < nefc; r += tm.size()) {
-      const long long g = en * nefc + r;
-      e.aref[r] = a.aref[g];
-      e.R[r] = a.R[g];
-      e.D[r] = T(1) / a.R[g];
-      e.fl[r] = a.fl[g];
-      e.quad[r] = a.quad[g] ? T(1) : T(0);
-    }
-    for (int i = tm.rank(); i < nv; i += tm.size()) {
-      e.a0[i] = a.a0[en * nv + i];
-      e.x[i] = a.x0 ? a.x0[en * nv + i] : e.a0[i];
-    }
-    tm.sync();
-    for (int c = tm.rank(); c < nc; c += tm.size()) {
-      const T mu = a.mu[en * nc + c];
-      const T muc = clamp_min(mu, tiny<T>());
-      e.mu[c] = mu;
-      e.act[c] = a.act[en * nc + c] ? T(1) : T(0);
-      e.muc[c] = muc;
-      e.c2[c] = e.D[e.cstart[c]] / (T(1) + mu * mu);
-      for (int q = e.cmus[c]; q < e.cmus[c] + e.cdim[c] - 1; ++q)
-        e.s[q] = e.mus[q] / muc;
-    }
-    tm.sync();
+  T bad_j = T(0);   // entries of J that are not finite
+  const T* J = a.J + en * nefc * nv;
+  for (int q = tm.rank(); q < nefc * nv; q += tm.size()) {
+    const T v = J[q];
+    e.J[q] = v;
+    bad_j += finite(v) ? T(0) : T(1);
   }
+  for (int r = tm.rank(); r < nefc; r += tm.size()) {
+    const long long g = en * nefc + r;
+    e.aref[r] = a.aref[g];
+    e.D[r] = T(1) / a.R[g];
+    e.fl[r] = a.fl[g];
+    e.quad[r] = a.quad[g] ? T(1) : T(0);
+    e.f[r] = T(0);
+    e.wgt[r] = T(0);
+    e.jar[r] = T(0);   // here: whether the row is live
+  }
+  for (int i = tm.rank(); i < nv; i += tm.size()) {
+    e.a0[i] = a.a0[en * nv + i];
+    e.x[i] = a.x0 ? a.x0[en * nv + i] : e.a0[i];
+  }
+  const int* cst = a.desc + a.nplain;
+  for (int c = tm.rank(); c < nc; c += tm.size()) {
+    e.cst[c] = cst[c];
+    e.cdim[c] = cst[nc + c];
+    e.cmus[c] = cst[2 * nc + c];
+  }
+  e.skip = tm.sum(bad_j) == T(0);
+  tm.sync();
+  for (int c = tm.rank(); c < nc; c += tm.size()) {
+    const T mu = a.mu[en * nc + c];
+    const T muc = clamp_min(mu, tiny<T>());
+    e.mu[c] = mu;
+    e.act[c] = a.act[en * nc + c] ? T(1) : T(0);
+    e.muc[c] = muc;
+    e.c2[c] = e.D[e.cst[c]] / (T(1) + mu * mu);
+    const int m = e.cmus[c];
+    for (int q = m; q < m + e.cdim[c] - 1; ++q) {
+      const T mq = a.mus[en * a.nmus + q];
+      e.mus[q] = mq;
+      e.s[q] = mq / muc;
+    }
+  }
+  tm.sync();
+  // the live items: those whose force can be nonzero (all where J is not
+  // finite); then their rows, in efc order
+  const int* plain = a.desc;
+  const bool all = !e.skip;
+  e.nitems = compact(
+      tm, a.nplain + nc,
+      [&](int t) {
+        if (all) return true;
+        if (t < a.nplain)
+          return e.fl[plain[t]] > T(0) || e.quad[plain[t]] != T(0);
+        return e.act[t - a.nplain] != T(0);
+      },
+      e.items);
+  tm.sync();
+  for (int q = tm.rank(); q < e.nitems; q += tm.size()) {
+    int& it = e.items[q];
+    if (it < a.nplain) {
+      it = plain[it];
+      e.jar[it] = T(1);
+    } else {
+      const int c = it - a.nplain;
+      it = nefc + c;
+      for (int k = 0; k < e.cdim[c]; ++k) e.jar[e.cst[c] + k] = T(1);
+    }
+  }
+  tm.sync();
+  e.nrows = compact(tm, nefc, [&](int r) { return e.jar[r] != T(0); },
+                    e.rows);
+  tm.sync();
+}
+
+template <typename T, typename Team>
+NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
+  tm.stamp(0);
+  Env<T> e(a, n, work);
+  const int nefc = a.nefc, nv = a.nv;
+  const long long en = n;
+  stage(tm, a, n, e);
+  tm.stamp(1);
 
   // the warmstart: whichever of x0 and qacc_smooth costs less
   if (a.x0) {
@@ -607,45 +1039,60 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
       for (int i = tm.rank(); i < nv; i += tm.size()) e.x[i] = e.a0[i];
     tm.sync();
   }
+  tm.stamp(2);
 
   const T fracs[7] = {T(1), T(0.5), T(0.25), T(0.125), T(1.0 / 16),
                       T(1.0 / 64), T(1.0 / 256)};
   const T mults[5] = {T(0.25), T(0.5), T(1), T(2), T(4)};
   for (int it = 0; it < a.iterations; ++it) {
+    const int st0 = it < kStampSteps ? kStampStep0 + it * kStampsPerStep
+                                     : -kStampEnd;   // not recorded
     residual(tm, e, e.x);
     tm.sync();
-    forces_and_curvature(tm, e);
+    tm.stamp(st0 + 0);
+    e.nh = forces_and_curvature(tm, e);
     tm.sync();
+    tm.stamp(st0 + 1);
     // Mdx = M (x - a0), grad = Mdx - J^T f
     for (int i = tm.rank(); i < nv; i += tm.size()) {
       T mdx = T(0);
-      for (int v = 0; v < nv; ++v) mdx += e.M[i * nv + v] * (e.x[v] - e.a0[v]);
+      NEWTON_UNROLL6
+      for (int v = 0; v < nv; ++v) mdx += e.Mg[i * nv + v] * (e.x[v] - e.a0[v]);
       e.Mdx[i] = mdx;
-      e.vec[i] = mdx - col_dot(e.J, nv, i, e.f, nefc);
+      e.vec[i] = mdx - rows_dot(e, i, e.f);
     }
+    tm.stamp(st0 + 2);
     hessian(tm, e);
     tm.sync();
-    newton_step(tm, e);   // e.vec = p
+    tm.stamp(st0 + 3);
+    newton_step(tm, e, st0);   // e.vec = p
+    tm.sync();
 
     // Jp, p^T M p, p^T M (x - a0)
-    for (int r = tm.rank(); r < nefc; r += tm.size()) {
+    for (int q = tm.rank(); q < e.nrows; q += tm.size()) {
+      const int r = e.rows[q];
       T acc = T(0);
+      NEWTON_UNROLL6
       for (int v = 0; v < nv; ++v) acc += e.J[r * nv + v] * e.vec[v];
       e.Jp[r] = acc;
     }
-    T pmp = T(0), gmp = T(0);
+    T pm[2] = {T(0), T(0)};   // p^T M p, p^T M (x - a0)
     for (int i = tm.rank(); i < nv; i += tm.size()) {
       T mp = T(0);
-      for (int v = 0; v < nv; ++v) mp += e.M[i * nv + v] * e.vec[v];
-      pmp += e.vec[i] * mp;
-      gmp += e.vec[i] * e.Mdx[i];
+      NEWTON_UNROLL6
+      for (int v = 0; v < nv; ++v) mp += e.Mg[i * nv + v] * e.vec[v];
+      pm[0] += e.vec[i] * mp;
+      pm[1] += e.vec[i] * e.Mdx[i];
     }
-    const T pMp = tm.sum(pmp), gMp = tm.sum(gmp);
+    tm.sum_n(pm);
+    const T pMp = pm[0], gMp = pm[1];
     tm.sync();
+    tm.stamp(st0 + 6);
 
     T d1_0[1], d2_0[1];
     const T zero[1] = {T(0)};
     phi<1>(tm, e, zero, gMp, pMp, d1_0, d2_0);
+    tm.stamp(st0 + 7);
     // phi'(alpha) >= phi'(0) + alpha p^T M p, so the root lies in
     // [0, alpha_max]: a grid over the bracket and multiples of the
     // unguarded Newton estimate
@@ -660,7 +1107,7 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
     }
     phi<kGrid>(tm, e, cand, gMp, pMp, d1s, d2s);
     T lo = T(0), hi = T(0), best = T(0);
-    int i_lo = 0;
+    T a_lo = T(0), d1_lo = T(0), d2_lo = T(0);   // at the argmax
     bool has_neg = false;
     NEWTON_UNROLL
     for (int k = 0; k < kGrid; ++k) {
@@ -673,13 +1120,18 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
       // argmax: the first of the largest (NaN counts as the largest)
       if (k == 0 || (best == best && (b > best || b != b))) {
         best = b;
-        i_lo = k;
+        a_lo = cand[k];
+        d1_lo = d1s[k];
+        d2_lo = d2s[k];
       }
       has_neg = has_neg || neg;
     }
-    T alpha = has_neg ? cand[i_lo] : T(0);
-    T d1 = has_neg ? d1s[i_lo] : d1_0[0];
-    T d2 = has_neg ? d2s[i_lo] : d2_0[0];
+    tm.stamp(st0 + 8);
+    T alpha = has_neg ? a_lo : T(0);
+    T d1 = has_neg ? d1_lo : d1_0[0];
+    T d2 = has_neg ? d2_lo : d2_0[0];
+    const Item<T> held = load_item(
+        e, tm.rank() < e.nitems ? e.items[tm.rank()] : 0);
     for (int r = 0; r < a.ls_refine; ++r) {
       lo = d1 < T(0) ? tmax(lo, alpha) : lo;
       hi = d1 >= T(0) ? tmin(hi, alpha) : hi;
@@ -687,10 +1139,11 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
       const bool inside = (a_newton > lo) && (a_newton < hi);
       alpha = inside ? a_newton : T(0.5) * (lo + hi);
       T al[1] = {alpha}, r1[1], r2[1];
-      phi<1>(tm, e, al, gMp, pMp, r1, r2);
+      phi<1>(tm, e, al, gMp, pMp, r1, r2, &held);
       d1 = r1[0];
       d2 = r2[0];
     }
+    tm.stamp(st0 + 9);
     // the descent side of the bracket where phi'(final) > 0; a converged
     // iterate (phi'(0) >= 0) takes a null step
     alpha = d1 <= T(0) ? alpha : lo;
@@ -698,6 +1151,7 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
     for (int i = tm.rank(); i < nv; i += tm.size())
       e.x[i] = e.x[i] + alpha * e.vec[i];
     tm.sync();
+    tm.stamp(st0 + 10);
   }
 
   // outputs: force in efc order, J^T f, qacc
@@ -708,9 +1162,10 @@ NEWTON_HD void solve_one(const Team& tm, const Args<T>& a, int n, T* work) {
   for (int r = tm.rank(); r < nefc; r += tm.size())
     a.force[en * nefc + r] = e.f[r];
   for (int i = tm.rank(); i < nv; i += tm.size()) {
-    a.qfrc[en * nv + i] = col_dot(e.J, nv, i, e.f, nefc);
+    a.qfrc[en * nv + i] = rows_dot(e, i, e.f);
     a.qacc[en * nv + i] = e.x[i];
   }
+  tm.stamp(kStampEnd);
 }
 
 }  // namespace newton_env

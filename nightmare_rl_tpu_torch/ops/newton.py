@@ -43,7 +43,8 @@ _HOST = {torch.float32: "newton_host_f32", torch.float64: "newton_host_f64"}
 def env_elems(nefc: int, nv: int, nc: int, nmus: int) -> int:
     """Elements of one env's shared-memory workspace
     (``csrc/newton_env.cuh::env_elems``)."""
-    e = nefc * nv + 2 * nv * nv + 9 * nefc + 6 * nc + 2 * nmus + 8 * nv
+    e = (nefc * nv + nv * nv + 8 * nefc + 6 * nc + 3 * nmus + 6 * nv
+         + 3 * nefc + 3 * nc)
     return (e + 3) & ~3
 
 
@@ -215,10 +216,11 @@ def envs_per_sm(geo: Geometry, dtype: torch.dtype) -> int:
 
 def host_solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
                iterations: int, ls_refine: int,
-               x0: Optional[torch.Tensor] = None) -> NewtonOut:
+               x0: Optional[torch.Tensor] = None, team: int = 1) -> NewtonOut:
     """The kernel's per-env arithmetic (``csrc/newton_env.cuh``) on CPU
     tensors, through the host driver ``csrc/newton_host.cpp`` built with
-    g++: one thread, the envs in series.  For the tests; raises
+    g++: a team of ``team`` threads (1 to 64) splits each env's loops as the
+    kernel's warp lanes do, the envs in series.  For the tests; raises
     RuntimeError where g++ is missing."""
     _check(efc, M, qacc_smooth, x0)
     N, nefc, nv = efc.J.shape
@@ -232,7 +234,7 @@ def host_solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
     qfrc = torch.empty_like(qacc_smooth)
     qacc = torch.empty_like(qacc_smooth)
     fn = getattr(build.load_host("newton_host"), _HOST[efc.J.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     fn.restype = ctypes.c_int
     err = fn(efc.J.data_ptr(), efc.aref.data_ptr(), efc.R.data_ptr(),
              efc.fl.data_ptr(), efc.quad_active.data_ptr(), mu.data_ptr(),
@@ -240,7 +242,7 @@ def host_solve(efc: NewtonEfc, M: torch.Tensor, qacc_smooth: torch.Tensor,
              qacc_smooth.data_ptr(), None if x0 is None else x0.data_ptr(),
              force.data_ptr(), qfrc.data_ptr(), qacc.data_ptr(),
              desc.data_ptr(), N, nefc, nv, nc, nplain, nmus, iterations,
-             ls_refine)
+             ls_refine, team)
     if err != 0:
         raise RuntimeError(f"newton host driver refused its arguments ({err})")
     return NewtonOut(force, qfrc, qacc)

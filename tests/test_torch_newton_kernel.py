@@ -1,15 +1,19 @@
 """The Newton kernel's arithmetic against the JAX package, on the CPU.
 
 ``ops/csrc/newton.cu`` runs its per-env solve from ``ops/csrc/
-newton_env.cuh``; the host driver ``ops/csrc/newton_host.cpp`` runs the same
-functions with one thread per batch (built here with g++ into the
-package's ``_build/``; the tests skip where g++ is missing).  The driver is
-held against ``jax.vmap(nightmare_rl_tpu.physics.newton.solve)`` in float64
-on two batches: test_torch_newton.py's random one (dof-friction and
-one-sided rows, dim-3 and dim-6 cone groups with contacts in every zone)
-and anymal_c's own rows, taken from its physics step at a few envs with
-perturbed joints and velocities.  Both run cold and warmstarted at 4
-Newton steps, with 2 and with 1 line-search refinements.
+newton_env.cuh`` with a warp as the team; the host driver ``ops/csrc/
+newton_host.cpp`` runs the same functions with a team of host threads
+(built here with g++ into the package's ``_build/``; the tests skip where
+g++ is missing), whose members split the loops as the warp's lanes do.
+The driver is held against ``jax.vmap(nightmare_rl_tpu.physics.newton.
+solve)`` in float64 on two batches: test_torch_newton.py's random one
+(dof-friction and one-sided rows, dim-3 and dim-6 cone groups with
+contacts in every zone) and anymal_c's own rows, taken from its physics
+step at a few envs with perturbed joints and velocities.  Both run cold
+and warmstarted at 4 Newton steps, with 2 and with 1 line-search
+refinements, with teams of one and of four members, and in two cases with
+a team whose size divides none of nv, nefc and the contact count; and
+once at nv = 40, where the factor lives in the workspace.
 
 Where a decision of the line search (the sign of φ' at a grid candidate
 or a refinement, the last one's "take the bracket's low end when φ' > 0")
@@ -58,6 +62,7 @@ _spec.loader.exec_module(TN)
 TOL = 1e-10           # max |driver - JAX| / (1 + max |JAX|) per env and field
 FLOOR = 4.0           # |φ'| under FLOOR round-off scales: the decision is noise
 BUDGETS = ((4, 2), (4, 1))
+TEAMS = (1, 4)        # host team sizes: one member, and several as a warp's lanes
 N_ANYMAL = 6
 FIELDS = ("force", "qfrc_constraint", "qacc")
 
@@ -152,17 +157,53 @@ def test_cases_cover_the_rows_and_zones(cases):
     assert not bool(efc.cones[1].active.all())
 
 
-@pytest.mark.parametrize("budget", BUDGETS, ids=lambda b: f"{b[0]}x{b[1]}")
-@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warmstart"])
-@pytest.mark.parametrize("case", ["random", "anymal_c"])
-def test_host_driver_matches_jax(cases, host, case, warm, budget):
+def _host_cases():
+    """(case, warm, budget, team): every case, warmth and budget with a team
+    of one member and of four (ids without a team are the one-member
+    cases), two teams whose size divides none of nv, nefc and the contact
+    count (anymal_c: 18, 96, 16; random: 10, 40, 7), and one of a warp's
+    32, whose members each keep one of the line search's 12 step lengths
+    (a team of fewer than 12 walks the (item, step length) pairs)."""
+    out = []
+    for team in TEAMS:
+        for case in ("random", "anymal_c"):
+            for warm in (False, True):
+                for budget in BUDGETS:
+                    name = (f"{case}-{'warmstart' if warm else 'cold'}-"
+                            f"{budget[0]}x{budget[1]}")
+                    out.append(pytest.param(case, warm, budget, team,
+                                            id=name if team == 1
+                                            else f"{name}-team{team}"))
+    out += [pytest.param("anymal_c", True, (4, 1), 5,
+                         id="anymal_c-warmstart-4x1-team5"),
+            pytest.param("random", False, (4, 2), 3,
+                         id="random-cold-4x2-team3"),
+            pytest.param("anymal_c", False, (4, 2), 32,
+                         id="anymal_c-cold-4x2-team32")]
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's solves, kept for the cases that share them."""
+    return {}
+
+
+@pytest.mark.parametrize("case,warm,budget,team", _host_cases())
+def test_host_driver_matches_jax(cases, jax_refs, host, case, warm, budget,
+                                 team):
     efc, M, a0, x0 = cases[case]
     x0 = x0 if warm else None
-    ref = _jax_solve(efc, M, a0, x0, *budget)
-    out = host(efc, M, a0, *budget, x0=x0)
+    key = (case, warm, budget)
+    if key not in jax_refs:
+        jax_refs[key] = _jax_solve(efc, M, a0, x0, *budget)
+    ref = jax_refs[key]
+    out = host(efc, M, a0, *budget, x0=x0, team=team)
     err = torch.zeros(M.shape[0], dtype=torch.float64)
     for name in FIELDS:
         r = torch.from_numpy(np.asarray(getattr(ref, name)))
+        # a NaN error would pass the comparison below: NaN where JAX's is
+        assert torch.equal(torch.isnan(getattr(out, name)), torch.isnan(r)), name
         d = (getattr(out, name) - r).abs().amax(dim=1)
         err = torch.maximum(err, d / (1.0 + r.abs().amax(dim=1)))
     on_floor = _on_floor(efc, M, a0, x0, *budget)
@@ -186,13 +227,45 @@ def test_host_driver_nan_where_plain_gives_nan(host):
     efc = efc._replace(aref=aref)
     for x in (None, x0):
         ref = tnewton.solve(efc, M, a0, 2, 1, x0=x)
-        out = host(efc, M, a0, 2, 1, x0=x)
-        for name in FIELDS:
-            a, b = getattr(ref, name), getattr(out, name)
-            assert torch.equal(torch.isnan(a), torch.isnan(b)), name
-            ok = ~torch.isnan(a).any(dim=1)
-            torch.testing.assert_close(b[ok], a[ok], rtol=1e-10, atol=1e-10)
-        assert bool(torch.isnan(out.qacc[1]).all())
+        for team in TEAMS:
+            out = host(efc, M, a0, 2, 1, x0=x, team=team)
+            for name in FIELDS:
+                a, b = getattr(ref, name), getattr(out, name)
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+                ok = ~torch.isnan(a).any(dim=1)
+                torch.testing.assert_close(b[ok], a[ok], rtol=1e-10,
+                                           atol=1e-10)
+            assert bool(torch.isnan(out.qacc[1]).all())
+
+
+@pytest.mark.parametrize("team", TEAMS)
+def test_host_driver_above_slot_nv_matches_jax(host, team):
+    """nv = 40, above what the members' slots hold (newton_env.cuh kRegNv
+    32): the factor and the solves run in the workspace.  The random batch
+    with 30 more columns in J (random combinations of its own) and M grown
+    to a random SPD 40 x 40; held as test_host_driver_matches_jax."""
+    efc, M, a0, x0 = _random_case()
+    N, nefc, nv = efc.J.shape
+    rng = np.random.default_rng(11)
+    extra = torch.from_numpy(rng.normal(size=(N, nv, 40 - nv)) * 0.3)
+    J = torch.cat([efc.J, efc.J @ extra], dim=2).contiguous()
+    G = torch.from_numpy(rng.normal(size=(N, 40, 40)))
+    M = (G @ G.transpose(1, 2) / 40 + torch.eye(40)).contiguous()
+    a0 = torch.from_numpy(rng.normal(size=(N, 40)) * 3.0)
+    efc = efc._replace(J=J)
+    budget = (4, 1)
+    ref = _jax_solve(efc, M, a0, None, *budget)
+    out = host(efc, M, a0, *budget, team=team)
+    err = torch.zeros(N, dtype=torch.float64)
+    for name in FIELDS:
+        r = torch.from_numpy(np.array(getattr(ref, name)))
+        assert torch.equal(torch.isnan(getattr(out, name)), torch.isnan(r)), name
+        d = (getattr(out, name) - r).abs().amax(dim=1)
+        err = torch.maximum(err, d / (1.0 + r.abs().amax(dim=1)))
+    on_floor = _on_floor(efc, M, a0, None, *budget)
+    assert not bool(((err > TOL) & ~on_floor).any()), (err.tolist(),
+                                                        on_floor.tolist())
+    assert int((~on_floor).sum()) >= N // 2 + 1, on_floor.tolist()
 
 
 def test_wrapper_on_cpu_is_the_plain_solve(cases):
