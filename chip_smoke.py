@@ -6,8 +6,9 @@
 Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
-2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu`` and
-             ``ops/csrc/newton.cu`` for sm_90a from the checkout, all at
+2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
+             ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu`` and
+             ``ops/csrc/integrate.cu`` for sm_90a from the checkout, all at
              once; prints ptxas's registers and spills (the float32 kernels
              must not spill) and each kernel's main-path launch geometry:
              lanes per env, shared memory per block and envs resident per
@@ -38,12 +39,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              env steps eager and 20 replays, every StepOut field equal bit
              for bit, the env generator's state equal, no host sync in a
              replay, ``decimation`` launches of the form's kernel per
-             replay; then wall ms per env step in turns (eager, graph,
-             graph, eager), the capture's time and the graph's pool;
+             replay, and the smooth and integrate kernels as many; the
+             graph's kernel nodes (the legs form's at most
+             NODES_NIGHTMARE); then wall ms per env step in turns (eager,
+             graph, graph, eager), the capture's time and the graph's pool;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep (the rollout replays one
-             captured step; its eager warm-up step counts).  The inputs of
+             captured step; its eager warm-up step counts), and so must the
+             smooth and the integrate kernel.  The inputs of
              the slice's last PGS call (the last replay's) are kept; after
              recorder/resume, the slice's PPO times its rollout as graph
              replays and as eager calls of the step the graph holds, in
@@ -63,6 +67,22 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 6. main-path kernel — the PGS kernel against ``pgs_reference`` on those
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
+6b. smooth-kernel — the smooth kernel (``ops/csrc/smooth.cu``: kinematics
+             to qfrc_smooth, the arrow factor and qacc_smooth) against its
+             plain version (``ops/smooth.py::plain``) on the card:
+             nightmare_v3, anymal_c and spheres_condim6 (no arrow layout)
+             at N = 1, 37, 2047, 2048 in float64 (SMOOTH_F64_TOL) and
+             float32 (SMOOTH_F32_TOL), per env and output field, with envs
+             whose qvel or a joint angle is NaN (NaN positions equal); then
+             on the slice's last smooth call, timed with its plain version,
+             and its bound;
+6c. integrate-kernel — the integrate kernel (``ops/csrc/integrate.cu``:
+             the integrator's solve, integratePos and the reset) against
+             ``ops/integrate.py::plain_update`` in each integrator branch
+             (implicitfast: nightmare_v3; Euler with implicit damping and
+             plain Euler: anymal_c) at the same N and dtypes, with a NaN
+             env and one driven past 1e10 (both reset); then on the
+             slice's last update, timed, and its bound;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -90,8 +110,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              plain env step at 2048 envs, float32: 20 env steps eager and
              20 replays from one state, every StepOut field equal bit for
              bit, the env generator's state equal, no host sync in a
-             replay, 4 launches of the Newton kernel per replay; the
-             graph's nodes by type; wall ms per env step in turns (eager,
+             replay, 4 launches of the Newton, smooth and integrate
+             kernels each per replay; the graph's nodes by type (kernel
+             nodes at most NODES_ANYMAL); wall ms per env step in turns (eager,
              graph, graph, eager), the warm-up's and the capture's seconds,
              the pool;
 9. slice-anymal — the training CLI with ``--robot anymal_c``, 2048 envs,
@@ -127,8 +148,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              pattern, the largest qacc gap printed; at least 90 % of the
              envs held in float64; nightmare_v3_mjx
              (pyramidal, no cone group, then noslip) card against CPU, one
-             step at a converged budget (1e-9); then the kernel's and the
-             plain version's CUDA-event times and its bound;
+             step at a converged budget, 1e-9: all 16 envs with the card's
+             smooth half and update as plain torch ops (the step as the
+             card ran it before their kernels), and, with every kernel,
+             the envs whose plain solves decide above the line-search
+             floor (those on it printed); then the kernel's device
+             time (``_kernel_ms``), the plain version's CUDA-event time and
+             its bound;
 11. recorder/resume (right after the slice) — the slice's runner recorded
              env 0: it received 2 × 80 frames with finite qpos; the
              ``model_2.pt`` it saved, loaded into a fresh runner on the card,
@@ -137,8 +163,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              ``artifacts/model_3176.pt``: 7 commands × 400 steps,
              deterministic, float32; zero falls on every row, achieved vx at
              least 80 % of the command on the ±0.3 m/s straight rows, and the
-             PGS kernel on every substep, held against ``pgs_reference`` on
-             the inputs of its last call;
+             PGS, smooth and integrate kernels on every substep, the PGS
+             kernel held against ``pgs_reference`` on the inputs of its
+             last call;
 13. custom-play — the batched gait engine in float64 on the card against
              the CPU over an idle → get-up → walk journey (≤ 1e-9 in the
              joint angles); then ``tools/custom_play.py`` at 256 envs,
@@ -226,16 +253,22 @@ a host callback) run eagerly.  The anymal_c path runs the Newton kernel on
 every substep; the tools, the captured update and the recurrent, sharded,
 external and dense paths run no kernel of their own.  The kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
-the curve phase, ``pgs_legs``, whose launches are slice-legs', and
+the curve phase, ``pgs_legs``, whose launches are slice-legs',
 ``newton``, whose launches are graph-anymal's, slice-anymal's and
-eval-anymal's, each counted from zero (the launches that hold a kernel
-against its plain version are not counted).
+eval-anymal's, and ``smooth`` and ``integrate``, whose launches (one each
+per substep of every path) are the slice's, graph-anymal's and
+play-grid's, each read from its own wrapper's counter, each counted from
+zero (the launches that hold a kernel against its plain version are not
+counted).  Every kernel's ``ms`` there is ``_kernel_ms``'s: device time
+per call, each call alone behind a spin kernel and a write that flushes
+the L2 cache.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
 sharded phase runs this script again as its ranks (``--mesh-worker``, see
 ``mesh_worker``); tests/test_torch_sharded.py runs the same ranks on the
-CPU.
+CPU.  ``python3 chip_smoke.py --mjx-seeds FIRST LAST`` prints newton-kernel's
+nightmare_v3_mjx comparison at each seed of the range (``mjx_seeds``).
 """
 
 from __future__ import annotations
@@ -252,6 +285,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12       # float64 outside the tensor cores (data sheet)
 F64_TOL = 1e-10              # max |kernel - plain| / max |f|, float64
 F32_TOL = 1e-5               # the same in float32 (560 dependent row steps)
 MIN_ACTIVE = 0.05            # least share of rows with hi > 0 in the float32 check
@@ -329,6 +363,16 @@ EVAL_JAX = (                 # scripts/eval_anymal.py, JAX on the CPU, same run
 EVAL_BASE_Z = (0.599, 0.609)  # band of the base height's mean after settling
 EVAL_MAX_V = 0.02            # |v_avg| in x and in y, m/s
 EVAL_MIN_DUTY = 0.95         # every foot's share of steps down
+# the smooth and integrate kernels against their plain versions, per env and
+# field: max|err| / max|plain|.  float64: round-off of the same arithmetic
+# in another order (FMA contraction, einsum sums).  float32: the same
+# round-off (eps 6e-8) amplified by the arrow solves' condition (~1e3)
+SMOOTH_F64_TOL = 1e-12
+SMOOTH_F32_TOL = 1e-4
+SMOOTH_NS = (1, 37, 2047, 2048)
+# kernel nodes of one captured env step at most (6,269 and 10,625 when the
+# smooth half and the update ran as plain torch ops)
+NODES_NIGHTMARE, NODES_ANYMAL = 1200, 3000
 
 
 def _nvidia_smi() -> str:
@@ -336,6 +380,10 @@ def _nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+L2_FLUSH_BYTES = 256 * 2**20   # _kernel_ms: over 5x the H100's L2 cache
+SPIN_CYCLES = 4_000_000        # _kernel_ms: ~2 ms, longer than a call's host time
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -352,6 +400,32 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of a kernel's wrapper, the one yardstick
+    of the kernels' line: each call timed alone by a pair of CUDA events,
+    queued behind a spin kernel (so the host's time per call is left out)
+    and a write of L2_FLUSH_BYTES (so the call finds neither its inputs nor
+    the last call's outputs in the 50 MB L2 cache, and the bound's bytes
+    at the HBM rate compare with it); the mean over ``reps`` calls."""
+    import torch
+
+    fn()  # lazy set-up
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    pairs = []
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush.zero_()
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def _random_system(N, nefc, nv, ns_offset, dtype, seed):
@@ -528,8 +602,10 @@ def phase_build() -> None:
     from nightmare_rl_tpu_torch.ops import build
     from nightmare_rl_tpu_torch.ops import newton as K
     from nightmare_rl_tpu_torch.ops import pgs as P
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.physics import arrow, loader
 
-    names = ("pgs", "pgs_legs", "newton")
+    names = ("pgs", "pgs_legs", "newton", "smooth", "integrate")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -544,6 +620,11 @@ def phase_build() -> None:
                          lambda m: "newton_kernel<"
                                    f"{'float' if m[1] == 'f' else 'double'}>"),
     }
+    for name in ("smooth", "integrate"):
+        kernels[name] = _ptxas(
+            infos[name]["log"], name + r"_kernelI([fd])E",
+            lambda m, name=name: f"{name}_kernel<"
+                                 f"{'float' if m[1] == 'f' else 'double'}>")
     for name, ks in kernels.items():
         ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
                            f"stores/loads {k.get('spill')} B" for k in ks)
@@ -577,7 +658,19 @@ def phase_build() -> None:
           f"{ngeo.smem_bytes} B shared per block, {newton_sm} envs resident "
           f"per SM x {sms} SMs = {newton_sm * sms} per wave "
           f"({math.ceil(2048 / (newton_sm * sms))} waves at N=2048)")
-    if per_sm < 1 or legs_sm < 1 or newton_sm < 1:
+    hexapod = loader.load_system("nightmare_v3", dtype=torch.float32,
+                                 device="cuda")
+    plan = SM.model_plan(hexapod, arrow.layout(hexapod))
+    fits = []
+    for name, key in (("smooth", "w_elems"), ("integrate", "u_elems")):
+        geo = SM.geometry(plan.fields[key], 4, name)
+        fits.append(SM.envs_per_sm(geo, torch.float32, name))
+        print(f"build: {name} nightmare_v3 (nbody=20, nv=24, float32): one "
+              f"warp per env, {geo.envs_per_block} envs per block, "
+              f"{geo.smem_bytes} B shared per block, {fits[-1]} envs resident "
+              f"per SM x {sms} SMs = {fits[-1] * sms} per wave "
+              f"({math.ceil(2048 / (fits[-1] * sms))} waves at N=2048)")
+    if per_sm < 1 or legs_sm < 1 or newton_sm < 1 or min(fits) < 1:
         raise AssertionError("a kernel fits no env on an SM")
 
 
@@ -835,7 +928,7 @@ def _time_kernel(label: str, args: tuple) -> dict:
 
     J, U, b, R, lo, hi, it, ns, ns_offset = args
     N, nefc, nv = J.shape
-    kern_ms = _cuda_ms(lambda: P.pgs(*args), reps=50)
+    kern_ms = _kernel_ms(lambda: P.pgs(*args))
     plain_ms = _cuda_ms(lambda: P.pgs_reference(*args), reps=3, warmup=1)
     nbytes = (2 * J.numel() + 5 * N * nefc) * J.element_size()
     ops = _pgs_ops(N, nefc, nv, it, ns, ns_offset)
@@ -949,8 +1042,9 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     from nightmare_rl_tpu_torch.tools import train
 
     iters, envs = 2, 2048
-    with _kept_pgs() as last:
+    with _kept_pgs() as last, _kept_smooth() as kept:
         P.pgs.launches = 0
+        _zero_smooth()
         t0 = time.perf_counter()
         runner = train.main(["-e", str(envs), "-n", str(iters), "--log_root",
                              tmp])
@@ -977,7 +1071,8 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations")
-    return launches, last["args"], runner
+    smooth = dict(kept=kept, launches=_check_smooth("slice", expected))
+    return launches, last["args"], runner, smooth
 
 
 def _leaves_equal(a, b) -> bool:
@@ -1037,8 +1132,12 @@ def phase_graph(device_name: str, smi: str) -> dict:
             P.pgs.launches = P.pgs_legs.launches = 0
             t1 = time.perf_counter()
             step = CapturedStep(env.step, s0, acts[0],
-                                generators=[env.generator], state_field="state")
+                                generators=[env.generator], state_field="state",
+                                debug=True)
             capture_s = time.perf_counter() - t1
+            nodes = step.node_counts().get("KERNEL", 0)
+            smooth_per = [step.launches.get(fn.__name__, 0)
+                          for fn in _smooth_fns()]
             warm = counter.launches
             differ, state = [], s0
             for k, a in enumerate(acts):
@@ -1061,7 +1160,9 @@ def phase_graph(device_name: str, smi: str) -> dict:
               f"(differing {differ[:6]}); env generator state equal "
               f"{same_gen}; host syncs per replay {syncs}; "
               f"{counter.__name__} launches per replay {per_replay:g} "
-              f"(expected {dec}), {other.__name__} {other.launches}; warm-up "
+              f"(expected {dec}), {other.__name__} {other.launches}; smooth "
+              f"and integrate launches per replay {smooth_per} (expected "
+              f"{dec} each); the graph holds {nodes} kernel nodes; warm-up "
               f"{warm}; capture {capture_s:.2f} s (warm-up included), graph "
               f"pool {pool:.1f} MiB; wall ms per env step in turns (eager, "
               f"graph, graph, eager): {walls['eager'][0]:.2f}, "
@@ -1075,8 +1176,14 @@ def phase_graph(device_name: str, smi: str) -> dict:
             raise AssertionError(f"a {form} replay synchronized ({syncs}) or "
                                  f"launched {per_replay} {counter.__name__} "
                                  f"and {other.launches} {other.__name__}")
+        if smooth_per != [dec, dec]:
+            raise AssertionError(f"a {form} replay launches the smooth and "
+                                 f"integrate kernels {smooth_per} times")
+        if form == "legs" and nodes > NODES_NIGHTMARE:
+            raise AssertionError(f"the captured legs-form step holds {nodes} "
+                                 f"kernel nodes, more than {NODES_NIGHTMARE}")
         res[form] = dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
-                         capture_s=capture_s, pool_mib=pool)
+                         capture_s=capture_s, pool_mib=pool, nodes=nodes)
     return res
 
 
@@ -1132,7 +1239,8 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     ``decimation`` launches of the Newton kernel per replay; then wall ms
     per env step in turns (eager, graph, graph, eager), the warm-up's and
     the capture's seconds, the graph's pool and its nodes by type.  Returns
-    the kernel's launches in the phase with the rest."""
+    the Newton kernel's launches in the phase, and the smooth and the
+    integrate kernel's (``smooth_launches``), with the rest."""
     import torch
 
     from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
@@ -1142,6 +1250,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     N, steps = 2048, ANYMAL_GRAPH_STEPS
     t0 = time.perf_counter()
     newton_solve.launches = 0
+    _zero_smooth()
     env = AnymalCEnv(AnymalCCfg(num_envs=N), device="cuda")
     if not env.graph_step:
         raise AssertionError("AnymalCEnv.graph_step is off")
@@ -1169,6 +1278,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
         state = out.state
     same_gen = torch.equal(env.generator.get_state(), gen_eager)
     per_replay = step.launches.get("newton_solve", 0)
+    smooth_per = [step.launches.get(fn.__name__, 0) for fn in _smooth_fns()]
     dones = int(sum(int(o.done.sum()) for o in eager))
     syncs = _host_syncs(lambda: step(state, acts[0]))
     walls = {"eager": [], "graph": []}
@@ -1183,7 +1293,8 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
           f"({dones} resets): StepOut fields equal bit for bit at every step: "
           f"{not differ} (differing {differ[:6]}); env generator state equal "
           f"{same_gen}; host syncs per replay {syncs}; newton kernel "
-          f"launches per replay {per_replay}; the graph holds "
+          f"launches per replay {per_replay}, smooth and integrate "
+          f"{smooth_per}; the graph holds "
           f"{nodes.get('KERNEL', 0)} kernel nodes ({sum(nodes.values())} "
           f"nodes: {nodes}); warm-up step "
           f"{step.warmup_s:.2f} s, capture and instantiation "
@@ -1199,13 +1310,26 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
                              f"{same_gen}")
     if syncs:
         raise AssertionError(f"an anymal_c replay synchronized {syncs} times")
-    if per_replay != env.cfg.decimation:
-        raise AssertionError(f"an anymal_c replay launches the newton kernel "
-                             f"{per_replay} times, not {env.cfg.decimation}")
+    if per_replay != env.cfg.decimation or smooth_per != [per_replay] * 2:
+        raise AssertionError(f"an anymal_c replay launches the newton, smooth "
+                             f"and integrate kernels {per_replay}, "
+                             f"{smooth_per} times, not {env.cfg.decimation}")
+    if nodes.get("KERNEL", 0) > NODES_ANYMAL:
+        raise AssertionError(f"the captured anymal_c step holds "
+                             f"{nodes.get('KERNEL', 0)} kernel nodes, more "
+                             f"than {NODES_ANYMAL}")
+    counts = _smooth_counts()
+    print(f"graph-anymal: smooth launches {counts['smooth']}, integrate "
+          f"launches {counts['integrate']} (one each per substep of every "
+          f"eager step, warm-up and replay)")
+    if counts["smooth"] != counts["integrate"] or counts["smooth"] < 1:
+        raise AssertionError(f"graph-anymal: the smooth and integrate "
+                             f"kernels ran {counts} times")
     return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                 capture_s=step.capture_s, record_s=step.record_s,
                 warmup_s=step.warmup_s, pool_mib=pool, nodes=nodes,
-                launches=newton_solve.launches)
+                launches=newton_solve.launches,
+                smooth_launches=counts)
 
 
 def _hold_learner(ppo) -> dict:
@@ -1427,9 +1551,9 @@ def _time_legs(args: tuple) -> dict:
             return torch.einsum("nij,nj->ni", Minv,
                                 torch.einsum("nkv,nk->nv", J, f))
 
-    legs_ms = _cuda_ms(lambda: P.pgs_legs(*args), reps=50)
-    dense_ms = _cuda_ms(dense, reps=50)
-    pgs_ms = _cuda_ms(lambda: P.pgs(J, U, b, R, lo, hi, it, ns, ns_offset), reps=50)
+    legs_ms = _kernel_ms(lambda: P.pgs_legs(*args))
+    dense_ms = _kernel_ms(dense)
+    pgs_ms = _kernel_ms(lambda: P.pgs(J, U, b, R, lo, hi, it, ns, ns_offset))
     plain_ms = _cuda_ms(lambda: _legs_plain(args), reps=3, warmup=1)
     item = J.element_size()
     s, nb = lay.branch_size, lay.nbase
@@ -2078,38 +2202,97 @@ def _newton_zones(efc, x) -> dict:
     return zones
 
 
-def _newton_mjx_steps() -> float:
+def _newton_mjx_steps(seed: int = 2) -> dict:
     """nightmare_v3_mjx (pyramidal cones: no cone group, then noslip): one
-    step of 2 substeps at 16 envs in float64, the card (the kernel) against
-    the CPU (the plain solve) at a converged budget, as
-    tests/test_torch_anymal.py holds the JAX package; the largest error
-    relative to each field's scale."""
+    step of 2 substeps at 16 envs in float64, the card against the CPU (the
+    plain versions) at a converged budget, as tests/test_torch_anymal.py
+    holds the JAX package.  Returns per env the largest error relative to
+    each field's scale for three card steps: ``kernels``, the main path,
+    every kernel; ``before``, the card's smooth half and update as plain
+    torch ops and the Newton kernel solving, the step as the card ran it
+    before the smooth and integrate kernels; ``plain``, every part as plain
+    torch ops.  And ``held``: the envs whose plain solves decide above the
+    line-search floor (margin at least NEWTON_FLOOR in both substeps, from
+    the CPU's solves traced), as newton-kernel's float64 cases hold the
+    kernel.  Past the floor a step parts from the CPU's by up to ~2e-8
+    under round-off alone, the plain version's on the card too, and which
+    floor envs part depends on the last ulp of the inputs (``--mjx-seeds``;
+    PERF.md §6; tests/test_torch_smooth_kernel.py::
+    test_mjx_step_above_the_floor_is_stable_under_round_off)."""
     import dataclasses
 
     import torch
 
-    from nightmare_rl_tpu_torch.physics import loader, pipeline
+    from nightmare_rl_tpu_torch.ops import integrate as IN
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.physics import loader, newton, pipeline, solver
 
     N = 16
-    out = {}
-    g = torch.Generator().manual_seed(2)
-    st0 = None
-    for dev in ("cpu", "cuda"):
-        sys_ = dataclasses.replace(loader.load_system("nightmare_v3_mjx",
-                                                      device=dev),
-                                   solver_iterations=30, ls_iterations=50)
-        if st0 is None:
-            st0 = pipeline.make_state(sys_, N)
-            qpos = st0.qpos.clone()
-            qpos[:, 7:] += 0.2 * torch.randn(N, 18, generator=g,
-                                             dtype=torch.float64)
-            qpos[:, 2] -= 0.09
-            qvel = 0.3 * torch.randn(N, 24, generator=g, dtype=torch.float64)
-            st0 = st0.replace(qpos=qpos, qvel=qvel)
-            ctrl = torch.randn(N, 18, generator=g, dtype=torch.float64)
-        out[dev] = pipeline.step(sys_, _to(st0, dev), ctrl.to(dev), 2)
-    return max(_rel(getattr(out["cpu"], f), getattr(out["cuda"], f))
-               for f in ("qpos", "qvel", "qacc_warmstart"))
+    systems = {dev: dataclasses.replace(
+        loader.load_system("nightmare_v3_mjx", device=dev),
+        solver_iterations=30, ls_iterations=50) for dev in ("cpu", "cuda")}
+    g = torch.Generator().manual_seed(seed)
+    st0 = pipeline.make_state(systems["cpu"], N)
+    qpos = st0.qpos.clone()
+    qpos[:, 7:] += 0.2 * torch.randn(N, 18, generator=g, dtype=torch.float64)
+    qpos[:, 2] -= 0.09
+    qvel = 0.3 * torch.randn(N, 24, generator=g, dtype=torch.float64)
+    st0 = st0.replace(qpos=qpos, qvel=qvel)
+    ctrl = torch.randn(N, 18, generator=g, dtype=torch.float64)
+    margins = []
+    main = SM.smooth_forward, IN.integrate_update, solver.newton_solve
+
+    def traced(efc, M, a0, iterations, ls_refine, x0=None):
+        margins.append(_newton_floor(efc, M, a0, x0, iterations, ls_refine)[0])
+        return main[2](efc, M, a0, iterations, ls_refine, x0=x0)
+
+    def plain_solve(efc, M, a0, iterations, ls_refine, x0=None):
+        return newton.solve(efc, M, a0, iterations, ls_refine, x0=x0)
+
+    def run(dev, parts):
+        SM.smooth_forward, IN.integrate_update, solver.newton_solve = parts
+        try:
+            return pipeline.step(systems[dev], _to(st0, dev), ctrl.to(dev), 2)
+        finally:
+            SM.smooth_forward, IN.integrate_update, solver.newton_solve = main
+
+    cpu = run("cpu", main[:2] + (traced,))
+    card = {"kernels": run("cuda", main),
+            "before": run("cuda", (SM.plain, IN.plain_update, main[2])),
+            "plain": run("cuda", (SM.plain, IN.plain_update, plain_solve))}
+    err = {}
+    for k, out in card.items():
+        err[k] = torch.zeros(N, dtype=torch.float64)
+        for f in ("qpos", "qvel", "qacc_warmstart"):
+            ref, x = getattr(cpu, f), getattr(out, f).cpu()
+            err[k] = torch.maximum(err[k], (ref - x).abs().amax(dim=1)
+                                   / max(1.0, float(ref.abs().max())))
+    return dict(err, held=torch.stack(margins).amin(dim=0) >= NEWTON_FLOOR)
+
+
+def mjx_seeds(argv) -> int:
+    """``--mjx-seeds FIRST LAST``: ``_newton_mjx_steps`` at each seed, the
+    envs on the line-search floor and, per card step, the envs past
+    PHYS_TOL with their errors; asserts nothing."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    for seed in range(int(argv[0]), int(argv[1]) + 1):
+        r = _newton_mjx_steps(seed)
+        held = r.pop("held")
+        parts = []
+        for k, e in r.items():
+            past = [f"{i}: {float(e[i]):.2e}" for i in range(len(e))
+                    if e[i] > PHYS_TOL]
+            parts.append(f"{k} max {float(e.max()):.3e}, past {PHYS_TOL:g} "
+                         f"{{{', '.join(past)}}}")
+        print(f"mjx seed {seed}: envs on the floor "
+              f"{torch.nonzero(~held).flatten().tolist()}; "
+              + "; ".join(parts), flush=True)
+    return 0
 
 
 def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
@@ -2178,6 +2361,7 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
         edges[label] = float(g_e[m_e >= NEWTON_FLOOR].max()) if bool(
             (m_e >= NEWTON_FLOOR).any()) else 0.0
     mjx = _newton_mjx_steps()
+    held_mjx = mjx["held"]
 
     # float32 at the model's budget, by cost and NaN pattern
     k32 = K.newton_solve(efc, M, a0, iterations, ls_refine, x0=x0)
@@ -2202,7 +2386,7 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
 
     # times and the bound
     args = (efc, M, a0, iterations, ls_refine)
-    kern_ms = _cuda_ms(lambda: K.newton_solve(*args, x0=x0), reps=20)
+    kern_ms = _kernel_ms(lambda: K.newton_solve(*args, x0=x0))
     plain_ms = _cuda_ms(lambda: newton.solve(*args, x0=x0), reps=2, warmup=1)
     nbytes = _newton_bytes(efc, x0)
     ops = _newton_ops(efc, p32.qacc, iterations, ls_refine, x0 is not None)
@@ -2223,7 +2407,13 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
               f"margin over the floor among the held {h['margin']:.3g}"
               for b, h in held64.items())
           + f"; edges at {it_h} / {ls_h} {edges}, "
-          f"nightmare_v3_mjx card vs CPU {mjx:.3e}; float32 at the model's "
+          f"nightmare_v3_mjx card vs CPU: the card's smooth half and update "
+          f"plain {float(mjx['before'].max()):.3e} over all 16 envs, every "
+          f"kernel {float(mjx['kernels'][held_mjx].max()):.3e} over the "
+          f"{int(held_mjx.sum())} envs above the floor (on it "
+          f"{float(mjx['kernels'].max()):.3e}, not held), every part plain "
+          f"{float(mjx['plain'].max()):.3e}; "
+          f"float32 at the model's "
           f"{iterations} / {ls_refine}: NaN envs kernel {int(nan_k.sum())} / "
           f"plain {int(nan_p.sum())}, total cost kernel vs plain: "
           f"{int(fin.sum()) - over} envs within {NEWTON_COST_TOL:g} of the "
@@ -2248,9 +2438,10 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
     if any(N - h["floor"] < NEWTON_HELD_SHARE * N for h in held64.values()):
         raise AssertionError(f"fewer than {NEWTON_HELD_SHARE:.0%} of the envs "
                              f"stand above the line-search floor: {held64}")
-    if not mjx <= PHYS_TOL:
+    if not (float(mjx["before"].max()) <= PHYS_TOL and bool(held_mjx.any())
+            and float(mjx["kernels"][held_mjx].max()) <= PHYS_TOL):
         raise AssertionError(f"nightmare_v3_mjx on the card disagrees with "
-                             f"the CPU: {mjx:.3e}")
+                             f"the CPU: {mjx}")
     if not torch.equal(nan_k, nan_p):
         raise AssertionError("the newton kernel's NaN envs differ from the "
                              "plain version's")
@@ -2260,6 +2451,354 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
                              f"{over} envs")
     return dict(max_abs_err=abs_err, ms=kern_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
+
+
+def _smooth_fns():
+    """The smooth and integrate kernels' wrappers whose launch counters the
+    captured steps add to (``utils/graph.py``), also while a phase puts
+    another function over a module's name (``_kept_smooth``)."""
+    from nightmare_rl_tpu_torch.utils import graph
+
+    fns = {fn.__name__: fn for fn in graph._COUNTED}
+    return fns["smooth_forward"], fns["integrate_update"]
+
+
+def _zero_smooth() -> None:
+    for fn in _smooth_fns():
+        fn.launches = 0
+
+
+def _smooth_counts() -> dict:
+    """The smooth and the integrate kernel's launch counters, each read from
+    its own wrapper."""
+    smooth, update = (fn.launches for fn in _smooth_fns())
+    return dict(smooth=smooth, integrate=update)
+
+
+def _check_smooth(label: str, expected: int) -> dict:
+    """Asserts that the smooth and the integrate kernel each launched
+    ``expected`` times since ``_zero_smooth``; returns both counts
+    (``_smooth_counts``)."""
+    counts = _smooth_counts()
+    smooth, update = counts["smooth"], counts["integrate"]
+    print(f"{label}: smooth launches {smooth}, integrate launches {update} "
+          f"(expected {expected} each: one per physics substep)")
+    if smooth != expected or update != expected:
+        raise AssertionError(f"{label}: the smooth and integrate kernels ran "
+                             f"{smooth} and {update} times, not {expected}")
+    return counts
+
+
+@contextlib.contextmanager
+def _kept_smooth():
+    """Keeps clones of the tensor inputs of the last calls of the smooth and
+    the integrate kernel's wrappers (``smooth``, ``integrate``: the System,
+    the layout and the tensors) in the yielded dict; the calls go on to the
+    wrappers.  Inside a captured step the clones are nodes of the graph."""
+    from nightmare_rl_tpu_torch.ops import integrate as IN
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    last = {}
+    fns = {"smooth": (SM, "smooth_forward"),
+           "integrate": (IN, "integrate_update")}
+    real = {k: getattr(mod, name) for k, (mod, name) in fns.items()}
+
+    def keeper(key):
+        def kept(sys_, lay, *args):
+            last[key] = (sys_, lay) + clone(args)
+            return real[key](sys_, lay, *args)
+        return kept
+
+    for k, (mod, name) in fns.items():
+        setattr(mod, name, keeper(k))
+    try:
+        yield last
+    finally:
+        for k, (mod, name) in fns.items():
+            setattr(mod, name, real[k])
+
+
+def _smooth_inputs(sys_, N: int, seed: int, dtype):
+    """Seeded random states of N envs around the reference pose on the
+    card (joints, base pose and velocities perturbed, controls of a few
+    units), with diverged envs: NaN in one env's qvel and, from N = 3, in
+    the last env's last qpos."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(sys_.qpos0.cpu().numpy(), (N, 1))
+    qpos += rng.normal(size=qpos.shape) * 0.2
+    if any(t == 0 for t in sys_.jnt_type):   # free joints: unit quaternions
+        for j, t in enumerate(sys_.jnt_type):
+            if t == 0:
+                a = sys_.jnt_qposadr[j] + 3
+                qpos[:, a:a + 4] /= np.linalg.norm(qpos[:, a:a + 4], axis=1,
+                                                   keepdims=True)
+    qvel = rng.normal(size=(N, sys_.nv))
+    ctrl = rng.normal(size=(N, sys_.nu)) * 5.0
+    qvel[N // 2, min(3, sys_.nv - 1)] = np.nan
+    if N >= 3:
+        qpos[N - 1, -1] = np.nan
+    return [torch.from_numpy(x).to("cuda", dtype) for x in (qpos, qvel, ctrl)]
+
+
+def _field_errs(ref, got) -> list:
+    """Per leaf (N, ...): (max|err| over the finite entries, the largest
+    over the envs of an env's max|err| / its max|ref|, NaN at the same
+    positions)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    out = []
+    for r, g in zip(leaves(ref), leaves(got)):
+        r = r.expand_as(g)
+        same_nan = bool(torch.equal(torch.isnan(r), torch.isnan(g)))
+        r2, g2 = r.reshape(r.shape[0], -1), g.reshape(g.shape[0], -1)
+        if r2.numel() == 0:
+            continue
+        fin = torch.isfinite(r2) & torch.isfinite(g2)
+        zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+        d = torch.where(fin, (r2 - g2).abs(), zero).amax(dim=1)
+        s = torch.where(fin, r2.abs(), zero).amax(dim=1).clamp_min(1e-30)
+        out.append((float(d.max()), float((d / s).max()), same_nan))
+    return out
+
+
+def _plain_ops(fn) -> int:
+    """The arithmetic operations of ``fn()`` (CPU tensors): one per output
+    element of each pointwise op and per input element of each reduction,
+    2·m·n·k per matrix product."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    products = (aten.mm.default, aten.bmm.default)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in products:
+                self.n += 2 * out.numel() * args[0].shape[-1]
+            elif (torch.Tag.pointwise in func.tags
+                  and isinstance(out, torch.Tensor)):
+                self.n += out.numel()
+            elif torch.Tag.reduction in func.tags:
+                self.n += args[0].numel()
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def _smooth_cases(dtype):
+    """(label, System, layout): both robots and a dense-branch model."""
+    from nightmare_rl_tpu_torch.physics import arrow, loader
+
+    out = []
+    for name in ("nightmare_v3", "anymal_c", "spheres_condim6"):
+        sys_ = loader.load_system(name, dtype=dtype, device="cuda")
+        out.append((name, sys_, arrow.layout(sys_)))
+    if out[2][2] is not None or any(c[2] is None for c in out[:2]):
+        raise AssertionError("the smooth cases lost their layouts")
+    return out
+
+
+def _cpu_system(sys_):
+    """The System's tensors on the CPU (the op count's copy)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(sys_, **{
+        f.name: getattr(sys_, f.name).cpu() for f in dataclasses.fields(sys_)
+        if isinstance(getattr(sys_, f.name), torch.Tensor)})
+
+
+def _smooth_bound(outs, ins, tables, ops: int, dtype) -> tuple:
+    """The least time (ms) the card could take: bytes (inputs and tables
+    read once, outputs written once) over the memory rate against the
+    operations over float32's (float64's) rate; and which one bounds."""
+    import torch
+
+    nbytes = sum(x.numel() * x.element_size() for x in list(outs) + list(ins)
+                 + list(tables))
+    rate = H100_F32_FLOPS if dtype == torch.float32 else H100_F64_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / rate * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes
+
+
+def phase_smooth_kernel(kept: dict, device_name: str, smi: str) -> dict:
+    """The smooth kernel (``ops/csrc/smooth.cu``) against its plain version
+    (``ops/smooth.py::plain``) on the card: nightmare_v3, anymal_c and
+    spheres_condim6 (no block-arrow layout) at N = 1, 37, 2047 and 2048,
+    float64 and float32, seeded random states with diverged envs (a NaN
+    qvel, a NaN joint angle); then on the slice's last smooth call.  Every
+    output field within SMOOTH_F64_TOL (float64) or SMOOTH_F32_TOL
+    (float32) of the plain version's, scaled by the field's largest |value|,
+    NaN at the same positions.  Then device ms per launch (``_kernel_ms``)
+    and the plain version's at the slice's inputs, and the bound."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    t0 = time.perf_counter()
+    worst = {}
+    for dtype, tol in ((torch.float64, SMOOTH_F64_TOL),
+                       (torch.float32, SMOOTH_F32_TOL)):
+        for label, sys_, lay in _smooth_cases(dtype):
+            for N in SMOOTH_NS:
+                args = _smooth_inputs(sys_, N, seed=N, dtype=dtype)
+                errs = _field_errs(SM.plain(sys_, lay, *args),
+                                   SM.smooth_forward(sys_, lay, *args))
+                torch.cuda.synchronize()
+                rel = max(e[1] for e in errs)
+                key = (label, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if rel > tol or not all(e[2] for e in errs):
+                    raise AssertionError(
+                        f"smooth kernel disagrees with its plain version: "
+                        f"{label} {dtype} N={N}: {errs}")
+    print("smooth-kernel: kernel vs plain on the card, N in "
+          f"{list(SMOOTH_NS)}, diverged envs in each (NaN qvel, NaN joint "
+          "angle): largest field error "
+          "/ max|field|: " + "; ".join(f"{k[0]} {k[1]} {v:.3e}"
+                                       for k, v in worst.items())
+          + f" (tol {SMOOTH_F64_TOL:g} float64, {SMOOTH_F32_TOL:g} float32); "
+          "NaN positions equal")
+
+    sys_, lay, qpos, qvel, ctrl = kept["smooth"]
+    ref = SM.plain(sys_, lay, qpos, qvel, ctrl)
+    got = SM.smooth_forward(sys_, lay, qpos, qvel, ctrl)
+    errs = _field_errs(ref, got)
+    abs_err = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    if rel > SMOOTH_F32_TOL or not all(e[2] for e in errs):
+        raise AssertionError(f"smooth kernel disagrees on the slice's inputs: "
+                             f"{errs}")
+    ms = _kernel_ms(lambda: SM.smooth_forward(sys_, lay, qpos, qvel, ctrl))
+    plain_ms = _cuda_ms(lambda: SM.plain(sys_, lay, qpos, qvel, ctrl), 3, 1)
+    host = [x.cpu()[:1] for x in (qpos, qvel, ctrl)]
+    host_sys = _cpu_system(sys_)
+    ops = _plain_ops(lambda: SM.plain(host_sys, lay, *host)) * qpos.shape[0]
+    tab = SM.tables(sys_, lay, qpos.dtype, qpos.device)
+    bound, by, nbytes = _smooth_bound(
+        [x for x in leaves(got) if x.stride(0) != 0], (qpos, qvel, ctrl),
+        (tab.topo, tab.cst), ops, qpos.dtype)
+    print(f"smooth-kernel: the slice's last smooth call ({qpos.shape[0]} envs "
+          f"float32): max|err| {abs_err:.3e}, /max|field| {rel:.3e} (tol "
+          f"{SMOOTH_F32_TOL:g}); {ms:.4f} ms/launch (cold L2), plain "
+          f"{plain_ms:.3f} ms; "
+          f"bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e6:.1f} M operations) = {bound / ms:.1%} of it; "
+          f"{_smi_line(t0, device_name, smi)}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def _update_inputs(sys_, lay, N: int, seed: int, dtype):
+    """qpos, qvel (seeded; a NaN qvel in one env), M and qfrc_smooth from
+    the smooth kernel, random constraint forces and qacc, with forces of
+    1e14 in another env (its qvel passes 1e10)."""
+    import numpy as np
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+
+    qpos, qvel, ctrl = _smooth_inputs(sys_, N, seed, dtype)
+    qpos[N - 1, -1] = sys_.qpos0[-1]
+    sm = SM.smooth_forward(sys_, lay, qpos, torch.nan_to_num(qvel), ctrl)
+    rng = np.random.default_rng(seed + 1)
+    fc, qacc = (torch.from_numpy(rng.normal(size=(N, sys_.nv)) * s).to(
+        "cuda", dtype) for s in (3.0, 10.0))
+    if N >= 3:
+        fc[0] *= 1e14
+        qacc[0] *= 1e14
+    return (qpos, qvel, sm.M, sm.qfrc_smooth, fc, qacc)
+
+
+def phase_integrate_kernel(kept: dict, device_name: str, smi: str) -> dict:
+    """The integrate kernel (``ops/csrc/integrate.cu``) against its plain
+    version (``ops/integrate.py::plain_update``) on the card in each
+    integrator branch: implicitfast (nightmare_v3), Euler with implicit
+    damping (anymal_c) and plain Euler (anymal_c with eulerdamp off), at
+    N = 1, 37, 2047 and 2048, float64 and float32, with a NaN env and one
+    driven past 1e10 (both reset to qpos0); then on the slice's last call,
+    timed, with the bound."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import integrate as IN
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.physics import arrow, loader
+
+    t0 = time.perf_counter()
+    worst = {}
+    for dtype, tol in ((torch.float64, SMOOTH_F64_TOL),
+                       (torch.float32, SMOOTH_F32_TOL)):
+        for branch, name, change in (
+                ("implicitfast", "nightmare_v3", {}),
+                ("euler_damped", "anymal_c", {}),
+                ("euler", "anymal_c", {"eulerdamp": False})):
+            sys_ = dataclasses.replace(
+                loader.load_system(name, dtype=dtype, device="cuda"), **change)
+            lay = arrow.layout(sys_)
+            if SM.model_plan(sys_, lay).update != branch:
+                raise AssertionError(f"{name} {change} is not {branch}")
+            for N in SMOOTH_NS:
+                args = _update_inputs(sys_, lay, N, N + 5, dtype)
+                ref = IN.plain_update(sys_, lay, *args)
+                got = IN.integrate_update(sys_, lay, *args)
+                errs = _field_errs(ref, got)
+                torch.cuda.synchronize()
+                reset = N < 3 or (torch.equal(got[0][0], sys_.qpos0)
+                                  and torch.equal(got[0][N // 2], sys_.qpos0))
+                rel = max(e[1] for e in errs)
+                key = (branch, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if rel > tol or not all(e[2] for e in errs) or not reset:
+                    raise AssertionError(
+                        f"integrate kernel disagrees with its plain version: "
+                        f"{branch} {dtype} N={N}: {errs}, reset {reset}")
+    print("integrate-kernel: kernel vs plain on the card, N in "
+          f"{list(SMOOTH_NS)}, a NaN env and one past 1e10 in each (reset to "
+          "qpos0): largest field error / max|field|: "
+          + "; ".join(f"{k[0]} {k[1]} {v:.3e}" for k, v in worst.items())
+          + f" (tol {SMOOTH_F64_TOL:g} float64, {SMOOTH_F32_TOL:g} float32)")
+
+    sys_, lay, *args = kept["integrate"]
+    ref = IN.plain_update(sys_, lay, *args)
+    got = IN.integrate_update(sys_, lay, *args)
+    errs = _field_errs(ref, got)
+    abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    if rel > SMOOTH_F32_TOL or not all(e[2] for e in errs):
+        raise AssertionError(f"integrate kernel disagrees on the slice's "
+                             f"inputs: {errs}")
+    ms = _kernel_ms(lambda: IN.integrate_update(sys_, lay, *args))
+    plain_ms = _cuda_ms(lambda: IN.plain_update(sys_, lay, *args), 3, 1)
+    host_sys = _cpu_system(sys_)
+    host = [x.cpu()[:1] for x in args]
+    ops = (_plain_ops(lambda: IN.plain_update(host_sys, lay, *host))
+           * args[0].shape[0])
+    tab = SM.tables(sys_, lay, args[0].dtype, args[0].device)
+    bound, by, nbytes = _smooth_bound(got, args, (tab.topo, tab.cst), ops,
+                                      args[0].dtype)
+    print(f"integrate-kernel: the slice's last update ({args[0].shape[0]} envs "
+          f"float32): max|err| {abs_err:.3e}, /max|field| {rel:.3e}; "
+          f"{ms:.4f} ms/launch (cold L2), plain {plain_ms:.3f} ms; bound "
+          f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e6:.1f} M operations) = {bound / ms:.1%} of it; "
+          f"{_smi_line(t0, device_name, smi)}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
 
 
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
@@ -2305,14 +2844,16 @@ def phase_recorder_resume(runner, tmp: str, device_name: str, smi: str) -> None:
         raise AssertionError(f"the reloaded train state differs: {differ}")
 
 
-def phase_play_grid(device_name: str, smi: str) -> None:
-    """model_3176 over the command envelope, through tools/play.py."""
+def phase_play_grid(device_name: str, smi: str) -> dict:
+    """model_3176 over the command envelope, through tools/play.py.  Returns
+    the smooth and the integrate kernel's launches (``_check_smooth``)."""
     from nightmare_rl_tpu_torch.ops import pgs as P
     from nightmare_rl_tpu_torch.tools import play
 
     t0 = time.perf_counter()
     with _kept_pgs() as last:
         P.pgs.launches = 0
+        _zero_smooth()
         res = play.grid_eval(MODEL_3176, GRID_STEPS, device="cuda")
         launches = P.pgs.launches
     # 2 substeps per step + the reset's step and the graph's warm-up step
@@ -2336,8 +2877,10 @@ def phase_play_grid(device_name: str, smi: str) -> None:
         raise AssertionError("model_3176 does not track the straight commands")
     if launches != expected:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
+    smooth = _check_smooth("play-grid", expected)
     _hold_kernel("play-grid inputs (its last call)", last["args"],
                  (len(res["rows"]), 112, 24))
+    return smooth
 
 
 def _engine_journey(dev: str):
@@ -3256,6 +3799,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--mjx-seeds"]:
+        return mjx_seeds(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3277,11 +3822,13 @@ def main() -> int:
     phase_physics_legs()
     graph = phase_graph(name, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, pgs_args, runner = phase_slice(name, smi, tmp)
+        launches, pgs_args, runner, smooth = phase_slice(name, smi, tmp)
         phase_recorder_resume(runner, tmp, name, smi)
     phase_slice_rates(runner, name, smi)
     phase_update_graph(runner, "nightmare_v3 feed-forward", name, smi)
     entry = phase_main_path_kernel(pgs_args, launches)
+    smooth_t = phase_smooth_kernel(smooth["kept"], name, smi)
+    integrate_t = phase_integrate_kernel(smooth["kept"], name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -3299,7 +3846,7 @@ def main() -> int:
     print(f"kernel: newton launches {newton_entry['launches']} = "
           f"graph-anymal {graph_anymal['launches']} + slice-anymal "
           f"{slice_newton} + eval-anymal {eval_newton}")
-    phase_play_grid(name, smi)
+    grid_smooth = phase_play_grid(name, smi)
     phase_custom_play(name, smi)
     phase_simple_test(name, smi)
     phase_recurrent_net(name, smi)
@@ -3330,9 +3877,29 @@ def main() -> int:
           + f"; anymal_c {min(graph_anymal['eager_ms']):.2f} / "
           f"{min(graph_anymal['graph_ms']):.2f} ms (pool "
           f"{graph_anymal['pool_mib']:.1f} MiB)")
+    parts = {"slice": smooth["launches"],
+             "graph-anymal": graph_anymal["smooth_launches"],
+             "play-grid": grid_smooth}
+    smooth_launches = {k: sum(p[k] for p in parts.values())
+                       for k in ("smooth", "integrate")}
+    for k, total in smooth_launches.items():
+        print(f"kernel: {k} launches {total} = " + " + ".join(
+            f"{who} {p[k]}" for who, p in parts.items()))
+    smooth_entries = [
+        dict(name=k, route="cuda",
+             source=f"nightmare_rl_tpu_torch/ops/csrc/{k}.cu",
+             replaces=f"nightmare_rl_tpu/physics/pipeline.py:{line}",
+             launches=smooth_launches[k], **t, library_ms=None)
+        for k, line, t in (("smooth", 59, smooth_t),
+                           ("integrate", 125, integrate_t))]
+    print("graph: kernel nodes per captured env step: "
+          + ", ".join(f"nightmare_v3 {form} {r['nodes']}"
+                      for form, r in graph.items())
+          + f", anymal_c {graph_anymal['nodes'].get('KERNEL', 0)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [entry, legs_entry, newton_entry]}))
+    print(json.dumps({"kernels": [entry, legs_entry, newton_entry]
+                      + smooth_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

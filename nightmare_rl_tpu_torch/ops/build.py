@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
 ``_build/lib<name>_<hash>.so`` (the hash is of the source and of the
-headers in ``csrc/``, so an edited source builds anew).  The build runs at
+``csrc/`` headers it includes, transitively, so an edited source or header
+rebuilds the kernels that use it and no other).  The build runs at
 first use, never at import, and only where the CUDA toolkit is installed.
 
 ``build_host`` compiles a ``csrc/<name>.cpp`` with g++ the same way: the
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,11 +35,25 @@ def _nvcc() -> str:
     return path
 
 
+def _includes(path: str) -> list:
+    """The ``csrc/`` headers that ``path`` includes, transitively, in the
+    order first met."""
+    seen, todo = [], [path]
+    while todo:
+        with open(todo.pop(0)) as fh:
+            names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', fh.read(), re.M)
+        for name in names:
+            dep = os.path.join(CSRC_DIR, name)
+            if os.path.exists(dep) and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def _digest(src: str) -> str:
-    """Hash of a source and of every header in ``csrc/``."""
+    """Hash of a source and of the ``csrc/`` headers it includes."""
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+    for path in [src] + _includes(src):
         with open(path, "rb") as fh:
             h.update(fh.read())
     return h.hexdigest()[:16]

@@ -1,0 +1,63 @@
+// What the kernels share at launch: the raise of a kernel's dynamic shared
+// memory above 48 KB, and a warp as smooth_env.cuh's team.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
+
+namespace common {
+
+constexpr int kLanes = 32;
+
+// A warp as smooth_env's team: lane i is member i.
+struct WarpTeam {
+  __host__ __device__ int rank() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x & (kLanes - 1);
+#else
+    return 0;
+#endif
+  }
+  __host__ __device__ int size() const { return kLanes; }
+  __host__ __device__ void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
+};
+
+// The dynamic shared memory a kernel may take above 48 KB is raised with
+// cudaFuncSetAttribute at the first launch that needs more, once per kernel
+// and device, and not again.  So a launch that a CUDA graph captures (after
+// an eager warm-up) is the kernel launch alone, and every replay finds the
+// attribute set on the function.
+inline cudaError_t allow_smem(const void* kernel, int smem) {
+  struct Allowed {
+    const void* kernel;
+    int device;
+    int smem;
+  };
+  static std::mutex mu;
+  static std::vector<Allowed> allowed;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  Allowed* hit = nullptr;
+  for (Allowed& al : allowed)
+    if (al.kernel == kernel && al.device == device) hit = &al;
+  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  if (hit != nullptr)
+    hit->smem = smem;
+  else
+    allowed.push_back({kernel, device, smem});
+  return cudaSuccess;
+}
+
+}  // namespace common

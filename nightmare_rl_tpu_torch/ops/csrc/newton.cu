@@ -68,12 +68,12 @@
 
 #include <cuda_runtime.h>
 
-#include <mutex>
-#include <vector>
-
+#include "launch.cuh"
 #include "newton_env.cuh"
 
 namespace {
+
+using common::allow_smem;
 
 using newton_env::Args;
 
@@ -178,34 +178,6 @@ __global__ void __launch_bounds__(kWarpLanes * kMaxEnvsPerBlock,
   T* work = reinterpret_cast<T*>(smem_raw) +
             static_cast<size_t>(warp) * env_elems;
   newton_env::solve_one(WarpTeam{n}, a, n, work);
-}
-
-// The dynamic shared memory a kernel may take above 48 KB is raised once
-// per kernel and device (see pgs.cu).
-cudaError_t allow_smem(const void* kernel, int smem) {
-  struct Allowed {
-    const void* kernel;
-    int device;
-    int smem;
-  };
-  static std::mutex mu;
-  static std::vector<Allowed> allowed;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  Allowed* hit = nullptr;
-  for (Allowed& al : allowed)
-    if (al.kernel == kernel && al.device == device) hit = &al;
-  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return e;
-  if (hit != nullptr)
-    hit->smem = smem;
-  else
-    allowed.push_back({kernel, device, smem});
-  return cudaSuccess;
 }
 
 template <typename T>

@@ -80,10 +80,12 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <mutex>
-#include <vector>
+
+#include "launch.cuh"
 
 namespace {
+
+using common::allow_smem;
 
 constexpr int kRec = 6;   // per row: b, R, 1/(diag+R), lo, hi, diag
 constexpr int kPair = 3;  // per pair: b[i]-b[j], 1/max(h,1e-12), hi[i] > 0
@@ -480,37 +482,6 @@ pgs_kernel(const T* __restrict__ J, const T* __restrict__ U,
 
 // Columns a lane owns at most, for the two group widths.
 constexpr int cols(int lanes) { return lanes == 8 ? 3 : 4; }
-
-// The dynamic shared memory a kernel may take above 48 KB is raised with
-// cudaFuncSetAttribute at the first launch that needs more, once per kernel
-// and device, and not again.  So a launch that a CUDA graph captures (after
-// an eager warm-up) is the kernel launch alone, and every replay finds the
-// attribute set on the function.
-cudaError_t allow_smem(const void* kernel, int smem) {
-  struct Allowed {
-    const void* kernel;
-    int device;
-    int smem;
-  };
-  static std::mutex mu;
-  static std::vector<Allowed> allowed;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  Allowed* hit = nullptr;
-  for (Allowed& a : allowed)
-    if (a.kernel == kernel && a.device == device) hit = &a;
-  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return e;
-  if (hit != nullptr)
-    hit->smem = smem;
-  else
-    allowed.push_back({kernel, device, smem});
-  return cudaSuccess;
-}
 
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const T*, const T*,

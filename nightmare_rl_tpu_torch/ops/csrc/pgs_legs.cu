@@ -128,10 +128,12 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <mutex>
-#include <vector>
+
+#include "launch.cuh"
 
 namespace {
+
+using common::allow_smem;
 
 constexpr int kLanes = 8;                      // lanes per env
 constexpr int kS = 3;                          // dofs per leg
@@ -773,37 +775,6 @@ size_t env_elems(int nefc, int npairs, int B) {
          static_cast<size_t>(kPair) * (npairs + 1) + (nefc + 2) +
          static_cast<size_t>(B) * kS * (kS + kNb) + kNb * kNb +
          (bytes + sizeof(T) - 1) / sizeof(T);
-}
-
-// The dynamic shared memory a kernel may take above 48 KB is raised with
-// cudaFuncSetAttribute at the first launch that needs more, once per kernel
-// and device, and not again.  So a launch that a CUDA graph captures (after
-// an eager warm-up) is the kernel launch alone, and every replay finds the
-// attribute set on the function.
-cudaError_t allow_smem(const void* kernel, int smem) {
-  struct Allowed {
-    const void* kernel;
-    int device;
-    int smem;
-  };
-  static std::mutex mu;
-  static std::vector<Allowed> allowed;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  Allowed* hit = nullptr;
-  for (Allowed& a : allowed)
-    if (a.kernel == kernel && a.device == device) hit = &a;
-  if (hit != nullptr && smem <= hit->smem) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return e;
-  if (hit != nullptr)
-    hit->smem = smem;
-  else
-    allowed.push_back({kernel, device, smem});
-  return cudaSuccess;
 }
 
 template <typename T>

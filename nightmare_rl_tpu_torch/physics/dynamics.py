@@ -102,9 +102,16 @@ def actuation(sys: S.System, qpos: torch.Tensor, qvel: torch.Tensor,
     force = torch.where(sys.actuator_forcelimited,
                         torch.clamp(force, fr[:, 0], fr[:, 1]), force)
     qfrc = torch.zeros_like(qvel).index_add_(1, trn_dof, gear * force)
-    # ∂qfrc/∂qvel (diagonal): gear² · b2
-    dvel = torch.zeros_like(qvel[0]).index_add_(0, trn_dof, gear**2 * bias[:, 2])
-    return ActOut(qfrc, force, dvel.expand_as(qvel))
+    return ActOut(qfrc, force, actuator_vel_deriv(sys, qvel[0]).expand_as(qvel))
+
+
+def actuator_vel_deriv(sys: S.System, like: torch.Tensor) -> torch.Tensor:
+    """∂qfrc_actuator/∂qvel (diagonal), gear² · b2 per dof: (nv,), of
+    ``like``'s dtype and device."""
+    trn_dof = S.index_tensor(
+        tuple(sys.jnt_dofadr[j] for j in sys.actuator_trnid), like.device)
+    return torch.zeros_like(like).index_add_(
+        0, trn_dof, sys.actuator_gear**2 * sys.actuator_biasprm[:, 2])
 
 
 def passive(sys: S.System, qvel: torch.Tensor) -> torch.Tensor:

@@ -3,32 +3,32 @@ Euler with or without implicit joint damping) + touch sensors (port of
 ``nightmare_rl_tpu/physics/pipeline.py``), the batched equivalent of
 ``mj_step`` with a decimation loop.
 
-The mass matrix is factored block-arrow where the tree is a free base with
-equal independent legs (``arrow.layout``; both bundled robots), and by dense
-Cholesky otherwise.  The layout and the factor go to the contact solve,
-whose assembly then gives each row its leg slots, so that PGS models can
-solve in the leg-sparse form (``solver.solve``).  As in the JAX package, ``NIGHTMARE_NO_WARMSTART`` (any
-non-empty value) starts every Newton solve from qacc_smooth instead of the
-previous step's qacc; it is read on every call.  ``forward`` and ``step``
-multiply at full float32 whatever the caller's TF32 settings.
+The smooth half of ``forward`` (kinematics to qfrc_smooth and the arrow
+factor) and the integrator's update of ``step`` are one kernel launch each
+on the card (``ops/smooth.py``, ``ops/integrate.py``), the plain functions
+on the CPU. The mass matrix is factored block-arrow where the tree is a
+free base with equal independent legs (``arrow.layout``; both bundled
+robots), and by dense Cholesky otherwise. The layout and the factor go to
+the contact solve, whose assembly then gives each row its leg slots, so
+that PGS models can solve in the leg-sparse form (``solver.solve``). As in
+the JAX package, ``NIGHTMARE_NO_WARMSTART`` (any non-empty value) starts
+every Newton solve from qacc_smooth instead of the previous step's qacc; it
+is read on every call. ``forward`` and ``step`` multiply at full float32
+whatever the caller's TF32 settings.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import NamedTuple, Optional
 
 import torch
 
-from nightmare_rl_tpu_torch.core import quat as Q
-from nightmare_rl_tpu_torch.ops import linalg
+from nightmare_rl_tpu_torch.ops import integrate, linalg, smooth
 from nightmare_rl_tpu_torch.physics import arrow, collision, dynamics
 from nightmare_rl_tpu_torch.physics import kinematics, solver
 from nightmare_rl_tpu_torch.physics import system as S
 from nightmare_rl_tpu_torch.utils.device import full_float32
-
-_MAXVAL = 1e10  # mjMAXVAL: larger or non-finite qpos/qvel resets the env
 
 
 class ForwardOut(NamedTuple):
@@ -68,22 +68,16 @@ def make_state(sys: S.System, num_envs: int) -> S.State:
 @full_float32()
 def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
     qpos, qvel = state.qpos, state.qvel
-    kin = kinematics.kinematics(sys, qpos)
-    vel = kinematics.com_vel(sys, kin, qvel)
-    M = dynamics.crb(sys, kin)
-    bias = dynamics.rne_bias(sys, kin, vel, qvel)
-    act = dynamics.actuation(sys, qpos, qvel, ctrl)
-    qfrc_smooth = act.qfrc_actuator + dynamics.passive(sys, qvel) - bias
-
-    # block-arrow factor where the tree allows it, dense Cholesky otherwise;
-    # exact algebra either way
+    # the smooth half in one launch on the card (ops/smooth.py): block-arrow
+    # factor and qacc_smooth where the tree allows it; dense Cholesky
+    # otherwise, exact algebra either way
     lay = arrow.layout(sys)
-    if lay is not None:
-        fac, M_chol = arrow.factor(lay, M), None
-        qacc_smooth = arrow.solve_vec(lay, fac, qfrc_smooth)
-    else:
-        fac, M_chol = None, linalg.chol(M)
-        qacc_smooth = linalg.cho_solve(M_chol, qfrc_smooth)
+    sm = smooth.smooth_forward(sys, lay, qpos, qvel, ctrl)
+    kin, M, fac, qacc_smooth = sm.kin, sm.M, sm.fac, sm.qacc_smooth
+    M_chol = None
+    if lay is None:
+        M_chol = linalg.chol(M)
+        qacc_smooth = linalg.cho_solve(M_chol, sm.qfrc_smooth)
 
     con = collision.find_contacts(sys, kin)
     pair = None
@@ -97,32 +91,8 @@ def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
     # touch sensors: per-contact normal force (Σ pyramid facet forces, or
     # the normal row of an elliptic cone)
     sensordata = sol.nforce @ sys.sensor_cpoint_matrix.T
-    return ForwardOut(kin, vel, M, M_chol, qfrc_smooth, qacc_smooth, con, sol,
-                      act, sensordata)
-
-
-def _integrate_pos(sys: S.System, qpos: torch.Tensor, qvel: torch.Tensor,
-                   dt) -> torch.Tensor:
-    """mj_integratePos: joint-type-aware position update."""
-    cols = list(qpos.unbind(1))
-    for j in range(sys.njnt):
-        qadr, dadr = sys.jnt_qposadr[j], sys.jnt_dofadr[j]
-        if sys.jnt_type[j] == S.FREE:
-            for k in range(3):
-                cols[qadr + k] = cols[qadr + k] + dt * qvel[:, dadr + k]
-            q = Q.integrate(qpos[:, qadr + 3:qadr + 7],
-                            qvel[:, dadr + 3:dadr + 6], dt)
-            cols[qadr + 3:qadr + 7] = q.unbind(1)
-        else:
-            cols[qadr] = cols[qadr] + dt * qvel[:, dadr]
-    return torch.stack(cols, dim=1)
-
-
-@functools.lru_cache(maxsize=None)
-def _euler_damped(sys: S.System) -> bool:
-    """Whether the Euler integrator treats joint damping implicitly (read
-    once per System, so the step never copies it to the host)."""
-    return bool(sys.eulerdamp) and bool((sys.dof_damping.cpu() > 0).any())
+    return ForwardOut(kin, sm.vel, M, M_chol, sm.qfrc_smooth, qacc_smooth, con,
+                      sol, sm.act, sensordata)
 
 
 @full_float32()
@@ -131,47 +101,19 @@ def step(sys: S.System, state: S.State, ctrl: torch.Tensor,
     """Advance physics by ``n_steps`` timesteps with constant ctrl (the
     decimation loop of the reference env)."""
     lay = arrow.layout(sys)
-
-    def spd_solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-        if lay is not None:
-            return arrow.solve_vec(lay, arrow.factor(lay, A), rhs)
-        return linalg.cho_solve(linalg.chol(A), rhs)
-
-    dt = sys.timestep
-    qpos0 = sys.qpos0
     for _ in range(n_steps):
         fwd = forward(sys, state, ctrl)
-        qfrc = fwd.qfrc_smooth + fwd.sol.qfrc_constraint
-        if sys.integrator == S.IMPLICITFAST:
-            # (M - h·∂f/∂v)·qacc = qfrc_smooth + qfrc_constraint, with the
-            # actuator (gear²·b2) and damping terms of the velocity derivative
-            deriv = fwd.act.vel_deriv - sys.dof_damping
-            Mhat = fwd.M - dt * torch.diag_embed(deriv)
-            qacc = spd_solve(Mhat, qfrc)
-            qvel = state.qvel + dt * qacc
-        elif _euler_damped(sys):
-            # mj_Euler with implicit joint damping:
-            # (M + h·diag(B)) v⁺ = M v + h·qfrc_total
-            MhB = fwd.M + dt * torch.diag(sys.dof_damping)
-            rhs = torch.einsum("nij,nj->ni", fwd.M, state.qvel) + dt * qfrc
-            qvel = spd_solve(MhB, rhs)
-        else:
-            qvel = state.qvel + dt * fwd.sol.qacc
-        qpos = _integrate_pos(sys, state.qpos, qvel, dt)
-
-        # mj_checkPos/mj_checkVel: non-finite or >mjMAXVAL values reset the
-        # env to the reference pose.  The reset frame keeps this step's
-        # sensordata and kinematics, as the JAX package does.
-        bad = ~(torch.isfinite(qpos).all(dim=1) & torch.isfinite(qvel).all(dim=1)
-                & (torch.abs(qpos).amax(dim=1) < _MAXVAL)
-                & (torch.abs(qvel).amax(dim=1) < _MAXVAL))[:, None]
-        qpos = torch.where(bad, qpos0, qpos)
-        qvel = torch.where(bad, torch.zeros_like(qvel), qvel)
+        # the integrator's solve, mj_integratePos and the mj_checkPos/
+        # mj_checkVel reset in one launch on the card (ops/integrate.py).
+        # The reset frame keeps this step's sensordata and kinematics, as
+        # the JAX package does.
+        qpos, qvel, qacc_warmstart = integrate.integrate_update(
+            sys, lay, state.qpos, state.qvel, fwd.M, fwd.qfrc_smooth,
+            fwd.sol.qfrc_constraint, fwd.sol.qacc)
         state = state.replace(
             qpos=qpos,
             qvel=qvel,
-            qacc_warmstart=torch.where(bad, torch.zeros_like(fwd.sol.qacc),
-                                       fwd.sol.qacc),
+            qacc_warmstart=qacc_warmstart,
             sensordata=fwd.sensordata,
             xpos=fwd.kin.xpos,
             xquat=fwd.kin.xquat,

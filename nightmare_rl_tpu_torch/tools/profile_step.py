@@ -2,7 +2,7 @@
 eager and as the replay of a CUDA graph.
 
     python -m nightmare_rl_tpu_torch.tools.profile_step [-e 2048] [--steps 4]
-        [--robot nightmare_v3|anymal_c] [--forms legs kernel]
+        [--robot nightmare_v3|anymal_c] [--forms legs kernel] [--by-module]
 
 For the robot's env at ``-e`` envs in float32 (the training CLI's
 configuration), with the PGS form that the solver's dispatch picks
@@ -18,9 +18,11 @@ within calls:
 - with ``torch.profiler``: the device time inside those steps, hence the
   device's busy share (of the faster turn's wall time), the number of
   kernels one step and one physics substep run, the kernels that take the
-  most device time, the PGS kernels' time (nightmare_v3) and the Newton
-  kernel's (``ops/csrc/newton.cu``, anymal_c's constraint solve) with its
-  share of the step's device time;
+  most device time, the PGS kernels' time (nightmare_v3), the Newton
+  kernel's (``ops/csrc/newton.cu``, anymal_c's constraint solve) and the
+  smooth and integrate kernels' (``ops/csrc/smooth.cu``,
+  ``ops/csrc/integrate.cu``), each with its launches and its share of the
+  step's device time;
 - the host synchronizations that one step makes
   (``torch.cuda.set_sync_debug_mode``);
 - the peak device memory of one step (``torch.cuda.max_memory_allocated``
@@ -40,20 +42,36 @@ object with these numbers (per form: ``eager`` and ``graph``,
 ``--forms``, a list ``forms`` of these objects) and the card's name: the
 per-layer breakdown that PERF.md's "Where the time goes" quotes.  A missing
 card raises.
+
+``--by-module`` instead profiles ``--steps`` eager env steps with each
+physics function that a step reaches wrapped, from this tool, in a
+``torch.profiler.record_function`` range (the physics code is not edited; a
+function the checkout lacks is left out, so the tool runs on earlier
+versions of the port too) and gives each kernel to the innermost range
+whose call launched it: per range, kernels and device ms per env step, the
+ranges named by their nesting
+(``pipeline.step/pipeline.forward/kinematics.kinematics``; the port's own
+kernels, which the profiler links to no op, go to the range of the wrapper
+that launches them); kernels outside every range are the env's own. Its
+last line is one JSON object ``{"by_module": {path: {"kernels": n,
+"device_ms": t}}, ...}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import importlib
 import json
 import os
 import time
 import warnings
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
 from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
@@ -102,14 +120,17 @@ def _profiled(step, steps: int, substeps: int) -> dict:
     pgs_ms = sum(e.self_device_time_total for e in kernels
                  if "pgs_kernel" in e.key or "pgs_legs_kernel" in e.key
                  ) / 1e3 / steps
-    newton = [e for e in kernels if "newton_kernel" in e.key]
-    newton_ms = sum(e.self_device_time_total for e in newton) / 1e3 / steps
+    out = {"device_busy_ms": device_ms, "kernels_per_step": launches,
+           "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms}
+    for name in ("newton", "smooth", "integrate"):
+        mine = [e for e in kernels if f"{name}_kernel" in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+        out.update({f"{name}_ms": ms,
+                    f"{name}_launches_per_step":
+                        sum(e.count for e in mine) / steps,
+                    f"{name}_share": ms / device_ms if device_ms else 0.0})
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return {"device_busy_ms": device_ms, "kernels_per_step": launches,
-            "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms,
-            "newton_ms": newton_ms,
-            "newton_launches_per_step": sum(e.count for e in newton) / steps,
-            "newton_share": newton_ms / device_ms if device_ms else 0.0,
+    return {**out,
             "top_kernels": [
                 {"device_ms_per_step": e.self_device_time_total / 1e3 / steps,
                  "launches_per_step": e.count / steps, "name": e.key}
@@ -177,10 +198,12 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
               f"({100 * r['device_busy_share']:.1f}% of the faster turn) in "
               f"{r['kernels_per_step']:.0f} kernels "
               f"({r['kernels_per_substep']:.0f} per substep); pgs kernel "
-              f"{r['pgs_ms']:.3f} ms; newton kernel {r['newton_ms']:.3f} ms "
-              f"in {r['newton_launches_per_step']:.0f} launches "
-              f"({100 * r['newton_share']:.1f}% of the device time); host "
-              f"syncs per step "
+              f"{r['pgs_ms']:.3f} ms; "
+              + "; ".join(f"{k} kernel {r[k + '_ms']:.3f} ms in "
+                          f"{r[k + '_launches_per_step']:.0f} launches "
+                          f"({100 * r[k + '_share']:.1f}% of the device time)"
+                          for k in ("newton", "smooth", "integrate"))
+              + "; host syncs per step "
               f"{r['host_syncs_per_step']}; peak device memory "
               f"{r['peak_mem_mib']:.1f} MiB")
         for e in r["top_kernels"]:
@@ -205,6 +228,143 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
     return out
 
 
+# the functions of one env step that --by-module wraps, by module of the
+# port; a function that a checkout lacks is skipped
+_MODULES = (
+    ("physics.kinematics", ("kinematics", "com_vel")),
+    ("physics.dynamics", ("crb", "rne_bias", "actuation", "passive")),
+    ("physics.arrow", ("factor", "solve_vec", "solve_lt", "inv")),
+    ("physics.collision", ("find_contacts", "find_pair_contacts")),
+    ("physics.solver", ("solve_contacts", "assemble", "_legmeta", "solve",
+                        "minv", "newton_solve")),
+    ("physics.pipeline", ("step", "forward", "_integrate_pos")),
+    ("ops.smooth", ("smooth_forward",)),
+    ("ops.integrate", ("integrate_update",)),
+)
+
+
+# the ranges of the wrappers that launch the port's own kernels
+_LAUNCHED_BY = (("smooth_kernel", "smooth.smooth_forward"),
+                ("integrate_kernel", "integrate.integrate_update"),
+                ("pgs_legs_kernel", "solver.solve"),
+                ("pgs_kernel", "solver.solve"),
+                ("newton_kernel", "solver.newton_solve"))
+
+
+@contextlib.contextmanager
+def module_ranges():
+    """Each function of ``_MODULES`` wrapped in a ``record_function`` range
+    named ``module.function`` while the block runs."""
+    saved = []
+    for modname, names in _MODULES:
+        try:
+            mod = importlib.import_module(f"nightmare_rl_tpu_torch.{modname}")
+        except ImportError:
+            continue
+        for name in names:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+            label = f"{modname.split('.')[-1]}.{name}"
+
+            @functools.wraps(fn, updated=())
+            def wrapped(*args, _fn=fn, _label=label, **kw):
+                with record_function(_label):
+                    return _fn(*args, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def by_module(step, steps: int) -> Dict[str, dict]:
+    """Kernels and device ms per call of ``step`` by the innermost
+    ``module_ranges`` range that launched them, keyed by the ranges'
+    nesting ("" for kernels outside every range)."""
+    step()
+    with module_ranges():
+        step()  # wrappers in place before the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    labels = {f"{m.split('.')[-1]}.{n}" for m, ns in _MODULES for n in ns}
+    acc: Dict[str, list] = {}
+
+    def walk(evt, path):
+        if evt.name in labels:
+            path = f"{path}/{evt.name}" if path else evt.name
+        for k in evt.kernels:
+            a = acc.setdefault(path, [0, 0.0])
+            a[0] += 1
+            a[1] += k.duration
+        for child in evt.cpu_children:
+            walk(child, path)
+
+    for evt in prof.events():
+        if evt.cpu_parent is None:
+            walk(evt, "")
+    # the port's own kernels launch through ctypes, which the profiler
+    # links to no op: each goes to the range of the wrapper that launches it
+    def path_of(evt):
+        names = []
+        while evt is not None:
+            if evt.name in labels:
+                names.append(evt.name)
+            evt = evt.cpu_parent
+        return "/".join(reversed(names))
+
+    paths = {path_of(e) for e in prof.events()
+             if e.name in labels and e.device_type == DeviceType.CPU}
+    linked: Dict[str, int] = {}
+    for evt in prof.events():
+        for k in evt.kernels:
+            linked[k.name] = linked.get(k.name, 0) + 1
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if linked.get(evt.name, 0) > 0:
+            linked[evt.name] -= 1
+            continue
+        label = next((lbl for key, lbl in _LAUNCHED_BY if key in evt.name),
+                     None)
+        if label is None:  # a device activity that is no kernel of the step
+            continue
+        path = min((p for p in paths if p.endswith(label)), key=len,
+                   default=label)
+        a = acc.setdefault(path, [0, 0.0])
+        a[0] += 1
+        a[1] += evt.time_range.elapsed_us()
+    return {path: {"kernels": n / steps, "device_ms": us / 1e3 / steps}
+            for path, (n, us) in sorted(acc.items(), key=lambda kv: -kv[1][1])}
+
+
+def _by_module_main(env, dev, steps: int) -> dict:
+    g = torch.Generator(device=dev).manual_seed(0)
+    box = {"state": env.reset(0)[0]}
+
+    def eager():
+        acts = 0.5 * torch.randn(env.num_envs, env.num_actions, generator=g,
+                                 device=dev)
+        box["state"] = env.step(box["state"], acts).state
+
+    rows = by_module(eager, steps)
+    name = torch.cuda.get_device_name(dev)
+    total = [sum(r[k] for r in rows.values()) for k in ("kernels", "device_ms")]
+    print(f"by-module: {name}, {env.num_envs} envs float32, eager env step: "
+          f"{total[0]:.0f} kernels, {total[1]:.3f} ms of device time")
+    for path, r in rows.items():
+        print(f"  {r['kernels']:7.0f} kernels {r['device_ms']:8.3f} ms  "
+              f"{path or '(the env outside the physics)'}")
+    return {"by_module": rows, "kernels": total[0], "device_ms": total[1]}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("-e", "--envs", type=int, default=2048)
@@ -214,6 +374,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--forms", nargs="+", choices=("legs", "kernel"),
                    help="measure each PGS form in turn in this process "
                         "(NIGHTMARE_PGS set for each)")
+    p.add_argument("--by-module", action="store_true",
+                   help="kernels and device ms of an eager env step by "
+                        "physics function")
     args = p.parse_args(argv)
     dev = resolve_device("cuda")
 
@@ -224,6 +387,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         env = NightmareV3Env(NightmareV3Cfg().replace(
             env=EnvCfg(num_envs=args.envs)), device=dev)
         substeps = env.cfg.control.decimation
+    if args.by_module:
+        result = {"device": torch.cuda.get_device_name(dev),
+                  "robot": args.robot, "envs": args.envs,
+                  **_by_module_main(env, dev, args.steps)}
+        print(json.dumps(result))
+        return result
     net = ActorCritic(env.num_obs, env.num_actions).to(dev)
     box = {}
     box["state"], box["obs"] = env.reset(0)

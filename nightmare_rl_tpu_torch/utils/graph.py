@@ -3,7 +3,7 @@ port's counterpart of the JAX package's jitted step and scanned rollout
 (``jax.jit(jax.vmap(self._step_one))``, ``lax.scan`` over the decimation
 loop and the rollout).
 
-Eagerly, a nightmare_v3 env step launches ~6,300 kernels from Python and
+Eagerly, a nightmare_v3 env step launches ~770 kernels from Python and
 the card waits on the host for most of it.  ``CapturedStep`` records the
 kernels of one call of a step function into a ``torch.cuda.CUDAGraph``
 and then replays them with one launch:
@@ -41,8 +41,9 @@ Capture, in the constructor on the card:
   at "error": a host synchronization, or an operation that capture
   refuses, raises naming the line of the port that made it.  There is no
   eager fallback;
-- the kernel wrappers' launch counters (``ops/pgs.py``, ``ops/newton.py``)
-  count the launches the graph holds once per replay, not at capture.
+- the kernel wrappers' launch counters (``ops/pgs.py``, ``ops/newton.py``,
+  ``ops/smooth.py``, ``ops/integrate.py``) count the launches the graph
+  holds once per replay, not at capture.
 
 Environment variables that a step reads (``NIGHTMARE_PGS``,
 ``NIGHTMARE_NO_WARMSTART``) are read at capture: the graph keeps the form
@@ -74,11 +75,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from nightmare_rl_tpu_torch.ops import pgs as P
+from nightmare_rl_tpu_torch.ops.integrate import integrate_update
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
+from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
 from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
-_COUNTED = (P.pgs, P.pgs_legs, newton_solve)
+_COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
+            integrate_update)
 
 
 def leaves(tree) -> List[torch.Tensor]:

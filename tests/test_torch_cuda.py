@@ -32,7 +32,11 @@ against the same call made eagerly from one state (feed-forward and
 recurrent: statistics, parameters, gradients, Adam's state, the lr, the
 permutation and the generator bit for bit), and the same for a
 ``ShardedPPO`` on an in-process world-1 NCCL mesh (its parts replayed,
-the all_reduce between them).  Tests that count the dense kernel's launches
+the all_reduce between them).  The smooth and integrate kernels
+(``ops/csrc/smooth.cu``, ``ops/csrc/integrate.cu``) against their plain
+versions on both robots and a dense-branch model and in each integrator
+branch, float64 and float32 at the smoke's tolerances, and their launches
+per replay of either robot's captured step.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -778,3 +782,84 @@ def test_sharded_captured_update_equals_eager_update(cuda, policy,
     assert all(v[0] for v in diffs.values()), diffs
     assert held["syncs"] == 0
     assert held["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["nightmare_v3", "anymal_c", "spheres_condim6"])
+def test_smooth_kernel_matches_plain(cuda, model, dtype):
+    """The smooth kernel against ``ops/smooth.py::plain`` at 37 envs with
+    diverged envs (NaN qvel, NaN joint angle), per env and field, as the
+    smoke's smooth-kernel phase holds it."""
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.physics import loader
+
+    sys_ = loader.load_system(model, dtype=dtype, device="cuda")
+    lay = arrow.layout(sys_)
+    args = smoke._smooth_inputs(sys_, 37, seed=4, dtype=dtype)
+    launches = SM.smooth_forward.launches
+    errs = smoke._field_errs(SM.plain(sys_, lay, *args),
+                             SM.smooth_forward(sys_, lay, *args))
+    tol = smoke.SMOOTH_F64_TOL if dtype == torch.float64 else smoke.SMOOTH_F32_TOL
+    assert all(e[2] for e in errs), errs
+    assert max(e[1] for e in errs) <= tol, errs
+    assert SM.smooth_forward.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("branch", ["implicitfast", "euler_damped", "euler"])
+def test_integrate_kernel_matches_plain(cuda, branch, dtype):
+    """The integrate kernel against ``ops/integrate.py::plain_update`` in
+    each integrator branch at 37 envs, a NaN env and one driven past 1e10
+    reset to the reference pose."""
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.ops import integrate as IN
+    from nightmare_rl_tpu_torch.physics import loader
+
+    name, change = {"implicitfast": ("nightmare_v3", {}),
+                    "euler_damped": ("anymal_c", {}),
+                    "euler": ("anymal_c", {"eulerdamp": False})}[branch]
+    sys_ = dataclasses.replace(
+        loader.load_system(name, dtype=dtype, device="cuda"), **change)
+    lay = arrow.layout(sys_)
+    args = smoke._update_inputs(sys_, lay, 37, 9, dtype)
+    got = IN.integrate_update(sys_, lay, *args)
+    errs = smoke._field_errs(IN.plain_update(sys_, lay, *args), got)
+    tol = smoke.SMOOTH_F64_TOL if dtype == torch.float64 else smoke.SMOOTH_F32_TOL
+    assert all(e[2] for e in errs) and max(e[1] for e in errs) <= tol, errs
+    assert torch.equal(got[0][0], sys_.qpos0)      # forces past 1e10
+    assert torch.equal(got[0][37 // 2], sys_.qpos0)  # NaN qvel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["nightmare_v3", "anymal_c"])
+def test_captured_step_launches_smooth_and_integrate(cuda, robot):
+    """One replay of either robot's captured env step launches the smooth
+    and the integrate kernel once per physics substep, and the wrappers'
+    counters count them."""
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.ops.integrate import integrate_update
+    from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
+    from nightmare_rl_tpu_torch.utils.graph import CapturedStep
+
+    if robot == "anymal_c":
+        env = AnymalCEnv(AnymalCCfg(num_envs=64), device="cuda")
+        dec = env.cfg.decimation
+    else:
+        env = NightmareV3Env(NightmareV3Cfg().replace(
+            env=EnvCfg(num_envs=64)), device="cuda")
+        dec = env.cfg.control.decimation
+    s0, _ = env.reset(0)
+    acts = torch.zeros(64, env.num_actions, device="cuda")
+    step = CapturedStep(env.step, s0, acts, generators=[env.generator],
+                        state_field="state")
+    assert step.launches["smooth_forward"] == dec
+    assert step.launches["integrate_update"] == dec
+    before = smooth_forward.launches, integrate_update.launches
+    step(s0, acts)
+    assert (smooth_forward.launches, integrate_update.launches) == (
+        before[0] + dec, before[1] + dec)

@@ -18,7 +18,9 @@ graph is held in tests/test_torch_cuda.py and chip_smoke.py):
 - the buffers refuse a call of another shape, and ``assign`` writes into
   buffers rather than rebinding them;
 - no captured step talks to the host: the nightmare_v3 and anymal_c env
-  steps, custom_play's control step, the PPO's learning half
+  steps (also with the smooth and integrate kernels' host drivers in
+  place of their wrappers, so the wrappers' road to a kernel is
+  watched), custom_play's control step, the PPO's learning half
   (``PPO._learn``), a ``ShardedPPO``'s (its captured parts, the
   reductions between them left out) and a rank's permutation at world 2
   (``Shard.perm``), each called once to warm up and then once under a
@@ -40,7 +42,9 @@ test_torch_checkpoint.py) run through the same code.
 """
 
 import dataclasses
+import shutil
 import traceback
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -53,6 +57,8 @@ from nightmare_rl_tpu_torch.core.config import (
 from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models import actor_critic as ac
+from nightmare_rl_tpu_torch.ops import integrate as IN
+from nightmare_rl_tpu_torch.ops import smooth as SM
 from nightmare_rl_tpu_torch.physics import pipeline
 from nightmare_rl_tpu_torch.rl.ppo import PPO, Transition
 from nightmare_rl_tpu_torch.utils import checkpoint
@@ -313,6 +319,34 @@ def _anymal_step():
     return call
 
 
+def _with_host_drivers(make):
+    """``make``'s step with the smooth and integrate wrappers replaced by
+    their kernels' host drivers (``ops/smooth.py::host_forward``,
+    ``ops/integrate.py::host_update``), which take the wrappers' own road
+    to the kernel (plan, static tables, layout, outputs) on CPU tensors:
+    after the warm-up it reads nothing to the host either."""
+    def factory():
+        if shutil.which("g++") is None:
+            pytest.skip("g++ is not installed: the host drivers cannot be built")
+        patches = [mock.patch.object(SM, "smooth_forward", SM.host_forward),
+                   mock.patch.object(IN, "integrate_update", IN.host_update)]
+        for p in patches:
+            p.start()
+        try:
+            call = make()
+        except BaseException:
+            for p in patches:
+                p.stop()
+            raise
+
+        def close():
+            for p in patches:
+                p.stop()
+        call.close = close
+        return call
+    return factory
+
+
 def _control_step():
     from nightmare_rl_tpu_torch.tools import custom_play
 
@@ -376,9 +410,13 @@ def _shard_perm():
 
 
 @pytest.mark.parametrize("make", [_nightmare_step, _anymal_step,
+                                  _with_host_drivers(_nightmare_step),
+                                  _with_host_drivers(_anymal_step),
                                   _control_step, _ppo_learn, _sharded_learn,
                                   _shard_perm],
                          ids=["nightmare_v3-step", "anymal_c-step",
+                              "nightmare_v3-step-host-drivers",
+                              "anymal_c-step-host-drivers",
                               "custom_play-control_step", "ppo-update",
                               "sharded-update", "shard-perm"])
 def test_step_makes_no_host_transfer(make):
