@@ -71,18 +71,22 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              to qfrc_smooth, the arrow factor and qacc_smooth) against its
              plain version (``ops/smooth.py::plain``) on the card:
              nightmare_v3, anymal_c and spheres_condim6 (no arrow layout)
-             at N = 1, 37, 2047, 2048 in float64 (SMOOTH_F64_TOL) and
-             float32 (SMOOTH_F32_TOL), per env and output field, with envs
-             whose qvel or a joint angle is NaN (NaN positions equal); then
-             on the slice's last smooth call, timed with its plain version,
-             and its bound;
+             at N = 1, 37, 2047, 2048, 4096 (two waves of 2,112) in
+             float64 (SMOOTH_F64_TOL) and float32 (SMOOTH_F32_TOL), per env
+             and output field, with envs whose qvel or a joint angle is NaN
+             (NaN positions equal); then on the slice's last smooth call,
+             timed with its plain version, and timed at that call's envs
+             and twice as many (the inputs repeated), each beside the
+             first design's time (FIRST_DESIGN_MS) and with its bound's
+             share;
 6c. integrate-kernel — the integrate kernel (``ops/csrc/integrate.cu``:
              the integrator's solve, integratePos and the reset) against
              ``ops/integrate.py::plain_update`` in each integrator branch
              (implicitfast: nightmare_v3; Euler with implicit damping and
              plain Euler: anymal_c) at the same N and dtypes, with a NaN
              env and one driven past 1e10 (both reset); then on the
-             slice's last update, timed, and its bound;
+             slice's last update, timed at its envs and twice as many
+             beside FIRST_DESIGN_MS, with its bound's share;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -369,7 +373,12 @@ EVAL_MIN_DUTY = 0.95         # every foot's share of steps down
 # round-off (eps 6e-8) amplified by the arrow solves' condition (~1e3)
 SMOOTH_F64_TOL = 1e-12
 SMOOTH_F32_TOL = 1e-4
-SMOOTH_NS = (1, 37, 2047, 2048)
+SMOOTH_NS = (1, 37, 2047, 2048, 4096)
+# The first design of the smooth and integrate kernels (commit fcb3049), ms
+# per launch alone with the L2 flushed at 2048 and 4096 envs (PERF.md §6:
+# this script and tools/profile_smooth.py on an NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's
+FIRST_DESIGN_MS = {"smooth": (0.0794, 0.1467), "integrate": (0.0367, 0.0543)}
 # kernel nodes of one captured env step at most (6,269 and 10,625 when the
 # smooth half and the update ran as plain torch ops)
 NODES_NIGHTMARE, NODES_ANYMAL = 1200, 3000
@@ -662,8 +671,8 @@ def phase_build() -> None:
                                  device="cuda")
     plan = SM.model_plan(hexapod, arrow.layout(hexapod))
     fits = []
-    for name, key in (("smooth", "w_elems"), ("integrate", "u_elems")):
-        geo = SM.geometry(plan.fields[key], 4, name)
+    for name in ("smooth", "integrate"):
+        geo = SM.kernel_geometry(plan.fields, 4, name)
         fits.append(SM.envs_per_sm(geo, torch.float32, name))
         print(f"build: {name} nightmare_v3 (nbody=20, nv=24, float32): one "
               f"warp per env, {geo.envs_per_block} envs per block, "
@@ -2683,22 +2692,32 @@ def phase_smooth_kernel(kept: dict, device_name: str, smi: str) -> dict:
     if rel > SMOOTH_F32_TOL or not all(e[2] for e in errs):
         raise AssertionError(f"smooth kernel disagrees on the slice's inputs: "
                              f"{errs}")
-    ms = _kernel_ms(lambda: SM.smooth_forward(sys_, lay, qpos, qvel, ctrl))
     plain_ms = _cuda_ms(lambda: SM.plain(sys_, lay, qpos, qvel, ctrl), 3, 1)
     host = [x.cpu()[:1] for x in (qpos, qvel, ctrl)]
     host_sys = _cpu_system(sys_)
-    ops = _plain_ops(lambda: SM.plain(host_sys, lay, *host)) * qpos.shape[0]
+    env_ops = _plain_ops(lambda: SM.plain(host_sys, lay, *host))
     tab = SM.tables(sys_, lay, qpos.dtype, qpos.device)
-    bound, by, nbytes = _smooth_bound(
-        [x for x in leaves(got) if x.stride(0) != 0], (qpos, qvel, ctrl),
-        (tab.topo, tab.cst), ops, qpos.dtype)
+    times = []
+    for reps in (1, 2):  # the slice's envs, and twice as many
+        args = [x.repeat(reps, 1) for x in (qpos, qvel, ctrl)]
+        ms = _kernel_ms(lambda: SM.smooth_forward(sys_, lay, *args))
+        outs = [x for x in leaves(SM.smooth_forward(sys_, lay, *args))
+                if x.stride(0) != 0]
+        times.append((args[0].shape[0], ms) + _smooth_bound(
+            outs, args, (tab.topo, tab.cst), env_ops * args[0].shape[0],
+            qpos.dtype))
+    (_, ms, bound, by, nbytes) = times[0]
     print(f"smooth-kernel: the slice's last smooth call ({qpos.shape[0]} envs "
           f"float32): max|err| {abs_err:.3e}, /max|field| {rel:.3e} (tol "
-          f"{SMOOTH_F32_TOL:g}); {ms:.4f} ms/launch (cold L2), plain "
-          f"{plain_ms:.3f} ms; "
-          f"bound {bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.2f} MB, "
-          f"{ops / 1e6:.1f} M operations) = {bound / ms:.1%} of it; "
-          f"{_smi_line(t0, device_name, smi)}")
+          f"{SMOOTH_F32_TOL:g}); plain {plain_ms:.3f} ms; ms/launch (cold "
+          f"L2) and bound: " + "; ".join(
+              f"{n} envs {t:.4f} (first design: {p:.4f}), bound "
+              f"{b * 1e3:.2f} us by {w} ({nb / 1e6:.2f} MB) = {b / t:.1%} of "
+              f"it (first design: {b / p:.1%})"
+              for (n, t, b, w, nb), p in zip(times,
+                                             FIRST_DESIGN_MS["smooth"]))
+          + f"; {env_ops * qpos.shape[0] / 1e6:.1f} M operations at "
+          f"{qpos.shape[0]}; {_smi_line(t0, device_name, smi)}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by)
 
@@ -2782,21 +2801,29 @@ def phase_integrate_kernel(kept: dict, device_name: str, smi: str) -> dict:
     if rel > SMOOTH_F32_TOL or not all(e[2] for e in errs):
         raise AssertionError(f"integrate kernel disagrees on the slice's "
                              f"inputs: {errs}")
-    ms = _kernel_ms(lambda: IN.integrate_update(sys_, lay, *args))
     plain_ms = _cuda_ms(lambda: IN.plain_update(sys_, lay, *args), 3, 1)
     host_sys = _cpu_system(sys_)
     host = [x.cpu()[:1] for x in args]
-    ops = (_plain_ops(lambda: IN.plain_update(host_sys, lay, *host))
-           * args[0].shape[0])
+    env_ops = _plain_ops(lambda: IN.plain_update(host_sys, lay, *host))
     tab = SM.tables(sys_, lay, args[0].dtype, args[0].device)
-    bound, by, nbytes = _smooth_bound(got, args, (tab.topo, tab.cst), ops,
-                                      args[0].dtype)
+    times = []
+    for reps in (1, 2):  # the slice's envs, and twice as many
+        xs = [x.repeat((reps,) + (1,) * (x.dim() - 1)) for x in args]
+        ms = _kernel_ms(lambda: IN.integrate_update(sys_, lay, *xs))
+        times.append((xs[0].shape[0], ms) + _smooth_bound(
+            IN.integrate_update(sys_, lay, *xs), xs, (tab.topo, tab.cst),
+            env_ops * xs[0].shape[0], args[0].dtype))
+    (_, ms, bound, by, nbytes) = times[0]
     print(f"integrate-kernel: the slice's last update ({args[0].shape[0]} envs "
-          f"float32): max|err| {abs_err:.3e}, /max|field| {rel:.3e}; "
-          f"{ms:.4f} ms/launch (cold L2), plain {plain_ms:.3f} ms; bound "
-          f"{bound * 1e3:.2f} us by {by} ({nbytes / 1e6:.2f} MB, "
-          f"{ops / 1e6:.1f} M operations) = {bound / ms:.1%} of it; "
-          f"{_smi_line(t0, device_name, smi)}")
+          f"float32): max|err| {abs_err:.3e}, /max|field| {rel:.3e}; plain "
+          f"{plain_ms:.3f} ms; ms/launch (cold L2) and bound: " + "; ".join(
+              f"{n} envs {t:.4f} (first design: {p:.4f}), bound "
+              f"{b * 1e3:.2f} us by {w} ({nb / 1e6:.2f} MB) = {b / t:.1%} of "
+              f"it (first design: {b / p:.1%})"
+              for (n, t, b, w, nb), p in zip(times,
+                                             FIRST_DESIGN_MS["integrate"]))
+          + f"; {env_ops * args[0].shape[0] / 1e6:.1f} M operations at "
+          f"{args[0].shape[0]}; {_smi_line(t0, device_name, smi)}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by)
 

@@ -18,14 +18,17 @@
 // What bounds it on an H100.  The bytes: per nightmare_v3 env it reads M
 // (576 values) and 6 vectors of 24-25 and writes 73 values, ~6 MB at 2048
 // envs in float32, ~2 us at 3.35 TB/s.  Per env it is a short chain (the
-// 3x3 leg factors and solves side by side, the 6x6 base factor and solve
-// in one lane), so latency bounds it in practice.
+// 3x3 leg factors and solves side by side, the 6x6 base factor and solve),
+// so latency bounds it in practice.
 //
-// The design: one warp per env, four envs per block, the env's M (with its
-// diagonal shifted) and the factor in shared memory; one lane per branch
-// for the leg blocks, one lane per entry of the Schur complement, one lane
-// per joint for the position update; every lane reads the env's reset
-// decision from the workspace.  No fast math.
+// The design (the first one: 28.0 us an env, of it the factor 14.1 and
+// the solve 5.8; tools/profile_smooth.py --timeline): one warp per env,
+// eight envs per block; the env's M copied to shared memory a column per
+// lane (its loads in flight together) with an odd row stride, so a lane
+// per row meets no bank twice, its diagonal shifted; the factor and solve
+// of smooth_env.cuh's arrow_factor_solve (a branch per lane in registers,
+// the Schur complement a row per lane); one lane per joint for the
+// position update; the reset decided by one warp vote.  No fast math.
 
 #include <cuda_runtime.h>
 
@@ -38,7 +41,16 @@ namespace {
 
 using smooth_env::Layout;
 using smooth_env::UpdateArgs;
-constexpr int kMaxEnvsPerBlock = 4;
+constexpr int kMaxEnvsPerBlock = 8;
+
+// Built with -DSMOOTH_TIMELINE (tools/profile_smooth.py --timeline), lane 0
+// of the warp of each of the first kTimelineEnvs envs stamps the card's
+// global timer (ns) at the ends of update_one's phases into g_timeline;
+// otherwise a stamp is nothing.
+#ifdef SMOOTH_TIMELINE
+constexpr int kTimelineEnvs = 8192, kStamps = smooth_env::kUpdateStamps;
+__device__ long long g_timeline[2 * kTimelineEnvs * kStamps];
+#endif
 
 template <typename T>
 __global__ void __launch_bounds__(common::kLanes * kMaxEnvsPerBlock)
@@ -50,7 +62,12 @@ __global__ void __launch_bounds__(common::kLanes * kMaxEnvsPerBlock)
   if (n >= a.N) return;
   T* ws = reinterpret_cast<T*>(smem_raw) +
           static_cast<size_t>(warp) * a.L.u_elems;
+#ifdef SMOOTH_TIMELINE
+  const common::StampedWarpTeam<kStamps, kTimelineEnvs> tm{{}, g_timeline, n};
+  smooth_env::update_one(tm, a, n, ws);
+#else
   smooth_env::update_one(common::WarpTeam{}, a, n, ws);
+#endif
 }
 
 template <typename T>
@@ -107,6 +124,21 @@ int launch(const int* layout, int nlayout, const int* topo, const T* cst,
 
 INTEGRATE_ENTRY(integrate_f32, float)
 INTEGRATE_ENTRY(integrate_f64, double)
+
+#ifdef SMOOTH_TIMELINE
+// The stamps of the last launch's first envs (kStamps per env) into out[n]
+// on the host: the global timer's (ns) with cycles 0, the SM's cycle
+// counter's with cycles 1.
+extern "C" int integrate_timeline(long long* out, int n, int cycles) {
+  if (n > kTimelineEnvs * kStamps) n = kTimelineEnvs * kStamps;
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_timeline, static_cast<size_t>(n) * sizeof(long long),
+      cycles ? sizeof(long long) * kTimelineEnvs * kStamps : 0));
+}
+
+// Stamps per env.
+extern "C" int integrate_timeline_stamps() { return kStamps; }
+#endif
 
 // Blocks of the kernel one SM holds at once with `smem` bytes of dynamic
 // shared memory and `envs_per_block` warps each, into *blocks.

@@ -1,5 +1,6 @@
 // What the kernels share at launch: the raise of a kernel's dynamic shared
-// memory above 48 KB, and a warp as smooth_env.cuh's team.
+// memory above 48 KB, and a warp as smooth_env.cuh's team (with timer
+// stamps, for a kernel built with a timeline).
 
 #pragma once
 
@@ -25,6 +26,37 @@ struct WarpTeam {
   __host__ __device__ void sync() const {
 #ifdef __CUDA_ARCH__
     __syncwarp();
+#endif
+  }
+  __host__ __device__ bool any(bool p) const {
+#ifdef __CUDA_ARCH__
+    return __any_sync(0xffffffffu, p) != 0;
+#else
+    return p;
+#endif
+  }
+  __host__ __device__ void stamp(int) const {}
+};
+
+// The team of a kernel built with a timeline: lane 0 of the warp of each of
+// the first Envs envs writes the card's global timer (ns) at stamp k into
+// row `env` of a device array of Stamps columns, and the SM's cycle
+// counter into the same place of the array's second half (Envs rows more).
+template <int Stamps, int Envs>
+struct StampedWarpTeam : WarpTeam {
+  long long* timeline;
+  int env;
+  __host__ __device__ void stamp(int k) const {
+#ifdef __CUDA_ARCH__
+    if ((threadIdx.x & (kLanes - 1)) == 0 && env < Envs) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      const long long at = static_cast<long long>(env) * Stamps + k;
+      timeline[at] = t;
+      timeline[static_cast<long long>(Envs) * Stamps + at] = clock64();
+    }
+#else
+    (void)k;
 #endif
   }
 };

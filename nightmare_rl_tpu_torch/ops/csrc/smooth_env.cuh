@@ -24,18 +24,25 @@
 //   rank(), size()  member rank (0 <= rank < size); a member owns the items
 //                   rank + k * size of a list;
 //   sync()          orders the members' workspace writes before the reads
-//                   that follow.
+//                   that follow;
+//   any(p)          true on every member if p is true on any (a vote; it
+//                   orders nothing);
+//   stamp(k)        records timer stamp k (SmoothStamp, UpdateStamp; only
+//                   a kernel built with -DSMOOTH_TIMELINE stamps, else it is
+//                   nothing).
 // The kernels' team is a warp (__syncwarp); the host driver's a number of
 // threads (a barrier).  Every item is computed by one member, each sum in
 // one member in a fixed order, so the results do not depend on the team's
 // size: the host driver at 1 and at 32 members and the kernel agree bit for
 // bit where the compilers round alike.
 //
-// The tree is walked a depth at a time (a level schedule made by the
-// wrapper, ops/smooth.py::_plan): the members take the bodies of one level,
-// so the hexapod's six legs run side by side; bottom-up sums take the
-// children of a body in descending index order, which is the order in which
-// the plain version's loop over bodies adds them.  Every static table
+// The tree is walked a round of chains at a time (a schedule made by the
+// wrapper, ops/smooth.py::model_plan): a member carries one chain of bodies
+// down (or up) in registers, so the hexapod's walk is the base, a sync,
+// then its six legs side by side; bottom-up sums take the children of a
+// body in descending index order, which is the order in which the plain
+// version's loop over bodies adds them.  The arrow factor and solve run a
+// branch per member in registers (arrow_factor_solve).  Every static table
 // (topology, model constants) and every offset into them and into an env's
 // workspace comes from the wrapper in a Layout, passed by value.
 //
@@ -62,17 +69,35 @@ constexpr int kFree = 0, kSlide = 2, kHinge = 3;
 constexpr int kEuler = 0, kImplicitFast = 1, kEulerDamped = 2;
 constexpr int kBase = 6;  // dofs of the free base of a block-arrow layout
 
-// The Layout's fields, in order: sizes, then offsets into the int32
+// Timer stamps (Team::stamp), each at the end of a phase: smooth_one's,
+// with one stamp per round of the body frames' walk (rounds past
+// kStampLevels share the last), and update_one's.  The velocities and the
+// accelerations are one walk: kStVel and kStAcc stamp its end together.
+constexpr int kStampLevels = 6;
+enum SmoothStamp {
+  kStStart, kStLoads, kStFrames,
+  kStInertial = kStFrames + kStampLevels, kStSubtree, kStCom, kStCinert,
+  kStVel, kStAcc, kStForces, kStComposite, kStFBias, kStMQfrc, kStFactor,
+  kStSolve, kStStores, kSmoothStamps
+};
+enum UpdateStamp {
+  kUpStart, kUpShift, kUpFactor, kUpSolve, kUpPos, kUpReset, kUpdateStamps
+};
+
+// The Layout's fields, in order: sizes (ntopo and ncst: the tables'
+// elements), then offsets into the int32
 // topology table (t_*), into the float constants table (c_*), into kernel
 // 1's per-env workspace (w_*) and into kernel 2's (u_*).  The wrapper reads
 // the names from the library (smooth_layout_names) and fills the fields by
 // name.
 #define SMOOTH_LAYOUT(X)                                                      \
-  X(nbody) X(njnt) X(nv) X(nq) X(nu) X(nlevel) X(nbranch) X(bsize) X(update)  \
-  X(t_parent) X(t_jntadr) X(t_jntnum) X(t_root) X(t_level_start)              \
-  X(t_level_body) X(t_child_start) X(t_child) X(t_jtype) X(t_qadr) X(t_dadr)  \
-  X(t_jbody) X(t_dof_body) X(t_mask) X(t_act_dof) X(t_act_qadr)               \
-  X(t_act_ctrllim) X(t_act_forcelim)                                          \
+  X(nbody) X(njnt) X(nv) X(nq) X(nu) X(nround) X(nbranch) X(bsize) X(update)  \
+  X(ntopo) X(ncst)                                                            \
+  X(t_parent) X(t_jntadr) X(t_jntnum) X(t_root) X(t_round_start)              \
+  X(t_chain_start) X(t_chain_body) X(t_child_start) X(t_child) X(t_jtype)     \
+  X(t_qadr) X(t_dadr) X(t_jbody) X(t_dof_body) X(t_mask) X(t_act_dof)         \
+  X(t_act_qadr) X(t_act_ctrllim) X(t_act_forcelim) X(t_dof_act_start)         \
+  X(t_dof_act)                                                                \
   X(c_body_pos) X(c_body_quat) X(c_body_ipos) X(c_body_iquat) X(c_mass)       \
   X(c_inertia) X(c_jnt_axis) X(c_jnt_pos) X(c_damping) X(c_armature)          \
   X(c_gravity) X(c_gear) X(c_gain) X(c_bias) X(c_ctrlrange) X(c_forcerange)   \
@@ -81,9 +106,9 @@ constexpr int kBase = 6;  // dofs of the free base of a block-arrow layout
   X(w_sub_mass) X(w_sub_mom) X(w_subtree_com) X(w_cinert) X(w_cdof)          \
   X(w_cvel) X(w_cdof_dot) X(w_F) X(w_M) X(w_cacc) X(w_cfrc)                  \
   X(w_force) X(w_qfrc_act) X(w_bias) X(w_qfrc) X(w_qpos) X(w_qvel) X(w_A)    \
-  X(w_Ld) X(w_W) X(w_Ls) X(w_y) X(w_x) X(w_elems)                             \
+  X(w_Ld) X(w_W) X(w_Ls) X(w_y) X(w_x) X(w_ctrl) X(w_elems)                  \
   X(u_M) X(u_A) X(u_Ld) X(u_W) X(u_Ls) X(u_rhs) X(u_y) X(u_x) X(u_qpos)      \
-  X(u_qvel) X(u_elems)
+  X(u_qvel) X(u_qfrc) X(u_qacc) X(u_qvel0) X(u_qpos0) X(u_elems)
 
 struct Layout {
 #define SMOOTH_FIELD(name) int name;
@@ -280,131 +305,208 @@ SMOOTH_HD T dot6(const T* a, const T* b) {
   return s;
 }
 
-// ---- physics/arrow.py's small routines, one member each ----------------
+// ---- physics/arrow.py's factor and solves -------------------------------
 
-// L = chol(A) by unrolled outer-product elimination (arrow.py::_chol): A
-// (n x n, row stride lda) is overwritten by the downdates; the strictly
-// upper part of L is the plain version's c * 0.
-template <typename T>
-SMOOTH_HD void chol(T* A, int lda, int n, T* L, int ldl) {
-  for (int j = 0; j < n; ++j) {
-    const T d = sqrt(A[j * lda + j]);
-    for (int i = 0; i < n; ++i) {
-      const T c = A[i * lda + j] / d;
-      L[i * ldl + j] = i >= j ? c : c * T(0);
-    }
-    for (int i = 0; i < n; ++i)
-      for (int k = 0; k < n; ++k)
-        A[i * lda + k] = A[i * lda + k] - L[i * ldl + j] * L[k * ldl + j];
+// Leg blocks of at most kMaxBlock dofs (ops/smooth.py::model_plan refuses
+// larger ones): a branch's factor and solves run in one member's registers.
+constexpr int kMaxBlock = 3;
+
+// L = chol(A) for an n x n A (n <= kN) held in registers (a, row stride
+// kN; overwritten), with chol's operations in chol's order
+// (arrow.py::_chol): each column of L (c = A[i][j] / sqrt(A[j][j]), c * 0
+// above the diagonal) goes to l and to Lout (row stride ldl), then every
+// entry of A takes its downdate (the last column's, which nothing reads, is
+// left out).
+template <int kN, typename T>
+SMOOTH_HD void chol_regs(T* a, int n, T* l, T* Lout, int ldl) {
+  for (int j = 0; j < kN; ++j) {
+    if (j >= n) break;
+    const T d = sqrt(a[j * kN + j]);
+    for (int i = 0; i < kN; ++i)
+      if (i < n) {
+        const T c = a[i * kN + j] / d;
+        l[i * kN + j] = i >= j ? c : c * T(0);
+        Lout[i * ldl + j] = l[i * kN + j];
+      }
+    if (j + 1 < n)
+      for (int i = 0; i < kN; ++i)
+        for (int k = 0; k < kN; ++k)
+          if (i < n && k < n)
+            a[i * kN + k] = a[i * kN + k] - l[i * kN + j] * l[k * kN + j];
   }
 }
 
-// X = L^-1 B in place (B: n x m, row stride ldb) (arrow.py::_solve_tril).
-template <typename T>
-SMOOTH_HD void solve_tril(const T* L, int ldl, int n, T* B, int ldb, int m) {
-  for (int i = 0; i < n; ++i)
-    for (int c = 0; c < m; ++c) {
-      T acc = B[i * ldb + c];
-      for (int k = 0; k < i; ++k) acc = acc - L[i * ldl + k] * B[k * ldb + c];
-      B[i * ldb + c] = acc / L[i * ldl + i];
+// v = L^-1 v, then (with both) v = L^-T v, for the n x n lower factor l
+// in registers (row stride kN), with the operations of arrow.py's
+// _solve_tril and _solve_triu.
+template <int kN, typename T>
+SMOOTH_HD void tri_solves(const T* l, int n, T* v, bool both) {
+  for (int i = 0; i < kN; ++i)
+    if (i < n) {
+      T acc = v[i];
+      for (int k = 0; k < i; ++k) acc = acc - l[i * kN + k] * v[k];
+      v[i] = acc / l[i * kN + i];
+    }
+  if (!both) return;
+  for (int i = kN - 1; i >= 0; --i)
+    if (i < n) {
+      T acc = v[i];
+      for (int k = i + 1; k < kN; ++k)
+        if (k < n) acc = acc - l[k * kN + i] * v[k];
+      v[i] = acc / l[i * kN + i];
     }
 }
 
-// X = L^-T B in place (arrow.py::_solve_triu).
-template <typename T>
-SMOOTH_HD void solve_triu(const T* L, int ldl, int n, T* B, int ldb, int m) {
-  for (int i = n - 1; i >= 0; --i)
-    for (int c = 0; c < m; ++c) {
-      T acc = B[i * ldb + c];
-      for (int k = i + 1; k < n; ++k)
-        acc = acc - L[k * ldl + i] * B[k * ldb + c];
-      B[i * ldb + c] = acc / L[i * ldl + i];
-    }
-}
-
-// The block-arrow factor of the nv x nv matrix M (workspace, row-major):
-// Ld_b = chol(D_b) and W_b = Ld_b^-1 C_b per branch (one member each),
-// then S = B6 - sum_b W_bᵀ W_b (one entry each) and Ls = chol(S) (one
-// member).  A holds nbranch * s * s + 36 scratch elements.
+// The block-arrow factor of the nv x nv matrix M (workspace, row stride
+// ldm) and x = M^-1 rhs (arrow.py::factor, arrow.py::solve_vec), with the
+// plain version's operations, in four steps a sync apart:
+//   1. one member per branch, in its registers: Ld_b = chol(D_b); then
+//      one member per column of W_b = Ld_b^-1 C_b and per y_b = Ld_b^-T
+//      Ld_b^-1 rhs_b;
+//   2. one member per entry of S = B6 - sum_b W_bᵀ W_b (into S, 36
+//      elements) and per base dof of rhs_base - Cᵀ y (into x);
+//   3. one member per row of S, in its registers: Ls = chol(S), a column
+//      at a time (the pivot and the column of L cross members through the
+//      workspace, two syncs a column; then stamp `stamp`); member 0, in
+//      its registers: x_base = Ls^-T Ls^-1 x_base;
+//   4. one member per branch: x_b = y_b - Ld_b^-T (W_b x_base).
+// Ld, W, Ls, y and x are written to the workspace; S holds kBase * kBase +
+// kBase + 1 elements.
 template <typename T, typename Team>
-SMOOTH_HD void arrow_factor(const Team& tm, const Layout& L, const T* M, T* A,
-                            T* Ld, T* W, T* Ls) {
-  const int nv = L.nv, B = L.nbranch, s = L.bsize;
-  for (int b = tm.rank(); b < B; b += tm.size()) {
-    T* Ab = A + b * s * s;
-    T* Wb = W + b * s * kBase;
+SMOOTH_HD void arrow_factor_solve(const Team& tm, const Layout& L, const T* M,
+                                  int ldm, const T* rhs, T* S, T* Ld, T* W,
+                                  T* Ls, T* y, T* x, int stamp) {
+  constexpr int kB = kMaxBlock;
+  const int B = L.nbranch, s = L.bsize, r = tm.rank(), sz = tm.size();
+  for (int b = r; b < B; b += sz) {
     const int r0 = kBase + b * s;
-    for (int i = 0; i < s; ++i) {
-      for (int k = 0; k < s; ++k) Ab[i * s + k] = M[(r0 + i) * nv + r0 + k];
-      for (int k = 0; k < kBase; ++k) Wb[i * kBase + k] = M[(r0 + i) * nv + k];
-    }
-    chol(Ab, s, s, Ld + b * s * s, s);
-    solve_tril(Ld + b * s * s, s, s, Wb, kBase, kBase);
+    T a[kB * kB], l[kB * kB];
+    for (int i = 0; i < kB; ++i)
+      for (int k = 0; k < kB; ++k)
+        if (i < s && k < s) a[i * kB + k] = M[(r0 + i) * ldm + r0 + k];
+    chol_regs<kB>(a, s, l, Ld + b * s * s, s);
   }
   tm.sync();
-  T* S = A + B * s * s;
-  for (int e = tm.rank(); e < kBase * kBase; e += tm.size()) {
-    const int i = e / kBase, j = e % kBase;
+  // item c < kBase of branch b: W_b's column c; item kBase: y_b
+  for (int e = r; e < B * (kBase + 1); e += sz) {
+    const int b = e / (kBase + 1), c = e - b * (kBase + 1), r0 = kBase + b * s;
+    T l[kB * kB], v[kB];
+    for (int i = 0; i < kB; ++i)
+      for (int k = 0; k <= i; ++k)
+        if (i < s) l[i * kB + k] = Ld[b * s * s + i * s + k];
+    for (int i = 0; i < kB; ++i)
+      if (i < s) v[i] = c < kBase ? M[(r0 + i) * ldm + c] : rhs[r0 + i];
+    tri_solves<kB>(l, s, v, c == kBase);
+    for (int i = 0; i < kB; ++i)
+      if (i < s) {
+        if (c < kBase)
+          W[(b * s + i) * kBase + c] = v[i];
+        else
+          y[b * s + i] = v[i];
+      }
+  }
+  tm.sync();
+  for (int e = r; e < kBase * kBase + kBase; e += sz) {
     T acc = T(0);
-    for (int r = 0; r < B * s; ++r) acc += W[r * kBase + i] * W[r * kBase + j];
-    S[e] = M[i * nv + j] - acc;
-  }
-  tm.sync();
-  if (tm.rank() == 0) chol(S, kBase, kBase, Ls, kBase);
-  tm.sync();
-}
-
-// x = M^-1 rhs from the arrow factor (arrow.py::solve_vec); M gives the
-// coupling C (rows kBase.., columns ..kBase); y holds nv - kBase elements.
-template <typename T, typename Team>
-SMOOTH_HD void arrow_solve(const Team& tm, const Layout& L, const T* M,
-                           const T* Ld, const T* W, const T* Ls, const T* rhs,
-                           T* y, T* x) {
-  const int nv = L.nv, B = L.nbranch, s = L.bsize;
-  for (int b = tm.rank(); b < B; b += tm.size()) {
-    T* yb = y + b * s;
-    for (int i = 0; i < s; ++i) yb[i] = rhs[kBase + b * s + i];
-    solve_tril(Ld + b * s * s, s, s, yb, 1, 1);
-    solve_triu(Ld + b * s * s, s, s, yb, 1, 1);
-  }
-  tm.sync();
-  if (tm.rank() == 0) {
-    for (int k = 0; k < kBase; ++k) {
-      T acc = T(0);
-      for (int r = 0; r < B * s; ++r) acc += M[(kBase + r) * nv + k] * y[r];
+    if (e < kBase * kBase) {
+      const int i = e / kBase, j = e % kBase;
+      for (int q = 0; q < B * s; ++q)
+        acc += W[q * kBase + i] * W[q * kBase + j];
+      S[e] = M[i * ldm + j] - acc;
+    } else {
+      const int k = e - kBase * kBase;
+      for (int q = 0; q < B * s; ++q) acc += M[(kBase + q) * ldm + k] * y[q];
       x[k] = rhs[k] - acc;
     }
-    solve_tril(Ls, kBase, kBase, x, 1, 1);
-    solve_triu(Ls, kBase, kBase, x, 1, 1);
   }
   tm.sync();
-  for (int b = tm.rank(); b < B; b += tm.size()) {
+  // chol's operations on S's rows i = r, r + size, ..., each in registers:
+  // c = S[i][j] / sqrt(S[j][j]) (c * 0 above the diagonal), then S[i][k] -
+  // L[i][j] L[k][j]
+  T* piv = S + kBase * kBase;  // the pivot, then the column of L
+  T rows[kBase][kBase];
+  for (int q = 0; q < kBase; ++q)
+    if (r + q * sz < kBase)
+      for (int k = 0; k < kBase; ++k) rows[q][k] = S[(r + q * sz) * kBase + k];
+  for (int j = 0; j < kBase; ++j) {
+    for (int q = 0; q < kBase; ++q)
+      if (r + q * sz == j) piv[0] = rows[q][j];
+    tm.sync();
+    const T d = sqrt(piv[0]);
+    for (int q = 0; q < kBase; ++q) {
+      const int i = r + q * sz;
+      if (i < kBase) {
+        const T c = rows[q][j] / d;
+        piv[1 + i] = i >= j ? c : c * T(0);
+        Ls[i * kBase + j] = piv[1 + i];
+      }
+    }
+    tm.sync();
+    if (j + 1 < kBase)
+      for (int q = 0; q < kBase; ++q) {
+        const int i = r + q * sz;
+        if (i < kBase)
+          for (int k = 0; k < kBase; ++k)
+            rows[q][k] = rows[q][k] - piv[1 + i] * piv[1 + k];
+      }
+  }
+  tm.stamp(stamp);
+  if (r == 0) {
+    T l[kBase * kBase], v[kBase];
+    for (int k = 0; k < kBase * kBase; ++k) l[k] = Ls[k];
+    for (int k = 0; k < kBase; ++k) v[k] = x[k];
+    tri_solves<kBase>(l, kBase, v, true);
+    for (int k = 0; k < kBase; ++k) x[k] = v[k];
+  }
+  tm.sync();
+  for (int b = r; b < B; b += sz) {
     T* xb = x + kBase + b * s;
     const T* Wb = W + b * s * kBase;
-    for (int i = 0; i < s; ++i) {
-      T acc = Wb[i * kBase] * x[0];
-      for (int k = 1; k < kBase; ++k) acc += Wb[i * kBase + k] * x[k];
-      xb[i] = acc;
-    }
-    solve_triu(Ld + b * s * s, s, s, xb, 1, 1);
-    for (int i = 0; i < s; ++i) xb[i] = y[b * s + i] - xb[i];
+    T l[kB * kB], v[kB];
+    for (int i = 0; i < kB; ++i)
+      for (int k = 0; k < kB; ++k)
+        if (i < s && k <= i) l[i * kB + k] = Ld[b * s * s + i * s + k];
+    for (int i = 0; i < kB; ++i)
+      if (i < s) {
+        T acc = Wb[i * kBase] * x[0];
+        for (int k = 1; k < kBase; ++k) acc += Wb[i * kBase + k] * x[k];
+        v[i] = acc;
+      }
+    for (int i = kB - 1; i >= 0; --i)
+      if (i < s) {
+        T acc = v[i];
+        for (int k = i + 1; k < kB; ++k)
+          if (k < s) acc = acc - l[k * kB + i] * v[k];
+        v[i] = acc / l[i * kB + i];
+      }
+    for (int i = 0; i < kB; ++i)
+      if (i < s) xb[i] = y[b * s + i] - v[i];
   }
   tm.sync();
 }
 
 // ---- kernel 1: one env's smooth dynamics ---------------------------------
 
-// Forward kinematics of body b from its parent's frame (kinematics.py:52).
+// The tree walks.  Bodies 1.. form chains (ops/smooth.py::model_plan): a
+// chain runs down from its head through bodies that have one child each
+// and ends at a leaf or at a body with two or more children, each of which
+// heads a chain of the next round; round 0's heads are the world's
+// children.  A round's chains run side by side, one member each, the
+// chain's running values (a frame, a velocity) in registers, and a sync
+// ends the round: the hexapod's walk is the base, then the six legs.
+
+// Forward kinematics of body b from its parent's frame (kinematics.py:52):
+// pos and qt come in as the parent's and leave as b's, which are also
+// written to the workspace.
 template <typename T>
-SMOOTH_HD void body_frame(const Layout& L, const int* tp, const T* cst,
-                          const T* qpos, T* ws, int b) {
-  const int p = tp[L.t_parent + b];
-  T* xpos = ws + L.w_xpos;
-  T* xquat = ws + L.w_xquat;
-  T pos[3], qt[4], r[3], t[4];
-  rotate(cst + L.c_body_pos + 3 * b, xquat + 4 * p, r);
-  for (int k = 0; k < 3; ++k) pos[k] = xpos[3 * p + k] + r[k];
-  mul(xquat + 4 * p, cst + L.c_body_quat + 4 * b, qt);
+SMOOTH_HD void body_frame(const Layout& L, const int* __restrict__ tp,
+                          const T* __restrict__ cst, const T* qpos, T* ws,
+                          int b, T* pos, T* qt) {
+  T r[3], t[4];
+  rotate(cst + L.c_body_pos + 3 * b, qt, r);
+  for (int k = 0; k < 3; ++k) pos[k] = pos[k] + r[k];
+  mul(qt, cst + L.c_body_quat + 4 * b, t);
+  for (int k = 0; k < 4; ++k) qt[k] = t[k];
   const int j0 = tp[L.t_jntadr + b], j1 = j0 + tp[L.t_jntnum + b];
   for (int j = j0; j < j1; ++j) {
     const int jt = tp[L.t_jtype + j], qa = tp[L.t_qadr + j];
@@ -420,16 +522,17 @@ SMOOTH_HD void body_frame(const Layout& L, const int* tp, const T* cst,
         xaxis[k] = axis[k];
       }
     } else if (jt == kHinge) {
-      T aw[3], dq[4];
+      T aw[3], dq[4], an[3];
       rotate(jpos, qt, r);
-      for (int k = 0; k < 3; ++k) anchor[k] = pos[k] + r[k];
+      for (int k = 0; k < 3; ++k) an[k] = pos[k] + r[k];
       rotate(axis, qt, aw);
       from_axis_angle(axis, qpos[qa], dq);
       mul(qt, dq, t);
       for (int k = 0; k < 4; ++k) qt[k] = t[k];
       rotate(jpos, qt, r);
       for (int k = 0; k < 3; ++k) {
-        pos[k] = anchor[k] - r[k];
+        pos[k] = an[k] - r[k];
+        anchor[k] = an[k];
         xaxis[k] = aw[k];
       }
     } else {  // kSlide
@@ -442,19 +545,20 @@ SMOOTH_HD void body_frame(const Layout& L, const int* tp, const T* cst,
       }
     }
   }
-  for (int k = 0; k < 3; ++k) xpos[3 * b + k] = pos[k];
-  for (int k = 0; k < 4; ++k) xquat[4 * b + k] = qt[k];
+  for (int k = 0; k < 3; ++k) ws[L.w_xpos + 3 * b + k] = pos[k];
+  for (int k = 0; k < 4; ++k) ws[L.w_xquat + 4 * b + k] = qt[k];
 }
 
-// cvel[b] and the cdof_dot of b's dofs from the parent's cvel
-// (kinematics.py::com_vel).
+// cvel[b], the cdof_dot of b's dofs and cacc[b] (kinematics.py::com_vel,
+// dynamics.py::rne_bias's forward pass): v and acc come in as the parent's
+// cvel and cacc and leave as b's, which are also written to the workspace.
+// acc takes each joint's cdof_dot terms as soon as they are made, in the
+// plain version's order (joints, then dofs, ascending).
 template <typename T>
-SMOOTH_HD void body_vel(const Layout& L, const int* tp, const T* qvel, T* ws,
-                        int b) {
+SMOOTH_HD void body_motion(const Layout& L, const int* __restrict__ tp,
+                           const T* qvel, T* ws, int b, T* v, T* acc) {
   const T* cdof = ws + L.w_cdof;
   T* cdd = ws + L.w_cdof_dot;
-  T v[6];
-  for (int k = 0; k < 6; ++k) v[k] = ws[L.w_cvel + 6 * tp[L.t_parent + b] + k];
   const int j0 = tp[L.t_jntadr + b], j1 = j0 + tp[L.t_jntnum + b];
   for (int j = j0; j < j1; ++j) {
     const int d = tp[L.t_dadr + j];
@@ -463,94 +567,195 @@ SMOOTH_HD void body_vel(const Layout& L, const int* tp, const T* qvel, T* ws,
         v[k] = v[k] + cdof[6 * d + k] * qvel[d] +
                cdof[6 * (d + 1) + k] * qvel[d + 1] +
                cdof[6 * (d + 2) + k] * qvel[d + 2];
+      T c[3][6];
       for (int i = 0; i < 3; ++i) {
         for (int k = 0; k < 6; ++k) cdd[6 * (d + i) + k] = T(0);
-        motion_cross(v, cdof + 6 * (d + 3 + i), cdd + 6 * (d + 3 + i));
+        motion_cross(v, cdof + 6 * (d + 3 + i), c[i]);
+        for (int k = 0; k < 6; ++k) cdd[6 * (d + 3 + i) + k] = c[i][k];
       }
       for (int k = 0; k < 6; ++k)
         v[k] = v[k] + cdof[6 * (d + 3) + k] * qvel[d + 3] +
                cdof[6 * (d + 4) + k] * qvel[d + 4] +
                cdof[6 * (d + 5) + k] * qvel[d + 5];
+      for (int i = 0; i < 3; ++i)
+        for (int k = 0; k < 6; ++k) acc[k] = acc[k] + T(0) * qvel[d + i];
+      for (int i = 0; i < 3; ++i)
+        for (int k = 0; k < 6; ++k)
+          acc[k] = acc[k] + c[i][k] * qvel[d + 3 + i];
     } else {
-      motion_cross(v, cdof + 6 * d, cdd + 6 * d);
-      for (int k = 0; k < 6; ++k) v[k] = v[k] + cdof[6 * d + k] * qvel[d];
+      T c[6];
+      motion_cross(v, cdof + 6 * d, c);
+      for (int k = 0; k < 6; ++k) {
+        cdd[6 * d + k] = c[k];
+        v[k] = v[k] + cdof[6 * d + k] * qvel[d];
+        acc[k] = acc[k] + c[k] * qvel[d];
+      }
     }
   }
-  for (int k = 0; k < 6; ++k) ws[L.w_cvel + 6 * b + k] = v[k];
-}
-
-// cacc[b] from the parent's (dynamics.py::rne_bias, forward pass).
-template <typename T>
-SMOOTH_HD void body_acc(const Layout& L, const int* tp, const T* qvel, T* ws,
-                        int b) {
-  const T* cdd = ws + L.w_cdof_dot;
-  T a[6];
-  for (int k = 0; k < 6; ++k) a[k] = ws[L.w_cacc + 6 * tp[L.t_parent + b] + k];
-  const int j0 = tp[L.t_jntadr + b], j1 = j0 + tp[L.t_jntnum + b];
-  for (int j = j0; j < j1; ++j) {
-    const int d = tp[L.t_dadr + j];
-    const int n = tp[L.t_jtype + j] == kFree ? 6 : 1;
-    for (int i = 0; i < n; ++i)
-      for (int k = 0; k < 6; ++k)
-        a[k] = a[k] + cdd[6 * (d + i) + k] * qvel[d + i];
+  for (int k = 0; k < 6; ++k) {
+    ws[L.w_cvel + 6 * b + k] = v[k];
+    ws[L.w_cacc + 6 * b + k] = acc[k];
   }
-  for (int k = 0; k < 6; ++k) ws[L.w_cacc + 6 * b + k] = a[k];
 }
 
-// x[p] += x[c] for the children c of each body p of level `lvl`, in
-// descending index order, `width` elements per body; with `skip_world`,
-// the world body (0) receives nothing.
+// Bodies of a chain that a member holds in registers in a bottom-up sum.
+constexpr int kMaxChain = 4;
+
+// x[b] += the sum of x over b's children, the children in descending index
+// order (the order of the plain version's loop over bodies), bottom-up, for
+// two fields at once (x1, w1 values per body; x2, w2), for every body but
+// the world, and the world too with `world`.  A round's chains each take a
+// group of members (size / chains of them, or one member several chains),
+// which share the chain's values; a member walks its chain from the end up
+// for each of its values: the chain's last body gathers its children
+// (heads of the next round, done), every other body its one child, the
+// running sum in a register.
 template <typename T, typename Team>
-SMOOTH_HD void gather_children(const Team& tm, const Layout& L, const int* tp,
-                               T* x, int width, int lvl) {
-  const int i0 = tp[L.t_level_start + lvl], i1 = tp[L.t_level_start + lvl + 1];
-  const int n = (i1 - i0) * width;
-  for (int e = tm.rank(); e < n; e += tm.size()) {
-    const int p = tp[L.t_level_body + i0 + e / width], k = e % width;
-    const int c0 = tp[L.t_child_start + p], c1 = tp[L.t_child_start + p + 1];
-    T acc = x[p * width + k];
-    for (int c = c0; c < c1; ++c) acc = acc + x[tp[L.t_child + c] * width + k];
-    x[p * width + k] = acc;
+SMOOTH_HD void tree_sums(const Team& tm, const Layout& L,
+                         const int* __restrict__ tp, T* x1, int w1, T* x2,
+                         int w2, bool world) {
+  const int w = w1 + w2, r = tm.rank(), sz = tm.size();
+  for (int rd = L.nround - 1; rd >= 0; --rd) {
+    const int c0 = tp[L.t_round_start + rd];
+    const int nch = tp[L.t_round_start + rd + 1] - c0;
+    const int per = sz >= nch ? sz / nch : 1, groups = sz >= nch ? nch : sz;
+    for (int g = r / per; g < nch && r < per * groups; g += groups) {
+      const int c = c0 + g;
+      const int i0 = tp[L.t_chain_start + c], i1 = tp[L.t_chain_start + c + 1];
+      const int last = tp[L.t_chain_body + i1 - 1];
+      const int ch0 = tp[L.t_child_start + last];
+      const int ch1 = tp[L.t_child_start + last + 1];
+      const int nb = i1 - i0;
+      int bod[kMaxChain];  // a short chain's bodies, in registers
+      for (int q = 0; q < kMaxChain; ++q)
+        bod[q] = q < nb ? tp[L.t_chain_body + i0 + q] : 0;
+      for (int k = r % per; k < w; k += per) {
+        T* x = k < w1 ? x1 : x2;
+        const int wk = k < w1 ? w1 : w2, kk = k < w1 ? k : k - w1;
+        T acc = x[last * wk + kk];
+        for (int ch = ch0; ch < ch1; ++ch)
+          acc = acc + x[tp[L.t_child + ch] * wk + kk];
+        x[last * wk + kk] = acc;
+        if (nb <= kMaxChain) {  // the chain's values loaded at once
+          T v[kMaxChain];
+          for (int q = 0; q < kMaxChain - 1; ++q)
+            if (q < nb - 1) v[q] = x[bod[q] * wk + kk];
+          for (int q = kMaxChain - 2; q >= 0; --q)
+            if (q < nb - 1) {
+              acc = v[q] + acc;
+              x[bod[q] * wk + kk] = acc;
+            }
+          continue;
+        }
+        for (int i = i1 - 2; i >= i0; --i) {
+          const int b = tp[L.t_chain_body + i];
+          acc = x[b * wk + kk] + acc;
+          x[b * wk + kk] = acc;
+        }
+      }
+    }
+    tm.sync();
   }
+  if (!world) return;
+  for (int k = r; k < w; k += sz) {
+    T* x = k < w1 ? x1 : x2;
+    const int wk = k < w1 ? w1 : w2, kk = k < w1 ? k : k - w1;
+    T acc = x[kk];
+    for (int ch = tp[L.t_child_start]; ch < tp[L.t_child_start + 1]; ++ch)
+      acc = acc + x[tp[L.t_child + ch] * wk + kk];
+    x[kk] = acc;
+  }
+  tm.sync();
+}
+
+// Runs chain c of the walk down its bodies (frames), from the workspace's
+// values of the head's parent.
+template <typename T>
+SMOOTH_HD void chain_frames(const Layout& L, const int* __restrict__ tp,
+                            const T* __restrict__ cst, const T* qpos, T* ws,
+                            int c) {
+  const int i0 = tp[L.t_chain_start + c], i1 = tp[L.t_chain_start + c + 1];
+  const int p = tp[L.t_parent + tp[L.t_chain_body + i0]];
+  T pos[3], qt[4];
+  for (int k = 0; k < 3; ++k) pos[k] = ws[L.w_xpos + 3 * p + k];
+  for (int k = 0; k < 4; ++k) qt[k] = ws[L.w_xquat + 4 * p + k];
+  for (int i = i0; i < i1; ++i)
+    body_frame(L, tp, cst, qpos, ws, tp[L.t_chain_body + i], pos, qt);
+}
+
+// The same for the velocities and accelerations.
+template <typename T>
+SMOOTH_HD void chain_motion(const Layout& L, const int* __restrict__ tp,
+                            const T* qvel, T* ws, int c) {
+  const int i0 = tp[L.t_chain_start + c], i1 = tp[L.t_chain_start + c + 1];
+  const int p = tp[L.t_parent + tp[L.t_chain_body + i0]];
+  T v[6], acc[6];
+  for (int k = 0; k < 6; ++k) {
+    v[k] = ws[L.w_cvel + 6 * p + k];
+    acc[k] = ws[L.w_cacc + 6 * p + k];
+  }
+  for (int i = i0; i < i1; ++i)
+    body_motion(L, tp, qvel, ws, tp[L.t_chain_body + i], v, acc);
 }
 
 // Output k's block of env n (len values per env) from the workspace at
-// off, by consecutive members; called once the field is final, after a
+// src, by consecutive members; called once the field is final, after a
 // sync.
 template <typename T, typename Team>
 SMOOTH_HD void store(const Team& tm, const SmoothArgs<T>& a, int k, int n,
                      const T* src, int len) {
   T* dst = a.out[k] + static_cast<long long>(n) * len;
-  for (int i = tm.rank(); i < len; i += tm.size()) dst[i] = src[i];
+  const int sz = tm.size();
+  // four loads in flight, the loops kept rolled: the kernel's code, which
+  // a cold launch fetches once, stays small
+  int i = tm.rank();
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
+  for (; i + 3 * sz < len; i += 4 * sz) {
+    T v[4];
+    for (int q = 0; q < 4; ++q) v[q] = src[i + q * sz];
+    for (int q = 0; q < 4; ++q) dst[i + q * sz] = v[q];
+  }
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+#endif
+  for (; i < len; i += sz) dst[i] = src[i];
 }
 
+// The tables tp and cst are a.topo and a.cst or copies of them (the kernel
+// stages them in shared memory).
 template <typename T, typename Team>
 SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
-                          T* ws) {
+                          T* ws, const int* tp, const T* cst) {
   const Layout& L = a.L;
-  const int* tp = a.topo;
-  const T* cst = a.cst;
   const int nb = L.nbody, nj = L.njnt, nv = L.nv, nu = L.nu, r = tm.rank(),
             sz = tm.size();
+  tm.stamp(kStStart);
   T* qpos = ws + L.w_qpos;
   T* qvel = ws + L.w_qvel;
+  T* ctrl = ws + L.w_ctrl;
   for (int i = r; i < L.nq; i += sz) qpos[i] = a.qpos[n * L.nq + i];
   for (int i = r; i < nv; i += sz) qvel[i] = a.qvel[n * nv + i];
+  for (int i = r; i < nu; i += sz) ctrl[i] = a.ctrl[n * nu + i];
   if (r == 0) {  // the world body
     for (int k = 0; k < 3; ++k) ws[L.w_xpos + k] = T(0);
     ws[L.w_xquat] = T(1);
     for (int k = 1; k < 4; ++k) ws[L.w_xquat + k] = T(0);
   }
   tm.sync();
+  tm.stamp(kStLoads);
 
-  // body frames, a level at a time
-  for (int lvl = 1; lvl < L.nlevel; ++lvl) {
-    const int i0 = tp[L.t_level_start + lvl], i1 = tp[L.t_level_start + lvl + 1];
-    for (int i = i0 + r; i < i1; i += sz)
-      body_frame(L, tp, cst, qpos, ws, tp[L.t_level_body + i]);
+  // body frames, a round of chains at a time
+  for (int rd = 0; rd < L.nround; ++rd) {
+    for (int c = tp[L.t_round_start + rd] + r;
+         c < tp[L.t_round_start + rd + 1]; c += sz)
+      chain_frames(L, tp, cst, qpos, ws, c);
     tm.sync();
+    tm.stamp(kStFrames + (rd < kStampLevels ? rd : kStampLevels - 1));
   }
-  // inertial frames and the subtree moments' seeds
+  for (int rd = L.nround; rd < kStampLevels; ++rd) tm.stamp(kStFrames + rd);
+  // inertial frames and the subtree sums' seeds (mass, then mass * xipos)
   for (int b = r; b < nb; b += sz) {
     T t[4], q[4];
     T* xipos = ws + L.w_xipos + 3 * b;
@@ -564,12 +769,10 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
     for (int k = 0; k < 3; ++k) ws[L.w_sub_mom + 3 * b + k] = m * xipos[k];
   }
   tm.sync();
+  tm.stamp(kStInertial);
   // subtree masses and moments, bottom-up
-  for (int lvl = L.nlevel - 2; lvl >= 0; --lvl) {
-    gather_children(tm, L, tp, ws + L.w_sub_mass, 1, lvl);
-    gather_children(tm, L, tp, ws + L.w_sub_mom, 3, lvl);
-    tm.sync();
-  }
+  tree_sums(tm, L, tp, ws + L.w_sub_mass, 1, ws + L.w_sub_mom, 3, true);
+  tm.stamp(kStSubtree);
   for (int e = r; e < 3 * nb; e += sz)
     ws[L.w_subtree_com + e] =
         ws[L.w_sub_mom + e] / clamp_min(ws[L.w_sub_mass + e / 3], T(1e-12));
@@ -581,6 +784,7 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
   store(tm, a, kXanchor, n, ws + L.w_xanchor, 3 * nj);
   store(tm, a, kXaxis, n, ws + L.w_xaxis, 3 * nj);
   store(tm, a, kSubtreeCom, n, ws + L.w_subtree_com, 3 * nb);
+  tm.stamp(kStCom);
 
   // cinert about each tree's com (one body per member)
   for (int b = r; b < nb; b += sz) {
@@ -631,30 +835,26 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
     }
   }
   if (r == 0)
-    for (int k = 0; k < 6; ++k) ws[L.w_cvel + k] = T(0);
+    for (int k = 0; k < 6; ++k) {
+      ws[L.w_cvel + k] = T(0);
+      ws[L.w_cacc + k] = k < 3 ? T(0) : -cst[L.c_gravity + k - 3];
+    }
   tm.sync();
   store(tm, a, kCinert, n, ws + L.w_cinert, 36 * nb);
   store(tm, a, kCdof, n, ws + L.w_cdof, 6 * nv);
+  tm.stamp(kStCinert);
 
-  // cvel and cdof_dot, then cacc, a level at a time
-  for (int lvl = 1; lvl < L.nlevel; ++lvl) {
-    const int i0 = tp[L.t_level_start + lvl], i1 = tp[L.t_level_start + lvl + 1];
-    for (int i = i0 + r; i < i1; i += sz)
-      body_vel(L, tp, qvel, ws, tp[L.t_level_body + i]);
+  // cvel, cdof_dot and cacc, a round of chains at a time
+  for (int rd = 0; rd < L.nround; ++rd) {
+    for (int c = tp[L.t_round_start + rd] + r;
+         c < tp[L.t_round_start + rd + 1]; c += sz)
+      chain_motion(L, tp, qvel, ws, c);
     tm.sync();
   }
-  if (r == 0)
-    for (int k = 0; k < 6; ++k)
-      ws[L.w_cacc + k] = k < 3 ? T(0) : -cst[L.c_gravity + k - 3];
-  tm.sync();
   store(tm, a, kCvel, n, ws + L.w_cvel, 6 * nb);
   store(tm, a, kCdofDot, n, ws + L.w_cdof_dot, 6 * nv);
-  for (int lvl = 1; lvl < L.nlevel; ++lvl) {
-    const int i0 = tp[L.t_level_start + lvl], i1 = tp[L.t_level_start + lvl + 1];
-    for (int i = i0 + r; i < i1; i += sz)
-      body_acc(L, tp, qvel, ws, tp[L.t_level_body + i]);
-    tm.sync();
-  }
+  tm.stamp(kStVel);
+  tm.stamp(kStAcc);
   // body forces f = I a + v x_f (I v)
   for (int b = r; b < nb; b += sz) {
     const T* ci = ws + L.w_cinert + 36 * b;
@@ -666,14 +866,12 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
     for (int k = 0; k < 6; ++k) ws[L.w_cfrc + 6 * b + k] = Ia[k] + vf[k];
   }
   tm.sync();
+  tm.stamp(kStForces);
   // composite inertias and body forces, bottom-up (the roots give nothing
   // to the world); cinert, stored and read by the body forces, becomes the
   // composite inertia in place
-  for (int lvl = L.nlevel - 2; lvl >= 1; --lvl) {
-    gather_children(tm, L, tp, ws + L.w_cinert, 36, lvl);
-    gather_children(tm, L, tp, ws + L.w_cfrc, 6, lvl);
-    tm.sync();
-  }
+  tree_sums(tm, L, tp, ws + L.w_cinert, 36, ws + L.w_cfrc, 6, false);
+  tm.stamp(kStComposite);
   // F = crb[dof body] cdof, and the bias projected on cdof
   for (int d = r; d < nv; d += sz) {
     const int b = tp[L.t_dof_body + d];
@@ -686,7 +884,7 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
     const T gear = cst[L.c_gear + u];
     const T length = qpos[tp[L.t_act_qadr + u]] * gear;
     const T velocity = qvel[tp[L.t_act_dof + u]] * gear;
-    T c = a.ctrl[n * nu + u];
+    T c = ctrl[u];
     if (tp[L.t_act_ctrllim + u])
       c = clamp(c, cst[L.c_ctrlrange + 2 * u], cst[L.c_ctrlrange + 2 * u + 1]);
     const T* bp = cst + L.c_bias + 3 * u;
@@ -696,22 +894,50 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
     ws[L.w_force + u] = f;
   }
   tm.sync();
-  // M = tri + triᵀ - diag(tri) + diag(armature), tri = (cdof Fᵀ) * mask
-  for (int e = r; e < nv * nv; e += sz) {
-    const int i = e / nv, j = e % nv;
-    const T tij = dot6(ws + L.w_cdof + 6 * i, ws + L.w_F + 6 * j) *
-                  T(tp[L.t_mask + e]);
-    const T tji = dot6(ws + L.w_cdof + 6 * j, ws + L.w_F + 6 * i) *
-                  T(tp[L.t_mask + j * nv + i]);
-    T m = tij + tji;
-    m = m - (i == j ? tij : T(0));
-    ws[L.w_M + e] = m + (i == j ? cst[L.c_armature + i] : T(0));
+  tm.stamp(kStFBias);
+  // M = tri + triᵀ - diag(tri) + diag(armature), tri = (cdof Fᵀ) * mask,
+  // one member per entry of the lower triangle, written to both halves
+  // (tij + tji is tji + tij), rows p and nv - 1 - p together (nv + 1
+  // entries), two entries a member at once (their loads in flight
+  // together); t_mask[i nv + j] = mask[i][j] + 2 mask[j][i]
+  const int ne = (nv + 1) / 2 * (nv + 1);
+  for (int e0 = r; e0 < ne; e0 += 2 * sz) {
+    T m[2];
+    int ij[2][2];
+    for (int q = 0; q < 2; ++q) {
+      const int e = e0 + q * sz;
+      const int p = e / (nv + 1), t = e - p * (nv + 1);
+      const int i = t <= p ? p : nv - 1 - p, j = t <= p ? t : t - p - 1;
+      // past the end, or the middle row of an odd nv a second time
+      const bool skip = e >= ne || (t > p && i == p);
+      ij[q][0] = skip ? -1 : i;
+      ij[q][1] = j;
+      if (skip) continue;
+      const int mk = tp[L.t_mask + i * nv + j];
+      const T tij =
+          dot6(ws + L.w_cdof + 6 * i, ws + L.w_F + 6 * j) * T(mk & 1);
+      const T tji =
+          dot6(ws + L.w_cdof + 6 * j, ws + L.w_F + 6 * i) * T(mk >> 1);
+      m[q] = tij + tji;
+      m[q] = m[q] - (i == j ? tij : T(0));
+      m[q] = m[q] + (i == j ? cst[L.c_armature + i] : T(0));
+    }
+    for (int q = 0; q < 2; ++q) {
+      const int i = ij[q][0], j = ij[q][1];
+      if (i < 0) continue;
+      ws[L.w_M + i * nv + j] = m[q];
+      ws[L.w_M + j * nv + i] = m[q];
+    }
   }
-  // qfrc_actuator = gearᵀ force (index_add in actuator order), qfrc_smooth
+  // qfrc_actuator = gearᵀ force (index_add in actuator order: each dof's
+  // actuators ascending), qfrc_smooth
   for (int d = r; d < nv; d += sz) {
     T q = T(0);
-    for (int u = 0; u < nu; ++u)
-      if (tp[L.t_act_dof + u] == d) q = q + cst[L.c_gear + u] * ws[L.w_force + u];
+    for (int k = tp[L.t_dof_act_start + d]; k < tp[L.t_dof_act_start + d + 1];
+         ++k) {
+      const int u = tp[L.t_dof_act + k];
+      q = q + cst[L.c_gear + u] * ws[L.w_force + u];
+    }
     ws[L.w_qfrc_act + d] = q;
     const T passive = -cst[L.c_damping + d] * qvel[d];
     ws[L.w_qfrc + d] = q + passive - ws[L.w_bias + d];
@@ -721,12 +947,13 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
   store(tm, a, kQfrcActuator, n, ws + L.w_qfrc_act, nv);
   store(tm, a, kActuatorForce, n, ws + L.w_force, nu);
   store(tm, a, kQfrcSmooth, n, ws + L.w_qfrc, nv);
+  tm.stamp(kStMQfrc);
   if (L.nbranch == 0) return;
   const int B = L.nbranch, s = L.bsize;
-  arrow_factor(tm, L, ws + L.w_M, ws + L.w_A, ws + L.w_Ld, ws + L.w_W,
-               ws + L.w_Ls);
-  arrow_solve(tm, L, ws + L.w_M, ws + L.w_Ld, ws + L.w_W, ws + L.w_Ls,
-              ws + L.w_qfrc, ws + L.w_y, ws + L.w_x);
+  arrow_factor_solve(tm, L, ws + L.w_M, nv, ws + L.w_qfrc, ws + L.w_A,
+                     ws + L.w_Ld, ws + L.w_W, ws + L.w_Ls, ws + L.w_y,
+                     ws + L.w_x, kStFactor);
+  tm.stamp(kStSolve);
   store(tm, a, kOutLd, n, ws + L.w_Ld, B * s * s);
   store(tm, a, kOutW, n, ws + L.w_W, B * s * kBase);
   store(tm, a, kOutLs, n, ws + L.w_Ls, kBase * kBase);
@@ -735,6 +962,7 @@ SMOOTH_HD void smooth_one(const Team& tm, const SmoothArgs<T>& a, int n,
   T* dst = a.out[kOutC] + static_cast<long long>(n) * B * s * kBase;
   for (int i = r; i < B * s * kBase; i += sz)
     dst[i] = ws[L.w_M + (kBase + i / kBase) * nv + i % kBase];
+  tm.stamp(kStStores);
 }
 
 // ---- kernel 2: one env's integrator update -------------------------------
@@ -746,48 +974,66 @@ SMOOTH_HD void update_one(const Team& tm, const UpdateArgs<T>& a, int n,
   const int* tp = a.topo;
   const T* cst = a.cst;
   const int nv = L.nv, nq = L.nq, r = tm.rank(), sz = tm.size();
+  tm.stamp(kUpStart);
   const long long ov = static_cast<long long>(n) * nv;
   const T dt = cst[L.c_dt];
   T* qvel = ws + L.u_qvel;
   T* qpos = ws + L.u_qpos;
-  if (L.update == kEuler) {
-    for (int i = r; i < nv; i += sz)
-      qvel[i] = a.qvel[ov + i] + dt * a.qacc[ov + i];
-  } else {
-    // the update's matrix: M with its diagonal shifted, and the right side
-    T* M = ws + L.u_M;
-    T* rhs = ws + L.u_rhs;
+  // every input at once, its loads in flight together: the forces' sum,
+  // qacc, qvel, qpos and M (row stride ldm, odd for nv even, so that a
+  // member per row meets no bank twice; one member per column)
+  T* qfrc = ws + L.u_qfrc;
+  T* qacc = ws + L.u_qacc;
+  T* v0 = ws + L.u_qvel0;
+  T* q0 = ws + L.u_qpos0;
+  const int ldm = nv + 1;
+  T* M = ws + L.u_M;
+  for (int i = r; i < nv; i += sz) {
+    qfrc[i] = a.qfrc_smooth[ov + i] + a.qfrc_constraint[ov + i];
+    qacc[i] = a.qacc[ov + i];
+    v0[i] = a.qvel[ov + i];
+  }
+  for (int i = r; i < nq; i += sz) q0[i] = a.qpos[n * nq + i];
+  if (L.update != kEuler) {
     const T* Mg = a.M + ov * nv;
-    for (int e = r; e < nv * nv; e += sz) {
-      const int i = e / nv, j = e % nv;
-      T shift = T(0);
-      if (i == j)
-        shift = L.update == kImplicitFast
-                    ? -(dt * (cst[L.c_vel_deriv + i] - cst[L.c_damping + i]))
-                    : dt * cst[L.c_damping + i];
-      M[e] = i == j ? Mg[e] + shift : Mg[e];
-    }
+    for (int j = r; j < nv; j += sz)
+      for (int i = 0; i < nv; ++i) M[i * ldm + j] = Mg[i * nv + j];
+  }
+  tm.sync();
+  if (L.update == kEuler) {
+    for (int i = r; i < nv; i += sz) qvel[i] = v0[i] + dt * qacc[i];
+    for (int k = kUpShift; k <= kUpSolve; ++k) tm.stamp(k);
+  } else {
+    // the right side, then the update's matrix: M with its diagonal shifted
+    T* rhs = ws + L.u_rhs;
     for (int i = r; i < nv; i += sz) {
-      const T qfrc = a.qfrc_smooth[ov + i] + a.qfrc_constraint[ov + i];
       if (L.update == kImplicitFast) {
-        rhs[i] = qfrc;
+        rhs[i] = qfrc[i];
       } else {  // M v + h qfrc
-        T mv = Mg[i * nv] * a.qvel[ov];
-        for (int j = 1; j < nv; ++j) mv += Mg[i * nv + j] * a.qvel[ov + j];
-        rhs[i] = mv + dt * qfrc;
+        T mv = M[i * ldm] * v0[0];
+        for (int j = 1; j < nv; ++j) mv += M[i * ldm + j] * v0[j];
+        rhs[i] = mv + dt * qfrc[i];
       }
     }
     tm.sync();
-    arrow_factor(tm, L, M, ws + L.u_A, ws + L.u_Ld, ws + L.u_W, ws + L.u_Ls);
-    arrow_solve(tm, L, M, ws + L.u_Ld, ws + L.u_W, ws + L.u_Ls, rhs,
-                ws + L.u_y, ws + L.u_x);
+    for (int i = r; i < nv; i += sz) {
+      const T shift =
+          L.update == kImplicitFast
+              ? -(dt * (cst[L.c_vel_deriv + i] - cst[L.c_damping + i]))
+              : dt * cst[L.c_damping + i];
+      M[i * ldm + i] = M[i * ldm + i] + shift;
+    }
+    tm.sync();
+    tm.stamp(kUpShift);
+    arrow_factor_solve(tm, L, M, ldm, rhs, ws + L.u_A, ws + L.u_Ld,
+                       ws + L.u_W, ws + L.u_Ls, ws + L.u_y, ws + L.u_x,
+                       kUpFactor);
+    tm.stamp(kUpSolve);
     const T* x = ws + L.u_x;
     for (int i = r; i < nv; i += sz)
-      qvel[i] = L.update == kImplicitFast ? a.qvel[ov + i] + dt * x[i] : x[i];
+      qvel[i] = L.update == kImplicitFast ? v0[i] + dt * x[i] : x[i];
   }
-  tm.sync();
   // mj_integratePos, one joint per member
-  const T* q0 = a.qpos + static_cast<long long>(n) * nq;
   for (int i = r; i < nq; i += sz) qpos[i] = q0[i];
   tm.sync();
   for (int j = r; j < L.njnt; j += sz) {
@@ -800,17 +1046,20 @@ SMOOTH_HD void update_one(const Team& tm, const UpdateArgs<T>& a, int n,
     }
   }
   tm.sync();
-  // mj_checkPos / mj_checkVel: every member scans the env
+  tm.stamp(kUpPos);
+  // mj_checkPos / mj_checkVel: each member tests its values, one vote
   bool bad = false;
-  for (int i = 0; i < nq; ++i) bad = bad || !(fabs(qpos[i]) < T(1e10));
-  for (int i = 0; i < nv; ++i) bad = bad || !(fabs(qvel[i]) < T(1e10));
+  for (int i = r; i < nq; i += sz) bad = bad || !(fabs(qpos[i]) < T(1e10));
+  for (int i = r; i < nv; i += sz) bad = bad || !(fabs(qvel[i]) < T(1e10));
+  bad = tm.any(bad);
   for (int i = r; i < nq; i += sz)
     a.qpos_out[static_cast<long long>(n) * nq + i] =
         bad ? cst[L.c_qpos0 + i] : qpos[i];
   for (int i = r; i < nv; i += sz) {
     a.qvel_out[ov + i] = bad ? T(0) : qvel[i];
-    a.qacc_warmstart[ov + i] = bad ? T(0) : a.qacc[ov + i];
+    a.qacc_warmstart[ov + i] = bad ? T(0) : qacc[i];
   }
+  tm.stamp(kUpReset);
 }
 
 }  // namespace smooth_env

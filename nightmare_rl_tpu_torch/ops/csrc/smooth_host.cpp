@@ -44,9 +44,19 @@ class Barrier {
 struct ThreadTeam {
   int r, n;
   Barrier* barrier;
+  char* votes;  // one slot per member, for any()
   int rank() const { return r; }
   int size() const { return n; }
   void sync() const { barrier->wait(); }
+  bool any(bool p) const {
+    votes[r] = p;
+    barrier->wait();
+    bool out = false;
+    for (int k = 0; k < n; ++k) out = out || votes[k] != 0;
+    barrier->wait();  // no member votes again before every member has read
+    return out;
+  }
+  void stamp(int) const {}
 };
 
 // Runs one(tm, n, work) for every env n with a team of `team` threads
@@ -55,9 +65,10 @@ template <typename T, typename F>
 int run(int N, int elems, int team, F one) {
   if (N < 0 || elems <= 0 || team < 1 || team > 64) return 1;
   std::vector<T> work(elems);
+  std::vector<char> votes(team);
   Barrier barrier(team);
   auto member = [&](int r) {
-    const ThreadTeam tm{r, team, &barrier};
+    const ThreadTeam tm{r, team, &barrier, votes.data()};
     for (int n = 0; n < N; ++n) {
       one(tm, n, work.data());
       tm.sync();   // the next env reuses the workspace
@@ -87,7 +98,7 @@ int smooth(const int* layout, int nlayout, const int* topo, const T* cst,
     a.out[k] = static_cast<T*>(outs[k]);
   a.N = N;
   return run<T>(N, a.L.w_elems, team, [&](const ThreadTeam& tm, int n, T* w) {
-    smooth_env::smooth_one(tm, a, n, w);
+    smooth_env::smooth_one(tm, a, n, w, a.topo, a.cst);
   });
 }
 

@@ -144,7 +144,7 @@ def integrate_update(sys: S.System, lay: Optional[arrow.ArrowLayout],
     xs = _operands(sys, qpos, qvel, M, qfrc_smooth, qfrc_constraint, qacc)
     if dev.type != "cuda":
         raise ValueError(f"integrate_update runs on cpu or cuda, not {dev}")
-    geo = SM.geometry(plan.fields["u_elems"], qpos.element_size(), "integrate")
+    geo = SM.kernel_geometry(plan.fields, qpos.element_size(), "integrate")
     outs = (torch.empty_like(xs[0]), torch.empty_like(xs[1]),
             torch.empty_like(xs[1]))
     N = qpos.shape[0]
@@ -181,7 +181,7 @@ def host_update(sys: S.System, lay: arrow.ArrowLayout, qpos: torch.Tensor,
     if lay is None:
         raise ValueError("the integrate kernel takes a block-arrow layout")
     plan = SM.model_plan(sys, lay)
-    SM.geometry(plan.fields["u_elems"], qpos.element_size(), "integrate")
+    SM.kernel_geometry(plan.fields, qpos.element_size(), "integrate")
     q, v, m, fs, fc, a = _operands(sys, qpos, qvel, M, qfrc_smooth,
                                    qfrc_constraint, qacc)
     if q.device.type != "cpu":

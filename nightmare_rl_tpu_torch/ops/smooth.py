@@ -16,7 +16,7 @@ launches.
 
 The static tables are made once per (System, layout, dtype, device) and
 cached, so a captured step never builds them: one int32 tensor of the
-topology (parents, joints, the level schedule of the tree walk, each
+topology (parents, joints, the chains and rounds of the tree walks, each
 body's children in descending order, the dof ancestor mask, the
 actuators' transmissions) and one float tensor of the model constants.
 Every offset into them and into an env's shared-memory workspace is a
@@ -43,8 +43,9 @@ from nightmare_rl_tpu_torch.physics import arrow, dynamics, kinematics
 from nightmare_rl_tpu_torch.physics import system as S
 
 MAX_SMEM = 227 * 1024    # dynamic shared memory of one block on an H100
-ENVS_PER_BLOCK = 4       # warps (one env each) per block, at most
+ENVS_PER_BLOCK = 8       # warps (one env each) per block, at most
 NBASE = 6                # the free base of a block-arrow layout
+MAX_BLOCK = 3            # dofs of a leg block (smooth_env.cuh kMaxBlock)
 _UPDATE = {"euler": 0, "implicitfast": 1, "euler_damped": 2}
 
 
@@ -108,20 +109,26 @@ def model_plan(sys: S.System, lay: Optional[arrow.ArrowLayout]) -> Plan:
         raise ValueError("the smooth kernel needs every body after its parent")
     if lay is not None and lay.nbase != NBASE:
         raise ValueError(f"the smooth kernel takes a {NBASE}-dof arrow base")
+    if lay is not None and lay.branch_size > MAX_BLOCK:
+        raise ValueError(f"the smooth kernel takes leg blocks of at most "
+                         f"{MAX_BLOCK} dofs, not {lay.branch_size}")
     depth = [0] * nb
     for b in range(1, nb):
         depth[b] = depth[parent[b]] + 1
-    nlevel = max(depth) + 1
-    order = sorted(range(nb), key=lambda b: (depth[b], b))
-    level_start = [sum(1 for d in depth if d < lvl)
-                   for lvl in range(nlevel + 1)]
     children = [sorted((c for c in range(1, nb) if parent[c] == p),
                        reverse=True) for p in range(nb)]
     child_start = [0]
     for p in range(nb):
         child_start.append(child_start[-1] + len(children[p]))
-    mask = [int(v != 0) for v in sys.dof_ancestor_mask.cpu().flatten().tolist()]
+    chains = _chains(parent, children)
+    rounds = [c[0] for c in chains]
+    round_start = [sum(1 for rd in rounds if rd < k)
+                   for k in range(max(rounds, default=-1) + 2)]
+    mask = [[int(v != 0) for v in row]
+            for row in sys.dof_ancestor_mask.cpu().tolist()]
     trn = sys.actuator_trnid
+    act_dof = [sys.jnt_dofadr[j] for j in trn]
+    dof_act = [[u for u in range(nu) if act_dof[u] == d] for d in range(nv)]
     if sys.integrator == S.IMPLICITFAST:
         update = "implicitfast"
     elif bool(sys.eulerdamp) and bool((sys.dof_damping.cpu() > 0).any()):
@@ -132,23 +139,34 @@ def model_plan(sys: S.System, lay: Optional[arrow.ArrowLayout]) -> Plan:
         ("t_parent", parent), ("t_jntadr", list(sys.body_jntadr)),
         ("t_jntnum", list(sys.body_jntnum)),
         ("t_root", kinematics.body_root(sys)),
-        ("t_level_start", level_start), ("t_level_body", order),
+        ("t_round_start", round_start),
+        ("t_chain_start", [sum(len(c[1]) for c in chains[:k])
+                           for k in range(len(chains) + 1)]),
+        ("t_chain_body", [b for c in chains for b in c[1]]),
         ("t_child_start", child_start),
         ("t_child", [c for p in range(nb) for c in children[p]]),
         ("t_jtype", list(sys.jnt_type)), ("t_qadr", list(sys.jnt_qposadr)),
         ("t_dadr", list(sys.jnt_dofadr)), ("t_jbody", list(sys.jnt_bodyid)),
-        ("t_dof_body", list(sys.dof_bodyid)), ("t_mask", mask),
-        ("t_act_dof", [sys.jnt_dofadr[j] for j in trn]),
+        ("t_dof_body", list(sys.dof_bodyid)),
+        ("t_mask", [mask[i][j] + 2 * mask[j][i] for i in range(nv)
+                    for j in range(nv)]),
+        ("t_act_dof", act_dof),
         ("t_act_qadr", [sys.jnt_qposadr[j] for j in trn]),
         ("t_act_ctrllim",
          [int(v) for v in sys.actuator_ctrllimited.cpu().tolist()]),
         ("t_act_forcelim",
          [int(v) for v in sys.actuator_forcelimited.cpu().tolist()]),
+        ("t_dof_act_start", [sum(len(x) for x in dof_act[:d])
+                             for d in range(nv + 1)]),
+        ("t_dof_act", [u for x in dof_act for u in x]),
     ]
     t_off, _ = _pack([(k, len(v)) for k, v in tables])
     c_off, _ = _pack(_const_sections(sys))
+    ntopo = sum(len(v) for _, v in tables)
+    ncst = sum(n for _, n in _const_sections(sys))
     B, s = (lay.nbranch, lay.branch_size) if lay is not None else (0, 0)
-    arrow_ws = B * s * s + NBASE * NBASE if B else 0
+    # the Schur complement S, its pivot and a column of its factor
+    arrow_ws = NBASE * NBASE + NBASE + 1 if B else 0
     w_off, w_elems = _pack([
         ("w_xpos", 3 * nb), ("w_xquat", 4 * nb), ("w_xipos", 3 * nb),
         ("w_ximat", 9 * nb), ("w_xanchor", 3 * nj), ("w_xaxis", 3 * nj),
@@ -160,16 +178,40 @@ def model_plan(sys: S.System, lay: Optional[arrow.ArrowLayout]) -> Plan:
         ("w_qpos", nq), ("w_qvel", nv), ("w_A", arrow_ws),
         ("w_Ld", B * s * s), ("w_W", B * s * NBASE),
         ("w_Ls", NBASE * NBASE if B else 0), ("w_y", B * s),
-        ("w_x", nv if B else 0)])
+        ("w_x", nv if B else 0), ("w_ctrl", nu)])
     u_off, u_elems = _pack([
-        ("u_M", nv * nv), ("u_A", arrow_ws), ("u_Ld", B * s * s),
+        ("u_M", nv * (nv + 1)), ("u_A", arrow_ws), ("u_Ld", B * s * s),
         ("u_W", B * s * NBASE), ("u_Ls", NBASE * NBASE if B else 0),
         ("u_rhs", nv), ("u_y", B * s), ("u_x", nv), ("u_qpos", nq),
-        ("u_qvel", nv)])
-    fields = dict(nbody=nb, njnt=nj, nv=nv, nq=nq, nu=nu, nlevel=nlevel,
+        ("u_qvel", nv), ("u_qfrc", nv), ("u_qacc", nv), ("u_qvel0", nv),
+        ("u_qpos0", nq)])
+    fields = dict(nbody=nb, njnt=nj, nv=nv, nq=nq, nu=nu,
+                  nlevel=max(depth) + 1, nround=len(round_start) - 1,
+                  ntopo=ntopo, ncst=ncst,
                   nbranch=B, bsize=s, update=_UPDATE[update], w_elems=w_elems,
                   u_elems=u_elems, **t_off, **c_off, **w_off, **u_off)
     return Plan(fields, tuple(x for _, v in tables for x in v), update)
+
+
+def _chains(parent: List[int], children: List[List[int]]) -> List[tuple]:
+    """The tree walks' chains as (round, bodies top-down), by round and
+    head: a chain runs down from its head through bodies with one child
+    each and ends at a leaf or at a body with two or more children, each of
+    which heads a chain of the next round; round 0's heads are the world's
+    children."""
+    out, heads = [], [(0, c) for c in sorted(children[0])]
+    while heads:
+        nxt = []
+        for rd, b in heads:
+            bodies = [b]
+            while len(children[b]) == 1:
+                b = children[b][0]
+                bodies.append(b)
+            out.append((rd, bodies))
+            nxt += [(rd + 1, c) for c in sorted(children[b])]
+        heads = nxt
+    out.sort(key=lambda c: (c[0], c[1][0]))
+    return out
 
 
 def _const_sections(sys: S.System):
@@ -217,19 +259,42 @@ def tables(sys: S.System, lay: Optional[arrow.ArrowLayout],
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """``envs_per_block`` warps of one env each per block, each env taking
-    ``env_elems`` elements of shared memory."""
+    ``env_elems`` elements of shared memory, after ``tables`` bytes of the
+    block's staged tables."""
 
     envs_per_block: int
     env_elems: int
     smem_bytes: int
+    tables: int = 0
 
 
-def geometry(elems: int, itemsize: int, what: str) -> Geometry:
-    envs = min(ENVS_PER_BLOCK, MAX_SMEM // (elems * itemsize))
+def table_bytes(fields: Dict[str, int], itemsize: int) -> int:
+    """Shared memory of a block's copy of the model's tables (smooth.cu
+    ``table_bytes``): the constants and the topology, each padded to 16
+    bytes."""
+    return (-(-fields["ncst"] * itemsize // 16) * 16
+            + -(-fields["ntopo"] * 4 // 16) * 16)
+
+
+def geometry(elems: int, itemsize: int, what: str,
+             tables: int = 0) -> Geometry:
+    envs = min(ENVS_PER_BLOCK, (MAX_SMEM - tables) // (elems * itemsize))
     if envs < 1:
         raise ValueError(f"the {what} kernel keeps one env in shared memory: "
-                         f"{elems * itemsize} bytes, more than {MAX_SMEM}")
-    return Geometry(envs, elems, envs * elems * itemsize)
+                         f"{elems * itemsize} bytes and {tables} of tables, "
+                         f"more than {MAX_SMEM}")
+    return Geometry(envs, elems, tables + envs * elems * itemsize, tables)
+
+
+def kernel_geometry(fields: Dict[str, int], itemsize: int,
+                    what: str) -> Geometry:
+    """The launch geometry of the ``smooth`` kernel (the block's copy of the
+    tables, then its envs' workspaces) or of the ``integrate`` kernel (its
+    envs' workspaces)."""
+    if what == "smooth":
+        return geometry(fields["w_elems"], itemsize, what,
+                        table_bytes(fields, itemsize))
+    return geometry(fields["u_elems"], itemsize, what)
 
 
 def _outputs(sys: S.System, lay, N: int, dtype, device) -> List[torch.Tensor]:
@@ -301,7 +366,7 @@ def smooth_forward(sys: S.System, lay: Optional[arrow.ArrowLayout],
     """The smooth half of ``pipeline.forward``: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     plan = model_plan(sys, lay)
-    geo = geometry(plan.fields["w_elems"], qpos.element_size(), "smooth")
+    geo = kernel_geometry(plan.fields, qpos.element_size(), "smooth")
     dev = qpos.device
     if dev.type == "cpu":
         return plain(sys, lay, qpos, qvel, ctrl)
@@ -354,7 +419,7 @@ def host_forward(sys: S.System, lay: Optional[arrow.ArrowLayout],
     the kernel's warp lanes do, the envs in series.  For the tests; raises
     RuntimeError where g++ is missing."""
     plan = model_plan(sys, lay)
-    geometry(plan.fields["w_elems"], qpos.element_size(), "smooth")
+    kernel_geometry(plan.fields, qpos.element_size(), "smooth")
     qpos, qvel, ctrl = _inputs(sys, qpos, qvel, ctrl)
     if qpos.device.type != "cpu":
         raise ValueError("host_forward takes CPU tensors")

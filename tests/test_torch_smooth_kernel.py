@@ -161,13 +161,23 @@ def test_smooth_matches_jax(models, jax_smooth, host, robot, team):
 
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_smooth_is_the_same_at_every_team_size(models, host, robot):
+    """Both kernels' arithmetic at team sizes that split the work
+    differently (3, 5: fewer members than the legs' items, the Schur
+    complement's rows and the chains' values; 6: a member per Schur row; 32:
+    the warp), bit for bit the same as one member's."""
     _, ts = models[robot]
     args = [torch.from_numpy(x) for x in _inputs(ts, seed=7)]
     lay = tarrow.layout(ts)
+    uargs = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in _update_inputs(ts, seed=8)[0]]
     one = leaves(host(ts, lay, *args, team=1))
-    for team in (3, 32):
+    one_update = IN.host_update(ts, lay, *uargs, team=1)
+    for team in (3, 5, 6, 32):
         for a, b in zip(one, leaves(host(ts, lay, *args, team=team))):
-            assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+            assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), team
+        for a, b in zip(one_update, IN.host_update(ts, lay, *uargs,
+                                                   team=team)):
+            assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), team
 
 
 def test_smooth_without_a_layout_matches_plain(models, host):
@@ -355,6 +365,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(models):
         SM.geometry(40000, 8, "smooth")
     with pytest.raises(ValueError, match="block-arrow"):
         IN.host_update(ts, None, *[torch.zeros(1)] * 6)
+    wide = tarrow.layout(ts)._replace(branch_size=4)
+    with pytest.raises(ValueError, match="at most 3 dofs"):
+        SM.model_plan(ts, wide)
 
 
 def test_plan_of_the_hexapod():
@@ -363,10 +376,27 @@ def test_plan_of_the_hexapod():
     f = plan.fields
     assert (f["nbody"], f["nv"], f["nlevel"], f["nbranch"], f["bsize"]) == (
         20, 24, 5, 6, 3)
-    starts = plan.topo[f["t_level_start"]:f["t_level_start"] + 6]
-    assert list(starts) == [0, 1, 2, 8, 14, 20]   # world, base, 3 x 6 legs
-    geo = SM.geometry(f["w_elems"], 4, "smooth")
+    def table(name, n):
+        return list(plan.topo[f[name]:f[name] + n])
+
+    # the walks' rounds: the base's chain, then the six legs' chains
+    assert f["nround"] == 2 and table("t_round_start", 3) == [0, 1, 7]
+    assert table("t_chain_start", 8) == [0, 1, 4, 7, 10, 13, 16, 19]
+    assert table("t_chain_body", 19) == list(range(1, 20))
+    # the world's child, then the base's, descending
+    assert table("t_child", 7) == [1, 17, 14, 11, 8, 5, 2]
+    # t_mask[i nv + j] = mask[i][j] + 2 mask[j][i]; each leg dof has its
+    # actuator, the base's none
+    mask = ts.dof_ancestor_mask.numpy() != 0
+    assert table("t_mask", 576) == [int(mask[i, j]) + 2 * int(mask[j, i])
+                                    for i in range(24) for j in range(24)]
+    assert table("t_dof_act_start", 25) == [0] * 7 + list(range(1, 19))
+    # eight envs a block after the block's copy of the tables, two blocks
+    # (16 envs) an SM in float32
+    geo = SM.kernel_geometry(f, 4, "smooth")
     assert geo.envs_per_block == SM.ENVS_PER_BLOCK and f["w_elems"] % 4 == 0
+    assert geo.tables == SM.table_bytes(f, 4) > 0
+    assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
 
 
 def test_digest_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
