@@ -7,12 +7,13 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
-             ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu`` and
-             ``ops/csrc/integrate.cu`` for sm_90a from the checkout, all at
-             once; prints ptxas's registers and spills (the float32 kernels
-             must not spill) and each kernel's main-path launch geometry:
-             lanes per env, shared memory per block and envs resident per
-             SM;
+             ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu``,
+             ``ops/csrc/integrate.cu`` and ``ops/csrc/assemble.cu`` for
+             sm_90a from the checkout, all at once; prints ptxas's
+             registers and spills (the float32 kernels must not spill) and
+             each kernel's main-path launch geometry (the assemble
+             kernel's for both robots): lanes per env, shared memory per
+             block and envs resident per SM;
 3. kernel  — the PGS kernel against ``pgs_reference`` on the card, float64
              random systems: the main path's shapes with and without dof
              rows, then the design's edge shapes (N not a multiple of the
@@ -39,15 +40,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              env steps eager and 20 replays, every StepOut field equal bit
              for bit, the env generator's state equal, no host sync in a
              replay, ``decimation`` launches of the form's kernel per
-             replay, and the smooth and integrate kernels as many; the
-             graph's kernel nodes (the legs form's at most
+             replay, and the smooth, integrate and assemble kernels as
+             many; the graph's kernel nodes (the legs form's at most
              NODES_NIGHTMARE); then wall ms per env step in turns (eager,
              graph, graph, eager), the capture's time and the graph's pool;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep (the rollout replays one
              captured step; its eager warm-up step counts), and so must the
-             smooth and the integrate kernel.  The inputs of
+             smooth, the integrate and the assemble kernel.  The inputs of
              the slice's last PGS call (the last replay's) are kept; after
              recorder/resume, the slice's PPO times its rollout as graph
              replays and as eager calls of the step the graph holds, in
@@ -87,6 +88,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              env and one driven past 1e10 (both reset); then on the
              slice's last update, timed at its envs and twice as many
              beside FIRST_DESIGN_MS, with its bound's share;
+6d. assemble-kernel — the assemble kernel (``ops/csrc/assemble.cu``:
+             collision, the top-K and top-Kp selections, every constraint
+             row, b, the leg slots, the Newton flags and cones) against
+             ``ops/assemble.py::plain`` on nightmare_v3 (top 24) and
+             anymal_c (top 8) at 2048 and 4096 envs, with a NaN env, a NaN
+             leg and a tie env: float64 indices equal in every env and
+             values within ASSEMBLE_F64_TOL; float32 indices equal in every
+             env whose selections are decided by more than ASSEMBLE_GAP
+             (the others counted and printed) and values within
+             ASSEMBLE_F32_TOL; then on the slice's last call (every env's
+             selections held); then both robots timed alone at 2048 and
+             4096 envs beside the plain version and the byte bound;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -114,8 +127,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              plain env step at 2048 envs, float32: 20 env steps eager and
              20 replays from one state, every StepOut field equal bit for
              bit, the env generator's state equal, no host sync in a
-             replay, 4 launches of the Newton, smooth and integrate
-             kernels each per replay; the graph's nodes by type (kernel
+             replay, 4 launches of the Newton, smooth, integrate and
+             assemble kernels each per replay; the graph's nodes by type (kernel
              nodes at most NODES_ANYMAL); wall ms per env step in turns (eager,
              graph, graph, eager), the warm-up's and the capture's seconds,
              the pool;
@@ -153,8 +166,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              envs held in float64; nightmare_v3_mjx
              (pyramidal, no cone group, then noslip) card against CPU, one
              step at a converged budget, 1e-9: all 16 envs with the card's
-             smooth half and update as plain torch ops (the step as the
-             card ran it before their kernels), and, with every kernel,
+             smooth half, assembly and update as plain torch ops (the step
+             as the card ran it before their kernels), and, with every
+             kernel,
              the envs whose plain solves decide above the line-search
              floor (those on it printed); then the kernel's device
              time (``_kernel_ms``), the plain version's CUDA-event time and
@@ -167,7 +181,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              ``artifacts/model_3176.pt``: 7 commands × 400 steps,
              deterministic, float32; zero falls on every row, achieved vx at
              least 80 % of the command on the ±0.3 m/s straight rows, and the
-             PGS, smooth and integrate kernels on every substep, the PGS
+             PGS, smooth, integrate and assemble kernels on every
+             substep, the PGS
              kernel held against ``pgs_reference`` on the inputs of its
              last call;
 13. custom-play — the batched gait engine in float64 on the card against
@@ -259,9 +274,9 @@ external and dense paths run no kernel of their own.  The kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
 the curve phase, ``pgs_legs``, whose launches are slice-legs',
 ``newton``, whose launches are graph-anymal's, slice-anymal's and
-eval-anymal's, and ``smooth`` and ``integrate``, whose launches (one each
-per substep of every path) are the slice's, graph-anymal's and
-play-grid's, each read from its own wrapper's counter, each counted from
+eval-anymal's, and ``smooth``, ``integrate`` and ``assemble``, whose
+launches (one each per substep of every path) are the slice's,
+graph-anymal's and play-grid's, each read from its own wrapper's counter, each counted from
 zero (the launches that hold a kernel against its plain version are not
 counted).  Every kernel's ``ms`` there is ``_kernel_ms``'s: device time
 per call, each call alone behind a spin kernel and a write that flushes
@@ -380,8 +395,18 @@ SMOOTH_NS = (1, 37, 2047, 2048, 4096)
 # 700 W), printed beside this run's
 FIRST_DESIGN_MS = {"smooth": (0.0794, 0.1467), "integrate": (0.0367, 0.0543)}
 # kernel nodes of one captured env step at most (6,269 and 10,625 when the
-# smooth half and the update ran as plain torch ops)
-NODES_NIGHTMARE, NODES_ANYMAL = 1200, 3000
+# smooth half and the update ran as plain torch ops, 771 and 2,293 when the
+# collision and row assembly did; 181 and 197 with every kernel)
+NODES_NIGHTMARE, NODES_ANYMAL = 190, 210
+# the assemble kernel against its plain version, per env and output field:
+# max|err| / max|plain|.  float64: round-off of the row products' sums in
+# another order; float32: the same at float32's eps, amplified where J·qvel
+# cancels.  float32's selections are held where the K-th and (K+1)-th
+# distances differ by more than ASSEMBLE_GAP (relative)
+ASSEMBLE_F64_TOL = 1e-9
+ASSEMBLE_F32_TOL = 1e-4
+ASSEMBLE_GAP = 1e-5
+ASSEMBLE_NS = (2048, 4096)
 
 
 def _nvidia_smi() -> str:
@@ -608,13 +633,14 @@ def phase_build() -> None:
 
     import torch
 
+    from nightmare_rl_tpu_torch.ops import assemble as AS
     from nightmare_rl_tpu_torch.ops import build
     from nightmare_rl_tpu_torch.ops import newton as K
     from nightmare_rl_tpu_torch.ops import pgs as P
     from nightmare_rl_tpu_torch.ops import smooth as SM
     from nightmare_rl_tpu_torch.physics import arrow, loader
 
-    names = ("pgs", "pgs_legs", "newton", "smooth", "integrate")
+    names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -629,7 +655,7 @@ def phase_build() -> None:
                          lambda m: "newton_kernel<"
                                    f"{'float' if m[1] == 'f' else 'double'}>"),
     }
-    for name in ("smooth", "integrate"):
+    for name in ("smooth", "integrate", "assemble"):
         kernels[name] = _ptxas(
             infos[name]["log"], name + r"_kernelI([fd])E",
             lambda m, name=name: f"{name}_kernel<"
@@ -678,6 +704,18 @@ def phase_build() -> None:
               f"warp per env, {geo.envs_per_block} envs per block, "
               f"{geo.smem_bytes} B shared per block, {fits[-1]} envs resident "
               f"per SM x {sms} SMs = {fits[-1] * sms} per wave "
+              f"({math.ceil(2048 / (fits[-1] * sms))} waves at N=2048)")
+    for name, K in ASSEMBLE_MODELS:
+        sys_, lay = _assemble_system(name, K, torch.float32)
+        f = AS.model_plan(sys_, lay).fields
+        geo = AS.geometry(f, 4)
+        fits.append(AS.envs_per_sm(geo, torch.float32))
+        print(f"build: assemble {name} (ncp={f['ncp']}, top {f['K']}, "
+              f"{f['npair']} pairs, top {f['Kp']}, nefc={f['nefc']}, "
+              f"nv={f['nv']}, float32): one warp per env, "
+              f"{geo.envs_per_block} envs per block, {geo.smem_bytes} B "
+              f"shared per block ({geo.tables} of tables), {fits[-1]} envs "
+              f"resident per SM x {sms} SMs = {fits[-1] * sms} per wave "
               f"({math.ceil(2048 / (fits[-1] * sms))} waves at N=2048)")
     if per_sm < 1 or legs_sm < 1 or newton_sm < 1 or min(fits) < 1:
         raise AssertionError("a kernel fits no env on an SM")
@@ -1169,9 +1207,10 @@ def phase_graph(device_name: str, smi: str) -> dict:
               f"(differing {differ[:6]}); env generator state equal "
               f"{same_gen}; host syncs per replay {syncs}; "
               f"{counter.__name__} launches per replay {per_replay:g} "
-              f"(expected {dec}), {other.__name__} {other.launches}; smooth "
-              f"and integrate launches per replay {smooth_per} (expected "
-              f"{dec} each); the graph holds {nodes} kernel nodes; warm-up "
+              f"(expected {dec}), {other.__name__} {other.launches}; smooth, "
+              f"integrate and assemble launches per replay {smooth_per} "
+              f"(expected {dec} each); the graph holds {nodes} kernel nodes; "
+              f"warm-up "
               f"{warm}; capture {capture_s:.2f} s (warm-up included), graph "
               f"pool {pool:.1f} MiB; wall ms per env step in turns (eager, "
               f"graph, graph, eager): {walls['eager'][0]:.2f}, "
@@ -1185,9 +1224,10 @@ def phase_graph(device_name: str, smi: str) -> dict:
             raise AssertionError(f"a {form} replay synchronized ({syncs}) or "
                                  f"launched {per_replay} {counter.__name__} "
                                  f"and {other.launches} {other.__name__}")
-        if smooth_per != [dec, dec]:
-            raise AssertionError(f"a {form} replay launches the smooth and "
-                                 f"integrate kernels {smooth_per} times")
+        if smooth_per != [dec] * len(STEP_KERNELS):
+            raise AssertionError(f"a {form} replay launches the smooth, "
+                                 f"integrate and assemble kernels "
+                                 f"{smooth_per} times")
         if form == "legs" and nodes > NODES_NIGHTMARE:
             raise AssertionError(f"the captured legs-form step holds {nodes} "
                                  f"kernel nodes, more than {NODES_NIGHTMARE}")
@@ -1302,8 +1342,8 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
           f"({dones} resets): StepOut fields equal bit for bit at every step: "
           f"{not differ} (differing {differ[:6]}); env generator state equal "
           f"{same_gen}; host syncs per replay {syncs}; newton kernel "
-          f"launches per replay {per_replay}, smooth and integrate "
-          f"{smooth_per}; the graph holds "
+          f"launches per replay {per_replay}, smooth, integrate and "
+          f"assemble {smooth_per}; the graph holds "
           f"{nodes.get('KERNEL', 0)} kernel nodes ({sum(nodes.values())} "
           f"nodes: {nodes}); warm-up step "
           f"{step.warmup_s:.2f} s, capture and instantiation "
@@ -1319,21 +1359,22 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
                              f"{same_gen}")
     if syncs:
         raise AssertionError(f"an anymal_c replay synchronized {syncs} times")
-    if per_replay != env.cfg.decimation or smooth_per != [per_replay] * 2:
-        raise AssertionError(f"an anymal_c replay launches the newton, smooth "
-                             f"and integrate kernels {per_replay}, "
+    if (per_replay != env.cfg.decimation
+            or smooth_per != [per_replay] * len(STEP_KERNELS)):
+        raise AssertionError(f"an anymal_c replay launches the newton, smooth, "
+                             f"integrate and assemble kernels {per_replay}, "
                              f"{smooth_per} times, not {env.cfg.decimation}")
     if nodes.get("KERNEL", 0) > NODES_ANYMAL:
         raise AssertionError(f"the captured anymal_c step holds "
                              f"{nodes.get('KERNEL', 0)} kernel nodes, more "
                              f"than {NODES_ANYMAL}")
     counts = _smooth_counts()
-    print(f"graph-anymal: smooth launches {counts['smooth']}, integrate "
-          f"launches {counts['integrate']} (one each per substep of every "
-          f"eager step, warm-up and replay)")
-    if counts["smooth"] != counts["integrate"] or counts["smooth"] < 1:
-        raise AssertionError(f"graph-anymal: the smooth and integrate "
-                             f"kernels ran {counts} times")
+    print("graph-anymal: " + ", ".join(f"{k} launches {v}"
+                                       for k, v in counts.items())
+          + " (one each per substep of every eager step, warm-up and replay)")
+    if len(set(counts.values())) != 1 or counts["smooth"] < 1:
+        raise AssertionError(f"graph-anymal: the smooth, integrate and "
+                             f"assemble kernels ran {counts} times")
     return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                 capture_s=step.capture_s, record_s=step.record_s,
                 warmup_s=step.warmup_s, pool_mib=pool, nodes=nodes,
@@ -2217,10 +2258,10 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
     plain versions) at a converged budget, as tests/test_torch_anymal.py
     holds the JAX package.  Returns per env the largest error relative to
     each field's scale for three card steps: ``kernels``, the main path,
-    every kernel; ``before``, the card's smooth half and update as plain
-    torch ops and the Newton kernel solving, the step as the card ran it
-    before the smooth and integrate kernels; ``plain``, every part as plain
-    torch ops.  And ``held``: the envs whose plain solves decide above the
+    every kernel; ``before``, the card's smooth half, collision and row
+    assembly and update as plain torch ops and the Newton kernel solving,
+    the step as the card ran it before the smooth, integrate and assemble
+    kernels; ``plain``, every part as plain torch ops.  And ``held``: the envs whose plain solves decide above the
     line-search floor (margin at least NEWTON_FLOOR in both substeps, from
     the CPU's solves traced), as newton-kernel's float64 cases hold the
     kernel.  Past the floor a step parts from the CPU's by up to ~2e-8
@@ -2232,6 +2273,7 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
 
     import torch
 
+    from nightmare_rl_tpu_torch.ops import assemble as AS
     from nightmare_rl_tpu_torch.ops import integrate as IN
     from nightmare_rl_tpu_torch.ops import smooth as SM
     from nightmare_rl_tpu_torch.physics import loader, newton, pipeline, solver
@@ -2249,26 +2291,34 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
     st0 = st0.replace(qpos=qpos, qvel=qvel)
     ctrl = torch.randn(N, 18, generator=g, dtype=torch.float64)
     margins = []
-    main = SM.smooth_forward, IN.integrate_update, solver.newton_solve
+    main = (SM.smooth_forward, IN.integrate_update, AS.rows,
+            solver.newton_solve)
 
     def traced(efc, M, a0, iterations, ls_refine, x0=None):
         margins.append(_newton_floor(efc, M, a0, x0, iterations, ls_refine)[0])
-        return main[2](efc, M, a0, iterations, ls_refine, x0=x0)
+        return main[3](efc, M, a0, iterations, ls_refine, x0=x0)
 
     def plain_solve(efc, M, a0, iterations, ls_refine, x0=None):
         return newton.solve(efc, M, a0, iterations, ls_refine, x0=x0)
 
+    def plain_rows(sys_, lay, *args):
+        return AS.plain(sys_, lay, *args, legs=solver.legs_form(
+            sys_, lay, args[0].dtype, args[0].device))
+
     def run(dev, parts):
-        SM.smooth_forward, IN.integrate_update, solver.newton_solve = parts
+        (SM.smooth_forward, IN.integrate_update, AS.rows,
+         solver.newton_solve) = parts
         try:
             return pipeline.step(systems[dev], _to(st0, dev), ctrl.to(dev), 2)
         finally:
-            SM.smooth_forward, IN.integrate_update, solver.newton_solve = main
+            (SM.smooth_forward, IN.integrate_update, AS.rows,
+             solver.newton_solve) = main
 
-    cpu = run("cpu", main[:2] + (traced,))
+    cpu = run("cpu", main[:3] + (traced,))
+    plain = (SM.plain, IN.plain_update, plain_rows)
     card = {"kernels": run("cuda", main),
-            "before": run("cuda", (SM.plain, IN.plain_update, main[2])),
-            "plain": run("cuda", (SM.plain, IN.plain_update, plain_solve))}
+            "before": run("cuda", plain + main[3:]),
+            "plain": run("cuda", plain + (plain_solve,))}
     err = {}
     for k, out in card.items():
         err[k] = torch.zeros(N, dtype=torch.float64)
@@ -2463,13 +2513,13 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
 
 
 def _smooth_fns():
-    """The smooth and integrate kernels' wrappers whose launch counters the
-    captured steps add to (``utils/graph.py``), also while a phase puts
-    another function over a module's name (``_kept_smooth``)."""
+    """The smooth, integrate and assemble kernels' wrappers whose launch
+    counters the captured steps add to (``utils/graph.py``), also while a
+    phase puts another function over a module's name (``_kept_smooth``)."""
     from nightmare_rl_tpu_torch.utils import graph
 
     fns = {fn.__name__: fn for fn in graph._COUNTED}
-    return fns["smooth_forward"], fns["integrate_update"]
+    return fns["smooth_forward"], fns["integrate_update"], fns["rows"]
 
 
 def _zero_smooth() -> None:
@@ -2477,40 +2527,45 @@ def _zero_smooth() -> None:
         fn.launches = 0
 
 
+STEP_KERNELS = ("smooth", "integrate", "assemble")
+
+
 def _smooth_counts() -> dict:
-    """The smooth and the integrate kernel's launch counters, each read from
-    its own wrapper."""
-    smooth, update = (fn.launches for fn in _smooth_fns())
-    return dict(smooth=smooth, integrate=update)
+    """The smooth, the integrate and the assemble kernel's launch counters,
+    each read from its own wrapper."""
+    return dict(zip(STEP_KERNELS, (fn.launches for fn in _smooth_fns())))
 
 
 def _check_smooth(label: str, expected: int) -> dict:
-    """Asserts that the smooth and the integrate kernel each launched
-    ``expected`` times since ``_zero_smooth``; returns both counts
+    """Asserts that the smooth, the integrate and the assemble kernel each
+    launched ``expected`` times since ``_zero_smooth``; returns the counts
     (``_smooth_counts``)."""
     counts = _smooth_counts()
-    smooth, update = counts["smooth"], counts["integrate"]
-    print(f"{label}: smooth launches {smooth}, integrate launches {update} "
-          f"(expected {expected} each: one per physics substep)")
-    if smooth != expected or update != expected:
-        raise AssertionError(f"{label}: the smooth and integrate kernels ran "
-                             f"{smooth} and {update} times, not {expected}")
+    print(f"{label}: " + ", ".join(f"{k} launches {v}"
+                                   for k, v in counts.items())
+          + f" (expected {expected} each: one per physics substep)")
+    if any(v != expected for v in counts.values()):
+        raise AssertionError(f"{label}: the smooth, integrate and assemble "
+                             f"kernels ran {counts} times, not {expected}")
     return counts
 
 
 @contextlib.contextmanager
 def _kept_smooth():
-    """Keeps clones of the tensor inputs of the last calls of the smooth and
-    the integrate kernel's wrappers (``smooth``, ``integrate``: the System,
-    the layout and the tensors) in the yielded dict; the calls go on to the
-    wrappers.  Inside a captured step the clones are nodes of the graph."""
+    """Keeps clones of the tensor inputs of the last calls of the smooth,
+    the integrate and the assemble kernel's wrappers (``smooth``,
+    ``integrate``, ``assemble``: the System, the layout and the tensors) in
+    the yielded dict; the calls go on to the wrappers.  Inside a captured
+    step the clones are nodes of the graph."""
+    from nightmare_rl_tpu_torch.ops import assemble as AS
     from nightmare_rl_tpu_torch.ops import integrate as IN
     from nightmare_rl_tpu_torch.ops import smooth as SM
     from nightmare_rl_tpu_torch.utils.graph import clone
 
     last = {}
     fns = {"smooth": (SM, "smooth_forward"),
-           "integrate": (IN, "integrate_update")}
+           "integrate": (IN, "integrate_update"),
+           "assemble": (AS, "rows")}
     real = {k: getattr(mod, name) for k, (mod, name) in fns.items()}
 
     def keeper(key):
@@ -2637,6 +2692,14 @@ def _smooth_bound(outs, ins, tables, ops: int, dtype) -> tuple:
 
     nbytes = sum(x.numel() * x.element_size() for x in list(outs) + list(ins)
                  + list(tables))
+    return _bytes_ops_bound(nbytes, ops, dtype)
+
+
+def _bytes_ops_bound(nbytes: int, ops: int, dtype) -> tuple:
+    """The larger of nbytes over the memory rate and ops over float32's
+    (float64's) rate, in ms; which one bounds; nbytes."""
+    import torch
+
     rate = H100_F32_FLOPS if dtype == torch.float32 else H100_F64_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / rate * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -2826,6 +2889,250 @@ def phase_integrate_kernel(kept: dict, device_name: str, smi: str) -> dict:
           f"{args[0].shape[0]}; {_smi_line(t0, device_name, smi)}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by)
+
+
+# the assemble kernel's models as the envs configure them: (name, the
+# top-K condim-3 points the env keeps)
+ASSEMBLE_MODELS = (("nightmare_v3", 24), ("anymal_c", 8))
+
+
+def _assemble_system(name: str, K: int, dtype):
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.physics import arrow, loader
+
+    sys_ = dataclasses.replace(
+        loader.load_system(name, dtype=dtype, device="cuda"), max_contacts=K)
+    return sys_, arrow.layout(sys_)
+
+
+def _assemble_inputs(sys_, lay, N: int, seed: int, dtype) -> list:
+    """The assemble kernel's operands from seeded states through the smooth
+    kernel: the base lowered 0.1 m so that feet and bodies touch the floor,
+    with the smooth cases' diverged envs (a NaN qvel in env N // 2, a NaN
+    last joint angle in env N - 1: its last leg's points are NaN, which the
+    selection puts first) and, in env 1, a tie env: every body at the
+    same height with the identity rotation, so that points with the same
+    offset and radius have equal distances and the selections break ties
+    by index."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import smooth as SM
+
+    qpos, qvel, ctrl = _smooth_inputs(sys_, N, seed, dtype)
+    qpos[:, 2] -= 0.1
+    sm = SM.smooth_forward(sys_, lay, qpos, qvel, ctrl)
+    xpos, xquat = sm.kin.xpos.clone(), sm.kin.xquat.clone()
+    if N >= 2:
+        nb = sys_.nbody
+        xpos[1, :, 0] = 0.1 * torch.arange(nb, dtype=dtype, device="cuda")
+        xpos[1, :, 1] = 0.05 * torch.arange(nb, dtype=dtype, device="cuda")
+        xpos[1, :, 2] = 0.02
+        xquat[1] = torch.tensor((1.0, 0.0, 0.0, 0.0), dtype=dtype)
+    qacc = sm.qacc_smooth
+    return [xpos, xquat, sm.kin.subtree_com, sm.kin.cdof, qpos, qvel, qacc]
+
+
+def _topk_decided(d, k: int):
+    """Per env: the k-th and (k+1)-th of topk_smallest's order of the rows
+    of d differ by more than ASSEMBLE_GAP relative (True where d has k
+    entries or fewer)."""
+    import torch
+
+    if d.shape[1] <= k:
+        return torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+    v = torch.sort(-d, dim=1, descending=True, stable=True).values
+    a, b = -v[:, k - 1], -v[:, k]
+    scale = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    return (a - b).abs() / scale > ASSEMBLE_GAP
+
+
+def _assemble_held(sys_, ref, got, exact: bool) -> dict:
+    """The kernel's output ``got`` against the plain version's ``ref``:
+    per env, every integer and flag output equal (the selections, the
+    pairs' points, leg slots, activity); where ``exact`` in every env, else
+    in every env whose condim-3 and pair selections are decided
+    (``_topk_decided``) — the others are counted, their values not held.
+    On the envs held, each float output's largest |err| over the env's
+    largest |value| (NaN at the same positions).  Returns the worst error,
+    the largest |err|, and the counts of envs that differ (``bad``: held
+    envs, ``near``: undecided ones)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.physics import solver
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    N = ref.con.dist.shape[0]
+    dev = ref.con.dist.device
+    rl, gl = leaves(ref), leaves(got)
+    if len(rl) != len(gl):
+        raise AssertionError(f"assemble outputs differ in number: {len(rl)} "
+                             f"and {len(gl)}")
+    differs = torch.zeros(N, dtype=torch.bool, device=dev)
+    for r, g in zip(rl, gl):
+        if not r.is_floating_point():
+            differs |= (r.expand_as(g) != g).reshape(N, -1).any(dim=1)
+    decided = torch.ones(N, dtype=torch.bool, device=dev)
+    c3, _ = solver._condim_groups(sys_)
+    if 0 < sys_.max_contacts < len(c3):
+        idx = torch.tensor(c3, device=dev)
+        decided &= _topk_decided(ref.con.dist[:, idx], sys_.max_contacts)
+    if ref.pair_sel is not None:
+        c, r = ref.con.centers, sys_.cpoint_radius
+        pa, pb = sys_.cpair_a, sys_.cpair_b
+        pd = (torch.linalg.vector_norm(c[:, pb] - c[:, pa], dim=-1)
+              - (r[pa] + r[pb]))
+        decided &= _topk_decided(pd, ref.pair_sel.shape[1])
+    held = ~differs if not exact else torch.ones_like(differs)
+    bad = int((differs & (decided | exact)).sum())
+    near = int((differs & ~decided).sum()) if not exact else 0
+    worst, abs_err = 0.0, 0.0
+    for r, g in zip(rl, gl):
+        if not r.is_floating_point() or r.numel() == 0:
+            continue
+        r2 = r.expand_as(g).reshape(N, -1)[held]
+        g2 = g.reshape(N, -1)[held]
+        if not torch.equal(torch.isnan(r2), torch.isnan(g2)):
+            bad += 1
+        fin = torch.isfinite(r2) & torch.isfinite(g2)
+        zero = torch.zeros((), dtype=r2.dtype, device=dev)
+        d = torch.where(fin, (r2 - g2).abs(), zero).amax(dim=1)
+        s = torch.where(fin, r2.abs(), zero).amax(dim=1).clamp_min(1e-30)
+        if d.numel():
+            abs_err = max(abs_err, float(d.max()))
+            worst = max(worst, float((d / s).max()))
+    return dict(rel=worst, abs=abs_err, bad=bad, near=near)
+
+
+def _assemble_bound(sys_, lay, out, ins, tab, ops: int, dtype) -> tuple:
+    """The bound of an assemble call, counting the bytes the function needs:
+    every output written once (the static index lists, which are views of
+    one row, not); xpos and xquat at the bodies that carry points,
+    subtree_com at those bodies' roots and qpos at the limited joints'
+    addresses (``model_plan``'s tables); cdof, qvel and qacc_smooth at the
+    dofs that each env's rows reach (the columns of its J that are not all
+    zero); the int32 table and the constants once, and the pair constants
+    of the pairs that this call selects."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import assemble as AS
+    from nightmare_rl_tpu_torch.utils.graph import leaves
+
+    outs = [x for x in leaves(out) if x.numel() and x.stride(0) != 0]
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 {(x.data_ptr(), x.numel()): x for x in outs}.values())
+    plan = AS.model_plan(sys_, lay)
+    f, topo = plan.fields, plan.topo
+
+    def distinct(key: str) -> int:  # of a table with an entry per point
+        return len(set(topo[f[key]:f[key] + f["ncp"]]))
+
+    qadr = {int(sys_.jnt_qposadr[j]) for _, j in plan.dofrows if j is not None}
+    item, N = ins[0].element_size(), ins[0].shape[0]
+    dofs = int((out.rows.efc.J != 0).any(dim=1).sum())
+    npair = (0 if out.pair_sel is None
+             else torch.unique(out.pair_sel).numel())
+    nbytes += item * (N * (7 * distinct("t_cp_body") + 3 * distinct("t_cp_root")
+                           + len(qadr)) + 8 * dofs
+                      + tab.cst.numel() + npair * tab.pcst.shape[1])
+    nbytes += tab.topo.numel() * tab.topo.element_size()
+    return _bytes_ops_bound(nbytes, ops, dtype)
+
+
+def phase_assemble_kernel(kept: dict, device_name: str, smi: str) -> dict:
+    """The assemble kernel (``ops/csrc/assemble.cu``) against its plain
+    version (``ops/assemble.py::plain``) on the card: nightmare_v3 (top 24
+    of 40 points, top 4 of 375 pairs, pyramidal rows, the leg slots) and
+    anymal_c (top 8 of 69 condim-3 points, 4 condim-6 points, top 4 of
+    1,566 pairs, 36 dof rows, elliptic rows and cones) at 2048 and 4096
+    envs, float64 (indices equal in every env, values within
+    ASSEMBLE_F64_TOL) and float32 (indices equal in every env whose
+    selections are decided by more than ASSEMBLE_GAP, the others counted;
+    values within ASSEMBLE_F32_TOL), each with a NaN env, a NaN leg and a
+    tie env (``_assemble_inputs``); then on the slice's last call (float32,
+    every env's selections held); then each robot's kernel timed alone
+    (``_kernel_ms``) at 2048 and 4096 envs beside its plain version's
+    CUDA-event time and its bound."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import assemble as AS
+    from nightmare_rl_tpu_torch.physics import solver
+
+    t0 = time.perf_counter()
+    worst, near = {}, 0
+    with _pgs_mode("legs"):
+        for dtype, tol in ((torch.float64, ASSEMBLE_F64_TOL),
+                           (torch.float32, ASSEMBLE_F32_TOL)):
+            exact = dtype == torch.float64
+            for name, K in ASSEMBLE_MODELS:
+                sys_, lay = _assemble_system(name, K, dtype)
+                legs = solver.legs_form(sys_, lay, dtype, "cuda")
+                for N in ASSEMBLE_NS:
+                    args = _assemble_inputs(sys_, lay, N, N + len(name), dtype)
+                    got = AS.rows(sys_, lay, *args)
+                    if (got.rows.legmeta is not None) != legs:
+                        raise AssertionError(f"{name}: leg slots made {legs}")
+                    res = _assemble_held(sys_, AS.plain(sys_, lay, *args,
+                                                        legs=legs), got, exact)
+                    key = (name, str(dtype)[6:])
+                    worst[key] = max(worst.get(key, 0.0), res["rel"])
+                    near += res["near"]
+                    print(f"assemble-kernel: {name} {str(dtype)[6:]} N={N}: "
+                          f"largest error /max|field| {res['rel']:.3e}, "
+                          f"envs differing where decided {res['bad']}, "
+                          f"undecided envs differing {res['near']}")
+                    if res["bad"] or res["rel"] > tol:
+                        raise AssertionError(
+                            f"assemble kernel disagrees with its plain "
+                            f"version: {name} {dtype} N={N}: {res}")
+    print("assemble-kernel: kernel vs plain on the card, N in "
+          f"{list(ASSEMBLE_NS)}, a NaN env, a NaN leg and a tie env in each: "
+          "largest field error /max|field|: " + "; ".join(
+              f"{k[0]} {k[1]} {v:.3e}" for k, v in worst.items())
+          + f" (tol {ASSEMBLE_F64_TOL:g} float64, {ASSEMBLE_F32_TOL:g} "
+          f"float32); undecided float32 envs whose selections differ: {near}")
+
+    sys_, lay, *args = kept["assemble"]
+    legs = solver.legs_form(sys_, lay, args[0].dtype, args[0].device)
+    ref = AS.plain(sys_, lay, *args, legs=legs)
+    res = _assemble_held(sys_, ref, AS.rows(sys_, lay, *args), exact=True)
+    print(f"assemble-kernel: the slice's last call ({args[0].shape[0]} envs "
+          f"float32): largest error /max|field| {res['rel']:.3e}, max|err| "
+          f"{res['abs']:.3e}, envs whose selections differ {res['bad']}")
+    if res["bad"] or res["rel"] > ASSEMBLE_F32_TOL:
+        raise AssertionError(f"assemble kernel disagrees on the slice's "
+                             f"inputs: {res}")
+    slice_plain_ms = _cuda_ms(lambda: AS.plain(sys_, lay, *args, legs=legs),
+                              3, 1)
+    times = {}
+    with _pgs_mode("legs"):
+        for name, K in ASSEMBLE_MODELS:
+            sys_, lay = _assemble_system(name, K, torch.float32)
+            legs = solver.legs_form(sys_, lay, torch.float32, "cuda")
+            host_sys = _cpu_system(sys_)
+            one = [x[:1].cpu() for x in _assemble_inputs(sys_, lay, 1, 3,
+                                                         torch.float32)]
+            env_ops = _plain_ops(lambda: AS.plain(host_sys, lay, *one,
+                                                  legs=legs))
+            tab = AS.tables(sys_, lay, torch.float32, torch.device("cuda"))
+            for N in ASSEMBLE_NS:
+                xs = _assemble_inputs(sys_, lay, N, 5, torch.float32)
+                ms = _kernel_ms(lambda: AS.rows(sys_, lay, *xs))
+                plain_ms = _cuda_ms(lambda: AS.plain(sys_, lay, *xs,
+                                                     legs=legs), 3, 1)
+                times[(name, N)] = (ms, plain_ms) + _assemble_bound(
+                    sys_, lay, AS.rows(sys_, lay, *xs), xs, tab,
+                    env_ops * N, torch.float32)
+    print("assemble-kernel: ms/launch alone (cold L2), float32, and its "
+          "bound: " + "; ".join(
+              f"{n} {N} envs {t:.4f} (plain {p:.3f}), bound {b * 1e3:.2f} us "
+              f"by {w} ({nb / 1e6:.2f} MB) = {b / t:.1%} of it"
+              for (n, N), (t, p, b, w, nb) in times.items())
+          + f"; the slice's plain call {slice_plain_ms:.3f} ms; "
+          f"{_smi_line(t0, device_name, smi)}")
+    ms, plain_ms, bound, by, _ = times[("nightmare_v3", 2048)]
+    return dict(max_abs_err=res["abs"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
@@ -3856,6 +4163,7 @@ def main() -> int:
     entry = phase_main_path_kernel(pgs_args, launches)
     smooth_t = phase_smooth_kernel(smooth["kept"], name, smi)
     integrate_t = phase_integrate_kernel(smooth["kept"], name, smi)
+    assemble_t = phase_assemble_kernel(smooth["kept"], name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -3908,7 +4216,7 @@ def main() -> int:
              "graph-anymal": graph_anymal["smooth_launches"],
              "play-grid": grid_smooth}
     smooth_launches = {k: sum(p[k] for p in parts.values())
-                       for k in ("smooth", "integrate")}
+                       for k in STEP_KERNELS}
     for k, total in smooth_launches.items():
         print(f"kernel: {k} launches {total} = " + " + ".join(
             f"{who} {p[k]}" for who, p in parts.items()))
@@ -3918,7 +4226,8 @@ def main() -> int:
              replaces=f"nightmare_rl_tpu/physics/pipeline.py:{line}",
              launches=smooth_launches[k], **t, library_ms=None)
         for k, line, t in (("smooth", 59, smooth_t),
-                           ("integrate", 125, integrate_t))]
+                           ("integrate", 125, integrate_t),
+                           ("assemble", 84, assemble_t))]
     print("graph: kernel nodes per captured env step: "
           + ", ".join(f"nightmare_v3 {form} {r['nodes']}"
                       for form, r in graph.items())

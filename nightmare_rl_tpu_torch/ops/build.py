@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone into
-``_build/lib<name>_<hash>.so`` (the hash is of the source and of the
-``csrc/`` headers it includes, transitively, so an edited source or header
-rebuilds the kernels that use it and no other).  The build runs at
-first use, never at import, and only where the CUDA toolkit is installed.
+``_build/lib<name>_<hash>.so`` (the hash is of the compiler's flags, of
+the source and of the ``csrc/`` headers it includes, transitively, so an
+edited source, header or flag rebuilds the kernels that use it and no
+other).  The build runs at first use, never at import, and only where the
+CUDA toolkit is installed.
 
 ``build_host`` compiles a ``csrc/<name>.cpp`` with g++ the same way: the
 host driver of a kernel's per-env arithmetic, which the CPU tests run.
@@ -26,6 +27,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# a kernel's own flags: the assemble kernel rounds op for op as its plain
+# version does, without contracting multiply-adds, so that its selections
+# agree with the plain version's wherever two distances differ
+KERNEL_FLAGS = {"assemble": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -50,9 +55,10 @@ def _includes(path: str) -> list:
     return seen
 
 
-def _digest(src: str) -> str:
-    """Hash of a source and of the ``csrc/`` headers it includes."""
-    h = hashlib.sha256()
+def _digest(src: str, flags=()) -> str:
+    """Hash of the compiler's flags, of a source and of the ``csrc/``
+    headers it includes."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + _includes(src):
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -64,7 +70,8 @@ def build(name: str) -> dict:
     library path, the seconds spent and nvcc's output (ptxas registers,
     shared memory and spills)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
+    flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, [])
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src, flags)}.so")
     log = lib + ".log"
     if os.path.exists(lib):
         with open(log) as fh:
@@ -72,7 +79,7 @@ def build(name: str) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                           capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -96,13 +103,13 @@ def build_host(name: str) -> str:
     if gxx is None:
         raise RuntimeError("g++ not found (needed to build the host driver)")
     src = os.path.join(CSRC_DIR, name + ".cpp")
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src)}.so")
+    flags = ["-std=c++17", "-O2", "-pthread", "-shared", "-fPIC"]
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{_digest(src, flags)}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([gxx, "-std=c++17", "-O2", "-pthread", "-shared", "-fPIC",
-                           "-o", tmp, src],
+    proc = subprocess.run([gxx, *flags, "-o", tmp, src],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}{proc.stderr}")

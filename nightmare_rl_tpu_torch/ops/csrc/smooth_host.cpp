@@ -9,76 +9,25 @@
 // (ops/build.py::build_host) and hold it against the JAX package; it is not
 // on any path of the port.
 
-#include <atomic>
 #include <cstring>
-#include <thread>
 #include <vector>
 
+#include "host_team.h"
 #include "smooth_env.cuh"
 
 namespace {
 
 using smooth_env::Layout;
 
-// A barrier that spins (yielding) until every member has arrived.
-class Barrier {
- public:
-  explicit Barrier(int n) : n_(n) {}
-  void wait() {
-    if (n_ == 1) return;
-    const int gen = gen_.load(std::memory_order_acquire);
-    if (count_.fetch_add(1, std::memory_order_acq_rel) == n_ - 1) {
-      count_.store(0, std::memory_order_relaxed);
-      gen_.fetch_add(1, std::memory_order_release);
-    } else {
-      while (gen_.load(std::memory_order_acquire) == gen)
-        std::this_thread::yield();
-    }
-  }
-
- private:
-  const int n_;
-  std::atomic<int> count_{0}, gen_{0};
-};
-
-struct ThreadTeam {
-  int r, n;
-  Barrier* barrier;
-  char* votes;  // one slot per member, for any()
-  int rank() const { return r; }
-  int size() const { return n; }
-  void sync() const { barrier->wait(); }
-  bool any(bool p) const {
-    votes[r] = p;
-    barrier->wait();
-    bool out = false;
-    for (int k = 0; k < n; ++k) out = out || votes[k] != 0;
-    barrier->wait();  // no member votes again before every member has read
-    return out;
-  }
-  void stamp(int) const {}
-};
-
 // Runs one(tm, n, work) for every env n with a team of `team` threads
 // sharing one workspace of `elems` elements.
 template <typename T, typename F>
 int run(int N, int elems, int team, F one) {
-  if (N < 0 || elems <= 0 || team < 1 || team > 64) return 1;
+  if (elems <= 0) return 1;
   std::vector<T> work(elems);
-  std::vector<char> votes(team);
-  Barrier barrier(team);
-  auto member = [&](int r) {
-    const ThreadTeam tm{r, team, &barrier, votes.data()};
-    for (int n = 0; n < N; ++n) {
-      one(tm, n, work.data());
-      tm.sync();   // the next env reuses the workspace
-    }
-  };
-  std::vector<std::thread> threads;
-  for (int r = 1; r < team; ++r) threads.emplace_back(member, r);
-  member(0);
-  for (std::thread& t : threads) t.join();
-  return 0;
+  return host_team::run(N, team, [&](const host_team::ThreadTeam& tm, int n) {
+    one(tm, n, work.data());
+  });
 }
 
 template <typename T>
@@ -97,9 +46,10 @@ int smooth(const int* layout, int nlayout, const int* topo, const T* cst,
   for (int k = 0; k < smooth_env::kNumOuts; ++k)
     a.out[k] = static_cast<T*>(outs[k]);
   a.N = N;
-  return run<T>(N, a.L.w_elems, team, [&](const ThreadTeam& tm, int n, T* w) {
-    smooth_env::smooth_one(tm, a, n, w, a.topo, a.cst);
-  });
+  return run<T>(N, a.L.w_elems, team,
+                [&](const host_team::ThreadTeam& tm, int n, T* w) {
+                  smooth_env::smooth_one(tm, a, n, w, a.topo, a.cst);
+                });
 }
 
 template <typename T>
@@ -123,9 +73,10 @@ int update(const int* layout, int nlayout, const int* topo, const T* cst,
   a.qvel_out = qvel_out;
   a.qacc_warmstart = qacc_warmstart;
   a.N = N;
-  return run<T>(N, a.L.u_elems, team, [&](const ThreadTeam& tm, int n, T* w) {
-    smooth_env::update_one(tm, a, n, w);
-  });
+  return run<T>(N, a.L.u_elems, team,
+                [&](const host_team::ThreadTeam& tm, int n, T* w) {
+                  smooth_env::update_one(tm, a, n, w);
+                });
 }
 
 }  // namespace

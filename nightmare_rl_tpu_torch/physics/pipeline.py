@@ -4,9 +4,10 @@ Euler with or without implicit joint damping) + touch sensors (port of
 ``mj_step`` with a decimation loop.
 
 The smooth half of ``forward`` (kinematics to qfrc_smooth and the arrow
-factor) and the integrator's update of ``step`` are one kernel launch each
-on the card (``ops/smooth.py``, ``ops/integrate.py``), the plain functions
-on the CPU. The mass matrix is factored block-arrow where the tree is a
+factor), its collision and row assembly (``ops/assemble.py``) and the
+integrator's update of ``step`` are one kernel launch each on the card
+(``ops/smooth.py``, ``ops/integrate.py``), the plain functions on the
+CPU. The mass matrix is factored block-arrow where the tree is a
 free base with equal independent legs (``arrow.layout``; both bundled
 robots), and by dense Cholesky otherwise. The layout and the factor go to
 the contact solve, whose assembly then gives each row its leg slots, so
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from nightmare_rl_tpu_torch.ops import integrate, linalg, smooth
+from nightmare_rl_tpu_torch.ops import assemble, integrate, linalg, smooth
 from nightmare_rl_tpu_torch.physics import arrow, collision, dynamics
 from nightmare_rl_tpu_torch.physics import kinematics, solver
 from nightmare_rl_tpu_torch.physics import system as S
@@ -40,6 +41,9 @@ class ForwardOut(NamedTuple):
     M_chol: Optional[torch.Tensor]
     qfrc_smooth: torch.Tensor
     qacc_smooth: torch.Tensor
+    # the candidate points' pos, dist, active and centers; their Jacobians
+    # (jac, jac_rot) are not formed (None): the assembly builds the rows'
+    # Jacobians for the selected points only
     con: collision.Contacts
     sol: solver.ContactSolveOut
     act: dynamics.ActOut
@@ -79,20 +83,19 @@ def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
         M_chol = linalg.chol(M)
         qacc_smooth = linalg.cho_solve(M_chol, sm.qfrc_smooth)
 
-    con = collision.find_contacts(sys, kin)
-    pair = None
-    if sys.max_pair_contacts > 0 and len(sys.cpair_a) > 0:
-        pair = collision.find_pair_contacts(sys, kin, con)
+    # collision and the rows of the constraint system, b included, in one
+    # launch on the card (ops/assemble.py)
+    asm = assemble.rows(sys, lay, kin.xpos, kin.xquat, kin.subtree_com,
+                        kin.cdof, qpos, qvel, qacc_smooth)
     warmstart = (None if os.environ.get("NIGHTMARE_NO_WARMSTART")
                  else state.qacc_warmstart)
-    sol = solver.solve_contacts(sys, con, qpos, qvel, qacc_smooth, pair=pair,
-                                lay=lay, fac=fac, M=M, M_chol=M_chol,
-                                warmstart=warmstart)
+    sol = solver.solve_rows(sys, asm.rows, qacc_smooth, lay=lay, fac=fac, M=M,
+                            M_chol=M_chol, warmstart=warmstart)
     # touch sensors: per-contact normal force (Σ pyramid facet forces, or
     # the normal row of an elliptic cone)
     sensordata = sol.nforce @ sys.sensor_cpoint_matrix.T
-    return ForwardOut(kin, sm.vel, M, M_chol, sm.qfrc_smooth, qacc_smooth, con,
-                      sol, sm.act, sensordata)
+    return ForwardOut(kin, sm.vel, M, M_chol, sm.qfrc_smooth, qacc_smooth,
+                      asm.con, sol, sm.act, sensordata)
 
 
 @full_float32()

@@ -555,25 +555,27 @@ class SolveOut(NamedTuple):
     qacc: torch.Tensor             # (N, nv) constrained acceleration
 
 
-def solve(sys: S.System, efc: Efc, qacc_smooth: torch.Tensor,
-          ns_offset: int, lay: Optional[arrow.ArrowLayout] = None,
+def solve(sys: S.System, efc: Efc, b: torch.Tensor,
+          qacc_smooth: torch.Tensor, ns_offset: int,
+          lay: Optional[arrow.ArrowLayout] = None,
           fac: Optional[arrow.ArrowFac] = None,
           M_chol: Optional[torch.Tensor] = None,
           legmeta: Optional[LegMeta] = None) -> SolveOut:
     """Dual box-PGS from zero with fixed sweeps, then noslip on the contact
-    tangent pairs from row ns_offset, in the form ``choose_mode`` picks:
+    tangent pairs from row ns_offset, in the form ``choose_mode`` picked
+    when the rows were assembled (``legs_form``):
 
-    - legs (block-arrow factor and slot assignment given): ``pgs_legs`` on
+    - legs (the slot assignment ``legmeta`` given, with the block-arrow
+      factor): ``pgs_legs`` on
       the G panels, which also gives qacc's change M⁻¹ Jᵀ f = L⁻ᵀ u from
       its final slot state u = Gᵀf; no M⁻¹, no U and no solve with M are
       formed (the JAX package solves M⁻¹ qfrc with ``arrow.solve_vec``: the
       two agree to round-off);
     - dense: M⁻¹ from the block-arrow or the dense Cholesky factor
-      (``minv``), U = J M⁻¹ in one batched matmul, ``pgs``."""
-    b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
-    mode = _pgs_mode(sys, lay, legmeta is not None and fac is not None,
-                     efc.J.shape[1], ns_offset, efc.J.dtype, efc.J.device)
-    if mode == "legs":
+      (``minv``), U = J M⁻¹ in one batched matmul, ``pgs``.
+
+    ``b`` = J qacc_smooth - aref, as the assembly made it."""
+    if legmeta is not None:
         f, dq = pgs_legs(lay, fac, efc.J, legmeta, b, efc.R, efc.lo, efc.hi,
                          sys.solver_iterations, sys.noslip_iterations,
                          ns_offset)
@@ -632,6 +634,59 @@ def _noslip_pairs(A: torch.Tensor, b: torch.Tensor, f: torch.Tensor,
     return f
 
 
+class Rows(NamedTuple):
+    """The assembled constraint system as the solve consumes it: what
+    ``ops/assemble.py::rows`` returns (the assemble kernel on the card) and
+    ``assembled_rows`` makes from the plain functions."""
+
+    efc: Efc
+    b: torch.Tensor                   # (N, nefc) J qacc_smooth - aref
+    ns_offset: int
+    nefc: Optional[newton.NewtonEfc]  # set for Newton models
+    # per plane-contact group, in row order: its points (N, n) and rows per
+    # point
+    groups: Tuple[Tuple[torch.Tensor, int], ...]
+    # the selected pairs' points a and b (N, Kp), for models with pairs
+    pair_ab: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    # the leg-sparse PGS's slot assignment, where the legs form solves
+    legmeta: Optional[LegMeta] = None
+
+
+def rhs(efc: Efc, qacc_smooth: torch.Tensor) -> torch.Tensor:
+    """b = J qacc_smooth - aref."""
+    return torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
+
+
+def legs_form(sys: S.System, lay: Optional[arrow.ArrowLayout], dtype,
+              device) -> bool:
+    """Whether a PGS model's solve runs in the legs form (``choose_mode``
+    at the System's row count), so that its rows need their slots."""
+    if lay is None or sys.solver_type in (S.SOLVER_CG, S.SOLVER_NEWTON):
+        return False
+    return _pgs_mode(sys, lay, True, _row_count(sys), len(_dof_row_dofs(sys)),
+                     dtype, device) == "legs"
+
+
+def assembled_rows(sys: S.System, con: Contacts, qpos: torch.Tensor,
+                   qvel: torch.Tensor, qacc_smooth: torch.Tensor,
+                   pair: Optional[PairContacts] = None,
+                   lay: Optional[arrow.ArrowLayout] = None,
+                   legs: bool = False) -> Optional[Rows]:
+    """``Rows`` from the plain functions: ``assemble``, the slot
+    assignment (``_legmeta``, only where ``legs``) and b.  None where the
+    model has no constraint row."""
+    asm = assemble(sys, con, qpos, qvel, pair=pair)
+    if asm is None:
+        return None
+    legmeta = None
+    if legs:
+        legmeta = _legmeta(sys, lay, qvel.shape[0], qvel.device, asm.cparts,
+                           pair)
+    return Rows(asm.efc, rhs(asm.efc, qacc_smooth), asm.ns_offset, asm.nefc,
+                tuple((p[1], p[2]) for p in asm.cparts),
+                None if pair is None else (pair.a, pair.b), legmeta)
+
+
 def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                    qvel: torch.Tensor, qacc_smooth: torch.Tensor,
                    pair: Optional[PairContacts] = None,
@@ -640,27 +695,41 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                    M: Optional[torch.Tensor] = None,
                    warmstart: Optional[torch.Tensor] = None,
                    M_chol: Optional[torch.Tensor] = None) -> ContactSolveOut:
-    """Full constraint solve with top-K candidate selection.  PGS models run
-    the PGS solve; Newton models run ``ops/newton.py::newton_solve`` from
-    the warmstart (the CUDA kernel on the card, ``newton.solve`` on the
-    CPU; then noslip for pyramidal cones).  Normal forces (Σ facet forces, or
-    the normal row of an elliptic cone) are scattered back to the full
-    candidate set for the touch sensors.  The PGS solve runs in the form
-    ``choose_mode`` picks, and only the legs form has the rows' slot
-    assignment made; M⁻¹, where a step needs it, comes from the block-arrow
+    """Full constraint solve with top-K candidate selection: the plain
+    assembly (``assembled_rows``; the slot assignment only where the legs
+    form solves), then ``solve_rows``."""
+    rows = assembled_rows(sys, con, qpos, qvel, qacc_smooth, pair=pair,
+                          lay=lay, legs=legs_form(sys, lay, qvel.dtype,
+                                                  qvel.device))
+    return solve_rows(sys, rows, qacc_smooth, lay=lay, fac=fac, M=M,
+                      warmstart=warmstart, M_chol=M_chol)
+
+
+def solve_rows(sys: S.System, rows: Optional[Rows], qacc_smooth: torch.Tensor,
+               lay: Optional[arrow.ArrowLayout] = None,
+               fac: Optional[arrow.ArrowFac] = None,
+               M: Optional[torch.Tensor] = None,
+               warmstart: Optional[torch.Tensor] = None,
+               M_chol: Optional[torch.Tensor] = None) -> ContactSolveOut:
+    """The solve of assembled rows.  PGS models run the PGS solve (the legs
+    form where ``rows.legmeta`` is set); Newton models run
+    ``ops/newton.py::newton_solve`` from the warmstart (the CUDA kernel on
+    the card, ``newton.solve`` on the CPU; then noslip for pyramidal
+    cones).  Normal forces (Σ facet forces, or the normal row of an
+    elliptic cone) are scattered back to the full candidate set for the
+    touch sensors.  M⁻¹, where a step needs it, comes from the block-arrow
     factor (``lay``, ``fac``) or, without one, from the dense Cholesky
     factor ``M_chol``."""
-    asm = assemble(sys, con, qpos, qvel, pair=pair)
-    N = qvel.shape[0]
-    if asm is None:  # nothing constrains the model
-        return ContactSolveOut(qvel.new_zeros(N, sys.ncp),
-                               torch.zeros_like(qvel), qacc_smooth)
-    efc, ns_offset = asm.efc, asm.ns_offset
-    elliptic = asm.nefc is not None and sys.cone == S.ELLIPTIC
-    if asm.nefc is not None:
+    N = qacc_smooth.shape[0]
+    if rows is None:  # nothing constrains the model
+        return ContactSolveOut(qacc_smooth.new_zeros(N, sys.ncp),
+                               torch.zeros_like(qacc_smooth), qacc_smooth)
+    efc, ns_offset, b = rows.efc, rows.ns_offset, rows.b
+    elliptic = rows.nefc is not None and sys.cone == S.ELLIPTIC
+    if rows.nefc is not None:
         if M is None:
             raise ValueError("the Newton solve needs the mass matrix M")
-        ne = asm.nefc
+        ne = rows.nefc
         nefc = ne._replace(J=ne.J.contiguous(), aref=ne.aref.contiguous(),
                            R=ne.R.contiguous(), fl=ne.fl.contiguous(),
                            quad_active=ne.quad_active.contiguous())
@@ -673,33 +742,27 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
         if sys.noslip_iterations > 0 and not elliptic:
             Minv = minv(lay, fac, M_chol)
             A = (efc.J @ Minv) @ efc.J.transpose(1, 2)
-            b = torch.einsum("nkv,nv->nk", efc.J, qacc_smooth) - efc.aref
             force = _noslip_pairs(A, b, nsol.force, efc.hi, ns_offset,
                                   sys.noslip_iterations)
             qfrc = torch.einsum("nkv,nk->nv", efc.J, force)
             sol = SolveOut(force, qfrc,
                            qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc))
     else:
-        legmeta = None
-        if fac is not None and _pgs_mode(
-                sys, lay, True, efc.J.shape[1], ns_offset, efc.J.dtype,
-                efc.J.device) == "legs":
-            legmeta = _legmeta(sys, lay, N, qvel.device, asm.cparts, pair)
-        sol = solve(sys, efc, qacc_smooth, ns_offset, lay, fac, M_chol,
-                    legmeta)
+        sol = solve(sys, efc, b, qacc_smooth, ns_offset, lay, fac, M_chol,
+                    rows.legmeta)
 
     nforce = sol.force.new_zeros(N, sys.ncp)
     off = ns_offset
-    for _, idx, nf, _, _, _ in asm.cparts:
+    for idx, nf in rows.groups:
         n = idx.shape[1]
         blk = sol.force[:, off:off + n * nf].reshape(N, n, nf)
         nforce = nforce.scatter(1, idx, blk[..., 0] if elliptic else blk.sum(dim=-1))
         off += n * nf
-    if pair is not None:
+    if rows.pair_ab is not None:
         # pair normal force feeds the touch sensors of BOTH bodies; duplicate
         # indices accumulate (scatter_add, the batched index_add_)
+        pa, pb = rows.pair_ab
         blk = sol.force[:, off:].reshape(N, -1, 3 if elliptic else 4)
         nf_pair = blk[..., 0] if elliptic else blk.sum(dim=-1)
-        nforce = nforce.scatter_add(1, pair.a, nf_pair).scatter_add(
-            1, pair.b, nf_pair)
+        nforce = nforce.scatter_add(1, pa, nf_pair).scatter_add(1, pb, nf_pair)
     return ContactSolveOut(nforce, sol.qfrc_constraint, sol.qacc)

@@ -111,18 +111,20 @@ def slice_inputs(robot: str, N: int, steps: int, dev: torch.device) -> dict:
 
 
 def _nvcc_lib(src: str, defines: Sequence[str]) -> dict:
-    """``src`` built by nvcc with the repo's flags (and ``-D`` defines) into
-    ``_build/``: the loaded library and ptxas's output."""
-    h = hashlib.sha256(" ".join(defines).encode())
+    """``src`` built by nvcc with the repo's flags (the kernel's own
+    included, and ``-D`` defines) into ``_build/``: the loaded library and
+    ptxas's output."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    flags = build.NVCC_FLAGS + build.KERNEL_FLAGS.get(name, [])
+    h = hashlib.sha256(" ".join(list(defines) + flags).encode())
     h.update(build._digest(src).encode() if os.path.dirname(src) ==
              build.CSRC_DIR else _tree_digest(src).encode())
-    name = os.path.splitext(os.path.basename(src))[0]
     lib = os.path.join(build.BUILD_DIR,
                        f"lib{name}_profile_{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         os.makedirs(build.BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
+        proc = subprocess.run([build._nvcc(), *flags,
                                *(f"-D{d}" for d in defines), "-o", tmp, src],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:

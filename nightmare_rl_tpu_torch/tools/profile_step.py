@@ -20,9 +20,9 @@ within calls:
   kernels one step and one physics substep run, the kernels that take the
   most device time, the PGS kernels' time (nightmare_v3), the Newton
   kernel's (``ops/csrc/newton.cu``, anymal_c's constraint solve) and the
-  smooth and integrate kernels' (``ops/csrc/smooth.cu``,
-  ``ops/csrc/integrate.cu``), each with its launches and its share of the
-  step's device time;
+  smooth, integrate and assemble kernels' (``ops/csrc/smooth.cu``,
+  ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``), each with its
+  launches and its share of the step's device time;
 - the host synchronizations that one step makes
   (``torch.cuda.set_sync_debug_mode``);
 - the peak device memory of one step (``torch.cuda.max_memory_allocated``
@@ -122,7 +122,7 @@ def _profiled(step, steps: int, substeps: int) -> dict:
                  ) / 1e3 / steps
     out = {"device_busy_ms": device_ms, "kernels_per_step": launches,
            "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms}
-    for name in ("newton", "smooth", "integrate"):
+    for name in ("newton", "smooth", "integrate", "assemble"):
         mine = [e for e in kernels if f"{name}_kernel" in e.key]
         ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
         out.update({f"{name}_ms": ms,
@@ -235,17 +235,19 @@ _MODULES = (
     ("physics.dynamics", ("crb", "rne_bias", "actuation", "passive")),
     ("physics.arrow", ("factor", "solve_vec", "solve_lt", "inv")),
     ("physics.collision", ("find_contacts", "find_pair_contacts")),
-    ("physics.solver", ("solve_contacts", "assemble", "_legmeta", "solve",
-                        "minv", "newton_solve")),
+    ("physics.solver", ("solve_contacts", "solve_rows", "assemble",
+                        "_legmeta", "solve", "minv", "newton_solve")),
     ("physics.pipeline", ("step", "forward", "_integrate_pos")),
     ("ops.smooth", ("smooth_forward",)),
     ("ops.integrate", ("integrate_update",)),
+    ("ops.assemble", ("rows",)),
 )
 
 
 # the ranges of the wrappers that launch the port's own kernels
 _LAUNCHED_BY = (("smooth_kernel", "smooth.smooth_forward"),
                 ("integrate_kernel", "integrate.integrate_update"),
+                ("assemble_kernel", "assemble.rows"),
                 ("pgs_legs_kernel", "solver.solve"),
                 ("pgs_kernel", "solver.solve"),
                 ("newton_kernel", "solver.newton_solve"))

@@ -75,6 +75,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from nightmare_rl_tpu_torch.ops import pgs as P
+from nightmare_rl_tpu_torch.ops.assemble import rows as assemble_rows
 from nightmare_rl_tpu_torch.ops.integrate import integrate_update
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
@@ -82,7 +83,7 @@ from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
 _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
-            integrate_update)
+            integrate_update, assemble_rows)
 
 
 def leaves(tree) -> List[torch.Tensor]:

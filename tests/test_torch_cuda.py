@@ -36,7 +36,9 @@ the all_reduce between them).  The smooth and integrate kernels
 (``ops/csrc/smooth.cu``, ``ops/csrc/integrate.cu``) against their plain
 versions on both robots and a dense-branch model and in each integrator
 branch, float64 and float32 at the smoke's tolerances, and their launches
-per replay of either robot's captured step.  Tests that count the dense kernel's launches
+(and the assemble kernel's) per replay of either robot's captured step.
+The assemble kernel (``ops/csrc/assemble.cu``) against its plain version
+on both robots, float64 and float32, as the smoke holds it.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -859,7 +861,34 @@ def test_captured_step_launches_smooth_and_integrate(cuda, robot):
                         state_field="state")
     assert step.launches["smooth_forward"] == dec
     assert step.launches["integrate_update"] == dec
+    assert step.launches["rows"] == dec
     before = smooth_forward.launches, integrate_update.launches
     step(s0, acts)
     assert (smooth_forward.launches, integrate_update.launches) == (
         before[0] + dec, before[1] + dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["nightmare_v3", "anymal_c"])
+def test_assemble_kernel_matches_plain(cuda, model, dtype):
+    """The assemble kernel against ``ops/assemble.py::plain`` at 37 envs
+    with the smoke's diverged and tie envs, in the legs form (the leg
+    slots made), as the smoke's assemble-kernel phase holds it: float64
+    in every env, float32 in the envs whose selections are decided."""
+    from nightmare_rl_tpu_torch.ops import assemble as AS
+
+    K = dict(smoke.ASSEMBLE_MODELS)[model]
+    sys_, lay = smoke._assemble_system(model, K, dtype)
+    with smoke._pgs_mode("legs"):
+        legs = solver.legs_form(sys_, lay, dtype, "cuda")
+        args = smoke._assemble_inputs(sys_, lay, 37, 4, dtype)
+        launches = AS.rows.launches
+        got = AS.rows(sys_, lay, *args)
+    assert AS.rows.launches == launches + 1
+    assert (got.rows.legmeta is not None) == (model == "nightmare_v3") == legs
+    res = smoke._assemble_held(sys_, AS.plain(sys_, lay, *args, legs=legs),
+                               got, exact=dtype == torch.float64)
+    tol = (smoke.ASSEMBLE_F64_TOL if dtype == torch.float64
+           else smoke.ASSEMBLE_F32_TOL)
+    assert res["bad"] == 0 and res["rel"] <= tol, res
