@@ -8,8 +8,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
              ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu``,
-             ``ops/csrc/integrate.cu`` and ``ops/csrc/assemble.cu`` for
-             sm_90a from the checkout, all at once; prints ptxas's
+             ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu`` and
+             ``ops/csrc/task.cu`` for sm_90a from the checkout, all at once; prints ptxas's
              registers and spills (the float32 kernels must not spill) and
              each kernel's main-path launch geometry (the assemble
              kernel's for both robots): lanes per env, shared memory per
@@ -41,9 +41,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              for bit, the env generator's state equal, no host sync in a
              replay, ``decimation`` launches of the form's kernel per
              replay, and the smooth, integrate and assemble kernels as
-             many; the graph's kernel nodes (the legs form's at most
-             NODES_NIGHTMARE); then wall ms per env step in turns (eager,
-             graph, graph, eager), the capture's time and the graph's pool;
+             many, and one launch each of the task kernels' ``pre`` and
+             ``post``; an eager step's kernels and the graph's kernel nodes
+             (the legs form's at most NODES_NIGHTMARE); then wall ms per env
+             step in turns (eager, graph, graph, eager), the capture's time
+             and the graph's pool;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep (the rollout replays one
@@ -100,6 +102,19 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              ASSEMBLE_F32_TOL; then on the slice's last call (every env's
              selections held); then both robots timed alone at 2048 and
              4096 envs beside the plain version and the byte bound;
+6e. task-kernel — the task kernels (``ops/csrc/task.cu``: ``pre``, the
+             actions and the control law; ``post``, the readings, command
+             resampling, terminations, resets, reward terms and the
+             observation) against ``ops/task.py``'s plain versions on the
+             card, float32, nightmare_v3 and anymal_c at 2048 and 4096
+             envs, on states after a few env steps with resets, resamples,
+             edge envs (a time-out, foot forces at the limit and one ulp
+             over, NaN in qvel and in a foot force) and TASK_SWEEP envs ulp
+             by ulp across the 60° tilt and across each command cut: 0
+             envs whose flags, episode counts or commands differ, values
+             within TASK_F32_TOL, ``pre`` bit for bit; then each robot's
+             pair of launches timed alone at both sizes beside the plain
+             versions and the byte bound;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -128,7 +143,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              20 replays from one state, every StepOut field equal bit for
              bit, the env generator's state equal, no host sync in a
              replay, 4 launches of the Newton, smooth, integrate and
-             assemble kernels each per replay; the graph's nodes by type (kernel
+             assemble kernels each and one of each task kernel per replay;
+             an eager step's kernels and the graph's nodes by type (kernel
              nodes at most NODES_ANYMAL); wall ms per env step in turns (eager,
              graph, graph, eager), the warm-up's and the capture's seconds,
              the pool;
@@ -280,7 +296,13 @@ graph-anymal's and play-grid's, each read from its own wrapper's counter, each c
 zero (the launches that hold a kernel against its plain version are not
 counted).  Every kernel's ``ms`` there is ``_kernel_ms``'s: device time
 per call, each call alone behind a spin kernel and a write that flushes
-the L2 cache.
+the L2 cache.  ``task`` is the task kernels' pair of launches per env step
+(its ``ms``, ``plain_ms`` and ``bound_ms`` those of ``pre`` and ``post``
+together at nightmare_v3's 2048 envs); its launches are those of every
+path that steps an env (graph, graph-anymal, slice, slice-legs,
+slice-anymal, eval-anymal and play-grid: one ``pre`` and one ``post`` per
+env step, each phase checked, ``TASK_LAUNCHES``); custom-play's control
+step drives the physics without an env and launches none.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -396,8 +418,9 @@ SMOOTH_NS = (1, 37, 2047, 2048, 4096)
 FIRST_DESIGN_MS = {"smooth": (0.0794, 0.1467), "integrate": (0.0367, 0.0543)}
 # kernel nodes of one captured env step at most (6,269 and 10,625 when the
 # smooth half and the update ran as plain torch ops, 771 and 2,293 when the
-# collision and row assembly did; 181 and 197 with every kernel)
-NODES_NIGHTMARE, NODES_ANYMAL = 190, 210
+# collision and row assembly did, 181 and 197 when the env's task half did;
+# 34 and 64 with every kernel)
+NODES_NIGHTMARE, NODES_ANYMAL = 40, 70
 # the assemble kernel against its plain version, per env and output field:
 # max|err| / max|plain|.  float64: round-off of the row products' sums in
 # another order; float32: the same at float32's eps, amplified where J·qvel
@@ -407,6 +430,13 @@ ASSEMBLE_F64_TOL = 1e-9
 ASSEMBLE_F32_TOL = 1e-4
 ASSEMBLE_GAP = 1e-5
 ASSEMBLE_NS = (2048, 4096)
+# the task kernels against their plain versions, float32, per output field:
+# max|err| / max(1, max|plain|) (the kernels round op for op as the plain
+# version; only the sums' order differs); flags, episode counts and
+# commands must be equal in every env
+TASK_F32_TOL = 1e-5
+TASK_NS = (2048, 4096)
+TASK_SWEEP = 64              # envs of a sweep across a cut, ulp by ulp
 
 
 def _nvidia_smi() -> str:
@@ -640,7 +670,8 @@ def phase_build() -> None:
     from nightmare_rl_tpu_torch.ops import smooth as SM
     from nightmare_rl_tpu_torch.physics import arrow, loader
 
-    names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble")
+    names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble",
+             "task")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -660,6 +691,11 @@ def phase_build() -> None:
             infos[name]["log"], name + r"_kernelI([fd])E",
             lambda m, name=name: f"{name}_kernel<"
                                  f"{'float' if m[1] == 'f' else 'double'}>")
+    robots = ("nightmare_v3", "anymal_c")
+    kernels["task"] = _ptxas(
+        infos["task"]["log"], r"task_(pre|post)_kernelI([fd])Li(\d)E",
+        lambda m: f"task_{m[1]}_kernel<"
+                  f"{'float' if m[2] == 'f' else 'double'}, {robots[int(m[3])]}>")
     for name, ks in kernels.items():
         ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
                            f"stores/loads {k.get('spill')} B" for k in ks)
@@ -1092,6 +1128,7 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     with _kept_pgs() as last, _kept_smooth() as kept:
         P.pgs.launches = 0
         _zero_smooth()
+        _zero_task()
         t0 = time.perf_counter()
         runner = train.main(["-e", str(envs), "-n", str(iters), "--log_root",
                              tmp])
@@ -1119,6 +1156,7 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations")
     smooth = dict(kept=kept, launches=_check_smooth("slice", expected))
+    _check_task("slice", expected // dec)
     return launches, last["args"], runner, smooth
 
 
@@ -1159,6 +1197,7 @@ def phase_graph(device_name: str, smi: str) -> dict:
     for form, counter, other in (("legs", P.pgs_legs, P.pgs),
                                  ("kernel", P.pgs, P.pgs_legs)):
         t0 = time.perf_counter()
+        _zero_task()
         with _pgs_mode(form):
             env = NightmareV3Env(NightmareV3Cfg().replace(
                 env=EnvCfg(num_envs=N)), device="cuda")
@@ -1185,6 +1224,7 @@ def phase_graph(device_name: str, smi: str) -> dict:
             nodes = step.node_counts().get("KERNEL", 0)
             smooth_per = [step.launches.get(fn.__name__, 0)
                           for fn in _smooth_fns()]
+            task_per = [step.launches.get(k, 0) for k in TASK_WRAPPERS]
             warm = counter.launches
             differ, state = [], s0
             for k, a in enumerate(acts):
@@ -1200,6 +1240,7 @@ def phase_graph(device_name: str, smi: str) -> dict:
             for who in ("eager", "graph", "graph", "eager"):
                 walls[who].append(_env_step_ms(
                     env.step if who == "eager" else step, s0, acts))
+            eager_k = _eager_kernels("nightmare_v3")
         pool = step.pool_bytes / 2**20
         print(f"graph: {form} form, {N} envs float32, {GRAPH_STEPS} env steps "
               f"eager and as replays of one captured step from one state: "
@@ -1209,7 +1250,9 @@ def phase_graph(device_name: str, smi: str) -> dict:
               f"{counter.__name__} launches per replay {per_replay:g} "
               f"(expected {dec}), {other.__name__} {other.launches}; smooth, "
               f"integrate and assemble launches per replay {smooth_per} "
-              f"(expected {dec} each); the graph holds {nodes} kernel nodes; "
+              f"(expected {dec} each); task pre and post launches per replay "
+              f"{task_per} (expected 1 each); an eager env step launches "
+              f"{eager_k:.0f} kernels, the graph holds {nodes} kernel nodes; "
               f"warm-up "
               f"{warm}; capture {capture_s:.2f} s (warm-up included), graph "
               f"pool {pool:.1f} MiB; wall ms per env step in turns (eager, "
@@ -1228,11 +1271,16 @@ def phase_graph(device_name: str, smi: str) -> dict:
             raise AssertionError(f"a {form} replay launches the smooth, "
                                  f"integrate and assemble kernels "
                                  f"{smooth_per} times")
+        if task_per != [1] * len(TASK_WRAPPERS):
+            raise AssertionError(f"a {form} replay launches the task kernels "
+                                 f"{task_per} times")
+        _check_task(f"graph {form}")
         if form == "legs" and nodes > NODES_NIGHTMARE:
             raise AssertionError(f"the captured legs-form step holds {nodes} "
                                  f"kernel nodes, more than {NODES_NIGHTMARE}")
         res[form] = dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
-                         capture_s=capture_s, pool_mib=pool, nodes=nodes)
+                         capture_s=capture_s, pool_mib=pool, nodes=nodes,
+                         eager_kernels=eager_k)
     return res
 
 
@@ -1300,6 +1348,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     t0 = time.perf_counter()
     newton_solve.launches = 0
     _zero_smooth()
+    _zero_task()
     env = AnymalCEnv(AnymalCCfg(num_envs=N), device="cuda")
     if not env.graph_step:
         raise AssertionError("AnymalCEnv.graph_step is off")
@@ -1328,6 +1377,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     same_gen = torch.equal(env.generator.get_state(), gen_eager)
     per_replay = step.launches.get("newton_solve", 0)
     smooth_per = [step.launches.get(fn.__name__, 0) for fn in _smooth_fns()]
+    task_per = [step.launches.get(k, 0) for k in TASK_WRAPPERS]
     dones = int(sum(int(o.done.sum()) for o in eager))
     syncs = _host_syncs(lambda: step(state, acts[0]))
     walls = {"eager": [], "graph": []}
@@ -1335,6 +1385,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     for who in ("eager", "graph", "graph", "eager"):
         walls[who].append(_env_step_ms(env.step if who == "eager" else step,
                                        s0, timed))
+    eager_k = _eager_kernels("anymal_c")
     pool = step.pool_bytes / 2**20
     print(f"graph-anymal: {N} envs float32, Newton {env.sys.solver_iterations} "
           f"iterations, decimation {env.cfg.decimation}, {steps} env steps "
@@ -1343,7 +1394,8 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
           f"{not differ} (differing {differ[:6]}); env generator state equal "
           f"{same_gen}; host syncs per replay {syncs}; newton kernel "
           f"launches per replay {per_replay}, smooth, integrate and "
-          f"assemble {smooth_per}; the graph holds "
+          f"assemble {smooth_per}, task pre and post {task_per}; an eager "
+          f"env step launches {eager_k:.0f} kernels, the graph holds "
           f"{nodes.get('KERNEL', 0)} kernel nodes ({sum(nodes.values())} "
           f"nodes: {nodes}); warm-up step "
           f"{step.warmup_s:.2f} s, capture and instantiation "
@@ -1364,6 +1416,10 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
         raise AssertionError(f"an anymal_c replay launches the newton, smooth, "
                              f"integrate and assemble kernels {per_replay}, "
                              f"{smooth_per} times, not {env.cfg.decimation}")
+    if task_per != [1] * len(TASK_WRAPPERS):
+        raise AssertionError(f"an anymal_c replay launches the task kernels "
+                             f"{task_per} times")
+    _check_task("graph-anymal")
     if nodes.get("KERNEL", 0) > NODES_ANYMAL:
         raise AssertionError(f"the captured anymal_c step holds "
                              f"{nodes.get('KERNEL', 0)} kernel nodes, more "
@@ -1378,7 +1434,7 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                 capture_s=step.capture_s, record_s=step.record_s,
                 warmup_s=step.warmup_s, pool_mib=pool, nodes=nodes,
-                launches=newton_solve.launches,
+                eager_kernels=eager_k, launches=newton_solve.launches,
                 smooth_launches=counts)
 
 
@@ -1744,6 +1800,7 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp, _pgs_mode("legs"), \
             _kept_pgs("pgs_legs") as last:
         P.pgs_legs.launches = P.pgs.launches = 0
+        _zero_task()
         runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp])
         torch.cuda.synchronize()
         launches, dense = P.pgs_legs.launches, P.pgs.launches
@@ -1752,6 +1809,7 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     dec = runner.env.cfg.control.decimation
     # + the reset's zero-action step and the rollout graph's warm-up step
     expected = T * dec + dec + GRAPH_WARMUP * dec
+    _check_task("slice-legs", expected // dec)
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-legs: 1 PPO iteration x {T} steps x {envs} envs float32, "
           f"NIGHTMARE_PGS=legs: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, "
@@ -2010,6 +2068,7 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     iters, envs = 1, 2048
     t0 = time.perf_counter()
     K.newton_solve.launches = 0
+    _zero_task()
     solver.newton_solve = kept
     try:
         with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep:
@@ -2045,6 +2104,7 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
         raise AssertionError(
             f"the newton kernel ran {launches} times over {replays} replays, "
             f"expected {expected}")
+    _check_task("slice-anymal", expected // dec)
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
     return box["args"], launches
@@ -2071,6 +2131,7 @@ def phase_eval_anymal(device_name: str, smi: str) -> int:
                         "anymal_model_122.pt")
     t0 = time.perf_counter()
     newton_solve.launches = 0
+    _zero_task()
     with _counted_replays() as rep:
         res = eval_anymal.main(["--ckpt", path, "--steps", str(EVAL_STEPS),
                                 "--vx", "0.5"])
@@ -2094,6 +2155,9 @@ def phase_eval_anymal(device_name: str, smi: str) -> int:
         raise AssertionError(f"anymal_model_122 leaves the JAX eval's band: "
                              f"{s}, {replays} replays, {launches} newton "
                              f"kernel launches")
+    if _check_task("eval-anymal")["pre"] < EVAL_STEPS:
+        raise AssertionError("eval-anymal: fewer task kernel launches than "
+                             "steps")
     return launches
 
 
@@ -3135,6 +3199,311 @@ def phase_assemble_kernel(kept: dict, device_name: str, smi: str) -> dict:
                 bound_ms=bound, bound_by=by)
 
 
+TASK_WRAPPERS = ("pre", "post")
+TASK_LAUNCHES = {}   # per phase: the task kernels' launches (pre + post)
+
+
+def _task_fns():
+    """The task kernels' wrappers (``ops/task.py``: ``pre``, ``post``), by
+    their counters in ``utils/graph.py``."""
+    from nightmare_rl_tpu_torch.utils import graph
+
+    fns = {fn.__name__: fn for fn in graph._COUNTED}
+    return tuple(fns[k] for k in TASK_WRAPPERS)
+
+
+def _zero_task() -> None:
+    for fn in _task_fns():
+        fn.launches = 0
+
+
+def _check_task(label: str, expected=None) -> dict:
+    """Asserts that ``pre`` and ``post`` each launched once per env step
+    since ``_zero_task`` (``expected`` env steps, where the phase knows
+    them; at least one otherwise); records their sum in TASK_LAUNCHES."""
+    counts = {fn.__name__: fn.launches for fn in _task_fns()}
+    print(f"{label}: task kernel launches pre {counts['pre']}, post "
+          f"{counts['post']} (expected "
+          f"{'at least 1' if expected is None else expected} each: one per "
+          f"env step)")
+    if (counts["pre"] != counts["post"] or counts["pre"] < 1
+            or (expected is not None and counts["pre"] != expected)):
+        raise AssertionError(f"{label}: the task kernels ran {counts} times, "
+                             f"not {expected} each")
+    TASK_LAUNCHES[label] = counts["pre"] + counts["post"]
+    return counts
+
+
+def eager_kernels_main(argv) -> int:
+    """``--eager-kernels ROBOT``: prints the kernels that one eager env step
+    of ROBOT at 2048 envs, float32, launches on the card (torch.profiler, as
+    tools/profile_step.py counts them; the PGS form from NIGHTMARE_PGS) as
+    the last line, JSON.  The graph phases run it as a process of its own,
+    so that no profiler session runs in the smoke's process."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    env = _task_env(argv[0], 2048)
+    state, _ = env.reset(0)
+    acts = torch.zeros(env.num_envs, env.num_actions, device="cuda")
+    env.step(state, acts)
+    torch.cuda.synchronize()
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            env.step(state, acts)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / steps
+    print(json.dumps({"kernels": n}))
+    return 0
+
+
+def _eager_kernels(robot: str) -> float:
+    """``eager_kernels_main`` in a process of its own, under this
+    process's NIGHTMARE_PGS."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--eager-kernels", robot], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise RuntimeError(f"--eager-kernels {robot} failed:\n"
+                           f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])["kernels"]
+
+
+def _task_env(robot: str, N: int, device: str = "cuda"):
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.envs.anymal_c import AnymalCCfg, AnymalCEnv
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+
+    if robot == "anymal_c":
+        return AnymalCEnv(AnymalCCfg(num_envs=N), device=device)
+    return NightmareV3Env(NightmareV3Cfg().replace(env=EnvCfg(num_envs=N)),
+                          device=device, dtype=torch.float32)
+
+
+def _ulps(x: float, k):
+    """float32 values k ulps from float32(x) (k an int array)."""
+    import numpy as np
+
+    x32 = np.float32(x)
+    out = np.empty(len(k), dtype=np.float32)
+    for i, j in enumerate(k):
+        v = x32
+        for _ in range(abs(int(j))):
+            v = np.nextafter(v, np.float32(np.inf if j > 0 else -np.inf))
+        out[i] = v
+    return out
+
+
+def _task_inputs(env, seed: int) -> tuple:
+    """The task kernels' operands at the env's N envs on the card, float32:
+    the state after 3 env steps of random actions from a reset, this step's
+    raw actions, pre's actions, the physics state that pipeline.step
+    returns for them, and the command draws; with edge envs: a time-out at
+    max_episode_length and one step short of it, the resample step (every
+    other env but the sweeps' a random episode length), a foot force at
+    termination_contact_force and one ulp above, NaN in qvel and in a foot
+    force, and TASK_SWEEP envs ulp by ulp across each cut: the 60° tilt
+    (the base quaternion), the commands' norm cut (0.02 for nightmare_v3
+    on either sign of vx, 0.05 for anymal_c) and anymal_c's 0.1 cut of the
+    air-time and stand-still terms."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import task
+    from nightmare_rl_tpu_torch.physics import pipeline
+
+    N, dev = env.num_envs, env.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state, _ = env.reset(seed)
+    for _ in range(3):
+        state = env.step(state, 0.5 * torch.randn(
+            N, env.num_actions, generator=g, device=dev)).state
+    raw = 0.5 * torch.randn(N, env.num_actions, generator=g, device=dev)
+    plan = env.task_plan
+    actions, ctrl = task.PLAIN_PRE[plan.robot](env, state, raw)
+    dec = (env.cfg.control.decimation if plan.nightmare
+           else env.cfg.decimation)
+    phys = pipeline.step(env.sys, state.phys, ctrl, dec)
+    draws = [d.clone() for d in env._command_draws(N)]
+    rng = np.random.default_rng(seed)
+    S = TASK_SWEEP
+    every, max_len = plan.ints["resample_every"], env.max_episode_length
+    length = rng.integers(0, min(every, max_len) - 1, N)
+    length[::2] = every - 1           # resample
+    length[0], length[1] = max_len, max_len - 1
+    qpos, qvel = phys.qpos.clone(), phys.qvel.clone()
+    sd = phys.sensordata.clone()
+    feet = slice(6, 12) if plan.nightmare else slice(0, plan.ints["nfeet"])
+    limit = plan.reals["term_force"]
+    sd[2, feet.start] = float(np.float32(limit))
+    sd[3, feet.start] = float(_ulps(limit, [1])[0])
+    sd[4, feet.start] = float("nan")
+    qvel[5, 7] = float("nan")
+    # the tilt sweep: quaternions about a horizontal axis, angles spaced
+    # half a float32 ulp of the cut apart
+    a = 16
+    th = math.pi / 3 + (np.arange(S) - S // 2) * 6e-8
+    phi = rng.uniform(0, 2 * math.pi, S)
+    quat = np.stack([np.cos(th / 2), np.sin(th / 2) * np.cos(phi),
+                     np.sin(th / 2) * np.sin(phi), np.zeros(S)], axis=1)
+    qpos[a:a + S, 3:7] = torch.from_numpy(quat).to(qpos)
+    # the command cuts' sweeps (resampled envs)
+    b = a + S
+    k = np.arange(S) - S // 2
+    if plan.nightmare:
+        half = np.arange(S // 2) - S // 4   # vx = -0.5 + u about ±0.02
+        u = np.concatenate([_ulps(0.52, half), _ulps(0.48, half)])
+        draws[0][b:b + S] = torch.from_numpy(u).to(dev)
+    else:
+        c = env.cfg
+        for j, cut in enumerate((0.05, 0.1)):
+            lo = b + j * S
+            ux = _ulps((0.6 * cut + c.max_lin_vel_x) / (2 * c.max_lin_vel_x), k)
+            uy = _ulps((0.8 * cut + c.max_lin_vel_y) / (2 * c.max_lin_vel_y), k)
+            draws[0][lo:lo + S] = torch.from_numpy(ux).to(dev)
+            draws[1][lo:lo + S] = torch.from_numpy(uy).to(dev)
+    length[a:b + 2 * S] = every - 1
+    state = state.replace(episode_length=torch.from_numpy(length).to(
+        dev, torch.int32))
+    phys = phys.replace(qpos=qpos, qvel=qvel, sensordata=sd)
+    noise = None
+    if plan.ints["add_noise"]:
+        noise = torch.rand(N, env.num_obs, generator=g, device=dev)
+    return state, raw, actions, phys, draws, noise
+
+
+def _task_held(ref, got) -> dict:
+    """The task kernels' outputs against the plain version's: envs whose
+    flags (reset, time-out, contact buffers), episode counts or commands
+    differ; the largest error of a value field over max(1, max|field|) and
+    the largest absolute error (NaN positions must be equal)."""
+    import torch
+
+    n = ref.reset.shape[0]
+    bad = torch.zeros(n, dtype=torch.bool, device=ref.reset.device)
+    rel = err = 0.0
+    for name in ref._fields:
+        a, b = getattr(ref, name), getattr(got, name)
+        if a is None:
+            continue
+        if not a.is_floating_point() or name == "commands":
+            bad |= (a != b).reshape(n, -1).any(dim=1)
+            continue
+        nan = torch.isnan(a) != torch.isnan(b)
+        bad |= nan.reshape(n, -1).any(dim=1)
+        ok = ~torch.isnan(a) & ~torch.isnan(b)
+        if not ok.any():
+            continue
+        d = float((a[ok] - b[ok]).abs().max())
+        err = max(err, d)
+        rel = max(rel, d / max(1.0, float(a[ok].abs().max())))
+    return dict(bad=int(bad.sum()), rel=rel, abs=err)
+
+
+def _task_bytes(env, state, phys, draws, noise, out) -> tuple:
+    """Bytes that pre and post must move (each operand read once where the
+    config reads it, each output written once)."""
+    plan = env.task_plan
+    N, it = state.commands.shape[0], state.commands.element_size()
+    terms = env.active_rewards
+    na = env.num_actions
+    pre = N * na * it * (3 if plan.nightmare else 2)
+    reads = [phys.qpos, phys.qvel, phys.sensordata, state.episode_length,
+             state.commands, state.actions, state.feet_air_time,
+             state.last_contacts, state.episode_sums, *draws]
+    reads += [state.dof_vel] if "dof_acc" in terms else []
+    reads += [state.last_contacts_filt] if plan.nightmare else []
+    reads += [noise] if noise is not None else []
+    post = sum(x.numel() * x.element_size() for x in reads)
+    post += N * 6 * it + N * na * it          # cvel at the base; actions
+    post += N * it if "base_height" in terms else 0
+    post += N * na * it if "torques" in terms and not plan.nightmare else 0
+    post += sum(x.numel() * x.element_size() for x in out if x is not None)
+    post += plan.cst.numel() * it
+    return pre, post
+
+
+def phase_task_kernel(device_name: str, smi: str) -> dict:
+    """The task kernels (``ops/csrc/task.cu``: ``pre``, the actions and the
+    control law, and ``post``, everything of the env step after the
+    physics) against their plain versions (``ops/task.py``'s plain_*) on
+    the card, float32, nightmare_v3 and anymal_c at 2048 and 4096 envs, on
+    ``_task_inputs``' states (resets, resamples, the edge envs and the
+    sweeps across every cut): 0 envs whose flags, episode counts or
+    commands differ, every value within TASK_F32_TOL of its field's scale,
+    NaN at the plain version's positions, pre's outputs bit for bit; then
+    each robot's pair of launches timed alone (``_kernel_ms``) at both
+    sizes beside the plain versions and the byte bound."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import task
+
+    t0 = time.perf_counter()
+    res, times = {}, {}
+    for robot in ("nightmare_v3", "anymal_c"):
+        for N in TASK_NS:
+            env = _task_env(robot, N)
+            state, raw, actions, phys, draws, noise = _task_inputs(env, N)
+            plan = env.task_plan
+            ref_pre = task.PLAIN_PRE[plan.robot](env, state, raw)
+            got_pre = task.pre(env, state, raw)
+            pre_err = max(float((a - b).abs().max())
+                          for a, b in zip(ref_pre, got_pre))
+            ref = task.PLAIN_POST[plan.robot](env, state, actions, phys, draws,
+                                              noise)
+            got = task.post(env, state, actions, phys, draws, noise)
+            held = _task_held(ref, got)
+            sweep = int(ref.reset[16:16 + TASK_SWEEP].sum())
+            print(f"task-kernel: {robot} N={N} float32: envs whose flags, "
+                  f"episode counts or commands differ {held['bad']}; "
+                  f"largest value error /max(1, |field|) {held['rel']:.3e}, "
+                  f"max|err| {held['abs']:.3e}; pre max|err| {pre_err:.3e}; "
+                  f"resets {int(ref.reset.sum())} (the tilt sweep's "
+                  f"{sweep} of {TASK_SWEEP}), time-outs "
+                  f"{int(ref.time_out.sum())}")
+            if held["bad"] or held["rel"] > TASK_F32_TOL or pre_err != 0.0:
+                raise AssertionError(f"task kernels disagree with their plain "
+                                     f"versions: {robot} N={N}: {held}, pre "
+                                     f"{pre_err}")
+            if not 0 < sweep < TASK_SWEEP:
+                raise AssertionError(f"the tilt sweep does not cross the cut: "
+                                     f"{sweep} of {TASK_SWEEP} reset")
+            res[(robot, N)] = dict(held, pre=pre_err)
+            pre_ms = _kernel_ms(lambda: task.pre(env, state, raw))
+            post_ms = _kernel_ms(lambda: task.post(env, state, actions, phys,
+                                                   draws, noise))
+            plain_pre = _cuda_ms(lambda: task.PLAIN_PRE[plan.robot](
+                env, state, raw), 10, 2)
+            plain_post = _cuda_ms(lambda: task.PLAIN_POST[plan.robot](
+                env, state, actions, phys, draws, noise), 10, 2)
+            nb_pre, nb_post = _task_bytes(env, state, phys, draws, noise, got)
+            bound, by, nb = _bytes_ops_bound(nb_pre + nb_post, 0,
+                                             torch.float32)
+            times[(robot, N)] = (pre_ms, post_ms, plain_pre, plain_post, bound,
+                                 by, nb)
+    print("task-kernel: ms/launch alone (cold L2), float32, pre + post, "
+          "beside the plain versions (CUDA events, queued) and the byte "
+          "bound: " + "; ".join(
+              f"{r} {N} envs {a:.4f} + {b:.4f} = {a + b:.4f} (plain "
+              f"{pa:.3f} + {pb:.3f}), bound {bd * 1e3:.2f} us by {w} "
+              f"({nb / 1e6:.2f} MB) = {bd / (a + b):.1%} of it"
+              for (r, N), (a, b, pa, pb, bd, w, nb) in times.items())
+          + f"; {_smi_line(t0, device_name, smi)}")
+    a, b, pa, pb, bound, by, _ = times[("nightmare_v3", 2048)]
+    main = res[("nightmare_v3", 2048)]
+    return dict(max_abs_err=max(main["abs"], main["pre"]), ms=a + b,
+                plain_ms=pa + pb, bound_ms=bound, bound_by=by)
+
+
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
     return f"{time.perf_counter() - t0:.1f} s; {device_name}, {smi}"
 
@@ -3188,6 +3557,7 @@ def phase_play_grid(device_name: str, smi: str) -> dict:
     with _kept_pgs() as last:
         P.pgs.launches = 0
         _zero_smooth()
+        _zero_task()
         res = play.grid_eval(MODEL_3176, GRID_STEPS, device="cuda")
         launches = P.pgs.launches
     # 2 substeps per step + the reset's step and the graph's warm-up step
@@ -3212,6 +3582,7 @@ def phase_play_grid(device_name: str, smi: str) -> dict:
     if launches != expected:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     smooth = _check_smooth("play-grid", expected)
+    _check_task("play-grid", expected // 2)
     _hold_kernel("play-grid inputs (its last call)", last["args"],
                  (len(res["rows"]), 112, 24))
     return smooth
@@ -3272,6 +3643,7 @@ def phase_custom_play(device_name: str, smi: str) -> None:
     from nightmare_rl_tpu_torch.tools import custom_play
 
     t0 = time.perf_counter()
+    _zero_task()
     card, fsm = _engine_journey("cuda")
     cpu, _ = _engine_journey("cpu")
     err = float((card - cpu).abs().max())
@@ -3329,6 +3701,10 @@ def phase_custom_play(device_name: str, smi: str) -> None:
                              f"JAX tool does under the commands {bad}")
     if launches != CUSTOM_STEPS * 2 + GRAPH_WARMUP * 2:
         raise AssertionError(f"pgs kernel ran {launches} times")
+    print(f"custom-play: the control step drives pipeline.step with the gait "
+          f"engine's targets and no env, so it runs no task kernel: pre "
+          f"{_task_fns()[0].launches}, post {_task_fns()[1].launches} "
+          f"launches")
     _hold_kernel("custom-play inputs (its last call)", last["args"],
                  (CUSTOM_ENVS, 16 * 4 + 16, 24))
 
@@ -4135,6 +4511,8 @@ def main() -> int:
         return mesh_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--mjx-seeds"]:
         return mjx_seeds(sys.argv[2:])
+    if sys.argv[1:2] == ["--eager-kernels"]:
+        return eager_kernels_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4164,6 +4542,7 @@ def main() -> int:
     smooth_t = phase_smooth_kernel(smooth["kept"], name, smi)
     integrate_t = phase_integrate_kernel(smooth["kept"], name, smi)
     assemble_t = phase_assemble_kernel(smooth["kept"], name, smi)
+    task_t = phase_task_kernel(name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -4228,14 +4607,24 @@ def main() -> int:
         for k, line, t in (("smooth", 59, smooth_t),
                            ("integrate", 125, integrate_t),
                            ("assemble", 84, assemble_t))]
-    print("graph: kernel nodes per captured env step: "
-          + ", ".join(f"nightmare_v3 {form} {r['nodes']}"
-                      for form, r in graph.items())
-          + f", anymal_c {graph_anymal['nodes'].get('KERNEL', 0)}")
+    task_launches = sum(TASK_LAUNCHES.values())
+    print(f"kernel: task launches {task_launches} (pre + post) = " + " + ".join(
+        f"{who} {n}" for who, n in TASK_LAUNCHES.items()))
+    task_entry = dict(
+        name="task", route="cuda",
+        source="nightmare_rl_tpu_torch/ops/csrc/task.cu",
+        replaces="nightmare_rl_tpu/envs/nightmare_v3.py:182",
+        launches=task_launches, **task_t, library_ms=None)
+    print("graph: kernels per env step, eager / captured graph's kernel "
+          "nodes: " + ", ".join(f"nightmare_v3 {form} "
+                                f"{r['eager_kernels']:.0f} / {r['nodes']}"
+                                for form, r in graph.items())
+          + f", anymal_c {graph_anymal['eager_kernels']:.0f} / "
+          f"{graph_anymal['nodes'].get('KERNEL', 0)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, legs_entry, newton_entry]
-                      + smooth_entries}))
+                      + smooth_entries + [task_entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -18,6 +18,9 @@ state's ``qacc_warmstart``.  Randomness comes from one ``torch.Generator``
 on the env's device, in place of the JAX env's per-env keys; under a mesh
 the env holds one shard's envs and draws through ``parallel/shard.py``.
 
+The step's task half (everything around the physics) is ``ops/task.py``'s:
+its plain version on the CPU, two kernels on the card.
+
 The Newton line search needs full float32 products: the step runs its
 matrix products without TF32, whatever the process-wide setting.
 """
@@ -25,14 +28,13 @@ matrix products without TF32, whatever the process-wide setting.
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from nightmare_rl_tpu_torch.core import quat as Q
+from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
@@ -152,22 +154,23 @@ class AnymalCEnv:
                                      device=self.device)
         self._cmd_scale = torch.tensor([2.0, 2.0, 0.25], dtype=dtype,
                                        device=self.device)
+        # the task kernels' parameters; refuses a config they do not take
+        self.task_plan = task.anymal_c_plan(self)
 
-    def _uniform(self, n: int, bound: float) -> torch.Tensor:
-        u = self.shard.draw(torch.rand, (n,), generator=self.generator,
-                            dtype=self.dtype, device=self.device)
-        return -bound + 2.0 * bound * u
+    def _draw(self, n: int) -> torch.Tensor:
+        return self.shard.draw(torch.rand, (n,), generator=self.generator,
+                               dtype=self.dtype, device=self.device)
+
+    def _command_draws(self, n: int) -> Tuple[torch.Tensor, ...]:
+        """A step's command draws: vx, vy and ωz for the resample, then for
+        the reset."""
+        return tuple(self._draw(n) for _ in range(6))
 
     def _sample_commands(self, n: int) -> torch.Tensor:
         """vx ∈ ±max_lin_vel_x, vy ∈ ±max_lin_vel_y, ωz ∈ ±max_ang_vel;
         xy commands with norm ≤ 0.05 are zeroed."""
-        c = self.cfg
-        vx = self._uniform(n, c.max_lin_vel_x)
-        vy = self._uniform(n, c.max_lin_vel_y)
-        wz = self._uniform(n, c.max_ang_vel)
-        xy = torch.stack([vx, vy], dim=1)
-        xy = xy * (torch.linalg.vector_norm(xy, dim=1, keepdim=True) > 0.05)
-        return torch.cat([xy, wz[:, None]], dim=1)
+        return task.anymal_c_commands(self, self._draw(n), self._draw(n),
+                                      self._draw(n))
 
     def init(self) -> EnvState:
         N, dtype, dev = self.num_envs, self.dtype, self.device
@@ -195,101 +198,21 @@ class AnymalCEnv:
             return self._step(state, raw_actions)
 
     def _step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:
-        cfg, sys, dtype, dt = self.cfg, self.sys, self.dtype, self.dt
-        N = raw_actions.shape[0]
-
-        prev_actions = state.actions
-        actions = torch.clamp(raw_actions.to(dtype), -100.0, 100.0)
-        # position servo: target angle = default + action·scale
-        ctrl = self.default_dof_pos + actions * cfg.action_scale
-        phys = pipeline.step(sys, state.phys, ctrl, cfg.decimation)
-
-        episode_length = state.episode_length + 1
-        base_quat = Q.conj(phys.qpos[:, 3:7])
-        lin_vel = Q.rotate(phys.cvel[:, 1, 3:6], base_quat)
-        ang_vel = Q.rotate(phys.cvel[:, 1, :3], base_quat)
-        gravity = Q.rotate(self._gravity, base_quat)
-        dof_pos = phys.qpos[:, 7:]
-        dof_vel = phys.qvel[:, 6:]
-        dof_acc = (dof_vel - state.dof_vel) / dt
-        torques = phys.qfrc_actuator[:, 6:]
-        feet_forces = phys.sensordata[:, :self.num_feet]
-
-        commands = torch.where(
-            (episode_length % self.resample_every == 0)[:, None],
-            self._sample_commands(N), state.commands)
-
-        time_out = episode_length > self.max_episode_length
-        tilt = torch.arccos(torch.clamp(-gravity[:, 2] / 9.81, -1.0, 1.0))
-        reset = time_out | (tilt > math.pi / 3)
-        reset = reset | (feet_forces.amax(dim=1) > cfg.termination_contact_force)
-
-        r1 = reset[:, None]
-        commands = torch.where(r1, self._sample_commands(N), commands)
-        rec_qpos, rec_qvel = phys.qpos, phys.qvel
-        phys = phys.replace(
-            qpos=torch.where(r1, sys.qpos0, phys.qpos),
-            qvel=torch.where(r1, torch.zeros_like(phys.qvel), phys.qvel),
-        )
-        episode_length = torch.where(reset, 0, episode_length)
-        finished = torch.where(r1, state.episode_sums, torch.nan)
-        episode_sums = torch.where(r1, 0.0, state.episode_sums)
-        feet_air_time = torch.where(r1, 0.0, state.feet_air_time)
-
-        # feet air time: reward the first contact after a swing (target swing
-        # 0.5 s), only while commanded to move
-        contact = feet_forces > 1.0
-        contact_filt = contact | state.last_contacts
-        first_contact = (feet_air_time > 0.0) & contact_filt
-        fat = feet_air_time + dt
-        moving = torch.linalg.vector_norm(commands[:, :2], dim=1)
-        rew_air = torch.sum((fat - 0.5) * first_contact, dim=1) * (moving > 0.1)
-        feet_air_time_new = fat * ~contact_filt
-
-        sigma = cfg.tracking_sigma
-        values = {
-            "termination": (reset & ~time_out).to(dtype),
-            "tracking_lin_vel": torch.exp(-torch.sum(
-                torch.square(commands[:, :2] - lin_vel[:, :2]), dim=1) / sigma),
-            "tracking_ang_vel": torch.exp(
-                -torch.square(commands[:, 2] - ang_vel[:, 2]) / sigma),
-            "lin_vel_z": torch.square(lin_vel[:, 2]),
-            "ang_vel_xy": torch.sum(torch.square(ang_vel[:, :2]), dim=1),
-            "orientation": torch.sum(torch.square(gravity[:, :2] / 9.81), dim=1),
-            "torques": torch.sum(torch.square(torques), dim=1),
-            "dof_acc": torch.sum(torch.square(dof_acc), dim=1),
-            "action_rate": torch.sum(torch.square(actions - prev_actions), dim=1),
-            "feet_air_time": rew_air,
-            "feet_contact_forces": torch.sum(torch.square(
-                (feet_forces - cfg.max_contact_force)
-                * (feet_forces > cfg.max_contact_force)), dim=1),
-            "stand_still": torch.sum(torch.abs(dof_pos - self.default_dof_pos),
-                                     dim=1) * (moving < 0.1),
-        }
-        reward_terms = torch.stack(
-            [values[n] for n in self.active_rewards], dim=1) * self.reward_scales
-        reward = torch.sum(reward_terms, dim=1)
-        episode_sums = episode_sums + reward_terms
-
-        obs = torch.cat([
-            lin_vel * 2.0,
-            ang_vel * 0.25,
-            gravity / 9.81,
-            commands * self._cmd_scale,
-            dof_pos - self.default_dof_pos,
-            dof_vel * 0.05,
-            actions,
-        ], dim=1)
-        obs = torch.clamp(obs, -100.0, 100.0)
-
+        # the task half runs as two kernels on the card (ops/task.py)
+        actions, ctrl = task.pre(self, state, raw_actions)
+        phys = pipeline.step(self.sys, state.phys, ctrl, self.cfg.decimation)
+        draws = self._command_draws(raw_actions.shape[0])
+        o = task.post(self, state, actions, phys, draws)
         new_state = EnvState(
-            phys=phys, episode_length=episode_length, commands=commands,
-            actions=actions, dof_vel=dof_vel, feet_air_time=feet_air_time_new,
-            last_contacts=contact, episode_sums=episode_sums, obs=obs,
-            reset_buf=reset, time_out_buf=time_out,
+            phys=phys.replace(qpos=o.qpos, qvel=o.qvel),
+            episode_length=o.episode_length, commands=o.commands,
+            actions=actions, dof_vel=o.dof_vel,
+            feet_air_time=o.feet_air_time, last_contacts=o.last_contacts,
+            episode_sums=o.episode_sums, obs=o.obs, reset_buf=o.reset,
+            time_out_buf=o.time_out,
         )
-        return StepOut(new_state, obs, reward, reset, time_out, reward_terms,
-                       finished, rec_qpos, rec_qvel)
+        return StepOut(new_state, o.obs, o.reward, o.reset, o.time_out,
+                       o.reward_terms, o.finished, phys.qpos, phys.qvel)
 
     def reset(self, seed: Optional[int] = None) -> Tuple[EnvState, torch.Tensor]:
         """Fresh batch and a zero-action step for the initial obs.  ``seed``

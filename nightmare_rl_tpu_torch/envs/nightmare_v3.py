@@ -23,20 +23,22 @@ of the JAX package's per-env keys; the two give different numbers.  Under a
 mesh the env holds one shard's envs (``cfg.env.num_envs`` is the global
 count) and draws through ``parallel/shard.py``, so an env's numbers do not
 depend on the world size.
+
+The step's task half (everything around the physics) is ``ops/task.py``'s:
+its plain version on the CPU, two kernels on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from nightmare_rl_tpu_torch.core import quat as Q
 from nightmare_rl_tpu_torch.core.config import NightmareV3Cfg
+from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline, solver
 from nightmare_rl_tpu_torch.physics import system as S
@@ -138,23 +140,25 @@ class NightmareV3Env:
                                        dtype=dtype, device=self.device)
         self._gravity = torch.tensor([0.0, 0.0, -9.81], dtype=dtype,
                                      device=self.device)
+        # the task kernels' parameters; refuses a config they do not take
+        self.task_plan = task.nightmare_v3_plan(self)
 
     # ------------------------------------------------------------------
 
-    def _uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
-        u = self.shard.draw(torch.rand, shape, generator=self.generator,
-                            dtype=self.dtype, device=self.device)
-        return lo + (hi - lo) * u
+    def _draw(self, shape) -> torch.Tensor:
+        return self.shard.draw(torch.rand, shape, generator=self.generator,
+                               dtype=self.dtype, device=self.device)
+
+    def _command_draws(self, n: int) -> Tuple[torch.Tensor, ...]:
+        """A step's command draws: vx and ωz for the resample, then for the
+        reset."""
+        return tuple(self._draw((n,)) for _ in range(4))
 
     def _sample_commands(self, n: int) -> torch.Tensor:
         """_resample_commands (:321-333): vx ∈ ±max_lin_vel_x, vy ≡ 0,
         ωz ∈ ±max_ang_vel; zero xy commands with norm ≤ 0.02."""
-        r = self.cfg.commands.ranges
-        vx = self._uniform((n,), -r.max_lin_vel_x, r.max_lin_vel_x)
-        wz = self._uniform((n,), -r.max_ang_vel, r.max_ang_vel)
-        xy = torch.stack([vx, torch.zeros_like(vx)], dim=1)
-        xy = xy * (torch.linalg.vector_norm(xy, dim=1, keepdim=True) > 0.02)
-        return torch.cat([xy, wz[:, None]], dim=1)
+        return task.nightmare_v3_commands(self, self._draw((n,)),
+                                          self._draw((n,)))
 
     def init(self) -> EnvState:
         N, dtype, dev = self.num_envs, self.dtype, self.device
@@ -185,151 +189,35 @@ class NightmareV3Env:
             return self._step(state, raw_actions)
 
     def _step(self, state: EnvState, raw_actions: torch.Tensor) -> StepOut:
-        cfg, sys, dtype, dt = self.cfg, self.sys, self.dtype, self.dt
+        # the task half runs as two kernels on the card (ops/task.py):
+        # actions and the control law before the physics (:183-188), the
+        # readings, resampling, terminations, resets, rewards and
+        # observations after it (:216-311)
+        actions, ctrl = task.pre(self, state, raw_actions)
+        phys = pipeline.step(self.sys, state.phys, ctrl,
+                             self.cfg.control.decimation)
         N = raw_actions.shape[0]
-
-        prev_actions = state.actions
-        actions = torch.clamp(raw_actions.to(dtype) * cfg.control.action_scale,
-                              -cfg.normalization.clip_actions,
-                              cfg.normalization.clip_actions)
-        prev_dof_vel = state.dof_vel
-
-        # control law (:183-188) — uses the last READ dof_pos (possibly stale
-        # across resets, mirroring the reference buffers)
-        ctrl = (actions - self.default_dof_pos - state.dof_pos) * cfg.control.p_gain
-        phys = pipeline.step(sys, state.phys, ctrl, cfg.control.decimation)
-        episode_length = state.episode_length + 1
-
-        # readings (:216-232)
-        base_quat = Q.conj(phys.qpos[:, 3:7])
-        body = 1  # base_link
-        base_lin_vel = Q.rotate(phys.cvel[:, body, 3:6], base_quat)
-        base_ang_vel = Q.rotate(phys.cvel[:, body, :3], base_quat)
-        projected_gravity = Q.rotate(self._gravity, base_quat)
-        dof_pos = phys.qpos[:, 7:]
-        dof_vel = phys.qvel[:, 6:]
-        base_height = phys.xipos[:, body, 2]
-        feet_forces = phys.sensordata[:, 6:12]
-        body_force = phys.sensordata[:, 12]
-        tibia_forces = phys.sensordata[:, 0:6] * (feet_forces == 0)
-        dof_acc = (dof_vel - prev_dof_vel) / dt
-
-        # command resampling (:235-236)
-        resample_every = int(cfg.commands.resampling_time / dt)
-        new_cmd = self._sample_commands(N)
-        commands = torch.where((episode_length % resample_every == 0)[:, None],
-                               new_cmd, state.commands)
-
-        # termination (:239-256)
-        time_out = episode_length > self.max_episode_length
-        reset = time_out | (feet_forces.amax(dim=1) > cfg.env.termination_contact_force)
-        if cfg.env.tibia_contact_mode == 2:
-            reset |= tibia_forces.amax(dim=1) > cfg.env.tibia_max_contact_force
-        if cfg.env.body_contact_mode == 2:
-            reset |= body_force > cfg.env.body_max_contact_force
-        cosang = -projected_gravity[:, 2] / torch.clamp_min(
-            torch.linalg.vector_norm(projected_gravity, dim=1), 1e-9)
-        reset |= torch.arccos(torch.clamp(cosang, -1.0, 1.0)) > 60.0 * math.pi / 180.0
-
-        # ---- reset bookkeeping BEFORE rewards (reference order :274-288) ----
-        reset_cmd = self._sample_commands(N)
-        r1 = reset[:, None]
-        phys_reset = phys.replace(
-            qpos=torch.where(r1, sys.qpos0, phys.qpos),
-            qvel=torch.where(r1, torch.zeros_like(phys.qvel), phys.qvel),
-        )
-        commands = torch.where(r1, reset_cmd, commands)
-        feet_air_time = torch.where(r1, 0.0, state.feet_air_time)
-        episode_length = torch.where(reset, 0, episode_length)
-        finished_sums = torch.where(r1, state.episode_sums, torch.nan)
-        episode_sums = torch.where(r1, 0.0, state.episode_sums)
-
-        # ---- feet_air_time stateful update (runs only if the term is
-        # active; the default scale is 0, so the buffers stay frozen) ----
-        contact = feet_forces > 1.0
-        contact_filt = contact | state.last_contacts
-        fat = (state.feet_air_time + dt) * (contact_filt == state.last_contacts_filt)
-        if "feet_air_time" in self.active_rewards:
-            last_contacts, last_contacts_filt, feet_air_time_new = (
-                contact, contact_filt, fat)
-        else:
-            last_contacts, last_contacts_filt, feet_air_time_new = (
-                state.last_contacts, state.last_contacts_filt, feet_air_time)
-
-        # ---- rewards (:277-288, functions :399-497) ----
-        r = cfg.rewards
-        values = {
-            "lin_vel_z": torch.square(base_lin_vel[:, 2]),
-            "ang_vel_xy": torch.sum(torch.square(base_ang_vel[:, :2]), dim=1),
-            "orientation": torch.sum(torch.square(projected_gravity[:, :2]), dim=1),
-            "base_height": torch.square(base_height - r.base_height_target),
-            # qfrc_applied is never set (:222), so the torques term is zero
-            "torques": torch.zeros_like(base_height),
-            "dof_vel": torch.sum(torch.square(dof_vel), dim=1),
-            "dof_acc": torch.sum(torch.square(dof_acc), dim=1),
-            "action_rate": torch.sum(torch.square(prev_actions - actions), dim=1),
-            "termination": (reset & ~time_out).to(dtype),
-            "tracking_lin_vel": torch.exp(
-                -torch.sum(torch.square(commands[:, :2] - base_lin_vel[:, :2]),
-                           dim=1) / r.tracking_sigma),
-            "tracking_ang_vel": torch.exp(
-                -torch.square(commands[:, 2] - base_ang_vel[:, 2])
-                / r.tracking_sigma),
-            "feet_air_time": torch.sum(torch.square(
-                (fat > 1.0) * (fat - 1.0) + (fat < 0.5) * (0.5 - fat)), dim=1),
-            "body_contact_forces": (
-                (torch.sum(tibia_forces, dim=1) if cfg.env.tibia_contact_mode == 1
-                 else 0.0)
-                + (body_force if cfg.env.body_contact_mode == 1 else 0.0)),
-            "stand_still": torch.sum(torch.abs(dof_pos - self.default_dof_pos), dim=1)
-            * (torch.linalg.vector_norm(commands[:, :2], dim=1) < 0.01),
-            "feet_contact_forces": torch.sum(torch.square(
-                (feet_forces - r.max_contact_force)
-                * (feet_forces > r.max_contact_force)), dim=1),
-            "default_position": torch.sum(
-                torch.square(dof_pos - self.default_dof_pos), dim=1),
-        }
-        reward_terms = torch.stack(
-            [values[n] for n in self.active_rewards], dim=1) * self.reward_scales
-        reward = torch.sum(reward_terms, dim=1)
-        episode_sums = episode_sums + reward_terms
-
-        # ---- observations (:291-309) ----
-        s = cfg.normalization.obs_scales
-        obs = torch.cat([
-            base_lin_vel * s.lin_vel,
-            base_ang_vel * s.ang_vel,
-            projected_gravity,
-            commands * self._cmd_scale,
-            (dof_pos - self.default_dof_pos) * s.dof_pos,
-            dof_vel * s.dof_vel,
-            actions,
-        ], dim=1)
-        if cfg.noise.add_noise:
-            noise = 2.0 * self.shard.draw(
-                torch.rand, obs.shape, generator=self.generator, dtype=dtype,
-                device=self.device) - 1.0
-            obs = obs + noise * self._noise_scale_vec()
-        clip_obs = cfg.normalization.clip_observations
-        obs = torch.clamp(obs, -clip_obs, clip_obs)
-
+        draws = self._command_draws(N)
+        noise = (self._draw((N, self.num_obs)) if self.cfg.noise.add_noise
+                 else None)
+        o = task.post(self, state, actions, phys, draws, noise)
         new_state = EnvState(
-            phys=phys_reset,
-            episode_length=episode_length,
-            commands=commands,
+            phys=phys.replace(qpos=o.qpos, qvel=o.qvel),
+            episode_length=o.episode_length,
+            commands=o.commands,
             actions=actions,
-            dof_pos=dof_pos,
-            dof_vel=dof_vel,
-            feet_air_time=feet_air_time_new,
-            last_contacts=last_contacts,
-            last_contacts_filt=last_contacts_filt,
-            episode_sums=episode_sums,
-            obs=obs,
-            reset_buf=reset,
-            time_out_buf=time_out,
+            dof_pos=o.dof_pos,
+            dof_vel=o.dof_vel,
+            feet_air_time=o.feet_air_time,
+            last_contacts=o.last_contacts,
+            last_contacts_filt=o.last_contacts_filt,
+            episode_sums=o.episode_sums,
+            obs=o.obs,
+            reset_buf=o.reset,
+            time_out_buf=o.time_out,
         )
-        return StepOut(new_state, obs, reward, reset, time_out, reward_terms,
-                       finished_sums, phys.qpos, phys.qvel)
+        return StepOut(new_state, o.obs, o.reward, o.reset, o.time_out,
+                       o.reward_terms, o.finished, phys.qpos, phys.qvel)
 
     def _noise_scale_vec(self) -> torch.Tensor:
         """Noise vector (:109-119).  NB the reference's dof index ranges are

@@ -27,10 +27,12 @@ CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# a kernel's own flags: the assemble kernel rounds op for op as its plain
-# version does, without contracting multiply-adds, so that its selections
-# agree with the plain version's wherever two distances differ
-KERNEL_FLAGS = {"assemble": ["-fmad=false"]}
+# a kernel's own flags: the assemble and task kernels round op for op as
+# their plain versions' eager ops do, without contracting multiply-adds, so
+# that the assemble kernel's selections agree with the plain version's
+# wherever two distances differ, and the task kernels' decisions (resets,
+# contacts, command cuts) agree with it exactly
+KERNEL_FLAGS = {"assemble": ["-fmad=false"], "task": ["-fmad=false"]}
 
 
 def _nvcc() -> str:

@@ -21,8 +21,9 @@ within calls:
   most device time, the PGS kernels' time (nightmare_v3), the Newton
   kernel's (``ops/csrc/newton.cu``, anymal_c's constraint solve) and the
   smooth, integrate and assemble kernels' (``ops/csrc/smooth.cu``,
-  ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``), each with its
-  launches and its share of the step's device time;
+  ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``) and the task
+  kernels' (``ops/csrc/task.cu``: ``task_pre``, ``task_post``), each with
+  its launches and its share of the step's device time;
 - the host synchronizations that one step makes
   (``torch.cuda.set_sync_debug_mode``);
 - the peak device memory of one step (``torch.cuda.max_memory_allocated``
@@ -122,7 +123,8 @@ def _profiled(step, steps: int, substeps: int) -> dict:
                  ) / 1e3 / steps
     out = {"device_busy_ms": device_ms, "kernels_per_step": launches,
            "kernels_per_substep": launches / substeps, "pgs_ms": pgs_ms}
-    for name in ("newton", "smooth", "integrate", "assemble"):
+    for name in ("newton", "smooth", "integrate", "assemble", "task_pre",
+                 "task_post"):
         mine = [e for e in kernels if f"{name}_kernel" in e.key]
         ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
         out.update({f"{name}_ms": ms,
@@ -202,7 +204,8 @@ def _measure(env, net, box, dev, steps: int, substeps: int) -> dict:
               + "; ".join(f"{k} kernel {r[k + '_ms']:.3f} ms in "
                           f"{r[k + '_launches_per_step']:.0f} launches "
                           f"({100 * r[k + '_share']:.1f}% of the device time)"
-                          for k in ("newton", "smooth", "integrate"))
+                          for k in ("newton", "smooth", "integrate",
+                                    "assemble", "task_pre", "task_post"))
               + "; host syncs per step "
               f"{r['host_syncs_per_step']}; peak device memory "
               f"{r['peak_mem_mib']:.1f} MiB")
@@ -241,6 +244,7 @@ _MODULES = (
     ("ops.smooth", ("smooth_forward",)),
     ("ops.integrate", ("integrate_update",)),
     ("ops.assemble", ("rows",)),
+    ("ops.task", ("pre", "post")),
 )
 
 
@@ -248,6 +252,8 @@ _MODULES = (
 _LAUNCHED_BY = (("smooth_kernel", "smooth.smooth_forward"),
                 ("integrate_kernel", "integrate.integrate_update"),
                 ("assemble_kernel", "assemble.rows"),
+                ("task_pre_kernel", "task.pre"),
+                ("task_post_kernel", "task.post"),
                 ("pgs_legs_kernel", "solver.solve"),
                 ("pgs_kernel", "solver.solve"),
                 ("newton_kernel", "solver.newton_solve"))

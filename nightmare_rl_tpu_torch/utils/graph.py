@@ -79,11 +79,13 @@ from nightmare_rl_tpu_torch.ops.assemble import rows as assemble_rows
 from nightmare_rl_tpu_torch.ops.integrate import integrate_update
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
+from nightmare_rl_tpu_torch.ops.task import post as task_post
+from nightmare_rl_tpu_torch.ops.task import pre as task_pre
 from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
 _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
-            integrate_update, assemble_rows)
+            integrate_update, assemble_rows, task_pre, task_post)
 
 
 def leaves(tree) -> List[torch.Tensor]:

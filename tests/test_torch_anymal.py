@@ -44,6 +44,7 @@ from nightmare_rl_tpu.utils import checkpoint as jckpt
 from nightmare_rl_tpu.models import actor_critic as jac
 from nightmare_rl_tpu_torch.envs import anymal_c as tenv_mod
 from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
+from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.physics import collision as tcol
 from nightmare_rl_tpu_torch.physics import kinematics as tkin
 from nightmare_rl_tpu_torch.physics import loader as tloader
@@ -366,12 +367,35 @@ RESET_ENV = 2
 ENV_ITERATIONS = 30   # a budget that converges (see the module docstring)
 
 
+ROUTES = ("plain", "host")
+
+
+def _routed(mp, route):
+    """The task half's route: the plain version (the CPU's), or the host
+    driver of the kernels' per-env arithmetic in its place."""
+    if route == "host":
+        mp.setattr(task, "pre", lambda env, s, a: task.host_pre(env, s, a))
+        mp.setattr(task, "post", lambda env, s, a, p, d, n=None:
+                   task.host_post(env, s, a, p, d, n))
+
+
+def _draws_of(tenv, cmds):
+    """Uniform draws that the port's command map turns into ``cmds`` (the
+    commands the JAX step ended with), at the resample and at the reset:
+    the map's inverse, exact to a few ulps."""
+    c = tenv.cfg
+    u = tuple((cmds[:, i] + b) / (2 * b) for i, b in enumerate(
+        (c.max_lin_vel_x, c.max_lin_vel_y, c.max_ang_vel)))
+    return u + u
+
+
 @pytest.fixture(scope="module")
 def episode():
     """Both envs side by side, 3 steps of 4 envs with a masked reset at the
     first.  Each port step starts from the JAX state before it and is
-    handed the commands the JAX step ended with (the JAX env draws from
-    per-env keys that torch cannot reproduce)."""
+    handed the commands the JAX step ended with, as the uniform draws that
+    its command map turns into them (the JAX env draws from per-env keys
+    that torch cannot reproduce); per route of the port's task half."""
     jenv = JEnv(JCfg(num_envs=N, solver_iterations=ENV_ITERATIONS),
                 dtype=jnp.float64)
     tenv = tenv_mod.AnymalCEnv(
@@ -381,16 +405,21 @@ def episode():
     jstate, _ = jenv.reset(0)
     jstate = jstate.replace(episode_length=jstate.episode_length.at[
         RESET_ENV].set(jenv.max_episode_length))
-    pairs = []
-    with pytest.MonkeyPatch.context() as mp:
-        for _ in range(3):
-            acts = rng.normal(size=(N, 12)) * 0.1
-            jout = jenv.step(jstate, jnp.asarray(acts))
-            cmds = _t(jout.state.commands)
-            mp.setattr(tenv, "_sample_commands", lambda n, c=cmds: c)
-            tout = tenv.step(_port_state(jstate), torch.from_numpy(acts))
-            pairs.append((jout, tout))
-            jstate = jout.state
+    jsteps = []
+    for _ in range(3):
+        acts = rng.normal(size=(N, 12)) * 0.1
+        jout = jenv.step(jstate, jnp.asarray(acts))
+        jsteps.append((jstate, acts, jout))
+        jstate = jout.state
+    pairs = {route: [] for route in ROUTES}
+    for route in ROUTES:
+        with pytest.MonkeyPatch.context() as mp:
+            _routed(mp, route)
+            for js, acts, jout in jsteps:
+                draws = _draws_of(tenv, _t(jout.state.commands))
+                mp.setattr(tenv, "_command_draws", lambda n, d=draws: d)
+                tout = tenv.step(_port_state(js), torch.from_numpy(acts))
+                pairs[route].append((jout, tout))
     return jenv, tenv, pairs
 
 
@@ -400,9 +429,10 @@ def _port_state(js) -> tenv_mod.EnvState:
     return tenv_mod.EnvState(phys=_port_phys(js.phys), **kw)
 
 
-def test_env_steps_match(episode):
+@pytest.mark.parametrize("route", ROUTES)
+def test_env_steps_match(episode, route):
     _, _, pairs = episode
-    for jout, tout in pairs:
+    for jout, tout in pairs[route]:
         for name in ("done", "time_out"):
             _close(getattr(jout, name), getattr(tout, name), name=name)
         for name in ("obs", "reward", "reward_terms", "finished_episode_sums",
@@ -426,9 +456,10 @@ def test_env_steps_match(episode):
             assert _rel(getattr(js.phys, name), getattr(ts.phys, name)) <= STEP_TOL, name
 
 
-def test_masked_reset_keeps_warmstart(episode):
+@pytest.mark.parametrize("route", ROUTES)
+def test_masked_reset_keeps_warmstart(episode, route):
     jenv, tenv, pairs = episode
-    jout, tout = pairs[0]
+    jout, tout = pairs[route][0]
     assert tout.done.tolist() == [i == RESET_ENV for i in range(N)]
     st = tout.state
     assert torch.equal(st.phys.qpos[RESET_ENV], tenv.sys.qpos0)

@@ -38,7 +38,8 @@ versions on both robots and a dense-branch model and in each integrator
 branch, float64 and float32 at the smoke's tolerances, and their launches
 (and the assemble kernel's) per replay of either robot's captured step.
 The assemble kernel (``ops/csrc/assemble.cu``) against its plain version
-on both robots, float64 and float32, as the smoke holds it.  Tests that count the dense kernel's launches
+on both robots, float64 and float32, as the smoke holds it; the task
+kernels (``ops/csrc/task.cu``) against theirs on both robots, float32.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -892,3 +893,29 @@ def test_assemble_kernel_matches_plain(cuda, model, dtype):
     tol = (smoke.ASSEMBLE_F64_TOL if dtype == torch.float64
            else smoke.ASSEMBLE_F32_TOL)
     assert res["bad"] == 0 and res["rel"] <= tol, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["nightmare_v3", "anymal_c"])
+def test_task_kernels_match_plain(cuda, robot):
+    """The task kernels (``ops/csrc/task.cu``) against ``ops/task.py``'s
+    plain versions at 256 envs in float32, on the smoke's inputs (resets,
+    resamples, edge envs, the sweeps across the tilt and command cuts), as
+    the smoke's task-kernel phase holds them: no env whose flags, episode
+    count or commands differ, values within TASK_F32_TOL, pre bit for bit,
+    one launch each."""
+    from nightmare_rl_tpu_torch.ops import task
+
+    env = smoke._task_env(robot, 256)
+    state, raw, actions, phys, draws, noise = smoke._task_inputs(env, 5)
+    plan = env.task_plan
+    before = task.pre.launches, task.post.launches
+    got_pre = task.pre(env, state, raw)
+    got = task.post(env, state, actions, phys, draws, noise)
+    assert (task.pre.launches, task.post.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for a, b in zip(task.PLAIN_PRE[plan.robot](env, state, raw), got_pre):
+        assert torch.equal(a, b)
+    res = smoke._task_held(task.PLAIN_POST[plan.robot](
+        env, state, actions, phys, draws, noise), got)
+    assert res["bad"] == 0 and res["rel"] <= smoke.TASK_F32_TOL, res

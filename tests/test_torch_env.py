@@ -10,7 +10,11 @@ commands the JAX step ended with; everything else the port computes itself
 and carries from step to step.  Both sides solve with the dense
 matrix-free PGS (NIGHTMARE_PGS=scan, set around both; the port's CPU
 default is the leg-sparse form), so the two agree to summation order:
-ATOL = RTOL = 1e-9 over three steps."""
+ATOL = RTOL = 1e-9 over three steps.  The port's task half (ops/task.py)
+runs by two routes: its plain version, and the host driver of the task
+kernels' per-env arithmetic (csrc/task_env.cuh) in its place; each is
+handed the JAX commands as the uniform draws that its command map turns
+into them."""
 
 import os
 import subprocess
@@ -26,6 +30,7 @@ from nightmare_rl_tpu.core.config import NightmareV3Cfg as JCfg
 from nightmare_rl_tpu.envs.nightmare_v3 import NightmareV3Env as JEnv
 from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
 from nightmare_rl_tpu_torch.envs import nightmare_v3 as tenv_mod
+from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.physics import system as S
 
 ATOL = RTOL = 1e-9
@@ -60,43 +65,75 @@ def _close(a, b, name):
                                    err_msg=name)
 
 
+ROUTES = ("plain", "host")
+
+
+def _routed(mp, route):
+    """The task half's route: the plain version (the CPU's), or the host
+    driver of the kernels' per-env arithmetic in its place."""
+    if route == "host":
+        mp.setattr(task, "pre", lambda env, s, a: task.host_pre(env, s, a))
+        mp.setattr(task, "post", lambda env, s, a, p, d, n=None:
+                   task.host_post(env, s, a, p, d, n))
+
+
+def _draws_of(tenv, cmds):
+    """Uniform draws that the port's command map turns into ``cmds`` (the
+    commands the JAX step ended with), at the resample and at the reset:
+    the map's inverse, exact to a few ulps."""
+    r = tenv.cfg.commands.ranges
+    ux = (cmds[:, 0] + r.max_lin_vel_x) / (2 * r.max_lin_vel_x)
+    uw = (cmds[:, 2] + r.max_ang_vel) / (2 * r.max_ang_vel)
+    return (ux, uw, ux, uw)
+
+
 @pytest.fixture(scope="module")
 def episode():
-    """Runs both envs side by side; returns the JAX env, the port's env and
-    [(JAX StepOut, port StepOut)] per step."""
+    """Runs both envs side by side; returns the JAX env, the port's env and,
+    per route of the port's task half, [(JAX StepOut, port StepOut)] per
+    step."""
     jenv = JEnv(JCfg().replace(env=JEnvCfg(num_envs=N)), dtype=jnp.float64)
     tenv = tenv_mod.NightmareV3Env(NightmareV3Cfg().replace(
         env=EnvCfg(num_envs=N)), dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(11)
-    pairs = []
+    pairs = {route: [] for route in ROUTES}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NIGHTMARE_PGS", "scan")
         jstate, _ = jenv.reset(0)
         jstate = jstate.replace(episode_length=jstate.episode_length.at[
             RESET_ENV].set(jenv.max_episode_length))
-        tstate = _port_state(jstate)
+        jsteps, js = [], jstate
         for _ in range(STEPS):
             acts = rng.normal(size=(N, 18))
-            jout = jenv.step(jstate, jnp.asarray(acts))
-            cmds = _t(jout.state.commands)
-            mp.setattr(tenv, "_sample_commands", lambda n, c=cmds: c)
-            tout = tenv.step(tstate, torch.from_numpy(acts))
-            pairs.append((jout, tout))
-            jstate, tstate = jout.state, tout.state
+            jout = jenv.step(js, jnp.asarray(acts))
+            jsteps.append((acts, jout))
+            js = jout.state
+        for route in ROUTES:
+            with pytest.MonkeyPatch.context() as rp:
+                _routed(rp, route)
+                tstate = _port_state(jstate)
+                for acts, jout in jsteps:
+                    draws = _draws_of(tenv, _t(jout.state.commands))
+                    rp.setattr(tenv, "_command_draws", lambda n, d=draws: d)
+                    tout = tenv.step(tstate, torch.from_numpy(acts))
+                    pairs[route].append((jout, tout))
+                    tstate = tout.state
     return jenv, tenv, pairs
 
 
-def test_env_steps_match(episode):
+@pytest.mark.parametrize("route", ROUTES)
+def test_env_steps_match(episode, route):
     _, _, pairs = episode
-    for jout, tout in pairs:
+    for jout, tout in pairs[route]:
         for name in ("obs", "reward", "done", "time_out", "reward_terms",
                      "finished_episode_sums", "record_qpos", "record_qvel"):
             _close(getattr(jout, name), getattr(tout, name), name)
 
 
-def test_env_state_matches(episode):
+@pytest.mark.parametrize("route", ROUTES)
+def test_env_state_matches(episode, route):
     _, _, pairs = episode
-    for jout, tout in pairs:
+    for jout, tout in pairs[route]:
         js, ts = jout.state, tout.state
         for name in tenv_mod.EnvState.__dataclass_fields__:
             if name != "phys":
@@ -105,9 +142,10 @@ def test_env_state_matches(episode):
             _close(getattr(js.phys, name), getattr(ts.phys, name), name)
 
 
-def test_masked_reset(episode):
+@pytest.mark.parametrize("route", ROUTES)
+def test_masked_reset(episode, route):
     _, tenv, pairs = episode
-    _, tout = pairs[0]
+    _, tout = pairs[route][0]
     assert tout.done.tolist() == [i == RESET_ENV for i in range(N)]
     assert bool(tout.time_out[RESET_ENV])
     st = tout.state
@@ -217,6 +255,7 @@ def test_import_hygiene():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert len(mods) > 20, mods\n"
         "assert 'nightmare_rl_tpu_torch.utils.graph' in mods, mods\n"
+        "assert 'nightmare_rl_tpu_torch.ops.task' in mods, mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
