@@ -8,8 +8,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
              ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu``,
-             ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu`` and
-             ``ops/csrc/task.cu`` for sm_90a from the checkout, all at once; prints ptxas's
+             ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``,
+             ``ops/csrc/task.cu`` and ``ops/csrc/rollout.cu`` for sm_90a
+             from the checkout, all at once; prints ptxas's
              registers and spills (the float32 kernels must not spill) and
              each kernel's main-path launch geometry (the assemble
              kernel's for both robots): lanes per env, shared memory per
@@ -50,7 +51,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep (the rollout replays one
              captured step; its eager warm-up step counts), and so must the
-             smooth, the integrate and the assemble kernel.  The inputs of
+             smooth, the integrate and the assemble kernel, and the
+             rollout kernels once per rollout step (so too in slice-legs,
+             slice-anymal and slice-recurrent).  The inputs of
              the slice's last PGS call (the last replay's) are kept; after
              recorder/resume, the slice's PPO times its rollout as graph
              replays and as eager calls of the step the graph holds, in
@@ -115,6 +118,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              within TASK_F32_TOL, ``pre`` bit for bit; then each robot's
              pair of launches timed alone at both sizes beside the plain
              versions and the byte bound;
+6f. rollout-kernel — the rollout kernels (``ops/csrc/rollout.cu``:
+             ``act``, the actor's and critic's MLPs, the sample and its
+             log-probability into row t of the trajectory; ``store``, the
+             timeout bootstrap, done, env 0's record row, the finished
+             sums and t + 1) against ``ops/rollout.py``'s plain versions
+             on the card, float32: nightmare_v3 with fresh weights and
+             with model_3176's, anymal_c with fresh weights, at 2048 and
+             4096 envs, and the recurrent heads (rnn 512) at 2048; env 7's
+             observation NaN, 8 envs at their time-out: every field within
+             ROLLOUT_F32_TOL of its scale, NaN at the plain version's
+             positions, the obs and sigma rows, done, the record row, t + 1
+             and the episode count exact; then the captured rollout step
+             at 2048 envs, ROLLOUT_ROWS replays bit for bit against the
+             eager calls, and a replay after the weights and std were
+             scaled in place reading the new ones; each case's kernels
+             timed alone beside the plain versions, the MLPs' cuBLAS
+             products and the bounds, with ptxas's registers and spills;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -302,7 +322,14 @@ together at nightmare_v3's 2048 envs); its launches are those of every
 path that steps an env (graph, graph-anymal, slice, slice-legs,
 slice-anymal, eval-anymal and play-grid: one ``pre`` and one ``post`` per
 env step, each phase checked, ``TASK_LAUNCHES``); custom-play's control
-step drives the physics without an env and launches none.
+step drives the physics without an env and launches none.  ``rollout.act``
+and ``rollout.store`` are the rollout kernels (their ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` at nightmare_v3's 2048 envs, fresh
+weights; ``library_ms`` of ``act`` is the MLPs' cuBLAS products and
+activations alone, ``store`` has none); their launches are those of the
+training slices (slice, slice-legs, slice-anymal, slice-recurrent: one of
+each per rollout step, the capture's warm-up step included, each phase
+checked, ``ROLLOUT_LAUNCHES``).
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -437,6 +464,14 @@ ASSEMBLE_NS = (2048, 4096)
 TASK_F32_TOL = 1e-5
 TASK_NS = (2048, 4096)
 TASK_SWEEP = 64              # envs of a sweep across a cut, ulp by ulp
+# the rollout kernels against their plain versions, float32, per field:
+# max|err| / max|plain| (the MLPs' products sum in another order than
+# cuBLAS's; the finished sums in another than torch.nansum's); the obs and
+# sigma rows, done, the record row, t + 1 and the episode count exact
+ROLLOUT_F32_TOL = 1e-5
+ROLLOUT_NS = (2048, 4096)
+ROLLOUT_ROWS = 4             # rows of rollout-kernel's trajectory buffers
+BUILD_PTXAS = {}             # phase_build's ptxas lines, by kernel source
 
 
 def _nvidia_smi() -> str:
@@ -671,7 +706,7 @@ def phase_build() -> None:
     from nightmare_rl_tpu_torch.physics import arrow, loader
 
     names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble",
-             "task")
+             "task", "rollout")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -696,6 +731,11 @@ def phase_build() -> None:
         infos["task"]["log"], r"task_(pre|post)_kernelI([fd])Li(\d)E",
         lambda m: f"task_{m[1]}_kernel<"
                   f"{'float' if m[2] == 'f' else 'double'}, {robots[int(m[3])]}>")
+    kernels["rollout"] = _ptxas(
+        infos["rollout"]["log"], r"rollout_(act|store)_kernelI([fd])E",
+        lambda m: f"rollout_{m[1]}_kernel<"
+                  f"{'float' if m[2] == 'f' else 'double'}>")
+    BUILD_PTXAS.update(kernels)
     for name, ks in kernels.items():
         ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
                            f"stores/loads {k.get('spill')} B" for k in ks)
@@ -1129,6 +1169,7 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
         P.pgs.launches = 0
         _zero_smooth()
         _zero_task()
+        _zero_rollout()
         t0 = time.perf_counter()
         runner = train.main(["-e", str(envs), "-n", str(iters), "--log_root",
                              tmp])
@@ -1157,6 +1198,7 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
         raise AssertionError("non-finite observations")
     smooth = dict(kept=kept, launches=_check_smooth("slice", expected))
     _check_task("slice", expected // dec)
+    _check_rollout("slice", iters * T + GRAPH_WARMUP)
     return launches, last["args"], runner, smooth
 
 
@@ -1801,6 +1843,7 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
             _kept_pgs("pgs_legs") as last:
         P.pgs_legs.launches = P.pgs.launches = 0
         _zero_task()
+        _zero_rollout()
         runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp])
         torch.cuda.synchronize()
         launches, dense = P.pgs_legs.launches, P.pgs.launches
@@ -1810,6 +1853,7 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     # + the reset's zero-action step and the rollout graph's warm-up step
     expected = T * dec + dec + GRAPH_WARMUP * dec
     _check_task("slice-legs", expected // dec)
+    _check_rollout("slice-legs", T + GRAPH_WARMUP)
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-legs: 1 PPO iteration x {T} steps x {envs} envs float32, "
           f"NIGHTMARE_PGS=legs: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, "
@@ -2069,6 +2113,7 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     t0 = time.perf_counter()
     K.newton_solve.launches = 0
     _zero_task()
+    _zero_rollout()
     solver.newton_solve = kept
     try:
         with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep:
@@ -2105,6 +2150,7 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
             f"the newton kernel ran {launches} times over {replays} replays, "
             f"expected {expected}")
     _check_task("slice-anymal", expected // dec)
+    _check_rollout("slice-anymal", iters * T + GRAPH_WARMUP)
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
     return box["args"], launches
@@ -3504,6 +3550,348 @@ def phase_task_kernel(device_name: str, smi: str) -> dict:
                 plain_ms=pa + pb, bound_ms=bound, bound_by=by)
 
 
+ROLLOUT_WRAPPERS = ("act", "store")
+ROLLOUT_LAUNCHES = {}   # per phase: the rollout kernels' launches (act, store)
+
+
+def _rollout_fns():
+    """The rollout kernels' wrappers (``ops/rollout.py``: ``act``,
+    ``store``), by their counters in ``utils/graph.py``."""
+    from nightmare_rl_tpu_torch.utils import graph
+
+    fns = {fn.__name__: fn for fn in graph._COUNTED}
+    return tuple(fns[k] for k in ROLLOUT_WRAPPERS)
+
+
+def _zero_rollout() -> None:
+    for fn in _rollout_fns():
+        fn.launches = 0
+
+
+def _check_rollout(label: str, expected: int) -> None:
+    """Asserts that ``act`` and ``store`` each launched ``expected`` times
+    since ``_zero_rollout`` (one per rollout step, the capture's warm-up
+    step included); records them in ROLLOUT_LAUNCHES."""
+    counts = {fn.__name__: fn.launches for fn in _rollout_fns()}
+    print(f"{label}: rollout kernel launches act {counts['act']}, store "
+          f"{counts['store']} (expected {expected} each: one per rollout "
+          f"step, the graph's warm-up step included)")
+    if counts["act"] != expected or counts["store"] != expected:
+        raise AssertionError(f"{label}: the rollout kernels ran {counts} "
+                             f"times, not {expected} each")
+    ROLLOUT_LAUNCHES[label] = (counts["act"], counts["store"])
+
+
+def _rollout_ppo(robot: str, N: int, weights: str,
+                 policy: str = "ActorCritic", rnn: int = 512,
+                 device: str = "cuda"):
+    """A PPO on ``robot``'s env at N envs on ``device``, float32, recording
+    on, its weights ``weights`` ("fresh": ``PPO.init(0)``'s; "model_3176":
+    the file's), its rollout buffers of ROLLOUT_ROWS rows; after 3 env
+    steps of its own policy, with the first 8 envs at their time-out.
+    Returns the PPO and the (state, obs, hidden) reached."""
+    import dataclasses
+
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg, RunnerCfg
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=RunnerCfg(num_steps_per_env=ROLLOUT_ROWS,
+                                       policy_class_name=policy),
+                      policy=dataclasses.replace(cfg.policy,
+                                                 rnn_hidden_size=rnn))
+    env = _task_env(robot, N, device)
+    ppo = PPO(env, cfg, record_states=True)
+    ppo.init(0)
+    if weights == "model_3176":
+        ppo.net.load_state_dict(torch.load(
+            MODEL_3176, map_location="cpu", weights_only=True)[
+                "model_state_dict"])
+    ppo._rollout_buffers(ROLLOUT_ROWS)
+    state, obs, hidden = ppo.env_state, ppo.obs, ppo.hidden
+    for _ in range(3):
+        action, *_, hidden = ppo.act(obs, hidden)
+        out = env.step(state, action)
+        state, obs = out.state, out.obs
+    state.episode_length[:8] = env.max_episode_length
+    return ppo, state, obs, hidden
+
+
+def _rows_held(ref, got, exact: bool) -> dict:
+    """max|err| and max|err| / max|ref| of two tensors (NaN where NaN); with
+    ``exact``, the elements that differ."""
+    import torch
+
+    nan = torch.isnan(ref) if ref.is_floating_point() else None
+    if nan is not None and not torch.equal(nan, torch.isnan(got)):
+        return dict(abs=math.inf, rel=math.inf, differ=int(
+            (nan != torch.isnan(got)).sum()))
+    ok = ~nan if nan is not None else torch.ones_like(ref, dtype=torch.bool)
+    a, b = ref[ok], got[ok]
+    differ = int((a != b).sum())
+    if not a.is_floating_point() or a.numel() == 0:
+        return dict(abs=float(differ > 0), rel=float(differ > 0),
+                    differ=differ)
+    err = float((a - b).abs().max())
+    scale = float(a.abs().max())
+    return dict(abs=err, rel=err / scale if scale > 0 else err,
+                differ=differ if exact else 0)
+
+
+def _rollout_bound(pl, N: int, nobs: int, nterms: int, width: int,
+                   shared: bool, it: int) -> tuple:
+    """(act's bytes, act's operations, store's bytes, store's operations):
+    each input read once, each output written once.  act: the observations
+    (and the recurrent heads' two inputs), eps, the layers and std read;
+    the six rows and the caller's action and value written; 2 operations a
+    multiply-add, 1 a bias and 1 an activation, 10 an action for the
+    sample and its log-density term and the sum.  store: the step's
+    reward, value, flags and finished sums, the running sums and env 0's
+    sources read; the rows, the record row and the sums written; 3
+    operations an env for the bootstrap, 1 a finished term."""
+    A = pl.net.std.shape[0]
+    in_a, in_c = pl.actor[0].in_features, pl.critic[0].in_features
+    params = sum(p.numel() for m in pl.layers for p in (m.weight, m.bias)) + A
+    reads = N * nobs + (0 if shared else N * (in_a + in_c)) + N * A + params
+    writes = N * nobs + 4 * N * A + 3 * N
+    act_bytes = it * (reads + writes) + 8
+    macs = sum(m.in_features * m.out_features for m in pl.layers)
+    units = sum(m.out_features for m in pl.layers)
+    hidden = sum(m.out_features for m in pl.actor[:-1] + pl.critic[:-1])
+    act_ops = N * (2 * macs + units + hidden + 10 * A)
+    store_bytes = (it * (2 * N + N * nterms + 1 + nterms + width - 1) + 2 * N
+                   + 1 + 8 + it * (N + width + 1 + nterms) + N + 8)
+    store_ops = N * (3 + nterms)
+    return act_bytes, act_ops, store_bytes, store_ops
+
+
+def _rollout_case(ppo, state, obs, hidden, timed: bool) -> dict:
+    """act and store against their plain versions on one PPO's operands
+    (env 7's observation NaN), into row 2 of copies of its trajectory and
+    record buffers: every row of act's fields, store's reward and done
+    rows, the record row, t + 1, the episode count and term sums; the
+    plain act's action stepped by the env feeds store.  With ``timed``,
+    each kernel alone (``_kernel_ms``), the plain versions, the MLPs'
+    cuBLAS products alone (the library's part) and the bounds."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import rollout as R
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    pl, N = ppo.act_plan, obs.shape[0]
+    obs = obs.clone()
+    obs[7] = float("nan")
+    x_a, x_c, _ = ppo._policy_inputs(obs, hidden)
+    eps = ppo._noise(N)
+    t = torch.tensor([2], device=obs.device)
+    ref_traj, got_traj = clone(ppo._traj), clone(ppo._traj)
+    ref = R.plain_act(pl, obs, x_a, x_c, eps, ref_traj, t)
+    got = R.act(pl, obs, x_a, x_c, eps, got_traj, t)
+    held = {}
+    for name in R.ACT_ROWS:
+        held[name] = _rows_held(getattr(ref_traj, name)[2],
+                                getattr(got_traj, name)[2],
+                                name in ("obs", "sigma"))
+    held["action"] = _rows_held(ref.action, got.action, False)
+    held["value"] = _rows_held(ref.value, got.value, False)
+    out = ppo.env.step(state, ref.action)
+    fin = out.finished_episode_sums
+    nterms = fin.shape[1]
+    g = torch.Generator(device=obs.device).manual_seed(5)
+    n_done = torch.full((), 3.0, device=obs.device)
+    sums = torch.rand(nterms, generator=g, device=obs.device)
+    record = (out.record_qpos, out.record_qvel, ref.action, out.done,
+              out.state.commands)
+    rec_ref, rec_got = ppo._rec.clone(), ppo._rec.clone()
+    gamma = ppo.cfg.algorithm.gamma
+    a = R.plain_store(ref_traj, t, out.reward, out.time_out, out.done,
+                      ref.value, fin, n_done, sums, gamma, rec_ref, record)
+    b = R.store(got_traj, t, out.reward, out.time_out, out.done, ref.value,
+                fin, n_done, sums, gamma, rec_got, record)
+    held["reward"] = _rows_held(ref_traj.reward[2], got_traj.reward[2], False)
+    held["done"] = _rows_held(ref_traj.done[2], got_traj.done[2], True)
+    held["record"] = _rows_held(rec_ref[2], rec_got[2], True)
+    held["t"] = _rows_held(a[0], b[0], True)
+    held["n_done"] = _rows_held(a[1], b[1], True)
+    held["term_sums"] = _rows_held(a[2], b[2], False)
+    res = dict(held=held, finished=int(float(a[1]) - 3.0),
+               time_outs=int(out.time_out.sum()))
+    if not timed:
+        return res
+    step_in = (out.reward, out.time_out, out.done, ref.value, fin, n_done,
+               sums, gamma)
+    res["act_ms"] = _kernel_ms(lambda: R.act(pl, obs, x_a, x_c, eps,
+                                             got_traj, t))
+    res["store_ms"] = _kernel_ms(lambda: R.store(got_traj, t, *step_in,
+                                                 rec_got, record))
+    res["act_plain_ms"] = _cuda_ms(lambda: R.plain_act(
+        pl, obs, x_a, x_c, eps, ref_traj, t), 10, 2)
+    res["store_plain_ms"] = _cuda_ms(lambda: R.plain_store(
+        ref_traj, t, *step_in, rec_ref, record), 10, 2)
+
+    def mlps():
+        with full_float32():
+            pl.net.actor(x_a)
+            pl.net.critic(x_c)
+
+    res["act_library_ms"] = _cuda_ms(mlps, 10, 2)
+    nb_a, ops_a, nb_s, ops_s = _rollout_bound(
+        pl, N, obs.shape[1], nterms, rec_got.shape[1], x_a is x_c,
+        obs.element_size())
+    res["act_bound"] = _bytes_ops_bound(nb_a, ops_a, torch.float32)
+    res["store_bound"] = _bytes_ops_bound(nb_s, ops_s, torch.float32)
+    res["act_smem"] = R.act_smem_bytes(pl, obs, x_a, x_c, eps, got_traj, t)
+    return res
+
+
+def _rollout_replays(ppo, state, obs, hidden) -> dict:
+    """The rollout step captured (``PPO._rollout_stepper``) at the PPO's
+    shapes: ROLLOUT_ROWS replays against as many eager calls of the step
+    from one state and generator states (the trajectory, the record, the
+    carry bit for bit: the card's counterpart of
+    tests/test_torch_graph.py::test_rollout_equals_eager_loop); then a
+    replay after the actor's and critic's weights and std were changed in
+    place: its mu and sigma rows must move, and hold against the plain
+    act on the new weights (ROLLOUT_F32_TOL; sigma exact)."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import rollout as R
+    from nightmare_rl_tpu_torch.utils.graph import clone
+
+    gens = [ppo.generator, ppo.env.generator]
+    g0 = [g.get_state() for g in gens]
+    start = clone((state, obs, hidden))
+    step = ppo._rollout_stepper(ROLLOUT_ROWS)
+    carry = (*clone(start), *ppo._zeros)
+    for _ in range(ROLLOUT_ROWS):
+        carry = step(carry)
+    replayed = clone((ppo._traj, ppo._rec, carry))
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    carry = (*clone(start), *ppo._zeros)
+    for _ in range(ROLLOUT_ROWS):
+        carry = ppo._rollout_step(carry)
+    same = _leaves_equal(replayed, (ppo._traj, ppo._rec, carry))
+
+    pl = ppo.act_plan
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    step((*clone(start), *ppo._zeros))
+    mu0 = ppo._traj.mu[0].clone()
+    params = [p for m in pl.layers for p in (m.weight, m.bias)] + [ppo.net.std]
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p in params:
+            p.mul_(1.25)
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    step((*clone(start), *ppo._zeros))
+    mu1, sigma1 = ppo._traj.mu[0].clone(), ppo._traj.sigma[0].clone()
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    x_a, x_c, _ = ppo._policy_inputs(start[1], start[2])
+    ref = R.plain_act(pl, start[1], x_a, x_c, ppo._noise(obs.shape[0]))
+    res = dict(same=same, moved=float((mu1 - mu0).abs().max()),
+               mu=_rows_held(ref.mu, mu1, False),
+               sigma=bool(torch.equal(sigma1, ref.std)))
+    with torch.no_grad():
+        for p, x in zip(params, saved):
+            p.copy_(x)
+    for g, s in zip(gens, g0):
+        g.set_state(s)
+    return res
+
+
+def phase_rollout_kernel(device_name: str, smi: str) -> dict:
+    """The rollout kernels (``ops/csrc/rollout.cu``: ``act``, the actor's
+    and critic's MLPs, the sample and its log-probability into row t of
+    the trajectory; ``store``, the timeout bootstrap, done, env 0's record
+    row and the finished sums) against their plain versions
+    (``ops/rollout.py``) on the card, float32: nightmare_v3 with fresh
+    weights and with model_3176's, and anymal_c with fresh weights, at
+    ROLLOUT_NS envs, and the recurrent heads (rnn 512) at 2048: every
+    field within ROLLOUT_F32_TOL of its scale, NaN at the plain version's
+    positions (env 7's observation), the obs and sigma rows, done, the
+    record row, t + 1 and the episode count exact.  Then the captured
+    rollout step (``_rollout_replays``) at 2048 envs: replays equal to the
+    eager calls bit for bit, and a replay after an in-place weight update
+    reads the new weights.  Each case's kernels timed alone
+    (``_kernel_ms``) beside the plain versions, the MLPs' cuBLAS products
+    and the bounds; ptxas's registers and spills from the build."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import rollout as R
+
+    t0 = time.perf_counter()
+    cases = [(r, N, w, "ActorCritic") for r, ws in (
+        ("nightmare_v3", ("fresh", "model_3176")), ("anymal_c", ("fresh",)))
+        for N in ROLLOUT_NS for w in ws]
+    cases.append(("nightmare_v3", 2048, "fresh", "ActorCriticRecurrent"))
+    res = {}
+    with torch.no_grad():
+        for robot, N, w, policy in cases:
+            ppo, state, obs, hidden = _rollout_ppo(robot, N, w, policy)
+            r = _rollout_case(ppo, state, obs, hidden, timed=True)
+            key = (robot, N, w, policy)
+            res[key] = r
+            worst = max(r["held"].items(), key=lambda kv: kv[1]["rel"])
+            exact = {k: v["differ"] for k, v in r["held"].items()
+                     if v["differ"]}
+            print(f"rollout-kernel: {robot} {N} envs, {w} weights, {policy}, "
+                  f"float32: largest error /|field| {worst[1]['rel']:.3e} "
+                  f"({worst[0]}), mu {r['held']['mu']['rel']:.3e}, value "
+                  f"{r['held']['value']['rel']:.3e}, logp "
+                  f"{r['held']['logp']['rel']:.3e}, term sums "
+                  f"{r['held']['term_sums']['rel']:.3e}; exact fields that "
+                  f"differ {exact or 'none'}; time-outs {r['time_outs']}, "
+                  f"finished {r['finished']}; act {r['act_ms']:.4f} ms "
+                  f"alone ({r['act_smem']} B shared a block), store "
+                  f"{r['store_ms']:.4f} ms; plain {r['act_plain_ms']:.3f} + "
+                  f"{r['store_plain_ms']:.3f} ms; the MLPs' cuBLAS products "
+                  f"{r['act_library_ms']:.3f} ms; bounds act "
+                  f"{r['act_bound'][0] * 1e3:.2f} us by {r['act_bound'][1]} "
+                  f"({r['act_bound'][2] / 1e6:.2f} MB), store "
+                  f"{r['store_bound'][0] * 1e3:.3f} us by "
+                  f"{r['store_bound'][1]}")
+            if worst[1]["rel"] > ROLLOUT_F32_TOL or exact:
+                raise AssertionError(f"rollout kernels disagree with their "
+                                     f"plain versions: {key}: {r['held']}")
+            if r["finished"] < 8 or r["time_outs"] < 8:
+                raise AssertionError(f"{key}: the step finished "
+                                     f"{r['finished']} episodes")
+        ppo, state, obs, hidden = _rollout_ppo("nightmare_v3", 2048, "fresh")
+        rep = _rollout_replays(ppo, state, obs, hidden)
+    print(f"rollout-kernel: nightmare_v3 2048 envs, the captured rollout "
+          f"step: {ROLLOUT_ROWS} replays equal to the eager calls bit for "
+          f"bit {rep['same']}; after the weights and std were scaled in "
+          f"place the replay's mu moved by {rep['moved']:.3e} and holds "
+          f"against the plain act on the new weights to "
+          f"{rep['mu']['rel']:.3e}, sigma equal {rep['sigma']}")
+    if not rep["same"] or rep["moved"] < 1e-3 or not rep["sigma"] \
+            or rep["mu"]["rel"] > ROLLOUT_F32_TOL:
+        raise AssertionError(f"the captured rollout step: {rep}")
+    ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
+                       f"stores/loads {k.get('spill')} B"
+                       for k in BUILD_PTXAS.get("rollout", []))
+    print(f"rollout-kernel: ptxas {ptxas}; {_smi_line(t0, device_name, smi)}")
+    main = res[("nightmare_v3", 2048, "fresh", "ActorCritic")]
+    fields = dict(act=(*R.ACT_ROWS, "action", "value"),
+                  store=("reward", "done", "record", "t", "n_done",
+                         "term_sums"))
+    out = {}
+    for k in ROLLOUT_WRAPPERS:
+        bound = main[f"{k}_bound"]
+        out[k] = dict(max_abs_err=max(main["held"][f]["abs"]
+                                      for f in fields[k]),
+                      ms=main[f"{k}_ms"], plain_ms=main[f"{k}_plain_ms"],
+                      bound_ms=bound[0], bound_by=bound[1],
+                      library_ms=main.get(f"{k}_library_ms"))
+    return out
+
+
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
     return f"{time.perf_counter() - t0:.1f} s; {device_name}, {smi}"
 
@@ -3822,6 +4210,7 @@ def phase_slice_recurrent(device_name: str, smi: str):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, _kept_pgs() as last:
         P.pgs.launches = 0
+        _zero_rollout()
         runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp],
                             pcfg=pcfg)
         torch.cuda.synchronize()
@@ -3843,6 +4232,7 @@ def phase_slice_recurrent(device_name: str, smi: str):
         raise AssertionError("recurrent PPO: non-finite loss or zero state")
     if launches != expected:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
+    _check_rollout("slice-recurrent", T + GRAPH_WARMUP)
     _hold_kernel("slice-recurrent inputs (its last call)", last["args"],
                  (envs, 112, 24))
     return runner
@@ -4543,6 +4933,7 @@ def main() -> int:
     integrate_t = phase_integrate_kernel(smooth["kept"], name, smi)
     assemble_t = phase_assemble_kernel(smooth["kept"], name, smi)
     task_t = phase_task_kernel(name, smi)
+    rollout_t = phase_rollout_kernel(name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -4615,6 +5006,18 @@ def main() -> int:
         source="nightmare_rl_tpu_torch/ops/csrc/task.cu",
         replaces="nightmare_rl_tpu/envs/nightmare_v3.py:182",
         launches=task_launches, **task_t, library_ms=None)
+    rollout_launches = [sum(n[i] for n in ROLLOUT_LAUNCHES.values())
+                        for i in range(len(ROLLOUT_WRAPPERS))]
+    print("kernel: rollout launches " + ", ".join(
+        f"{k} {n} = " + " + ".join(f"{who} {c[i]}"
+                                   for who, c in ROLLOUT_LAUNCHES.items())
+        for i, (k, n) in enumerate(zip(ROLLOUT_WRAPPERS, rollout_launches))))
+    rollout_entries = [
+        dict(name=f"rollout.{k}", route="cuda",
+             source="nightmare_rl_tpu_torch/ops/csrc/rollout.cu",
+             replaces=f"nightmare_rl_tpu/rl/ppo.py:{line}", launches=n,
+             **rollout_t[k])
+        for k, line, n in zip(ROLLOUT_WRAPPERS, (159, 171), rollout_launches)]
     print("graph: kernels per env step, eager / captured graph's kernel "
           "nodes: " + ", ".join(f"nightmare_v3 {form} "
                                 f"{r['eager_kernels']:.0f} / {r['nodes']}"
@@ -4624,7 +5027,7 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, legs_entry, newton_entry]
-                      + smooth_entries + [task_entry]}))
+                      + smooth_entries + [task_entry] + rollout_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

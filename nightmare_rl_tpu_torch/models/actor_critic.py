@@ -203,11 +203,18 @@ class ActorCriticRecurrent(nn.Module):
         z = self.std.new_zeros(batch, self.rnn_hidden)
         return ((z, z), (z, z))
 
+    def memory(self, obs: torch.Tensor, hidden: Hidden
+               ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Hidden]:
+        """The LSTMs' step: ``(actor MLP's input, critic MLP's input),
+        new_hidden``."""
+        out_a, carry_a = self.memory_a(obs, hidden[0])
+        out_c, carry_c = self.memory_c(obs, hidden[1])
+        return (out_a, out_c), (carry_a, carry_c)
+
     def forward(self, obs: torch.Tensor, hidden: Hidden
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], Hidden]:
         """One step: ``(mu, std, value), new_hidden``; obs (batch, num_obs)."""
-        out_a, carry_a = self.memory_a(obs, hidden[0])
-        out_c, carry_c = self.memory_c(obs, hidden[1])
+        (out_a, out_c), (carry_a, carry_c) = self.memory(obs, hidden)
         mu = self.actor(out_a)
         v = self.critic(out_c)[..., 0]
         std = self.std.expand_as(mu)

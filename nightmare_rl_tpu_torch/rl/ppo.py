@@ -21,8 +21,11 @@ back-propagated through all T steps.
 
 A rollout step (the policy step and its sample, ``env.step``, the
 recurrent reset, the timeout bootstrap, the episode accumulations and the
-step's rows) is one function, ``_rollout_step``.  On the card it is
-captured once as a CUDA graph (``utils/graph.py``) and replayed T times, the
+step's rows) is one function, ``_rollout_step``: around the env's step,
+two launches of the port's own kernels on the card (``ops/rollout.py``:
+``act`` before it, ``store`` after it; the plain versions on the CPU).  On
+the card it is captured once as a CUDA graph (``utils/graph.py``) and
+replayed T times, the
 counterpart of the JAX package's ``lax.scan`` inside ``jax.jit``, for both
 robots' envs (``graph_step``; an env without it is called directly).  The
 step writes its rows into preallocated
@@ -75,6 +78,7 @@ import torch
 
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.models import actor_critic as ac
+from nightmare_rl_tpu_torch.ops import rollout as R
 from nightmare_rl_tpu_torch.parallel.shard import Shard
 from nightmare_rl_tpu_torch.utils.device import constant, full_float32
 from nightmare_rl_tpu_torch.utils.graph import (
@@ -157,6 +161,9 @@ class PPO:
         else:
             raise ValueError(f"unknown policy_class_name {kind!r}")
         self.net.to(device=self.device, dtype=self.dtype)
+        # the rollout kernels' layout of the net (ValueError for one they do
+        # not take, on every device)
+        self.act_plan = R.plan(self.net)
         # the trained parameters (the LSTMs' bias_ih stays frozen)
         self.params = [p for p in self.net.parameters() if p.requires_grad]
         self.optimizer: Optional[torch.optim.Adam] = None
@@ -317,12 +324,28 @@ class PPO:
             return self.net(obs, hidden)
         return self.net(obs), hidden
 
+    def _policy_inputs(self, obs, hidden):
+        """The actor's and critic's MLP inputs (the observations; the
+        recurrent net's LSTM outputs) and the new hidden state."""
+        if self.recurrent:
+            (x_a, x_c), hidden = self.net.memory(obs, hidden)
+            return x_a, x_c, hidden
+        return obs, obs, hidden
+
+    def _noise(self, n: int) -> torch.Tensor:
+        """The action noise of ``n`` envs, drawn at the global batch shape
+        (``ac.sample_action``'s draw)."""
+        return self.shard.draw(torch.randn, (n, self.net.std.shape[0]),
+                               generator=self.generator, dtype=self.dtype,
+                               device=self.device)
+
     @torch.no_grad()
     def act(self, obs, hidden):
-        """One policy step: action, mu, std, value, logp and the new hidden."""
-        (mu, std, value), hidden = self._forward(obs, hidden)
-        action = ac.sample_action(mu, std, self.generator, self.shard)
-        return action, mu, std, value, ac.log_prob(mu, std, action), hidden
+        """One policy step (``ops/rollout.py::act``): action, mu, std,
+        value, logp and the new hidden."""
+        x_a, x_c, hidden = self._policy_inputs(obs, hidden)
+        out = R.act(self.act_plan, obs, x_a, x_c, self._noise(obs.shape[0]))
+        return (*out, hidden)
 
     @torch.no_grad()
     def last_value(self, obs: torch.Tensor, hidden) -> torch.Tensor:
@@ -355,32 +378,30 @@ class PPO:
                        torch.zeros((), dtype=dt, device=dev),
                        torch.zeros(n_terms, dtype=dt, device=dev))
 
+    @torch.no_grad()
     def _rollout_step(self, carry):
-        """One rollout step: the policy step and its sample, env.step, the
-        recurrent reset, the timeout bootstrap, row t of the trajectory
-        (and of env 0's record), the finished episodes' count and term
-        sums.  carry = (env state, obs, hidden, t (1,), n_done, term_sums)
-        → the next carry."""
+        """One rollout step: the policy step and its sample with row t of
+        the trajectory's obs, action, value, logp, mu and sigma
+        (``ops/rollout.py::act``), env.step, the recurrent reset, the
+        timeout bootstrap and done into row t, env 0's record row, the
+        finished episodes' count and term sums (``ops/rollout.py::store``).
+        carry = (env state, obs, hidden, t (1,), n_done, term_sums) → the
+        next carry."""
         state, obs, hidden, t, n_done, term_sums = carry
-        action, mu, std, value, logp, hidden = self.act(obs, hidden)
-        out = self.env.step(state, action)
+        x_a, x_c, hidden = self._policy_inputs(obs, hidden)
+        pol = R.act(self.act_plan, obs, x_a, x_c, self._noise(obs.shape[0]),
+                    self._traj, t)
+        out = self.env.step(state, pol.action)
         if self.recurrent:
             hidden = ac.reset_hidden(hidden, out.done)
-        # timeout bootstrap (rsl_rl PPO.process_env_step)
-        reward = (out.reward + self.cfg.algorithm.gamma * value
-                  * out.time_out.to(value.dtype))
-        for buf, x in zip(self._traj, (obs, action, reward, out.done, value,
-                                       logp, mu, std)):
-            buf.index_copy_(0, t, x[None])
-        if self._rec is not None:
-            row = torch.cat([x.reshape(-1).to(self._rec.dtype) for x in (
-                out.record_qpos[0], out.record_qvel[0], action[0],
-                out.done[0], out.state.commands[0])])
-            self._rec.index_copy_(0, t, row[None])
-        fin = out.finished_episode_sums
-        n_done = n_done + torch.sum(~torch.isnan(fin[:, 0]))
-        term_sums = term_sums + torch.nansum(fin, dim=0)
-        return out.state, out.obs, hidden, t + 1, n_done, term_sums
+        record = None if self._rec is None else (
+            out.record_qpos, out.record_qvel, pol.action, out.done,
+            out.state.commands)
+        t, n_done, term_sums = R.store(
+            self._traj, t, out.reward, out.time_out, out.done, pol.value,
+            out.finished_episode_sums, n_done, term_sums,
+            self.cfg.algorithm.gamma, self._rec, record)
+        return out.state, out.obs, hidden, t, n_done, term_sums
 
     def _rollout_stepper(self, T: int):
         """The rollout step as the rollout calls it: captured (once per

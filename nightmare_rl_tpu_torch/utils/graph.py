@@ -42,8 +42,9 @@ Capture, in the constructor on the card:
   refuses, raises naming the line of the port that made it.  There is no
   eager fallback;
 - the kernel wrappers' launch counters (``ops/pgs.py``, ``ops/newton.py``,
-  ``ops/smooth.py``, ``ops/integrate.py``) count the launches the graph
-  holds once per replay, not at capture.
+  ``ops/smooth.py``, ``ops/integrate.py``, ``ops/assemble.py``,
+  ``ops/task.py``, ``ops/rollout.py``) count the launches the graph holds
+  once per replay, not at capture.
 
 Environment variables that a step reads (``NIGHTMARE_PGS``,
 ``NIGHTMARE_NO_WARMSTART``) are read at capture: the graph keeps the form
@@ -78,6 +79,8 @@ from nightmare_rl_tpu_torch.ops import pgs as P
 from nightmare_rl_tpu_torch.ops.assemble import rows as assemble_rows
 from nightmare_rl_tpu_torch.ops.integrate import integrate_update
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
+from nightmare_rl_tpu_torch.ops.rollout import act as rollout_act
+from nightmare_rl_tpu_torch.ops.rollout import store as rollout_store
 from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
 from nightmare_rl_tpu_torch.ops.task import post as task_post
 from nightmare_rl_tpu_torch.ops.task import pre as task_pre
@@ -85,7 +88,8 @@ from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
 _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
-            integrate_update, assemble_rows, task_pre, task_post)
+            integrate_update, assemble_rows, task_pre, task_post, rollout_act,
+            rollout_store)
 
 
 def leaves(tree) -> List[torch.Tensor]:

@@ -39,7 +39,10 @@ branch, float64 and float32 at the smoke's tolerances, and their launches
 (and the assemble kernel's) per replay of either robot's captured step.
 The assemble kernel (``ops/csrc/assemble.cu``) against its plain version
 on both robots, float64 and float32, as the smoke holds it; the task
-kernels (``ops/csrc/task.cu``) against theirs on both robots, float32.  Tests that count the dense kernel's launches
+kernels (``ops/csrc/task.cu``) against theirs on both robots, float32;
+the rollout kernels (``ops/csrc/rollout.cu``) against theirs on both
+robots and the recurrent heads, float32, ``act`` in float64 in chunks, and
+a captured rollout step's replay reading weights updated in place.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -919,3 +922,63 @@ def test_task_kernels_match_plain(cuda, robot):
     res = smoke._task_held(task.PLAIN_POST[plan.robot](
         env, state, actions, phys, draws, noise), got)
     assert res["bad"] == 0 and res["rel"] <= smoke.TASK_F32_TOL, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot, policy", [
+    ("nightmare_v3", "ActorCritic"), ("anymal_c", "ActorCritic"),
+    ("nightmare_v3", "ActorCriticRecurrent")])
+def test_rollout_kernels_match_plain(cuda, robot, policy):
+    """The rollout kernels (``ops/csrc/rollout.cu``: ``act``, ``store``)
+    against ``ops/rollout.py``'s plain versions at 64 envs in float32, on
+    the smoke's operands (env 7's observation NaN, 8 time-outs), as the
+    smoke's rollout-kernel phase holds them (the recurrent heads at rnn 96:
+    their first layers staged in chunks of input rows), one launch each."""
+    from nightmare_rl_tpu_torch.ops import rollout as R
+
+    with torch.no_grad():
+        ppo, state, obs, hidden = smoke._rollout_ppo(robot, 64, "fresh",
+                                                     policy, rnn=96)
+        before = R.act.launches, R.store.launches
+        res = smoke._rollout_case(ppo, state, obs, hidden, timed=False)
+    assert (R.act.launches, R.store.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, held in res["held"].items():
+        assert held["differ"] == 0, name
+        assert held["rel"] <= smoke.ROLLOUT_F32_TOL, (name, held)
+    assert res["finished"] >= 8
+
+
+@pytest.mark.cuda
+def test_rollout_act_kernel_float64_in_chunks(cuda):
+    """``act`` in float64 with a small weight budget (every layer staged in
+    chunks, several stages) and 4 envs a block (a ragged last block),
+    against the plain version to 1e-12 of each field's scale."""
+    from nightmare_rl_tpu_torch.models.actor_critic import ActorCritic
+    from nightmare_rl_tpu_torch.ops import rollout as R
+
+    net = ActorCritic(66, 18, std_floor=0.5).to(cuda, torch.float64)
+    pl = R.plan(net)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    obs = torch.randn(37, 66, generator=g, device=cuda, dtype=torch.float64)
+    eps = torch.randn(37, 18, generator=g, device=cuda, dtype=torch.float64)
+    with torch.no_grad():
+        ref = R.plain_act(pl, obs, obs, obs, eps)
+        got = R._run_act(pl, obs, obs, obs, eps, None, None, host=False,
+                         envs_per_block=4, budget=600)
+    for name, a, b in zip(R.ActOut._fields, ref, got):
+        assert float((a - b).abs().max()) <= 1e-12 * float(a.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_rollout_replay_reads_weights_updated_in_place(cuda):
+    """The captured rollout step at 64 envs: replays equal to the eager
+    calls bit for bit, and a replay after the weights and std were scaled
+    in place reads the new ones (mu against the plain act on them, sigma
+    equal), as the smoke's rollout-kernel phase holds it at 2048 envs."""
+    with torch.no_grad():
+        ppo, state, obs, hidden = smoke._rollout_ppo("nightmare_v3", 64,
+                                                     "fresh")
+        rep = smoke._rollout_replays(ppo, state, obs, hidden)
+    assert rep["same"] and rep["sigma"] and rep["moved"] > 1e-3, rep
+    assert rep["mu"]["rel"] <= smoke.ROLLOUT_F32_TOL, rep

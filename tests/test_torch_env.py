@@ -256,6 +256,8 @@ def test_import_hygiene():
         "assert len(mods) > 20, mods\n"
         "assert 'nightmare_rl_tpu_torch.utils.graph' in mods, mods\n"
         "assert 'nightmare_rl_tpu_torch.ops.task' in mods, mods\n"
+        "assert 'nightmare_rl_tpu_torch.ops.rollout' in mods, mods\n"
+        "assert 'nightmare_rl_tpu_torch.tools.profile_rollout' in mods, mods\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
