@@ -9,7 +9,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
              ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu``,
              ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``,
-             ``ops/csrc/task.cu`` and ``ops/csrc/rollout.cu`` for sm_90a
+             ``ops/csrc/task.cu``, ``ops/csrc/rollout.cu`` and
+             ``ops/csrc/solve_out.cu`` for sm_90a
              from the checkout, all at once; prints ptxas's
              registers and spills (the float32 kernels must not spill) and
              each kernel's main-path launch geometry (the assemble
@@ -41,17 +42,20 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              env steps eager and 20 replays, every StepOut field equal bit
              for bit, the env generator's state equal, no host sync in a
              replay, ``decimation`` launches of the form's kernel per
-             replay, and the smooth, integrate and assemble kernels as
-             many, and one launch each of the task kernels' ``pre`` and
-             ``post``; an eager step's kernels and the graph's kernel nodes
-             (the legs form's at most NODES_NIGHTMARE); then wall ms per env
+             replay, and the smooth, integrate, assemble and solve_out
+             kernels as many, and one launch each of the task kernels'
+             ``pre`` and ``post``; an eager step's kernels and the graph's
+             kernel nodes beside those with the solve's output stage as
+             plain torch ops (the legs form's at most EAGER_NIGHTMARE and
+             NODES_NIGHTMARE); then wall ms per env
              step in turns (eager, graph, graph, eager), the capture's time
              and the graph's pool;
 5. slice   — the training CLI's code path: nightmare_v3, 2048 envs, float32,
              reset + 2 PPO iterations; the loss must be finite and the PGS
              kernel must have run on every substep (the rollout replays one
              captured step; its eager warm-up step counts), and so must the
-             smooth, the integrate and the assemble kernel, and the
+             smooth, the integrate, the assemble and the solve_out kernel,
+             and the
              rollout kernels once per rollout step (so too in slice-legs,
              slice-anymal and slice-recurrent).  The inputs of
              the slice's last PGS call (the last replay's) are kept; after
@@ -135,6 +139,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              scaled in place reading the new ones; each case's kernels
              timed alone beside the plain versions, the MLPs' cuBLAS
              products and the bounds, with ptxas's registers and spills;
+6g. solve-out-kernel — the solve's output stage (``ops/csrc/solve_out.cu``:
+             qfrc = Jᵀf, qacc, the normal forces' scatter and the touch
+             sensors) against ``ops/solve_out.py::plain`` on the card,
+             float32, in each of the solve's forms (nightmare_v3 legs and
+             dense, anymal_c Newton) at 2048 and 4096 envs, on the last
+             substep of SOLVE_OUT_STEPS eager env steps: every field within
+             SOLVE_OUT_F32_TOL of its scale, NaN at the plain version's
+             positions, and every selected point whose rows carry no force
+             (and no pair's) at exactly 0; each case timed alone beside the
+             plain version and the byte bound;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -162,10 +176,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              plain env step at 2048 envs, float32: 20 env steps eager and
              20 replays from one state, every StepOut field equal bit for
              bit, the env generator's state equal, no host sync in a
-             replay, 4 launches of the Newton, smooth, integrate and
-             assemble kernels each and one of each task kernel per replay;
-             an eager step's kernels and the graph's nodes by type (kernel
-             nodes at most NODES_ANYMAL); wall ms per env step in turns (eager,
+             replay, 4 launches of the Newton, smooth, integrate, assemble
+             and solve_out kernels each and one of each task kernel per
+             replay; an eager step's kernels and the graph's nodes by type
+             beside those with the solve's output stage as plain torch ops
+             (at most EAGER_ANYMAL and NODES_ANYMAL kernel nodes); wall ms
+             per env step in turns (eager,
              graph, graph, eager), the warm-up's and the capture's seconds,
              the pool;
 9. slice-anymal — the training CLI with ``--robot anymal_c``, 2048 envs,
@@ -202,8 +218,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              envs held in float64; nightmare_v3_mjx
              (pyramidal, no cone group, then noslip) card against CPU, one
              step at a converged budget, 1e-9: all 16 envs with the card's
-             smooth half, assembly and update as plain torch ops (the step
-             as the card ran it before their kernels), and, with every
+             smooth half, assembly, output stage and update as plain torch
+             ops (the step as the card ran it before their kernels), and,
+             with every
              kernel,
              the envs whose plain solves decide above the line-search
              floor (those on it printed); then the kernel's device
@@ -217,8 +234,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              ``artifacts/model_3176.pt``: 7 commands × 400 steps,
              deterministic, float32; zero falls on every row, achieved vx at
              least 80 % of the command on the ±0.3 m/s straight rows, and the
-             PGS, smooth, integrate and assemble kernels on every
-             substep, the PGS
+             PGS, smooth, integrate, assemble and solve_out kernels on
+             every substep, the PGS
              kernel held against ``pgs_reference`` on the inputs of its
              last call;
 13. custom-play — the batched gait engine in float64 on the card against
@@ -310,8 +327,9 @@ external and dense paths run no kernel of their own.  The kernels' line
 lists ``pgs``, whose launches are those of the slice, the dense phases and
 the curve phase, ``pgs_legs``, whose launches are slice-legs',
 ``newton``, whose launches are graph-anymal's, slice-anymal's and
-eval-anymal's, and ``smooth``, ``integrate`` and ``assemble``, whose
-launches (one each per substep of every path) are the slice's,
+eval-anymal's, and ``smooth``, ``integrate``, ``assemble`` and
+``solve_out``, whose launches (one each per substep of every path) are the
+slice's,
 graph-anymal's and play-grid's, each read from its own wrapper's counter, each counted from
 zero (the launches that hold a kernel against its plain version are not
 counted).  Every kernel's ``ms`` there is ``_kernel_ms``'s: device time
@@ -329,7 +347,9 @@ weights; ``library_ms`` of ``act`` is the MLPs' cuBLAS products and
 activations alone, ``store`` has none); their launches are those of the
 training slices (slice, slice-legs, slice-anymal, slice-recurrent: one of
 each per rollout step, the capture's warm-up step included, each phase
-checked, ``ROLLOUT_LAUNCHES``).
+checked, ``ROLLOUT_LAUNCHES``).  ``solve_out``'s ``ms``, ``plain_ms`` and
+``bound_ms`` are the legs form's at nightmare_v3's 2048 envs (the CLI's
+form on the card).
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -445,9 +465,17 @@ SMOOTH_NS = (1, 37, 2047, 2048, 4096)
 FIRST_DESIGN_MS = {"smooth": (0.0794, 0.1467), "integrate": (0.0367, 0.0543)}
 # kernel nodes of one captured env step at most (6,269 and 10,625 when the
 # smooth half and the update ran as plain torch ops, 771 and 2,293 when the
-# collision and row assembly did, 181 and 197 when the env's task half did;
-# 34 and 64 with every kernel)
-NODES_NIGHTMARE, NODES_ANYMAL = 40, 70
+# collision and row assembly did, 181 and 197 when the env's task half did,
+# 34 and 64 when the solve's output stage did), and kernels of one eager
+# env step at most (nightmare_v3 in the legs form)
+NODES_NIGHTMARE, NODES_ANYMAL = 20, 40
+EAGER_NIGHTMARE, EAGER_ANYMAL = 20, 40
+# an eager env step's kernels and the captured step's kernel nodes with the
+# solve's output stage as plain torch ops (this script on the commit before
+# ops/csrc/solve_out.cu, NVIDIA H100 80GB HBM3, 700 W), printed beside this
+# run's
+STAGE_PLAIN_KERNELS = {"legs": (40, 34), "kernel": (196, 190),
+                       "anymal_c": (80, 64)}
 # the assemble kernel against its plain version, per env and output field:
 # max|err| / max|plain|.  float64: round-off of the row products' sums in
 # another order; float32: the same at float32's eps, amplified where J·qvel
@@ -471,6 +499,17 @@ TASK_SWEEP = 64              # envs of a sweep across a cut, ulp by ulp
 ROLLOUT_F32_TOL = 1e-5
 ROLLOUT_NS = (2048, 4096)
 ROLLOUT_ROWS = 4             # rows of rollout-kernel's trajectory buffers
+# the solve_out kernel against its plain version, float32, per output field:
+# max|err| / max|plain| (Jᵀf, M⁻¹qfrc and the sensors sum in another order
+# than cuBLAS's; the facet sums in another than torch.sum's; the scatter's
+# sets and adds in the plain version's order)
+SOLVE_OUT_F32_TOL = 1e-5
+SOLVE_OUT_NS = (2048, 4096)
+SOLVE_OUT_STEPS = 30         # eager env steps (landed) whose last substep is held
+# (robot, PGS form, the form's name): the solve's three forms
+SOLVE_OUT_CASES = (("nightmare_v3", "legs", "legs"),
+                   ("nightmare_v3", "kernel", "dense"),
+                   ("anymal_c", None, "newton"))
 BUILD_PTXAS = {}             # phase_build's ptxas lines, by kernel source
 
 
@@ -706,7 +745,7 @@ def phase_build() -> None:
     from nightmare_rl_tpu_torch.physics import arrow, loader
 
     names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble",
-             "task", "rollout")
+             "task", "rollout", "solve_out")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -721,7 +760,7 @@ def phase_build() -> None:
                          lambda m: "newton_kernel<"
                                    f"{'float' if m[1] == 'f' else 'double'}>"),
     }
-    for name in ("smooth", "integrate", "assemble"):
+    for name in ("smooth", "integrate", "assemble", "solve_out"):
         kernels[name] = _ptxas(
             infos[name]["log"], name + r"_kernelI([fd])E",
             lambda m, name=name: f"{name}_kernel<"
@@ -1291,10 +1330,13 @@ def phase_graph(device_name: str, smi: str) -> dict:
               f"{same_gen}; host syncs per replay {syncs}; "
               f"{counter.__name__} launches per replay {per_replay:g} "
               f"(expected {dec}), {other.__name__} {other.launches}; smooth, "
-              f"integrate and assemble launches per replay {smooth_per} "
-              f"(expected {dec} each); task pre and post launches per replay "
-              f"{task_per} (expected 1 each); an eager env step launches "
-              f"{eager_k:.0f} kernels, the graph holds {nodes} kernel nodes; "
+              f"integrate, assemble and solve_out launches per replay "
+              f"{smooth_per} (expected {dec} each); task pre and post "
+              f"launches per replay {task_per} (expected 1 each); an eager "
+              f"env step launches {eager_k:.0f} kernels, the graph holds "
+              f"{nodes} kernel nodes (with the solve's output stage as plain "
+              f"torch ops: {STAGE_PLAIN_KERNELS[form][0]} and "
+              f"{STAGE_PLAIN_KERNELS[form][1]}); "
               f"warm-up "
               f"{warm}; capture {capture_s:.2f} s (warm-up included), graph "
               f"pool {pool:.1f} MiB; wall ms per env step in turns (eager, "
@@ -1311,15 +1353,19 @@ def phase_graph(device_name: str, smi: str) -> dict:
                                  f"and {other.launches} {other.__name__}")
         if smooth_per != [dec] * len(STEP_KERNELS):
             raise AssertionError(f"a {form} replay launches the smooth, "
-                                 f"integrate and assemble kernels "
+                                 f"integrate, assemble and solve_out kernels "
                                  f"{smooth_per} times")
         if task_per != [1] * len(TASK_WRAPPERS):
             raise AssertionError(f"a {form} replay launches the task kernels "
                                  f"{task_per} times")
         _check_task(f"graph {form}")
-        if form == "legs" and nodes > NODES_NIGHTMARE:
-            raise AssertionError(f"the captured legs-form step holds {nodes} "
-                                 f"kernel nodes, more than {NODES_NIGHTMARE}")
+        if form == "legs" and (nodes > NODES_NIGHTMARE
+                               or eager_k > EAGER_NIGHTMARE):
+            raise AssertionError(f"the legs-form step launches {eager_k:.0f} "
+                                 f"kernels eagerly (at most "
+                                 f"{EAGER_NIGHTMARE}), its graph holds "
+                                 f"{nodes} kernel nodes (at most "
+                                 f"{NODES_NIGHTMARE})")
         res[form] = dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                          capture_s=capture_s, pool_mib=pool, nodes=nodes,
                          eager_kernels=eager_k)
@@ -1435,11 +1481,13 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
           f"({dones} resets): StepOut fields equal bit for bit at every step: "
           f"{not differ} (differing {differ[:6]}); env generator state equal "
           f"{same_gen}; host syncs per replay {syncs}; newton kernel "
-          f"launches per replay {per_replay}, smooth, integrate and "
-          f"assemble {smooth_per}, task pre and post {task_per}; an eager "
-          f"env step launches {eager_k:.0f} kernels, the graph holds "
+          f"launches per replay {per_replay}, smooth, integrate, assemble "
+          f"and solve_out {smooth_per}, task pre and post {task_per}; an "
+          f"eager env step launches {eager_k:.0f} kernels, the graph holds "
           f"{nodes.get('KERNEL', 0)} kernel nodes ({sum(nodes.values())} "
-          f"nodes: {nodes}); warm-up step "
+          f"nodes: {nodes}; with the solve's output stage as plain torch "
+          f"ops: {STAGE_PLAIN_KERNELS['anymal_c'][0]} and "
+          f"{STAGE_PLAIN_KERNELS['anymal_c'][1]}); warm-up step "
           f"{step.warmup_s:.2f} s, capture and instantiation "
           f"{step.capture_s:.2f} s (recording {step.record_s:.2f} s), graph "
           f"pool {pool:.1f} MiB; wall ms per "
@@ -1456,23 +1504,25 @@ def phase_graph_anymal(device_name: str, smi: str) -> dict:
     if (per_replay != env.cfg.decimation
             or smooth_per != [per_replay] * len(STEP_KERNELS)):
         raise AssertionError(f"an anymal_c replay launches the newton, smooth, "
-                             f"integrate and assemble kernels {per_replay}, "
-                             f"{smooth_per} times, not {env.cfg.decimation}")
+                             f"integrate, assemble and solve_out kernels "
+                             f"{per_replay}, {smooth_per} times, not "
+                             f"{env.cfg.decimation}")
     if task_per != [1] * len(TASK_WRAPPERS):
         raise AssertionError(f"an anymal_c replay launches the task kernels "
                              f"{task_per} times")
     _check_task("graph-anymal")
-    if nodes.get("KERNEL", 0) > NODES_ANYMAL:
-        raise AssertionError(f"the captured anymal_c step holds "
-                             f"{nodes.get('KERNEL', 0)} kernel nodes, more "
-                             f"than {NODES_ANYMAL}")
+    if nodes.get("KERNEL", 0) > NODES_ANYMAL or eager_k > EAGER_ANYMAL:
+        raise AssertionError(f"the anymal_c step launches {eager_k:.0f} "
+                             f"kernels eagerly (at most {EAGER_ANYMAL}), its "
+                             f"graph holds {nodes.get('KERNEL', 0)} kernel "
+                             f"nodes (at most {NODES_ANYMAL})")
     counts = _smooth_counts()
     print("graph-anymal: " + ", ".join(f"{k} launches {v}"
                                        for k, v in counts.items())
           + " (one each per substep of every eager step, warm-up and replay)")
     if len(set(counts.values())) != 1 or counts["smooth"] < 1:
-        raise AssertionError(f"graph-anymal: the smooth, integrate and "
-                             f"assemble kernels ran {counts} times")
+        raise AssertionError(f"graph-anymal: the smooth, integrate, assemble "
+                             f"and solve_out kernels ran {counts} times")
     return dict(eager_ms=walls["eager"], graph_ms=walls["graph"],
                 capture_s=step.capture_s, record_s=step.record_s,
                 warmup_s=step.warmup_s, pool_mib=pool, nodes=nodes,
@@ -2369,9 +2419,10 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
     holds the JAX package.  Returns per env the largest error relative to
     each field's scale for three card steps: ``kernels``, the main path,
     every kernel; ``before``, the card's smooth half, collision and row
-    assembly and update as plain torch ops and the Newton kernel solving,
-    the step as the card ran it before the smooth, integrate and assemble
-    kernels; ``plain``, every part as plain torch ops.  And ``held``: the envs whose plain solves decide above the
+    assembly, the solve's output stage and update as plain torch ops and
+    the Newton kernel solving, the step as the card ran it before the
+    smooth, integrate, assemble and solve_out kernels; ``plain``, every
+    part as plain torch ops.  And ``held``: the envs whose plain solves decide above the
     line-search floor (margin at least NEWTON_FLOOR in both substeps, from
     the CPU's solves traced), as newton-kernel's float64 cases hold the
     kernel.  Past the floor a step parts from the CPU's by up to ~2e-8
@@ -2386,6 +2437,7 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
     from nightmare_rl_tpu_torch.ops import assemble as AS
     from nightmare_rl_tpu_torch.ops import integrate as IN
     from nightmare_rl_tpu_torch.ops import smooth as SM
+    from nightmare_rl_tpu_torch.ops import solve_out as SO
     from nightmare_rl_tpu_torch.physics import loader, newton, pipeline, solver
 
     N = 16
@@ -2401,12 +2453,12 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
     st0 = st0.replace(qpos=qpos, qvel=qvel)
     ctrl = torch.randn(N, 18, generator=g, dtype=torch.float64)
     margins = []
-    main = (SM.smooth_forward, IN.integrate_update, AS.rows,
+    main = (SM.smooth_forward, IN.integrate_update, AS.rows, SO.outputs,
             solver.newton_solve)
 
     def traced(efc, M, a0, iterations, ls_refine, x0=None):
         margins.append(_newton_floor(efc, M, a0, x0, iterations, ls_refine)[0])
-        return main[3](efc, M, a0, iterations, ls_refine, x0=x0)
+        return main[4](efc, M, a0, iterations, ls_refine, x0=x0)
 
     def plain_solve(efc, M, a0, iterations, ls_refine, x0=None):
         return newton.solve(efc, M, a0, iterations, ls_refine, x0=x0)
@@ -2416,18 +2468,18 @@ def _newton_mjx_steps(seed: int = 2) -> dict:
             sys_, lay, args[0].dtype, args[0].device))
 
     def run(dev, parts):
-        (SM.smooth_forward, IN.integrate_update, AS.rows,
+        (SM.smooth_forward, IN.integrate_update, AS.rows, SO.outputs,
          solver.newton_solve) = parts
         try:
             return pipeline.step(systems[dev], _to(st0, dev), ctrl.to(dev), 2)
         finally:
-            (SM.smooth_forward, IN.integrate_update, AS.rows,
+            (SM.smooth_forward, IN.integrate_update, AS.rows, SO.outputs,
              solver.newton_solve) = main
 
-    cpu = run("cpu", main[:3] + (traced,))
-    plain = (SM.plain, IN.plain_update, plain_rows)
+    cpu = run("cpu", main[:4] + (traced,))
+    plain = (SM.plain, IN.plain_update, plain_rows, SO.plain)
     card = {"kernels": run("cuda", main),
-            "before": run("cuda", plain + main[3:]),
+            "before": run("cuda", plain + main[4:]),
             "plain": run("cuda", plain + (plain_solve,))}
     err = {}
     for k, out in card.items():
@@ -2576,8 +2628,9 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
               f"margin over the floor among the held {h['margin']:.3g}"
               for b, h in held64.items())
           + f"; edges at {it_h} / {ls_h} {edges}, "
-          f"nightmare_v3_mjx card vs CPU: the card's smooth half and update "
-          f"plain {float(mjx['before'].max()):.3e} over all 16 envs, every "
+          f"nightmare_v3_mjx card vs CPU: the card's smooth half, assembly, "
+          f"output stage and update plain "
+          f"{float(mjx['before'].max()):.3e} over all 16 envs, every "
           f"kernel {float(mjx['kernels'][held_mjx].max()):.3e} over the "
           f"{int(held_mjx.sum())} envs above the floor (on it "
           f"{float(mjx['kernels'].max()):.3e}, not held), every part plain "
@@ -2623,13 +2676,15 @@ def phase_newton_kernel(kept: tuple, device_name: str, smi: str) -> dict:
 
 
 def _smooth_fns():
-    """The smooth, integrate and assemble kernels' wrappers whose launch
-    counters the captured steps add to (``utils/graph.py``), also while a
-    phase puts another function over a module's name (``_kept_smooth``)."""
+    """The smooth, integrate, assemble and solve_out kernels' wrappers whose
+    launch counters the captured steps add to (``utils/graph.py``), also
+    while a phase puts another function over a module's name
+    (``_kept_smooth``, ``_kept_solve_out``)."""
     from nightmare_rl_tpu_torch.utils import graph
 
     fns = {fn.__name__: fn for fn in graph._COUNTED}
-    return fns["smooth_forward"], fns["integrate_update"], fns["rows"]
+    return (fns["smooth_forward"], fns["integrate_update"], fns["rows"],
+            fns["outputs"])
 
 
 def _zero_smooth() -> None:
@@ -2637,26 +2692,27 @@ def _zero_smooth() -> None:
         fn.launches = 0
 
 
-STEP_KERNELS = ("smooth", "integrate", "assemble")
+STEP_KERNELS = ("smooth", "integrate", "assemble", "solve_out")
 
 
 def _smooth_counts() -> dict:
-    """The smooth, the integrate and the assemble kernel's launch counters,
-    each read from its own wrapper."""
+    """The smooth, the integrate, the assemble and the solve_out kernel's
+    launch counters, each read from its own wrapper."""
     return dict(zip(STEP_KERNELS, (fn.launches for fn in _smooth_fns())))
 
 
 def _check_smooth(label: str, expected: int) -> dict:
-    """Asserts that the smooth, the integrate and the assemble kernel each
-    launched ``expected`` times since ``_zero_smooth``; returns the counts
-    (``_smooth_counts``)."""
+    """Asserts that the smooth, the integrate, the assemble and the
+    solve_out kernel each launched ``expected`` times since
+    ``_zero_smooth``; returns the counts (``_smooth_counts``)."""
     counts = _smooth_counts()
     print(f"{label}: " + ", ".join(f"{k} launches {v}"
                                    for k, v in counts.items())
           + f" (expected {expected} each: one per physics substep)")
     if any(v != expected for v in counts.values()):
-        raise AssertionError(f"{label}: the smooth, integrate and assemble "
-                             f"kernels ran {counts} times, not {expected}")
+        raise AssertionError(f"{label}: the smooth, integrate, assemble and "
+                             f"solve_out kernels ran {counts} times, not "
+                             f"{expected}")
     return counts
 
 
@@ -3892,6 +3948,171 @@ def phase_rollout_kernel(device_name: str, smi: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _kept_solve_out():
+    """Keeps the arguments of the last call of ``ops/solve_out.py::outputs``
+    (as they are: the phase that reads them steps eagerly) in the yielded
+    dict; the calls go on to the wrapper."""
+    from nightmare_rl_tpu_torch.ops import solve_out as SO
+
+    last, real = {}, SO.outputs
+
+    def kept(*args):
+        last["args"] = args
+        return real(*args)
+
+    SO.outputs = kept
+    try:
+        yield last
+    finally:
+        SO.outputs = real
+
+
+def _solve_out_inputs(robot: str, form, N: int) -> tuple:
+    """The arguments of the last substep's ``outputs`` call after
+    SOLVE_OUT_STEPS eager env steps of random actions from the reset, in
+    the PGS form ``form`` (None: Newton)."""
+    import torch
+
+    with _pgs_mode(form), _kept_solve_out() as last:
+        env = _task_env(robot, N)
+        state, _ = env.reset(0)
+        g = torch.Generator(device="cuda").manual_seed(21)
+        for _ in range(SOLVE_OUT_STEPS):
+            state = env.step(state, 0.3 * torch.randn(
+                N, env.num_actions, device="cuda", generator=g)).state
+    return last["args"]
+
+
+def _solve_out_held(args, ref, got) -> dict:
+    """Per output field max|err| / max|plain| (the largest), max|err|, NaN
+    positions equal, and the selected points whose rows carry no force and
+    no pair's: their count and the largest |nforce| the kernel gave them."""
+    import torch
+
+    sys_, groups, pair_ab, ns_offset, solved = args[:5]
+    rel = ab = 0.0
+    nan_same = True
+    for r, k in zip(ref, got):
+        nan_same &= torch.equal(torch.isnan(r), torch.isnan(k))
+        if r.numel() == 0:
+            continue
+        ok = ~torch.isnan(r)
+        err = float((r - k)[ok].abs().max()) if bool(ok.any()) else 0.0
+        ab = max(ab, err)
+        rel = max(rel, err / max(float(r[ok].abs().max()), 1e-30))
+    f, off, idle, idle_max = solved.force, ns_offset, 0, 0.0
+    for idx, nf in groups:
+        n = idx.shape[1]
+        quiet = (f[:, off:off + n * nf].reshape(-1, n, nf) == 0).all(-1)
+        if pair_ab is not None:
+            for p in pair_ab:
+                quiet &= ~(idx[..., None] == p[:, None, :]).any(-1)
+        vals = got.nforce.gather(1, idx.expand(f.shape[0], -1))[quiet]
+        idle += int(quiet.sum())
+        if vals.numel():
+            idle_max = max(idle_max, float(vals.abs().max()))
+        off += n * nf
+    return dict(rel=rel, abs=ab, nan_same=nan_same, idle=idle,
+                idle_max=idle_max, loaded=int((ref.nforce > 0).sum()))
+
+
+def _solve_out_bytes(args, out) -> tuple:
+    """The bytes and operations the call needs on these inputs: f, the
+    form's inputs, the group and pair indices (a static group's once), S
+    once and every output written; of J only the nonzero values of rows
+    whose force is nonzero (the products Jᵀf needs).  Also the bytes with
+    J read whole."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import solve_out as SO
+
+    sys_, groups, pair_ab, ns_offset, solved, a0 = args[:6]
+    f, it = solved.force, solved.force.element_size()
+    N, nefc = f.shape
+    nv, ns, ncp = sys_.nv, sys_.nsensor, sys_.ncp
+    nb = f.numel() * it + (ns * ncp) * it + (ncp + ns) * N * it
+    ops = 2 * int(torch.count_nonzero(sys_.sensor_cpoint_matrix)) * N
+    for idx, nf in groups:
+        nb += (idx.shape[1] if idx.stride(0) == 0 else idx.numel()) * 8
+        ops += idx.numel() * (nf - 1)
+    if pair_ab is not None:
+        nb += 2 * pair_ab[0].numel() * 8
+        ops += 3 * pair_ab[0].numel() * 2
+    whole = nb
+    if solved.form != SO.NEWTON:
+        used = int(torch.count_nonzero(solved.J * (f != 0)[..., None]))
+        nb += used * it + 3 * N * nv * it        # J used; qacc_smooth, qfrc, qacc
+        whole += solved.J.numel() * it + 3 * N * nv * it
+        ops += 2 * used
+        extra = (solved.dq.numel() if solved.form == SO.LEGS
+                 else solved.Minv.numel()) * it
+        nb, whole = nb + extra, whole + extra
+        if solved.form == SO.DENSE:
+            ops += 2 * N * nv * nv
+    return nb, ops, whole
+
+
+def phase_solve_out_kernel(device_name: str, smi: str) -> dict:
+    """The solve_out kernel (``ops/csrc/solve_out.cu``: Jᵀf, qacc, the
+    normal forces' scatter, the touch sensors) against
+    ``ops/solve_out.py::plain`` on the card, float32, in each of the
+    solve's forms (SOLVE_OUT_CASES) at SOLVE_OUT_NS envs, on the last
+    substep of SOLVE_OUT_STEPS eager env steps: every field within
+    SOLVE_OUT_F32_TOL of its scale, NaN at the plain version's positions,
+    some points loaded, the selected points whose rows carry no force (nor
+    a pair's) at exactly 0 (at least one such point in the nightmare_v3
+    cases); each case timed
+    alone (``_kernel_ms``) beside the plain version and the byte bound.
+    Returns the legs form's figures at 2048 envs for the kernels' line."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import solve_out as SO
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+
+    t0 = time.perf_counter()
+    rows = {}
+    for robot, form, label in SOLVE_OUT_CASES:
+        for N in SOLVE_OUT_NS:
+            args = _solve_out_inputs(robot, form, N)
+            with full_float32():
+                ref = SO.plain(*args)
+                got = SO.outputs(*args)
+                torch.cuda.synchronize()
+                held = _solve_out_held(args, ref, got)
+                ms = _kernel_ms(lambda: SO.outputs(*args))
+                plain_ms = _cuda_ms(lambda: SO.plain(*args), 10, 2)
+            nb, ops, whole = _solve_out_bytes(args, got)
+            bound, by, _ = _bytes_ops_bound(nb, ops, torch.float32)
+            _, geo = SO._layout(*args[:4], args[4].force.shape[1],
+                                args[4].form, args[6], torch.float32)
+            per_sm = SO.envs_per_sm(geo, torch.float32)
+            print(f"solve-out-kernel: {robot} {label} N={N} float32: largest "
+                  f"error /max|field| {held['rel']:.3e} (tol "
+                  f"{SOLVE_OUT_F32_TOL:g}), max|err| {held['abs']:.3e}, NaN "
+                  f"positions equal {held['nan_same']}; {held['loaded']} "
+                  f"points loaded, {held['idle']} selected points without "
+                  f"force, largest |nforce| there {held['idle_max']:g}; "
+                  f"{ms:.4f} ms alone (cold L2), "
+                  f"plain {plain_ms:.3f} ms; bound {bound * 1e3:.2f} us by "
+                  f"{by} ({nb / 1e6:.2f} MB, {ops / 1e6:.2f} M operations; "
+                  f"{whole / 1e6:.2f} MB with J read whole) = "
+                  f"{bound / ms:.1%} of it; {geo.envs_per_block} envs a "
+                  f"block, {geo.smem_bytes} B shared, {per_sm} envs "
+                  f"resident per SM")
+            if (held["rel"] > SOLVE_OUT_F32_TOL or not held["nan_same"]
+                    or held["idle_max"] != 0.0 or held["loaded"] < 1
+                    or (robot == "nightmare_v3" and held["idle"] < 1)):
+                raise AssertionError(f"the solve_out kernel disagrees with "
+                                     f"its plain version: {robot} {label} "
+                                     f"N={N}: {held}")
+            rows[(label, N)] = dict(max_abs_err=held["abs"], ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=by)
+    print(f"solve-out-kernel: {_smi_line(t0, device_name, smi)}")
+    return rows[("legs", 2048)]
+
+
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
     return f"{time.perf_counter() - t0:.1f} s; {device_name}, {smi}"
 
@@ -4934,6 +5155,7 @@ def main() -> int:
     assemble_t = phase_assemble_kernel(smooth["kept"], name, smi)
     task_t = phase_task_kernel(name, smi)
     rollout_t = phase_rollout_kernel(name, smi)
+    solve_out_t = phase_solve_out_kernel(name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -4998,6 +5220,12 @@ def main() -> int:
         for k, line, t in (("smooth", 59, smooth_t),
                            ("integrate", 125, integrate_t),
                            ("assemble", 84, assemble_t))]
+    solve_out_entry = dict(
+        name="solve_out", route="cuda",
+        source="nightmare_rl_tpu_torch/ops/csrc/solve_out.cu",
+        replaces="nightmare_rl_tpu/physics/solver.py:757",
+        launches=smooth_launches["solve_out"], **solve_out_t,
+        library_ms=None)
     task_launches = sum(TASK_LAUNCHES.values())
     print(f"kernel: task launches {task_launches} (pre + post) = " + " + ".join(
         f"{who} {n}" for who, n in TASK_LAUNCHES.items()))
@@ -5027,7 +5255,8 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [entry, legs_entry, newton_entry]
-                      + smooth_entries + [task_entry] + rollout_entries}))
+                      + smooth_entries + [solve_out_entry, task_entry]
+                      + rollout_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

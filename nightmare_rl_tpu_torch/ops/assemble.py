@@ -386,8 +386,10 @@ def _result(sys: S.System, plan: Plan, o: Dict[str, Optional[torch.Tensor]],
         efc = solver.Efc(o["J"], o["aref"], o["R"], o["lo"], o["hi"])
         nefc = None
         if use_newton:
-            nefc = newton.NewtonEfc(o["J"], o["aref"], o["R"],
-                                    o["quad_active"], o["fl"], tuple(cones))
+            nefc = newton.NewtonEfc(
+                o["J"], o["aref"], o["R"], o["quad_active"], o["fl"],
+                tuple(cones), (o["cone_mu"], o["cone_active"], o["cone_mus"])
+                if elliptic else None)
         legmeta = None
         if o["leg1"] is not None:
             legmeta = solver.LegMeta(o["leg1"], o["leg2"], o["has1"],

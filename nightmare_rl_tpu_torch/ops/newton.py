@@ -13,8 +13,10 @@ raises.  ``newton_solve.launches`` counts kernel launches.
 The kernel reads the rows in efc order.  The cone groups' static layout
 (the rows outside the cones, each contact's first row, condim and the
 offset of its friction coefficients) is one int32 tensor made once per
-shape and device; per call the groups' mu, activity and friction
-coefficients are concatenated over the groups.
+shape and device; the groups' mu, activity and friction coefficients are
+read concatenated over the groups from ``NewtonEfc.cone_all`` (the
+assemble kernel writes each as one buffer, so the card concatenates
+nothing), else concatenated per call.
 
 ``host_solve`` runs the same per-env arithmetic on the CPU through the
 host driver ``csrc/newton_host.cpp`` (built with g++), for the tests.
@@ -109,7 +111,10 @@ def _descriptor(nefc: int, spans: Tuple[Tuple[int, int, int], ...],
 
 def _cones(efc: NewtonEfc, N: int, dtype: torch.dtype, device):
     """mu (N, nc), activity (N, nc) and the friction coefficients
-    (N, nmus), concatenated over the cone groups."""
+    (N, nmus), concatenated over the cone groups: the efc's ``cone_all``
+    where it has them, else made here."""
+    if efc.cone_all is not None:
+        return tuple(x.contiguous() for x in efc.cone_all)
     if not efc.cones:
         return (torch.empty(N, 0, dtype=dtype, device=device),
                 torch.empty(N, 0, dtype=torch.bool, device=device),
@@ -134,12 +139,18 @@ def _check(efc: NewtonEfc, M, qacc_smooth, x0) -> None:
         n = g.mus.shape[-2]
         shapes += [("mu", g.mu, (N, n)), ("mus", g.mus, (N, n, g.dim - 1)),
                    ("active", g.active, (N, n))]
+    if efc.cone_all is not None:
+        nc = sum(g.mus.shape[-2] for g in efc.cones)
+        nmus = sum(g.mus.shape[-2] * (g.dim - 1) for g in efc.cones)
+        shapes += [("cone_all mu", efc.cone_all[0], (N, nc)),
+                   ("cone_all active", efc.cone_all[1], (N, nc)),
+                   ("cone_all mus", efc.cone_all[2], (N, nmus))]
     for name, x, shape in shapes:
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
         if x.device != dev:
             raise ValueError("newton operands must share one device")
-        want = torch.bool if name in ("quad_active", "active") else dt
+        want = torch.bool if name.endswith("active") else dt
         if x.dtype != want:
             raise ValueError(f"{name} must be {want}, got {x.dtype}")
     for name, x in (("J", efc.J), ("aref", efc.aref), ("R", efc.R),

@@ -69,6 +69,10 @@ class NewtonEfc(NamedTuple):
                                # on cone and friction rows)
     fl: torch.Tensor           # (N, nefc) frictionloss (> 0 marks dof-friction rows)
     cones: Tuple[ConeGroup, ...] = ()
+    # the cone groups' mu (N, nc), active (N, nc) and mus (N, nmus), each
+    # concatenated over the groups in order (the assemble kernel writes one
+    # buffer each, whose views the groups are); None where not made
+    cone_all: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 class _Group(NamedTuple):

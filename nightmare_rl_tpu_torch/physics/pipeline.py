@@ -4,10 +4,11 @@ Euler with or without implicit joint damping) + touch sensors (port of
 ``mj_step`` with a decimation loop.
 
 The smooth half of ``forward`` (kinematics to qfrc_smooth and the arrow
-factor), its collision and row assembly (``ops/assemble.py``) and the
-integrator's update of ``step`` are one kernel launch each on the card
-(``ops/smooth.py``, ``ops/integrate.py``), the plain functions on the
-CPU. The mass matrix is factored block-arrow where the tree is a
+factor), its collision and row assembly (``ops/assemble.py``), the
+solve's output stage (qfrc, qacc, the normal forces and the touch sensors:
+``ops/solve_out.py``) and the integrator's update of ``step`` are one
+kernel launch each on the card (``ops/smooth.py``, ``ops/integrate.py``),
+the plain functions on the CPU. The mass matrix is factored block-arrow where the tree is a
 free base with equal independent legs (``arrow.layout``; both bundled
 robots), and by dense Cholesky otherwise. The layout and the factor go to
 the contact solve, whose assembly then gives each row its leg slots, so
@@ -89,11 +90,13 @@ def forward(sys: S.System, state: S.State, ctrl: torch.Tensor) -> ForwardOut:
                         kin.cdof, qpos, qvel, qacc_smooth)
     warmstart = (None if os.environ.get("NIGHTMARE_NO_WARMSTART")
                  else state.qacc_warmstart)
-    sol = solver.solve_rows(sys, asm.rows, qacc_smooth, lay=lay, fac=fac, M=M,
-                            M_chol=M_chol, warmstart=warmstart)
-    # touch sensors: per-contact normal force (Σ pyramid facet forces, or
-    # the normal row of an elliptic cone)
-    sensordata = sol.nforce @ sys.sensor_cpoint_matrix.T
+    # the solve, then its output stage in one launch on the card
+    # (ops/solve_out.py): qfrc, qacc, the per-contact normal force (Σ pyramid
+    # facet forces, or the normal row of an elliptic cone) and the touch
+    # sensors read from it
+    sol, sensordata = solver.solve_rows(sys, asm.rows, qacc_smooth, lay=lay,
+                                        fac=fac, M=M, M_chol=M_chol,
+                                        warmstart=warmstart)
     return ForwardOut(kin, sm.vel, M, M_chol, sm.qfrc_smooth, qacc_smooth,
                       asm.con, sol, sm.act, sensordata)
 

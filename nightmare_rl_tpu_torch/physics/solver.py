@@ -22,6 +22,10 @@ Newton models (``solver_type`` Newton or CG) solve with
 ``ops/newton.py::newton_solve`` instead (the kernel ``ops/csrc/newton.cu`` on
 the card, the plain ``physics/newton.py`` on the CPU): elliptic cones get one row per friction direction (condim 3, 4 or
 6), pyramidal cones the same facets as PGS followed by the noslip pass.
+
+After every form, ``ops/solve_out.py::outputs`` (one kernel launch on the
+card) forms qfrc = Jᵀf and qacc from what the form leaves, scatters the
+normal forces to the candidate points and reads the touch sensors.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from nightmare_rl_tpu_torch.ops import linalg
+from nightmare_rl_tpu_torch.ops import solve_out as SO
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.pgs import choose_mode, dtype_key, pgs, pgs_legs
 from nightmare_rl_tpu_torch.physics import arrow, newton
@@ -497,6 +502,9 @@ def assemble(sys: S.System, con: Contacts, qpos: torch.Tensor,
             & _cone_row_mask(efc.J.shape[1], spans, dev),
             fl=torch.where(is_fl, efc.hi, 0.0),
             cones=tuple(cones),
+            cone_all=(tuple(torch.cat(x, dim=1) for x in zip(
+                *[(g.mu, g.active, g.mus.flatten(1)) for g in cones]))
+                if cones else None),
         )
     legmeta = None
     if lay is not None and not use_newton:
@@ -549,18 +557,11 @@ def prewarm(sys: S.System, device=None) -> str:
                      sys.device if device is None else device)
 
 
-class SolveOut(NamedTuple):
-    force: torch.Tensor            # (N, nefc) constraint forces
-    qfrc_constraint: torch.Tensor  # (N, nv)
-    qacc: torch.Tensor             # (N, nv) constrained acceleration
-
-
-def solve(sys: S.System, efc: Efc, b: torch.Tensor,
-          qacc_smooth: torch.Tensor, ns_offset: int,
+def solve(sys: S.System, efc: Efc, b: torch.Tensor, ns_offset: int,
           lay: Optional[arrow.ArrowLayout] = None,
           fac: Optional[arrow.ArrowFac] = None,
           M_chol: Optional[torch.Tensor] = None,
-          legmeta: Optional[LegMeta] = None) -> SolveOut:
+          legmeta: Optional[LegMeta] = None) -> SO.Solved:
     """Dual box-PGS from zero with fixed sweeps, then noslip on the contact
     tangent pairs from row ns_offset, in the form ``choose_mode`` picked
     when the rows were assembled (``legs_form``):
@@ -574,20 +575,19 @@ def solve(sys: S.System, efc: Efc, b: torch.Tensor,
     - dense: M⁻¹ from the block-arrow or the dense Cholesky factor
       (``minv``), U = J M⁻¹ in one batched matmul, ``pgs``.
 
-    ``b`` = J qacc_smooth - aref, as the assembly made it."""
+    ``b`` = J qacc_smooth - aref, as the assembly made it.  Returns the
+    force and what the form leaves for the output stage
+    (``ops/solve_out.py``: qfrc = Jᵀf and qacc)."""
     if legmeta is not None:
         f, dq = pgs_legs(lay, fac, efc.J, legmeta, b, efc.R, efc.lo, efc.hi,
                          sys.solver_iterations, sys.noslip_iterations,
                          ns_offset)
-        return SolveOut(f, torch.einsum("nkv,nk->nv", efc.J, f),
-                        qacc_smooth + dq)
+        return SO.Solved(SO.LEGS, f, J=efc.J, dq=dq)
     Minv = minv(lay, fac, M_chol)
     U = efc.J @ Minv                                        # (N, nefc, nv)
     f = pgs(efc.J, U, b, efc.R, efc.lo, efc.hi, sys.solver_iterations,
             sys.noslip_iterations, ns_offset)
-    qfrc = torch.einsum("nkv,nk->nv", efc.J, f)
-    qacc = qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc)
-    return SolveOut(f, qfrc, qacc)
+    return SO.Solved(SO.DENSE, f, J=efc.J, Minv=Minv)
 
 
 def minv(lay: Optional[arrow.ArrowLayout], fac: Optional[arrow.ArrowFac],
@@ -702,7 +702,7 @@ def solve_contacts(sys: S.System, con: Contacts, qpos: torch.Tensor,
                           lay=lay, legs=legs_form(sys, lay, qvel.dtype,
                                                   qvel.device))
     return solve_rows(sys, rows, qacc_smooth, lay=lay, fac=fac, M=M,
-                      warmstart=warmstart, M_chol=M_chol)
+                      warmstart=warmstart, M_chol=M_chol)[0]
 
 
 def solve_rows(sys: S.System, rows: Optional[Rows], qacc_smooth: torch.Tensor,
@@ -710,20 +710,24 @@ def solve_rows(sys: S.System, rows: Optional[Rows], qacc_smooth: torch.Tensor,
                fac: Optional[arrow.ArrowFac] = None,
                M: Optional[torch.Tensor] = None,
                warmstart: Optional[torch.Tensor] = None,
-               M_chol: Optional[torch.Tensor] = None) -> ContactSolveOut:
-    """The solve of assembled rows.  PGS models run the PGS solve (the legs
-    form where ``rows.legmeta`` is set); Newton models run
-    ``ops/newton.py::newton_solve`` from the warmstart (the CUDA kernel on
-    the card, ``newton.solve`` on the CPU; then noslip for pyramidal
-    cones).  Normal forces (Σ facet forces, or the normal row of an
-    elliptic cone) are scattered back to the full candidate set for the
-    touch sensors.  M⁻¹, where a step needs it, comes from the block-arrow
-    factor (``lay``, ``fac``) or, without one, from the dense Cholesky
-    factor ``M_chol``."""
+               M_chol: Optional[torch.Tensor] = None
+               ) -> Tuple[ContactSolveOut, torch.Tensor]:
+    """The solve of assembled rows and the touch sensors.  PGS models run
+    the PGS solve (the legs form where ``rows.legmeta`` is set); Newton
+    models run ``ops/newton.py::newton_solve`` from the warmstart (the CUDA
+    kernel on the card, ``newton.solve`` on the CPU; then noslip for
+    pyramidal cones).  The output stage, ``ops/solve_out.py::outputs`` (one
+    kernel launch on the card), forms qfrc and qacc, scatters the normal
+    forces (Σ facet forces, or the normal row of an elliptic cone) back to
+    the full candidate set and reads the touch sensors from them.  M⁻¹,
+    where a step needs it, comes from the block-arrow factor (``lay``,
+    ``fac``) or, without one, from the dense Cholesky factor ``M_chol``.
+    Returns the solve's outputs and sensordata (N, nsensor)."""
     N = qacc_smooth.shape[0]
     if rows is None:  # nothing constrains the model
-        return ContactSolveOut(qacc_smooth.new_zeros(N, sys.ncp),
-                               torch.zeros_like(qacc_smooth), qacc_smooth)
+        return (ContactSolveOut(qacc_smooth.new_zeros(N, sys.ncp),
+                                torch.zeros_like(qacc_smooth), qacc_smooth),
+                qacc_smooth.new_zeros(N, sys.nsensor))
     efc, ns_offset, b = rows.efc, rows.ns_offset, rows.b
     elliptic = rows.nefc is not None and sys.cone == S.ELLIPTIC
     if rows.nefc is not None:
@@ -738,31 +742,18 @@ def solve_rows(sys: S.System, rows: Optional[Rows], qacc_smooth: torch.Tensor,
                             min(sys.ls_iterations, sys.ls_refine),
                             x0=None if warmstart is None
                             else warmstart.contiguous())
-        sol = SolveOut(nsol.force, nsol.qfrc_constraint, nsol.qacc)
+        solved = SO.Solved(SO.NEWTON, nsol.force, qfrc=nsol.qfrc_constraint,
+                           qacc=nsol.qacc)
         if sys.noslip_iterations > 0 and not elliptic:
             Minv = minv(lay, fac, M_chol)
             A = (efc.J @ Minv) @ efc.J.transpose(1, 2)
             force = _noslip_pairs(A, b, nsol.force, efc.hi, ns_offset,
                                   sys.noslip_iterations)
-            qfrc = torch.einsum("nkv,nk->nv", efc.J, force)
-            sol = SolveOut(force, qfrc,
-                           qacc_smooth + torch.einsum("nij,nj->ni", Minv, qfrc))
+            solved = SO.Solved(SO.DENSE, force, J=efc.J, Minv=Minv)
     else:
-        sol = solve(sys, efc, b, qacc_smooth, ns_offset, lay, fac, M_chol,
-                    rows.legmeta)
-
-    nforce = sol.force.new_zeros(N, sys.ncp)
-    off = ns_offset
-    for idx, nf in rows.groups:
-        n = idx.shape[1]
-        blk = sol.force[:, off:off + n * nf].reshape(N, n, nf)
-        nforce = nforce.scatter(1, idx, blk[..., 0] if elliptic else blk.sum(dim=-1))
-        off += n * nf
-    if rows.pair_ab is not None:
-        # pair normal force feeds the touch sensors of BOTH bodies; duplicate
-        # indices accumulate (scatter_add, the batched index_add_)
-        pa, pb = rows.pair_ab
-        blk = sol.force[:, off:].reshape(N, -1, 3 if elliptic else 4)
-        nf_pair = blk[..., 0] if elliptic else blk.sum(dim=-1)
-        nforce = nforce.scatter_add(1, pa, nf_pair).scatter_add(1, pb, nf_pair)
-    return ContactSolveOut(nforce, sol.qfrc_constraint, sol.qacc)
+        solved = solve(sys, efc, b, ns_offset, lay, fac, M_chol,
+                       rows.legmeta)
+    out = SO.outputs(sys, rows.groups, rows.pair_ab, ns_offset, solved,
+                     qacc_smooth, elliptic)
+    return (ContactSolveOut(out.nforce, out.qfrc_constraint, out.qacc),
+            out.sensordata)

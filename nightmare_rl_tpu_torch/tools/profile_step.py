@@ -55,7 +55,10 @@ ranges named by their nesting
 kernels, which the profiler links to no op, go to the range of the wrapper
 that launches them); kernels outside every range are the env's own. Its
 last line is one JSON object ``{"by_module": {path: {"kernels": n,
-"device_ms": t}}, ...}``.
+"device_ms": t, "ops": {op: {"kernels": n, "device_ms": t}}}}, ...}``,
+where ``ops`` splits a range by the op that launched each kernel and the
+kernel's name (the port's own kernels by name alone), so that a range's
+pieces (a product, an add, each scatter) read apart.
 """
 
 from __future__ import annotations
@@ -245,6 +248,7 @@ _MODULES = (
     ("ops.integrate", ("integrate_update",)),
     ("ops.assemble", ("rows",)),
     ("ops.task", ("pre", "post")),
+    ("ops.solve_out", ("outputs",)),
 )
 
 
@@ -254,6 +258,7 @@ _LAUNCHED_BY = (("smooth_kernel", "smooth.smooth_forward"),
                 ("assemble_kernel", "assemble.rows"),
                 ("task_pre_kernel", "task.pre"),
                 ("task_post_kernel", "task.post"),
+                ("solve_out_kernel", "solve_out.outputs"),
                 ("pgs_legs_kernel", "solver.solve"),
                 ("pgs_kernel", "solver.solve"),
                 ("newton_kernel", "solver.newton_solve"))
@@ -304,14 +309,34 @@ def by_module(step, steps: int) -> Dict[str, dict]:
             torch.cuda.synchronize()
     labels = {f"{m.split('.')[-1]}.{n}" for m, ns in _MODULES for n in ns}
     acc: Dict[str, list] = {}
+    ops: Dict[str, Dict[str, list]] = {}
+
+    def add(path, op, us):
+        for a in (acc.setdefault(path, [0, 0.0]),
+                  ops.setdefault(path, {}).setdefault(op, [0, 0.0])):
+            a[0] += 1
+            a[1] += us
+
+    def short(name):
+        """A kernel's name without its templates, arguments and return
+        type."""
+        kept, depth = [], 0
+        for ch in name.replace("(anonymous namespace)::", ""):
+            depth += (ch == "<") - (ch == ">")
+            if depth == 0 and ch not in "<>":
+                kept.append(ch)
+        head = "".join(kept).split("(")[0].strip()
+        last = head.split()[-1] if head else head
+        return last if "::" in last or "kernel" in last else head
 
     def walk(evt, path):
         if evt.name in labels:
             path = f"{path}/{evt.name}" if path else evt.name
+        op = evt
+        while op.name.startswith("cuda") and op.cpu_parent is not None:
+            op = op.cpu_parent  # a runtime call: the op that made it
         for k in evt.kernels:
-            a = acc.setdefault(path, [0, 0.0])
-            a[0] += 1
-            a[1] += k.duration
+            add(path, f"{op.name} {short(k.name)}", k.duration)
         for child in evt.cpu_children:
             walk(child, path)
 
@@ -346,11 +371,15 @@ def by_module(step, steps: int) -> Dict[str, dict]:
             continue
         path = min((p for p in paths if p.endswith(label)), key=len,
                    default=label)
-        a = acc.setdefault(path, [0, 0.0])
-        a[0] += 1
-        a[1] += evt.time_range.elapsed_us()
-    return {path: {"kernels": n / steps, "device_ms": us / 1e3 / steps}
-            for path, (n, us) in sorted(acc.items(), key=lambda kv: -kv[1][1])}
+        add(path, short(evt.name), evt.time_range.elapsed_us())
+
+    def per_step(n, us):
+        return {"kernels": n / steps, "device_ms": us / 1e3 / steps}
+
+    return {path: dict(per_step(n, us), ops={
+        op: per_step(*v) for op, v in sorted(ops[path].items(),
+                                             key=lambda kv: -kv[1][1])})
+        for path, (n, us) in sorted(acc.items(), key=lambda kv: -kv[1][1])}
 
 
 def _by_module_main(env, dev, steps: int) -> dict:
@@ -370,6 +399,8 @@ def _by_module_main(env, dev, steps: int) -> dict:
     for path, r in rows.items():
         print(f"  {r['kernels']:7.0f} kernels {r['device_ms']:8.3f} ms  "
               f"{path or '(the env outside the physics)'}")
+        for op, o in r["ops"].items():
+            print(f"      {o['kernels']:5.0f} {o['device_ms']:8.4f} ms  {op}")
     return {"by_module": rows, "kernels": total[0], "device_ms": total[1]}
 
 

@@ -82,14 +82,15 @@ from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.rollout import act as rollout_act
 from nightmare_rl_tpu_torch.ops.rollout import store as rollout_store
 from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
+from nightmare_rl_tpu_torch.ops.solve_out import outputs as solve_outputs
 from nightmare_rl_tpu_torch.ops.task import post as task_post
 from nightmare_rl_tpu_torch.ops.task import pre as task_pre
 from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
 _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
-            integrate_update, assemble_rows, task_pre, task_post, rollout_act,
-            rollout_store)
+            integrate_update, assemble_rows, solve_outputs, task_pre,
+            task_post, rollout_act, rollout_store)
 
 
 def leaves(tree) -> List[torch.Tensor]:

@@ -42,7 +42,9 @@ on both robots, float64 and float32, as the smoke holds it; the task
 kernels (``ops/csrc/task.cu``) against theirs on both robots, float32;
 the rollout kernels (``ops/csrc/rollout.cu``) against theirs on both
 robots and the recurrent heads, float32, ``act`` in float64 in chunks, and
-a captured rollout step's replay reading weights updated in place.  Tests that count the dense kernel's launches
+a captured rollout step's replay reading weights updated in place; the
+solve_out kernel (``ops/csrc/solve_out.cu``) against its plain version in
+each solve form, float32 and float64.  Tests that count the dense kernel's launches
 pin NIGHTMARE_PGS=kernel (on the card the default is the dispatch probe's
 verdict).
 Float64 cases hold the kernel to 1e-10 of max|f|, float32 random systems
@@ -54,6 +56,7 @@ only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import importlib.util
 import math
 import os
@@ -982,3 +985,38 @@ def test_rollout_replay_reads_weights_updated_in_place(cuda):
         rep = smoke._rollout_replays(ppo, state, obs, hidden)
     assert rep["same"] and rep["sigma"] and rep["moved"] > 1e-3, rep
     assert rep["mu"]["rel"] <= smoke.ROLLOUT_F32_TOL, rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot, form", [
+    ("nightmare_v3", "legs"), ("nightmare_v3", "kernel"), ("anymal_c", None)])
+def test_solve_out_kernel_matches_plain(cuda, robot, form):
+    """The solve_out kernel (``ops/csrc/solve_out.cu``) against
+    ``ops/solve_out.py::plain`` at 64 envs after 30 eager env steps, in
+    each solve form, as the smoke's solve-out-kernel phase holds it: float32
+    within SOLVE_OUT_F32_TOL, NaN positions equal, a selected point whose
+    rows carry no force at exactly 0; then the same operands in float64 to
+    1e-12 of each field's scale; one launch each."""
+    from nightmare_rl_tpu_torch.ops import solve_out as SO
+    from nightmare_rl_tpu_torch.utils.device import full_float32
+
+    args = smoke._solve_out_inputs(robot, form, 64)
+    with full_float32():
+        before = SO.outputs.launches
+        got = SO.outputs(*args)
+        assert SO.outputs.launches == before + 1
+        held = smoke._solve_out_held(args, SO.plain(*args), got)
+    assert held["rel"] <= smoke.SOLVE_OUT_F32_TOL and held["nan_same"], held
+    assert held["idle_max"] == 0.0 and held["loaded"] > 0, held
+    solved = args[4]
+    f64 = SO.Solved(*[x.double() if isinstance(x, torch.Tensor) else x
+                      for x in solved])
+    sys64 = dataclasses.replace(
+        args[0], sensor_cpoint_matrix=args[0].sensor_cpoint_matrix.double())
+    args64 = (sys64, args[1], args[2], args[3], f64, args[5].double(),
+              args[6])
+    ref, got = SO.plain(*args64), SO.outputs(*args64)
+    for name, a, b in zip(SO.Out._fields, ref, got):
+        if a.numel():
+            assert float((a - b).abs().max()) <= 1e-12 * max(
+                float(a.abs().max()), 1e-300), name
