@@ -9,8 +9,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 2. build   — nvcc builds ``ops/csrc/pgs.cu``, ``ops/csrc/pgs_legs.cu``,
              ``ops/csrc/newton.cu``, ``ops/csrc/smooth.cu``,
              ``ops/csrc/integrate.cu``, ``ops/csrc/assemble.cu``,
-             ``ops/csrc/task.cu``, ``ops/csrc/rollout.cu`` and
-             ``ops/csrc/solve_out.cu`` for sm_90a
+             ``ops/csrc/task.cu``, ``ops/csrc/rollout.cu``,
+             ``ops/csrc/solve_out.cu`` and ``ops/csrc/learn.cu`` for sm_90a
              from the checkout, all at once; prints ptxas's
              registers and spills (the float32 kernels must not spill) and
              each kernel's main-path launch geometry (the assemble
@@ -57,7 +57,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              smooth, the integrate, the assemble and the solve_out kernel,
              and the
              rollout kernels once per rollout step (so too in slice-legs,
-             slice-anymal and slice-recurrent).  The inputs of
+             slice-anymal and slice-recurrent), and the learn kernels one
+             ``gae`` an iteration and one ``grads`` and one ``adam`` a
+             minibatch, with one each for the captured parts' warm-ups (so
+             too in slice-legs and slice-anymal; slice-recurrent no
+             ``grads``: its LSTM replay stays plain), no plain version of
+             them called.  The inputs of
              the slice's last PGS call (the last replay's) are kept; after
              recorder/resume, the slice's PPO times its rollout as graph
              replays and as eager calls of the step the graph holds, in
@@ -71,9 +76,10 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              (parameters, gradients, Adam's state, the tensor lr, the
              generator): statistics, parameters, gradients, Adam's moments
              and step counts, lr, permutation and generator state equal bit
-             for bit, no host sync inside the parts; then seconds per update
-             in turns (eager, graph, graph, eager), the parts' capture
-             seconds and pools;
+             for bit, no host sync inside the parts, the learn kernels on
+             every eager and replayed call; then seconds per update in
+             turns (eager, graph, graph, eager), the parts' capture seconds
+             and pools;
 6. main-path kernel — the PGS kernel against ``pgs_reference`` on those
              float32 inputs (a minimum share of active rows is asserted),
              with CUDA-event times for both;
@@ -149,6 +155,23 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              positions, and every selected point whose rows carry no force
              (and no pair's) at exactly 0; each case timed alone beside the
              plain version and the byte bound;
+6h. learn-kernel — the learn kernels (``ops/csrc/learn.cu``: ``gae``,
+             GAE's recursion and the mean advantage; ``grads``, a
+             minibatch's forward pass, losses, backward pass, gradients and
+             KL; ``adam``, the mean over the ranks, the adaptive lr, the
+             clip and Adam's step) against ``ops/learn.py``'s plain
+             versions on the card, float32, after a rollout of nightmare_v3
+             at LEARN_NS envs (minibatches of 40,960 and 81,920 samples),
+             each kernel on the plain version's inputs: gae within
+             GAE_F32_TOL, each gradient tensor within GRADS_F32_TOL of its
+             largest magnitude (the largest error printed by tensor), the
+             losses and the KL within LOSS_F32_TOL, Adam's parameters
+             within ADAM_PARAM_F32_TOL and its moments within ADAM_F32_TOL,
+             the step counts and the lr exact, the KL printed beside the
+             adaptive rule's band; every kernel's second call equal to its
+             first bit for bit; each timed alone beside its plain version
+             (adam also beside torch's fused Adam with the clip's ops) and
+             its bound, with ptxas's registers and spills;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -349,7 +372,12 @@ training slices (slice, slice-legs, slice-anymal, slice-recurrent: one of
 each per rollout step, the capture's warm-up step included, each phase
 checked, ``ROLLOUT_LAUNCHES``).  ``solve_out``'s ``ms``, ``plain_ms`` and
 ``bound_ms`` are the legs form's at nightmare_v3's 2048 envs (the CLI's
-form on the card).
+form on the card).  ``learn.gae``, ``learn.grads`` and ``learn.adam`` are
+the learn kernels (their figures learn-kernel's at 2048 envs;
+``library_ms`` of ``adam`` is torch's fused Adam with the clip's ops, the
+others have none); their launches are those of the training slices
+(``LEARN_LAUNCHES``: slice, slice-anymal, slice-legs, slice-recurrent) and
+of update-graph's seven learning halves per net.
 
 The line before the nvidia-smi line is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA card and the repo.  The
@@ -510,6 +538,23 @@ SOLVE_OUT_STEPS = 30         # eager env steps (landed) whose last substep is he
 SOLVE_OUT_CASES = (("nightmare_v3", "legs", "legs"),
                    ("nightmare_v3", "kernel", "dense"),
                    ("anymal_c", None, "newton"))
+# the learn kernels against their plain versions on the same inputs, float32:
+# gae's advantages and returns over max|advantage| (80 dependent steps, each
+# product and sum rounded as the plain version's ops round them; the mean's
+# sum of T·N terms in another order than torch.mean's); each gradient tensor
+# over its largest magnitude (40,960 or 81,920 samples summed in tiles of
+# 32, then by block, group and grid, in another order than cuBLAS's and
+# autograd's); the losses and the KL over 1 + |value| (the same sums);
+# Adam's moments, the clipped gradients and the statistics over their
+# largest magnitude, the parameters over theirs (a few ulps: a step of ~1e-3
+# rounds into parameters of ~1; the global norm's 15,043 squares summed in
+# another order); the step counts and the lr exact
+LEARN_NS = (2048, 4096)
+GAE_F32_TOL = 1e-6
+GRADS_F32_TOL = 1e-4
+LOSS_F32_TOL = 1e-5
+ADAM_F32_TOL = 1e-5
+ADAM_PARAM_F32_TOL = 1e-6
 BUILD_PTXAS = {}             # phase_build's ptxas lines, by kernel source
 
 
@@ -725,6 +770,9 @@ def _ptxas(log: str, pattern: str, label) -> list:
         elif fn is not None and "spill stores" in ln:
             fn["spill"] = [int(x) for x in
                            re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+            stack = re.search(r"(\d+) bytes stack frame", ln)
+            if stack:
+                fn["stack"] = int(stack[1])
         elif fn is not None and "registers" in ln:
             fn["registers"] = int(re.search(r"Used (\d+) registers", ln)[1])
     return kernels
@@ -745,7 +793,7 @@ def phase_build() -> None:
     from nightmare_rl_tpu_torch.physics import arrow, loader
 
     names = ("pgs", "pgs_legs", "newton", "smooth", "integrate", "assemble",
-             "task", "rollout", "solve_out")
+             "task", "rollout", "solve_out", "learn")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = dict(zip(names, pool.map(build.build, names)))
     kernels = {
@@ -773,6 +821,10 @@ def phase_build() -> None:
     kernels["rollout"] = _ptxas(
         infos["rollout"]["log"], r"rollout_(act|store)_kernelI([fd])E",
         lambda m: f"rollout_{m[1]}_kernel<"
+                  f"{'float' if m[2] == 'f' else 'double'}>")
+    kernels["learn"] = _ptxas(
+        infos["learn"]["log"], r"learn_(gae|grads|adam)_kernelI([fd])E",
+        lambda m: f"learn_{m[1]}_kernel<"
                   f"{'float' if m[2] == 'f' else 'double'}>")
     BUILD_PTXAS.update(kernels)
     for name, ks in kernels.items():
@@ -1204,11 +1256,13 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     from nightmare_rl_tpu_torch.tools import train
 
     iters, envs = 2, 2048
-    with _kept_pgs() as last, _kept_smooth() as kept:
+    with _kept_pgs() as last, _kept_smooth() as kept, \
+            _plain_learn_calls() as plain:
         P.pgs.launches = 0
         _zero_smooth()
         _zero_task()
         _zero_rollout()
+        _zero_learn()
         t0 = time.perf_counter()
         runner = train.main(["-e", str(envs), "-n", str(iters), "--log_root",
                              tmp])
@@ -1238,6 +1292,8 @@ def phase_slice(device_name: str, smi: str, tmp: str) -> tuple:
     smooth = dict(kept=kept, launches=_check_smooth("slice", expected))
     _check_task("slice", expected // dec)
     _check_rollout("slice", iters * T + GRAPH_WARMUP)
+    _check_learn("slice", _learn_expected(runner.cfg, iters))
+    _no_plain_learn("slice", plain)
     return launches, last["args"], runner, smooth
 
 
@@ -1666,7 +1722,14 @@ def phase_update_graph(runner, label: str, device_name: str, smi: str) -> dict:
 
     t0 = time.perf_counter()
     ppo = runner.ppo
-    held = _hold_learner(ppo)
+    _zero_learn()
+    with _plain_learn_calls() as plain:
+        held = _hold_learner(ppo)
+    # seven learning halves: eager and replayed once each, replayed once
+    # more with the parts' syncs counted, then eager, graph, graph, eager
+    _check_learn(f"update-graph ({label})", _learn_expected(
+        ppo.cfg, 7, recurrent=ppo.recurrent, warmup=0))
+    _no_plain_learn(f"update-graph ({label})", plain)
     diffs = _learner_diffs(held)
     secs = held["secs"]
     stats = dict(zip(STAT_KEYS, held["graph"]["stats"].tolist()))
@@ -1890,10 +1953,11 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     t0 = time.perf_counter()
     envs = 2048
     with tempfile.TemporaryDirectory() as tmp, _pgs_mode("legs"), \
-            _kept_pgs("pgs_legs") as last:
+            _kept_pgs("pgs_legs") as last, _plain_learn_calls() as plain:
         P.pgs_legs.launches = P.pgs.launches = 0
         _zero_task()
         _zero_rollout()
+        _zero_learn()
         runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp])
         torch.cuda.synchronize()
         launches, dense = P.pgs_legs.launches, P.pgs.launches
@@ -1904,6 +1968,8 @@ def phase_slice_legs(device_name: str, smi: str) -> dict:
     expected = T * dec + dec + GRAPH_WARMUP * dec
     _check_task("slice-legs", expected // dec)
     _check_rollout("slice-legs", T + GRAPH_WARMUP)
+    _check_learn("slice-legs", _learn_expected(runner.cfg, 1))
+    _no_plain_learn("slice-legs", plain)
     rate = T * envs / (stats["rollout_s"] + stats["update_s"])
     print(f"slice-legs: 1 PPO iteration x {T} steps x {envs} envs float32, "
           f"NIGHTMARE_PGS=legs: loss {stats['loss']:.4f}, kl {stats['kl']:.4f}, "
@@ -2164,9 +2230,11 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
     K.newton_solve.launches = 0
     _zero_task()
     _zero_rollout()
+    _zero_learn()
     solver.newton_solve = kept
     try:
-        with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep:
+        with tempfile.TemporaryDirectory() as tmp, _counted_replays() as rep, \
+                _plain_learn_calls() as plain:
             runner = train.main(["--robot", "anymal_c", "-e", str(envs), "-n",
                                  str(iters), "--log_root", tmp])
             torch.cuda.synchronize()
@@ -2201,6 +2269,8 @@ def phase_slice_anymal(device_name: str, smi: str) -> tuple:
             f"expected {expected}")
     _check_task("slice-anymal", expected // dec)
     _check_rollout("slice-anymal", iters * T + GRAPH_WARMUP)
+    _check_learn("slice-anymal", _learn_expected(runner.cfg, iters))
+    _no_plain_learn("slice-anymal", plain)
     if not torch.isfinite(runner.ppo.obs).all():
         raise AssertionError("non-finite observations (anymal_c)")
     return box["args"], launches
@@ -4113,6 +4183,323 @@ def phase_solve_out_kernel(device_name: str, smi: str) -> dict:
     return rows[("legs", 2048)]
 
 
+LEARN_WRAPPERS = ("gae", "grads", "adam")
+LEARN_LAUNCHES = {}   # per phase: the learn kernels' launches (gae, grads, adam)
+PLAIN_LEARN = ("plain_gae", "plain_grads", "plain_adam")
+
+
+def _learn_fns():
+    """The learn kernels' wrappers (``ops/learn.py``: ``gae``, ``grads``,
+    ``adam``), by their counters in ``utils/graph.py``."""
+    from nightmare_rl_tpu_torch.utils import graph
+
+    fns = {fn.__name__: fn for fn in graph._COUNTED}
+    return tuple(fns[k] for k in LEARN_WRAPPERS)
+
+
+def _zero_learn() -> None:
+    for fn in _learn_fns():
+        fn.launches = 0
+
+
+def _learn_expected(cfg, iters: int, recurrent: bool = False,
+                    warmup: int = 1) -> tuple:
+    """The learn kernels' launches of ``iters`` learning halves: one gae and
+    a grads (the feed-forward net's) and an adam per minibatch, and
+    ``warmup`` each for the captured parts' warm-up calls."""
+    mb = cfg.algorithm.num_learning_epochs * cfg.algorithm.num_mini_batches
+    return (iters + warmup, 0 if recurrent else mb * iters + warmup,
+            mb * iters + warmup)
+
+
+def _check_learn(label: str, expected: tuple) -> None:
+    """Asserts the learn kernels' launches since ``_zero_learn``; records
+    them in LEARN_LAUNCHES."""
+    counts = tuple(fn.launches for fn in _learn_fns())
+    print(f"{label}: learn kernel launches gae {counts[0]}, grads "
+          f"{counts[1]}, adam {counts[2]} (expected {expected}: one gae and "
+          f"a grads and an adam per minibatch an iteration, and the captured "
+          f"parts' warm-ups)")
+    if counts != tuple(expected):
+        raise AssertionError(f"{label}: the learn kernels ran {counts} times, "
+                             f"not {expected}")
+    LEARN_LAUNCHES[label] = counts
+
+
+@contextlib.contextmanager
+def _plain_learn_calls():
+    """Counts the calls of ``ops/learn.py``'s plain versions while the block
+    runs (the yielded dict); they go on to the functions."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+
+    calls = dict.fromkeys(PLAIN_LEARN, 0)
+    saved = {k: getattr(L, k) for k in PLAIN_LEARN}
+
+    def counted(k):
+        def call(*args, **kw):
+            calls[k] += 1
+            return saved[k](*args, **kw)
+        return call
+
+    try:
+        for k in PLAIN_LEARN:
+            setattr(L, k, counted(k))
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(L, k, fn)
+
+
+def _no_plain_learn(label: str, calls: dict) -> None:
+    if any(calls.values()):
+        raise AssertionError(f"{label}: plain versions of the learn kernels "
+                             f"ran on the card: {calls}")
+
+
+def _learn_ppo(N: int):
+    """A PPO on nightmare_v3 at N envs, float32, ``init(0)``'s weights,
+    after one rollout of its config's steps: the PPO, the trajectory (the
+    rollout's buffers) and V of the last observations."""
+    import torch
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+
+    ppo = PPO(_task_env("nightmare_v3", N), PPOCfg())
+    ppo.init(0)
+    ppo.randomize_episode_lengths()
+    with torch.no_grad():
+        traj = ppo.rollout()[0]
+        last = ppo.last_value(ppo.obs, ppo.hidden)
+    return ppo, traj, last
+
+
+def _rel_max(ref, got) -> float:
+    """max|got - ref| / max|ref| (float64)."""
+    err = float((got.double() - ref.double()).abs().max())
+    scale = float(ref.double().abs().max())
+    return err / scale if scale > 0 else err
+
+
+def _learn_bounds(ppo, T: int, N: int, B: int) -> dict:
+    """Each learn kernel's bytes (each input read once, each output written
+    once) and operations on these shapes in float32.  gae: reward, value,
+    done and the last values read, the advantages, returns and mean
+    written; 9 operations a step and env.  grads: the minibatch's rows
+    (obs, action, mu, sigma, logp, value, return, advantage) and indices,
+    the weights and std read, the flat buffer and the losses written; 2
+    operations a multiply-add of the forward pass, the weight gradients
+    and the deltas, 4 a hidden unit (bias, activation, its derivative, the
+    delta's product), 30 an action and 20 a sample for the losses.  adam:
+    the flat buffer read and written, the parameters and both moments read
+    and written, the step counts, the lr, the losses and the statistics;
+    16 operations a parameter."""
+    it = 4
+    pl = ppo.act_plan
+    A, nobs = pl.net.std.shape[0], pl.actor[0].in_features
+    P = ppo._flat.numel() - 1
+    nt = len(ppo.params)
+    macs = sum(m.in_features * m.out_features for m in pl.layers)
+    dx = sum(m.in_features * m.out_features
+             for m in pl.actor[1:] + pl.critic[1:])
+    hidden = sum(m.out_features for m in pl.actor[:-1] + pl.critic[:-1])
+    return dict(
+        gae=(T * N * (4 * it + 1) + N * it + it, 9 * T * N),
+        grads=(B * (it * (nobs + 3 * A + 5) + 8) + it * P + it * (P + 1)
+               + 3 * it,
+               B * (2 * (2 * macs + dx) + 4 * hidden + 30 * A + 20)),
+        adam=(it * (2 * (P + 1) + 6 * P + 2 + 3 + 4) + 8 * nt, 16 * P))
+
+
+def _learn_case(N: int, timed: bool) -> dict:
+    """gae, grads and adam against their plain versions on the card, each
+    on the same inputs, from a PPO after a rollout at N envs (its first
+    minibatch of the update's permutation; adam from the plain grads'
+    gradients, world 1): per field max|err| over its scale, the calls
+    repeated bit for bit; with ``timed``, each kernel alone
+    (``_kernel_ms``) beside its plain version and, for adam, torch's
+    fused Adam and the clip's ops."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import learn as L
+
+    ppo, traj, last = _learn_ppo(N)
+    a = ppo.cfg.algorithm
+    T = traj.reward.shape[0]
+    res = {"N": N, "T": T}
+    gae_in = (traj.reward, traj.value, traj.done, last, a.gamma, a.lam)
+    ref = L.plain_gae(*gae_in)
+    got, again = L.gae(*gae_in), L.gae(*gae_in)
+    scale = float(ref[0].abs().max())
+    res["gae"] = dict(
+        adv=_rel_max(ref[0], got[0]), ret=_rel_max(ref[1], got[1]),
+        mean=abs(float(ref[2]) - float(got[2])) / scale,
+        differ=int((ref[0] != got[0]).sum() + (ref[1] != got[1]).sum()),
+        same=all(torch.equal(x, y) for x, y in zip(got, again)),
+        abs=max(float((x - y).abs().max()) for x, y in zip(ref, got)))
+    adv, ret, mean = ref
+    norm_adv = ppo._normalize(adv, *ppo._spread(adv, mean))
+    idx = ppo.draw_perm(T, N).reshape(a.num_mini_batches, -1)[0].contiguous()
+    B = idx.numel()
+    res["B"] = B
+    pl, flat = ppo.act_plan, ppo._flat
+    g_in = (pl, a, traj, ret, norm_adv, idx, flat)
+    l_ref = L.plain_grads(*g_in)
+    f_ref = flat.detach().clone()
+    l_got = L.grads(*g_in)
+    f_got = flat.detach().clone()
+    l_again = L.grads(*g_in)
+    same = torch.equal(flat, f_got) and torch.equal(l_again, l_got)
+    names = [n for n, _ in ppo.net.named_parameters()]
+    by_tensor, i = {}, 0
+    for name, p in zip(names, ppo.params):
+        n = p.numel()
+        by_tensor[name] = _rel_max(f_ref[i:i + n], f_got[i:i + n])
+        i += n
+    kl = float(f_ref[-1])
+    res["grads"] = dict(
+        by_tensor=by_tensor, worst=max(by_tensor.values()),
+        kl=abs(float(f_got[-1]) - kl) / (1 + abs(kl)),
+        losses=float(((l_got - l_ref).abs() / (1 + l_ref.abs())).max()),
+        same=same, abs=float((f_got - f_ref).abs().max()),
+        smem=L.grads_smem_bytes(*g_in), kl_value=kl,
+        kl_band=(a.desired_kl / 2.0, a.desired_kl * 2.0))
+    held = ppo._held()
+    start = [h.detach().clone() for h in held]
+
+    def restore():
+        with torch.no_grad():
+            for h, x in zip(held, start):
+                h.copy_(x)
+            flat.copy_(f_ref)
+
+    def after(stats):
+        return [h.detach().clone() for h in held] + [flat.clone(),
+                                                     stats.clone()]
+
+    a_in = (ppo.optimizer, flat, ppo.lr, 1, a, l_ref)
+    restore()
+    s_ref = after(L.plain_adam(*a_in))
+    restore()
+    s_got = after(L.adam(*a_in))
+    restore()
+    s_again = after(L.adam(*a_in))
+    n = len(ppo.params)
+    # Adam's state by parameter: step, exp_avg, exp_avg_sq
+    steps = [2 * n + 3 * k for k in range(n)]
+    moments = [j + q for j in steps for q in (1, 2)]
+    p_err = max(_rel_max(s_ref[j], s_got[j]) for j in range(n))
+    res["adam"] = dict(
+        params=p_err, moments=max(_rel_max(s_ref[j], s_got[j]) for j in moments),
+        steps=all(torch.equal(s_ref[j], s_got[j]) for j in steps),
+        lr=torch.equal(s_ref[len(held) - 1], s_got[len(held) - 1]),
+        clipped=_rel_max(s_ref[-2], s_got[-2]),
+        stats=float(((s_got[-1] - s_ref[-1]).abs()
+                     / (1 + s_ref[-1].abs())).max()),
+        same=all(torch.equal(x, y) for x, y in zip(s_got, s_again)),
+        abs=max(float((s_got[j] - s_ref[j]).abs().max()) for j in range(n)),
+        lr_value=float(s_got[len(held) - 1]))
+    restore()
+    if timed:
+        res["gae_ms"] = _kernel_ms(lambda: L.gae(*gae_in))
+        res["gae_plain_ms"] = _cuda_ms(lambda: L.plain_gae(*gae_in), 10, 2)
+        res["grads_ms"] = _kernel_ms(lambda: L.grads(*g_in))
+        res["grads_plain_ms"] = _cuda_ms(lambda: L.plain_grads(*g_in), 10, 2)
+        restore()
+        res["adam_ms"] = _kernel_ms(lambda: L.adam(*a_in))
+        restore()
+        res["adam_plain_ms"] = _cuda_ms(lambda: L.plain_adam(*a_in), 10, 2)
+        restore()
+
+        def library():
+            L.clip_by_global_norm(ppo.params, a.max_grad_norm)
+            ppo.optimizer.step()
+
+        res["adam_library_ms"] = _kernel_ms(library)
+        restore()
+        res["bounds"] = {k: _bytes_ops_bound(nb, ops, torch.float32)
+                         for k, (nb, ops) in _learn_bounds(
+                             ppo, T, N, B).items()}
+    return res
+
+
+def phase_learn_kernel(device_name: str, smi: str) -> dict:
+    """The learn kernels (``ops/csrc/learn.cu``: ``gae``, GAE's recursion;
+    ``grads``, a minibatch's forward pass, losses, backward pass, the
+    gradients and the KL; ``adam``, the mean over the ranks, the adaptive
+    lr, the clip and Adam's step) against their plain versions
+    (``ops/learn.py``) on the card, float32, after a rollout of
+    nightmare_v3 at LEARN_NS envs (minibatches of 40,960 and 81,920
+    samples), each on the same inputs: gae's advantages and returns
+    within GAE_F32_TOL of max|advantage| (and the mean), every gradient
+    tensor within GRADS_F32_TOL of its largest magnitude, the losses and
+    the KL within LOSS_F32_TOL of 1 + |value|, Adam's updates of the
+    parameters and its moments within ADAM_F32_TOL of their scales, the
+    step counts and the lr exact; each kernel's second call equal to its
+    first bit for bit.  Each kernel timed alone (``_kernel_ms``) beside
+    its plain version, adam beside torch's fused Adam with the clip's ops,
+    with its bound's share; ptxas's registers and spills from the build.
+    Returns the kernels' figures at 2048 envs for the kernels' line."""
+    t0 = time.perf_counter()
+    rows = {}
+    for N in LEARN_NS:
+        r = _learn_case(N, timed=True)
+        rows[N] = r
+        g, d, m = r["gae"], r["grads"], r["adam"]
+        worst = max(d["by_tensor"].items(), key=lambda kv: kv[1])
+        print(f"learn-kernel: nightmare_v3 {N} envs x {r['T']} steps "
+              f"float32, minibatch {r['B']}: gae advantages "
+              f"{g['adv']:.3e}, returns {g['ret']:.3e}, mean {g['mean']:.3e} "
+              f"of max|advantage| (tol {GAE_F32_TOL:g}; {g['differ']} "
+              f"elements differ); grads largest error by tensor "
+              f"{ {k: float(f'{v:.3e}') for k, v in d['by_tensor'].items()} } "
+              f"(worst {worst[0]} {worst[1]:.3e}, tol {GRADS_F32_TOL:g}), KL "
+              f"{d['kl']:.3e}, losses {d['losses']:.3e} (tol "
+              f"{LOSS_F32_TOL:g}); the KL {d['kl_value']:.6f} against the "
+              f"band {d['kl_band']}; adam parameters {m['params']:.3e} (tol "
+              f"{ADAM_PARAM_F32_TOL:g}), moments {m['moments']:.3e}, clipped "
+              f"gradients {m['clipped']:.3e}, statistics {m['stats']:.3e} "
+              f"(tol {ADAM_F32_TOL:g}), steps equal {m['steps']}, lr equal "
+              f"{m['lr']} ({m['lr_value']:.4e}); second calls bit for bit: "
+              f"gae {g['same']}, grads {d['same']}, adam {m['same']}")
+        b = r["bounds"]
+        print(f"learn-kernel: {N} envs alone (cold L2): " + "; ".join(
+            f"{k} {r[k + '_ms']:.4f} ms, plain {r[k + '_plain_ms']:.3f} ms, "
+            f"bound {b[k][0] * 1e3:.2f} us by {b[k][1]} ({b[k][2] / 1e6:.2f} "
+            f"MB) = {b[k][0] / r[k + '_ms']:.1%} of it"
+            for k in LEARN_WRAPPERS)
+            + f"; torch's fused Adam and the clip's ops "
+            f"{r['adam_library_ms']:.4f} ms; grads {d['smem']} B shared a "
+            f"block")
+        if (g["adv"] > GAE_F32_TOL or g["ret"] > GAE_F32_TOL
+                or g["mean"] > GAE_F32_TOL or d["worst"] > GRADS_F32_TOL
+                or d["kl"] > LOSS_F32_TOL or d["losses"] > LOSS_F32_TOL
+                or m["params"] > ADAM_PARAM_F32_TOL
+                or m["moments"] > ADAM_F32_TOL
+                or m["clipped"] > ADAM_F32_TOL or m["stats"] > ADAM_F32_TOL
+                or not (m["steps"] and m["lr"])):
+            raise AssertionError(f"the learn kernels disagree with their plain "
+                                 f"versions at {N} envs: {r}")
+        if not (g["same"] and d["same"] and m["same"]):
+            raise AssertionError(f"a learn kernel's second call differs from "
+                                 f"its first at {N} envs")
+    ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
+                       f"stores/loads {k.get('spill')} B, stack frame "
+                       f"{k.get('stack')} B"
+                       for k in BUILD_PTXAS.get("learn", []))
+    print(f"learn-kernel: ptxas {ptxas}; {_smi_line(t0, device_name, smi)}")
+    main = rows[2048]
+    errs = dict(gae=main["gae"]["abs"], grads=main["grads"]["abs"],
+                adam=main["adam"]["abs"])
+    return {k: dict(max_abs_err=errs[k], ms=main[f"{k}_ms"],
+                    plain_ms=main[f"{k}_plain_ms"],
+                    bound_ms=main["bounds"][k][0],
+                    bound_by=main["bounds"][k][1],
+                    library_ms=main["adam_library_ms"] if k == "adam"
+                    else None)
+            for k in LEARN_WRAPPERS}
+
+
 def _smi_line(t0: float, device_name: str, smi: str) -> str:
     return f"{time.perf_counter() - t0:.1f} s; {device_name}, {smi}"
 
@@ -4429,9 +4816,11 @@ def phase_slice_recurrent(device_name: str, smi: str):
     envs = 2048
     pcfg = PPOCfg(runner=RunnerCfg(policy_class_name="ActorCriticRecurrent"))
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, _kept_pgs() as last:
+    with tempfile.TemporaryDirectory() as tmp, _kept_pgs() as last, \
+            _plain_learn_calls() as plain:
         P.pgs.launches = 0
         _zero_rollout()
+        _zero_learn()
         runner = train.main(["-e", str(envs), "-n", "1", "--log_root", tmp],
                             pcfg=pcfg)
         torch.cuda.synchronize()
@@ -4454,6 +4843,8 @@ def phase_slice_recurrent(device_name: str, smi: str):
     if launches != expected:
         raise AssertionError(f"pgs kernel ran {launches} times, expected {expected}")
     _check_rollout("slice-recurrent", T + GRAPH_WARMUP)
+    _check_learn("slice-recurrent", _learn_expected(pcfg, 1, recurrent=True))
+    _no_plain_learn("slice-recurrent", plain)
     _hold_kernel("slice-recurrent inputs (its last call)", last["args"],
                  (envs, 112, 24))
     return runner
@@ -5156,6 +5547,7 @@ def main() -> int:
     task_t = phase_task_kernel(name, smi)
     rollout_t = phase_rollout_kernel(name, smi)
     solve_out_t = phase_solve_out_kernel(name, smi)
+    learn_t = phase_learn_kernel(name, smi)
     phase_policy(runner.ppo.obs)
     del runner
     legs_entry = phase_slice_legs(name, smi)
@@ -5246,6 +5638,19 @@ def main() -> int:
              replaces=f"nightmare_rl_tpu/rl/ppo.py:{line}", launches=n,
              **rollout_t[k])
         for k, line, n in zip(ROLLOUT_WRAPPERS, (159, 171), rollout_launches)]
+    learn_launches = [sum(n[i] for n in LEARN_LAUNCHES.values())
+                      for i in range(len(LEARN_WRAPPERS))]
+    print("kernel: learn launches " + ", ".join(
+        f"{k} {n} = " + " + ".join(f"{who} {c[i]}"
+                                   for who, c in LEARN_LAUNCHES.items())
+        for i, (k, n) in enumerate(zip(LEARN_WRAPPERS, learn_launches))))
+    learn_entries = [
+        dict(name=f"learn.{k}", route="cuda",
+             source="nightmare_rl_tpu_torch/ops/csrc/learn.cu",
+             replaces=f"nightmare_rl_tpu/rl/ppo.py:{line}", launches=n,
+             **learn_t[k])
+        for k, line, n in zip(LEARN_WRAPPERS, (187, 339, 355),
+                              learn_launches)]
     print("graph: kernels per env step, eager / captured graph's kernel "
           "nodes: " + ", ".join(f"nightmare_v3 {form} "
                                 f"{r['eager_kernels']:.0f} / {r['nodes']}"
@@ -5256,7 +5661,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [entry, legs_entry, newton_entry]
                       + smooth_entries + [solve_out_entry, task_entry]
-                      + rollout_entries}))
+                      + rollout_entries + learn_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

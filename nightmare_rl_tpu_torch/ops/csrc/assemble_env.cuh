@@ -57,7 +57,6 @@ namespace assemble_env {
 using smooth_env::clamp;
 using smooth_env::clamp_min;
 using smooth_env::cross;
-using smooth_env::rotate;
 
 constexpr int kMaxTeam = 32;   // members at most (the pair lists' room)
 constexpr int kMaxPairs = 8;   // Kp at most
@@ -222,11 +221,47 @@ SMOOTH_HD T imp_ratio(T imp) {
   return (T(1) - imp) / clamp_min(imp, T(1e-12));
 }
 
+// The candidate points' centers and the pairs' distances round as the
+// plain version's torch ops round them on the card, so that the selections
+// and their order agree with it wherever two distances differ (the kernel
+// is built with -fmad=false): a cross product's component is
+// fma(a1, b2, -(a2 * b1)) there and a 3-vector's norm sqrt((x0² + x2²) +
+// x1²) (task_env.cuh's cross_diff and norm3, probed on an H100); on the
+// host a1 * b2 - a2 * b1.
+template <typename T>
+SMOOTH_HD T cross_diff(T a, T b, T c, T d) {
+#ifdef __CUDA_ARCH__
+  return fma(a, b, -(c * d));
+#else
+  return a * b - c * d;
+#endif
+}
+
+template <typename T>
+SMOOTH_HD void cross_as_torch(const T* a, const T* b, T* o) {
+  const T x = cross_diff(a[1], b[2], a[2], b[1]);
+  const T y = cross_diff(a[2], b[0], a[0], b[2]);
+  const T z = cross_diff(a[0], b[1], a[1], b[0]);
+  o[0] = x;
+  o[1] = y;
+  o[2] = z;
+}
+
+// core/quat.py::rotate: v + 2 (w (u x v) + u x (u x v)), each op rounded.
+template <typename T>
+SMOOTH_HD void rotate_as_torch(const T* v, const T* q, T* o) {
+  T uv[3], uuv[3];
+  cross_as_torch(q + 1, v, uv);
+  cross_as_torch(q + 1, uv, uuv);
+  for (int k = 0; k < 3; ++k) o[k] = v[k] + T(2) * (q[0] * uv[k] + uuv[k]);
+}
+
 // A pair's signed distance from the two sphere centers.
 template <typename T>
 SMOOTH_HD T pair_dist(const T* ca, const T* cb, T ra, T rb, T* d, T* cd) {
   for (int k = 0; k < 3; ++k) d[k] = cb[k] - ca[k];
-  *cd = sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  const T x0 = d[0] * d[0], x1 = d[1] * d[1], x2 = d[2] * d[2];
+  *cd = sqrt((x0 + x2) + x1);
   return *cd - (ra + rb);
 }
 
@@ -295,7 +330,7 @@ SMOOTH_HD void assemble_one(const Team& tm, const AssembleArgs<T>& a, int n,
   for (int p = me; p < ncp; p += ts) {
     const int body = topo[L.t_cp_body + p];
     T rv[3], c[3];
-    rotate(cst + L.c_cp_pos + 3 * p, xquat + 4 * body, rv);
+    rotate_as_torch(cst + L.c_cp_pos + 3 * p, xquat + 4 * body, rv);
     for (int k = 0; k < 3; ++k) c[k] = xpos[3 * body + k] + rv[k];
     const T dist = c[2] - cst[L.c_cp_radius + p];
     for (int k = 0; k < 3; ++k) cp[k * ncp + p] = c[k];

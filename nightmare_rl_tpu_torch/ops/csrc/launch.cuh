@@ -1,9 +1,10 @@
 // What the kernels share at launch: the raise of a kernel's dynamic shared
-// memory above 48 KB, and a warp as smooth_env.cuh's team (with timer
-// stamps, for a kernel built with a timeline).
+// memory above 48 KB, a warp as smooth_env.cuh's team (with timer stamps,
+// for a kernel built with a timeline), and a block as rollout_env.cuh's.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -57,6 +58,45 @@ struct StampedWarpTeam : WarpTeam {
     }
 #else
     (void)k;
+#endif
+  }
+};
+
+// A block as rollout_env's team (and learn_env's): thread i is member i,
+// with copies from global to shared memory by cp.async.
+struct BlockTeam {
+  __host__ __device__ int rank() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x;
+#else
+    return 0;
+#endif
+  }
+  __host__ __device__ int size() const {
+#ifdef __CUDA_ARCH__
+    return blockDim.x;
+#else
+    return 1;
+#endif
+  }
+  __host__ __device__ void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+  // an element from global to shared memory, asynchronously (cp.async)
+  template <typename T>
+  __host__ __device__ void copy(T* dst, const T* src) const {
+#ifdef __CUDA_ARCH__
+    __pipeline_memcpy_async(dst, src, sizeof(T));
+#else
+    *dst = *src;
+#endif
+  }
+  __host__ __device__ void copy_wait() const {
+#ifdef __CUDA_ARCH__
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
 #endif
   }
 };

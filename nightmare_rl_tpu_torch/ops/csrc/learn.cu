@@ -1,0 +1,188 @@
+// The learning half of a PPO iteration, for Hopper (sm_90a): `gae` once an
+// iteration (GAE's recursion, the returns and the mean advantage), `grads`
+// once a minibatch (the feed-forward actor-critic's forward pass over the
+// minibatch's rows gathered from the trajectory, the PPO loss, its
+// backward pass, every gradient and the KL into the flat buffer the ranks
+// reduce, the losses) and `adam` once a minibatch (the mean over the ranks,
+// the adaptive learning rate, the clip by global norm and Adam's step),
+// each instantiated per dtype.
+//
+// The counterpart of the JAX package's compiled update (_gae's lax.scan,
+// nightmare_rl_tpu/rl/ppo.py:187-203; minibatch_step's value_and_grad of
+// loss_fn and the optax chain with _adapt_lr, :100-103, :244-255,
+// :323-359), which XLA fuses inside lax.scan; the JAX package has no
+// Pallas kernel for it.  Eagerly, the port's plain versions (ops/learn.py:
+// GAE's loop over the steps, cuBLAS products, autograd's backward,
+// torch's fused Adam and the clip's ops) are ~820 launches for GAE and
+// ~360 a minibatch (tools/profile_learn.py).  The arithmetic is learn_env.cuh's, which the CPU
+// tests also run through the host driver csrc/learn_host.cpp.
+//
+// What bounds it on an H100.  grads, per sample of nightmare_v3's net (66
+// observations, [54, 42, 30] hidden units, 18 actions, the actor and the
+// critic): ~14.8k multiply-adds forward, as many for the weight gradients
+// and ~7.6k for the deltas, ~3.0 GFLOP a minibatch of 40,960 samples,
+// ~45 us at 67 TFLOP/s in float32 outside the tensor cores (the port's
+// nets run in full float32: no TF32); its bytes, the rows gathered and
+// the gradients written, ~20.6 MB, ~6 us at 3.35 TB/s.  gae moves ~2.8 MB
+// (~0.8 us); adam ~0.5 MB (~0.15 us): both are launch-bound.
+//
+// The design.  grads: the grid's blocks split into the actor's and the
+// critic's (the loss's gradient reaches each net through its own head),
+// one block of each per SM; a block stages its net's weights in shared
+// memory once (rows padded to an odd length) and walks its share of the
+// minibatch in tiles of 32 samples: the rows gathered feature-major
+// ([feature][sample], rows of 33), each layer's outputs and activation
+// derivatives kept, the loss stage per sample, the deltas back through the
+// layers in place; every product a 4 x 2 register tile per thread (FP32
+// FMA, no tensor core: wgmma and TMA are for a later design), the tails of
+// the widths 54, 42, 30 and 18 padded by repeating a row; the tile's
+// weight and bias gradients summed over its samples and added to the
+// block's sums in shared memory.  The grid's sums: each block writes its
+// row, the last block of a group of blocks (an integer ticket) adds its
+// group's rows in block order, the last group adds the groups' rows in
+// order and writes the flat buffer: no float atomics, so a replay equals
+// the eager call bit for bit.  gae: a thread an env, its sum by lane and a
+// fixed tree, the blocks' sums by the last block.  adam: one block, the
+// norm's squares by 1,024 lanes and a fixed tree.
+
+#include <cuda_runtime.h>
+
+#include "launch.cuh"
+#include "learn_env.cuh"
+
+namespace {
+
+using common::BlockTeam;
+using learn_env::AdamArgs;
+using learn_env::GaeArgs;
+using learn_env::GradsArgs;
+
+constexpr int kGradsThreads = 256;
+
+// Whether this block is the last of `n` to arrive at `counter` (the
+// block's stores made visible to the grid first); the last resets it.
+__device__ bool last_to_arrive(int* counter, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == n - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(learn_env::kGaeLanes)
+    learn_gae_kernel(const __grid_constant__ GaeArgs<T> a) {
+  __shared__ T lanes[learn_env::kGaeLanes];
+  learn_env::gae_block(BlockTeam{}, a, blockIdx.x, lanes);
+  if (last_to_arrive(a.counter, gridDim.x))
+    learn_env::gae_final(BlockTeam{}, a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGradsThreads, 2)
+    learn_grads_kernel(const __grid_constant__ GradsArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockTeam tm{};
+  learn_env::grads_block(tm, a, blockIdx.x, reinterpret_cast<T*>(smem));
+  const int blk = static_cast<int>(blockIdx.x);
+  const int k = blk < a.blocks[0] ? 0 : 1;
+  const int b = k == 0 ? blk : blk - a.blocks[0];
+  const int g = b / a.group;
+  const int in_group = min(a.group, a.blocks[k] - g * a.group);
+  if (!last_to_arrive(a.counters + k * a.groups[0] + g, in_group)) return;
+  learn_env::grads_group(tm, a, k, g);
+  const int groups = a.groups[0] + a.groups[1];
+  if (!last_to_arrive(a.counters + groups, groups)) return;
+  learn_env::grads_final(tm, a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(learn_env::kAdamLanes)
+    learn_adam_kernel(const __grid_constant__ AdamArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  learn_env::adam_block(BlockTeam{}, a, smem);
+}
+
+template <typename T>
+int launch_gae(const int* ints, int nints, const double* reals, int nreals,
+               const void* const* ptrs, int nptrs, cudaStream_t stream) {
+  GaeArgs<T> a;
+  if (!learn_env::read_gae(ints, nints, reals, nreals, ptrs, nptrs, &a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  learn_gae_kernel<T><<<a.blocks, learn_env::kGaeLanes, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_grads(const int* ints, int nints, const double* reals, int nreals,
+                 const void* const* ptrs, int nptrs, cudaStream_t stream) {
+  GradsArgs<T> a;
+  if (!learn_env::read_grads(ints, nints, reals, nreals, ptrs, nptrs, &a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = learn_env::grads_smem_elems(a) * static_cast<int>(sizeof(T));
+  const void* kernel = reinterpret_cast<const void*>(learn_grads_kernel<T>);
+  cudaError_t e = common::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  learn_grads_kernel<T><<<a.blocks[0] + a.blocks[1], kGradsThreads, smem,
+                          stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_adam(const int* ints, int nints, const double* reals, int nreals,
+                const void* const* ptrs, int nptrs, cudaStream_t stream) {
+  AdamArgs<T> a;
+  if (!learn_env::read_adam(ints, nints, reals, nreals, ptrs, nptrs, &a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  learn_adam_kernel<T><<<1, learn_env::kAdamLanes,
+                         learn_env::adam_smem_bytes<T>(), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The blocks' field names, comma-separated, in order.
+#define LEARN_NAMES_ENTRY(NAME, S)                                            \
+  extern "C" const char* NAME() { return learn_env::S; }
+LEARN_NAMES_ENTRY(learn_gae_int_names, kGaeIntNames)
+LEARN_NAMES_ENTRY(learn_gae_real_names, kGaeRealNames)
+LEARN_NAMES_ENTRY(learn_gae_ptr_names, kGaePtrNames)
+LEARN_NAMES_ENTRY(learn_grads_int_names, kGradsIntNames)
+LEARN_NAMES_ENTRY(learn_grads_real_names, kGradsRealNames)
+LEARN_NAMES_ENTRY(learn_grads_ptr_names, kGradsPtrNames)
+LEARN_NAMES_ENTRY(learn_adam_int_names, kAdamIntNames)
+LEARN_NAMES_ENTRY(learn_adam_real_names, kAdamRealNames)
+LEARN_NAMES_ENTRY(learn_adam_ptr_names, kAdamPtrNames)
+
+// grads' shared memory per block in bytes (0 for arguments it does not
+// take).
+#define LEARN_SMEM_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const int* ints, int nints, const double* reals,       \
+                      int nreals, const void* const* ptrs, int nptrs) {      \
+    GradsArgs<T> a;                                                           \
+    if (!learn_env::read_grads(ints, nints, reals, nreals, ptrs, nptrs, &a))  \
+      return 0;                                                               \
+    return learn_env::grads_smem_elems(a) * static_cast<int>(sizeof(T));      \
+  }
+
+#define LEARN_ENTRY(NAME, FN, T)                                              \
+  extern "C" int NAME(const int* ints, int nints, const double* reals,       \
+                      int nreals, const void* const* ptrs, int nptrs,        \
+                      void* stream) {                                         \
+    return FN<T>(ints, nints, reals, nreals, ptrs, nptrs,                    \
+                 static_cast<cudaStream_t>(stream));                          \
+  }
+
+LEARN_ENTRY(learn_gae_f32, launch_gae, float)
+LEARN_ENTRY(learn_gae_f64, launch_gae, double)
+LEARN_ENTRY(learn_grads_f32, launch_grads, float)
+LEARN_ENTRY(learn_grads_f64, launch_grads, double)
+LEARN_ENTRY(learn_adam_f32, launch_adam, float)
+LEARN_ENTRY(learn_adam_f64, launch_adam, double)
+LEARN_SMEM_ENTRY(learn_grads_smem_f32, float)
+LEARN_SMEM_ENTRY(learn_grads_smem_f64, double)

@@ -42,7 +42,6 @@
 // its staging and its chains of dependent shared-memory loads were
 // latency-bound.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
@@ -50,48 +49,11 @@
 
 namespace {
 
+using common::BlockTeam;
 using rollout_env::ActArgs;
 using rollout_env::StoreArgs;
 
 constexpr int kActThreads = 256;
-
-// A block as rollout_env's team.
-struct BlockTeam {
-  __host__ __device__ int rank() const {
-#ifdef __CUDA_ARCH__
-    return threadIdx.x;
-#else
-    return 0;
-#endif
-  }
-  __host__ __device__ int size() const {
-#ifdef __CUDA_ARCH__
-    return blockDim.x;
-#else
-    return 1;
-#endif
-  }
-  __host__ __device__ void sync() const {
-#ifdef __CUDA_ARCH__
-    __syncthreads();
-#endif
-  }
-  // an element from global to shared memory, asynchronously (cp.async)
-  template <typename T>
-  __host__ __device__ void copy(T* dst, const T* src) const {
-#ifdef __CUDA_ARCH__
-    __pipeline_memcpy_async(dst, src, sizeof(T));
-#else
-    *dst = *src;
-#endif
-  }
-  __host__ __device__ void copy_wait() const {
-#ifdef __CUDA_ARCH__
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-#endif
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kActThreads)

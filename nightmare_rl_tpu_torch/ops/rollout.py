@@ -249,15 +249,16 @@ def _fn(name: str, dtype: torch.dtype, host: bool):
 def _blocks(names, ints: dict, reals: dict, ptrs: dict, extra_ints=(),
             extra_ptrs=()):
     """The C interface's blocks in the library's field order (then the
-    layers' entries)."""
+    extra entries); a pointer is a tensor, an address or None."""
     ik, rk, pk = names
     i = [ints[k] for k in ik] + list(extra_ints)
     r = [reals[k] for k in rk]
     p = [ptrs[k] for k in pk] + list(extra_ptrs)
     return ((ctypes.c_int * len(i))(*i), len(i),
             (ctypes.c_double * len(r))(*r), len(r),
-            (ctypes.c_void_p * len(p))(*[None if x is None else x.data_ptr()
-                                         for x in p]), len(p))
+            (ctypes.c_void_p * len(p))(*[
+                x if x is None or isinstance(x, int) else x.data_ptr()
+                for x in p]), len(p))
 
 
 def _check(x: torch.Tensor, name: str, shape, dtype, device,

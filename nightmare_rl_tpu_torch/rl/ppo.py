@@ -63,6 +63,11 @@ are views of one flat buffer (its last element a minibatch's KL) zeroed in
 place, Adam's state is made with the optimizer and reset in place, and the
 statistics (loss, surrogate, value loss, KL, lr) come back as one tensor
 that ``learn_step`` reads with its episode sums, the iteration's one read.
+On the card GAE's recursion, a minibatch's losses and gradients (the
+feed-forward net's; the recurrent net's LSTM replay stays plain) and a
+minibatch's step are launches of the port's own kernels
+(``ops/learn.py``: ``gae``, ``grads``, ``adam``; the plain versions on the
+CPU).
 The hooks ``_all_sum``, ``gather_envs`` and ``any_rank`` are the identity
 here; ``parallel/mesh.py::ShardedPPO`` makes them collectives, and its
 learning half replays the same graphs.
@@ -78,9 +83,11 @@ import torch
 
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.models import actor_critic as ac
+from nightmare_rl_tpu_torch.ops import learn as L
 from nightmare_rl_tpu_torch.ops import rollout as R
+from nightmare_rl_tpu_torch.ops.learn import clip_by_global_norm  # noqa: F401
 from nightmare_rl_tpu_torch.parallel.shard import Shard
-from nightmare_rl_tpu_torch.utils.device import constant, full_float32
+from nightmare_rl_tpu_torch.utils.device import full_float32
 from nightmare_rl_tpu_torch.utils.graph import (
     CapturedStep, CapturedUpdate, assign, clone, leaves,
 )
@@ -98,16 +105,6 @@ class Transition(NamedTuple):
     logp: torch.Tensor    # (T, N)
     mu: torch.Tensor      # (T, N, A)
     sigma: torch.Tensor   # (T, N, A)
-
-
-def clip_by_global_norm(params, max_norm: float) -> None:
-    """optax.clip_by_global_norm on the .grad of params, in place:
-    g ← g where ‖g‖ < max_norm, else g / ‖g‖ · max_norm.  (torch's
-    clip_grad_norm_ adds 1e-6 to the norm and so differs.)"""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
 
 def _sync(device: torch.device) -> None:
@@ -436,19 +433,12 @@ class PPO:
         return self._traj, n_done.clone(), term_sums.clone(), record
 
     def _advantages(self, traj: Transition, last_value: torch.Tensor):
-        """GAE's recursion from V of the rollout's last observations:
-        (advantages, returns, this shard's mean advantage)."""
+        """GAE's recursion from V of the rollout's last observations
+        (``ops/learn.py::gae``): (advantages, returns, this shard's mean
+        advantage)."""
         a = self.cfg.algorithm
-        next_values = torch.cat([traj.value[1:], last_value[None]], dim=0)
-        adv = torch.zeros_like(last_value)
-        advantages = torch.empty_like(traj.value)
-        for t in reversed(range(traj.value.shape[0])):
-            nonterminal = 1.0 - traj.done[t].to(traj.value.dtype)
-            delta = (traj.reward[t] + a.gamma * next_values[t] * nonterminal
-                     - traj.value[t])
-            adv = delta + a.gamma * a.lam * nonterminal * adv
-            advantages[t] = adv
-        return advantages, advantages + traj.value, advantages.mean()
+        return L.gae(traj.reward, traj.value, traj.done, last_value, a.gamma,
+                     a.lam)
 
     def _spread(self, advantages: torch.Tensor, mean_sum: torch.Tensor):
         """The global mean advantage (from the ranks' summed means) and this
@@ -483,39 +473,10 @@ class PPO:
         return advantages, returns, self._normalized(
             advantages, mean, self._spread, self._normalize)
 
-    def _loss_terms(self, mb: Transition, mb_ret, mb_adv, mu, std, value):
-        a = self.cfg.algorithm
-        logp = ac.log_prob(mu, std, mb.action)
-        ratio = torch.exp(logp - mb.logp)
-        surr1 = -mb_adv * ratio
-        surr2 = -mb_adv * torch.clamp(ratio, 1.0 - a.clip_param, 1.0 + a.clip_param)
-        surrogate = torch.maximum(surr1, surr2).mean()
-        if a.use_clipped_value_loss:
-            v_clip = mb.value + torch.clamp(value - mb.value, -a.clip_param,
-                                            a.clip_param)
-            v_loss = torch.maximum(torch.square(value - mb_ret),
-                                   torch.square(v_clip - mb_ret)).mean()
-        else:
-            v_loss = torch.square(value - mb_ret).mean()
-        ent = ac.entropy(std).mean()
-        loss = surrogate + a.value_loss_coef * v_loss - a.entropy_coef * ent
-        kl = ac.gaussian_kl(mb.mu, mb.sigma, mu, std).mean()
-        return loss, surrogate, v_loss, kl
-
     def _adapt_lr(self, lr: torch.Tensor, kl: torch.Tensor) -> torch.Tensor:
-        """rsl_rl's adaptive rule on the device (the JAX ``_adapt_lr``):
-        lr ÷ 1.5 (at least 1e-5) where kl > 2·desired, lr × 1.5 (at most
-        1e-2) where 0 < kl < desired / 2, else lr."""
-        a = self.cfg.algorithm
-        if a.schedule != "adaptive":
-            return lr
-        # a 0-dim tensor: the card divides by a Python scalar as a product
-        # with its reciprocal, which rounds differently
-        by = constant((1.5,), lr.dtype, lr.device)[0]
-        return torch.where(
-            kl > a.desired_kl * 2.0, torch.clamp_min(lr / by, 1e-5),
-            torch.where((kl < a.desired_kl / 2.0) & (kl > 0.0),
-                        torch.clamp_max(lr * 1.5, 1e-2), lr))
+        """rsl_rl's adaptive rule on the device (``ops/learn.py::adapt_lr``,
+        the JAX ``_adapt_lr``)."""
+        return L.adapt_lr(self.cfg.algorithm, lr, kl)
 
     def _replay(self, mb: Transition, hidden):
         """The recurrent net over a minibatch of whole trajectories (T, n),
@@ -581,18 +542,15 @@ class PPO:
         the recurrent net the envs ``idx``, replayed from ``hidden0``), the
         gradients (into the flat buffer, whose last element takes the KL).
         Returns (loss, surrogate loss, value loss)."""
-        if self.recurrent:
-            mb = Transition(*[x[:, idx] for x in traj])
-            h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
-            mb_ret, mb_adv = returns[:, idx], norm_adv[:, idx]
-            mu, std, value = self._replay(mb, h0)
-        else:
-            B = returns.numel()
-            mb = Transition(*[x.reshape((B,) + x.shape[2:])[idx] for x in traj])
-            mb_ret, mb_adv = returns.reshape(B)[idx], norm_adv.reshape(B)[idx]
-            mu, std, value = self.net(mb.obs)
-        loss, surr, v_loss, kl = self._loss_terms(mb, mb_ret, mb_adv, mu, std,
-                                                  value)
+        if not self.recurrent:
+            return L.grads(self.act_plan, self.cfg.algorithm, traj, returns,
+                           norm_adv, idx, self._flat)
+        mb = Transition(*[x[:, idx] for x in traj])
+        h0 = tuple(tuple(h[idx] for h in carry) for carry in hidden0)
+        mb_ret, mb_adv = returns[:, idx], norm_adv[:, idx]
+        mu, std, value = self._replay(mb, h0)
+        loss, surr, v_loss, kl = L.loss_terms(self.cfg.algorithm, mb, mb_ret,
+                                              mb_adv, mu, std, value)
         # in place: backward accumulates into the flat buffer's views
         self.optimizer.zero_grad(set_to_none=False)
         with full_float32():  # the LSTM's backward, no TF32
@@ -603,18 +561,12 @@ class PPO:
 
     def _step(self, losses: torch.Tensor) -> torch.Tensor:
         """A minibatch step's second part, after the gradients and KL were
-        summed over the ranks: their mean, the adaptive lr from this
-        minibatch's KL, the clip by global norm and Adam's step.  Returns
+        summed over the ranks (``ops/learn.py::adam``): their mean, the
+        adaptive lr from this minibatch's KL (Adam's param group holds the
+        lr tensor), the clip by global norm and Adam's step.  Returns
         (loss, surrogate loss, value loss, kl)."""
-        flat = self._flat
-        with torch.no_grad():
-            flat /= self.shard.world
-            # adaptive lr from this minibatch's KL, applied to its step
-            # (Adam's param group holds the same tensor)
-            self._lr.copy_(self._adapt_lr(self._lr, flat[-1]))
-        clip_by_global_norm(self.params, self.cfg.algorithm.max_grad_norm)
-        self.optimizer.step()
-        return torch.cat([losses, flat[-1:]])
+        return L.adam(self.optimizer, self._flat, self._lr, self.shard.world,
+                      self.cfg.algorithm, losses)
 
     def _head(self, traj: Transition, obs: torch.Tensor, hidden):
         """The prologue's first part: V of the rollout's last observations

@@ -43,7 +43,8 @@ Capture, in the constructor on the card:
   eager fallback;
 - the kernel wrappers' launch counters (``ops/pgs.py``, ``ops/newton.py``,
   ``ops/smooth.py``, ``ops/integrate.py``, ``ops/assemble.py``,
-  ``ops/task.py``, ``ops/rollout.py``) count the launches the graph holds
+  ``ops/task.py``, ``ops/rollout.py``, ``ops/learn.py``) count the
+  launches the graph holds
   once per replay, not at capture.
 
 Environment variables that a step reads (``NIGHTMARE_PGS``,
@@ -78,6 +79,9 @@ import torch
 from nightmare_rl_tpu_torch.ops import pgs as P
 from nightmare_rl_tpu_torch.ops.assemble import rows as assemble_rows
 from nightmare_rl_tpu_torch.ops.integrate import integrate_update
+from nightmare_rl_tpu_torch.ops.learn import adam as learn_adam
+from nightmare_rl_tpu_torch.ops.learn import gae as learn_gae
+from nightmare_rl_tpu_torch.ops.learn import grads as learn_grads
 from nightmare_rl_tpu_torch.ops.newton import newton_solve
 from nightmare_rl_tpu_torch.ops.rollout import act as rollout_act
 from nightmare_rl_tpu_torch.ops.rollout import store as rollout_store
@@ -90,7 +94,8 @@ from nightmare_rl_tpu_torch.utils.device import full_float32
 # the kernel wrappers whose ``launches`` attribute counts their launches
 _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
             integrate_update, assemble_rows, solve_outputs, task_pre,
-            task_post, rollout_act, rollout_store)
+            task_post, rollout_act, rollout_store, learn_gae, learn_grads,
+            learn_adam)
 
 
 def leaves(tree) -> List[torch.Tensor]:

@@ -1020,3 +1020,27 @@ def test_solve_out_kernel_matches_plain(cuda, robot, form):
         if a.numel():
             assert float((a - b).abs().max()) <= 1e-12 * max(
                 float(a.abs().max()), 1e-300), name
+
+
+@pytest.mark.cuda
+def test_learn_kernels_match_plain(cuda):
+    """The learn kernels (``ops/csrc/learn.cu``: ``gae``, ``grads``,
+    ``adam``) against ``ops/learn.py``'s plain versions after a rollout at
+    64 envs in float32, as the smoke's learn-kernel phase holds them: each
+    on the plain version's inputs within its tolerance, the step counts and
+    the lr exact, each kernel's second call equal to its first; one launch
+    per call."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+
+    before = (L.gae.launches, L.grads.launches, L.adam.launches)
+    r = smoke._learn_case(64, timed=False)
+    assert (L.gae.launches, L.grads.launches, L.adam.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    g, d, m = r["gae"], r["grads"], r["adam"]
+    assert max(g["adv"], g["ret"], g["mean"]) <= smoke.GAE_F32_TOL, g
+    assert d["worst"] <= smoke.GRADS_F32_TOL, d
+    assert max(d["kl"], d["losses"]) <= smoke.LOSS_F32_TOL, d
+    assert m["params"] <= smoke.ADAM_PARAM_F32_TOL, m
+    assert max(m["moments"], m["clipped"], m["stats"]) <= smoke.ADAM_F32_TOL, m
+    assert m["steps"] and m["lr"], m
+    assert g["same"] and d["same"] and m["same"]

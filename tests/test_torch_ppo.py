@@ -6,12 +6,16 @@ against the JAX package's.
   the carry-across function: forward passes agree to 1e-12 in float64.
 - One PPO update on a fixed batch with the JAX side's permutation: GAE, the
   20 minibatch steps (clip by global norm, Adam, adaptive lr) and the
-  resulting parameters agree to 1e-9 in float64 (summation order only).
+  resulting parameters agree to 1e-9 in float64 (summation order only),
+  through the plain route and through the learn kernels' host drivers
+  (ops/learn.py's host_gae, host_grads, host_adam: the kernels'
+  arithmetic on the CPU).
 - A CPU training iteration of the runner, its checkpoint and resume path.
 """
 
 import os
 import types
+from unittest import mock
 
 import numpy as np
 import jax
@@ -30,6 +34,7 @@ from nightmare_rl_tpu_torch.core.config import (
 )
 from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
 from nightmare_rl_tpu_torch.models import actor_critic as tac
+from nightmare_rl_tpu_torch.ops import learn as L
 from nightmare_rl_tpu_torch.rl import ppo as tppo
 from nightmare_rl_tpu_torch.rl.runner import OnPolicyRunner, get_load_path
 from nightmare_rl_tpu_torch.utils.torch_io import actor_critic_state_from_jax
@@ -116,7 +121,9 @@ def test_clip_by_global_norm_matches_optax(scale):
 
 @pytest.fixture(scope="module")
 def update_pair():
-    """One PPO iteration's learning half on a fixed batch, both sides."""
+    """One PPO iteration's learning half on a fixed batch, both sides; the
+    port's through the plain versions and through the learn kernels' host
+    drivers (teams of 3, grads' grid of 2 blocks a net)."""
     T, N = 8, 16
     cfg = JPPOCfg()
     jppo = JPPO(types.SimpleNamespace(num_actions=18), cfg)
@@ -145,14 +152,23 @@ def update_pair():
 
     env = types.SimpleNamespace(device=torch.device("cpu"), dtype=torch.float64,
                                 num_obs=66, num_actions=18)
-    tp = tppo.PPO(env, PPOCfg())
-    tp.net.load_state_dict(actor_critic_state_from_jax(_np(params)))
     ttraj = tppo.Transition(*[torch.from_numpy(np.array(x)) for x in traj])
-    adv_t, ret_t, nadv_t = tp.gae(ttraj, torch.from_numpy(np.array(last_value)))
-    stats_t = tp.update(ttraj, ret_t, nadv_t, torch.from_numpy(perm))
-    return dict(gae_j=(adv_j, ret_j, nadv_j), gae_t=(adv_t, ret_t, nadv_t),
-                params_j=new_params, net_t=tp.net, stats_j=stats_j,
-                stats_t=stats_t, lr_j=lr_j)
+
+    def port():
+        tp = tppo.PPO(env, PPOCfg())
+        tp.net.load_state_dict(actor_critic_state_from_jax(_np(params)))
+        gae = tp.gae(ttraj, torch.from_numpy(np.array(last_value)))
+        return tp, gae, tp.update(ttraj, gae[1], gae[2], torch.from_numpy(perm))
+
+    tp, gae_t, stats_t = port()
+    with mock.patch.object(L, "gae", lambda *a: L.host_gae(*a, team=3)), \
+            mock.patch.object(L, "grads", lambda *a: L.host_grads(
+                *a, team=3, blocks=2)), \
+            mock.patch.object(L, "adam", lambda *a: L.host_adam(*a, team=3)):
+        th, gae_h, stats_h = port()
+    return dict(gae_j=(adv_j, ret_j, nadv_j), gae_t=gae_t, gae_h=gae_h,
+                params_j=new_params, net_t=tp.net, net_h=th.net,
+                stats_j=stats_j, stats_t=stats_t, stats_h=stats_h, lr_j=lr_j)
 
 
 def test_gae_matches(update_pair):
@@ -173,6 +189,28 @@ def test_ppo_update_matches(update_pair):
                                    atol=TOL, err_msg=k)
     # the update moved the parameters and the lr adapted from 1e-3
     assert st["lr"] != 1e-3
+
+
+def test_gae_matches_host_route(update_pair):
+    """GAE through the learn kernels' host driver against the JAX _gae."""
+    for a, b in zip(update_pair["gae_j"], update_pair["gae_h"]):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=TOL, atol=TOL)
+
+
+def test_ppo_update_matches_host_route(update_pair):
+    """The 20 minibatch steps through the grads and adam host drivers
+    against the JAX _update: the statistics, the lr and every parameter."""
+    sj, sh = update_pair["stats_j"], update_pair["stats_h"]
+    for key in ("loss", "surrogate_loss", "value_loss", "kl", "lr"):
+        np.testing.assert_allclose(sh[key], float(sj[key]), rtol=TOL, atol=TOL,
+                                   err_msg=key)
+    ref = actor_critic_state_from_jax(_np(update_pair["params_j"]))
+    got = update_pair["net_h"].state_dict()
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=TOL,
+                                   atol=TOL, err_msg=k)
+    assert sh["lr"] != 1e-3
 
 
 def test_runner_trains_saves_and_resumes(tmp_path):
