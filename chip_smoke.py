@@ -160,9 +160,10 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              minibatch's forward pass, losses, backward pass, gradients and
              KL; ``adam``, the mean over the ranks, the adaptive lr, the
              clip and Adam's step) against ``ops/learn.py``'s plain
-             versions on the card, float32, after a rollout of nightmare_v3
-             at LEARN_NS envs (minibatches of 40,960 and 81,920 samples),
-             each kernel on the plain version's inputs: gae within
+             versions on the card, float32, after a rollout of each of
+             LEARN_CASES (nightmare_v3 at 2048 and 4096 envs, minibatches
+             of 40,960 and 81,920 samples; anymal_c's net, 48 -> 12, at
+             2048), each kernel on the plain version's inputs: gae within
              GAE_F32_TOL, each gradient tensor within GRADS_F32_TOL of its
              largest magnitude (the largest error printed by tensor), the
              losses and the KL within LOSS_F32_TOL, Adam's parameters
@@ -171,7 +172,10 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              adaptive rule's band; every kernel's second call equal to its
              first bit for bit; each timed alone beside its plain version
              (adam also beside torch's fused Adam with the clip's ops) and
-             its bound, with ptxas's registers and spills;
+             its bound, with ptxas's registers and spills, grads' grid,
+             shared memory a block and blocks an SM; grads also on
+             nightmare_v3's net with ELU's alpha at -0.5 (2048 envs),
+             within the same tolerances;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
              the CPU;
 7b. slice-legs — the training CLI with NIGHTMARE_PGS=legs, 2048 envs,
@@ -549,7 +553,11 @@ SOLVE_OUT_CASES = (("nightmare_v3", "legs", "legs"),
 # largest magnitude, the parameters over theirs (a few ulps: a step of ~1e-3
 # rounds into parameters of ~1; the global norm's 15,043 squares summed in
 # another order); the step counts and the lr exact
-LEARN_NS = (2048, 4096)
+# (robot, envs): nightmare_v3's net (66 -> [54, 42, 30] -> 18 and 1) at the
+# main path's 2048 envs and at 4096, anymal_c's (48 -> 12) at 2048
+LEARN_CASES = (("nightmare_v3", 2048), ("nightmare_v3", 4096),
+               ("anymal_c", 2048))
+GRADS_THREADS = 256          # learn.cu kGradsThreads
 GAE_F32_TOL = 1e-6
 GRADS_F32_TOL = 1e-4
 LOSS_F32_TOL = 1e-5
@@ -4256,8 +4264,8 @@ def _no_plain_learn(label: str, calls: dict) -> None:
                              f"ran on the card: {calls}")
 
 
-def _learn_ppo(N: int):
-    """A PPO on nightmare_v3 at N envs, float32, ``init(0)``'s weights,
+def _learn_ppo(N: int, robot: str = "nightmare_v3"):
+    """A PPO on ``robot``'s env at N envs, float32, ``init(0)``'s weights,
     after one rollout of its config's steps: the PPO, the trajectory (the
     rollout's buffers) and V of the last observations."""
     import torch
@@ -4265,7 +4273,7 @@ def _learn_ppo(N: int):
     from nightmare_rl_tpu_torch.core.config import PPOCfg
     from nightmare_rl_tpu_torch.rl.ppo import PPO
 
-    ppo = PPO(_task_env("nightmare_v3", N), PPOCfg())
+    ppo = PPO(_task_env(robot, N), PPOCfg())
     ppo.init(0)
     ppo.randomize_episode_lengths()
     with torch.no_grad():
@@ -4311,7 +4319,7 @@ def _learn_bounds(ppo, T: int, N: int, B: int) -> dict:
         adam=(it * (2 * (P + 1) + 6 * P + 2 + 3 + 4) + 8 * nt, 16 * P))
 
 
-def _learn_case(N: int, timed: bool) -> dict:
+def _learn_case(N: int, timed: bool, robot: str = "nightmare_v3") -> dict:
     """gae, grads and adam against their plain versions on the card, each
     on the same inputs, from a PPO after a rollout at N envs (its first
     minibatch of the update's permutation; adam from the plain grads'
@@ -4323,10 +4331,10 @@ def _learn_case(N: int, timed: bool) -> dict:
 
     from nightmare_rl_tpu_torch.ops import learn as L
 
-    ppo, traj, last = _learn_ppo(N)
+    ppo, traj, last = _learn_ppo(N, robot)
     a = ppo.cfg.algorithm
     T = traj.reward.shape[0]
-    res = {"N": N, "T": T}
+    res = {"N": N, "T": T, "robot": robot}
     gae_in = (traj.reward, traj.value, traj.done, last, a.gamma, a.lam)
     ref = L.plain_gae(*gae_in)
     got, again = L.gae(*gae_in), L.gae(*gae_in)
@@ -4363,6 +4371,8 @@ def _learn_case(N: int, timed: bool) -> dict:
         losses=float(((l_got - l_ref).abs() / (1 + l_ref.abs())).max()),
         same=same, abs=float((f_got - f_ref).abs().max()),
         smem=L.grads_smem_bytes(*g_in), kl_value=kl,
+        blocks=L.grads_geometry(pl, B, torch.cuda.get_device_properties(
+            0).multi_processor_count)["blocks"],
         kl_band=(a.desired_kl / 2.0, a.desired_kl * 2.0))
     held = ppo._held()
     start = [h.detach().clone() for h in held]
@@ -4423,14 +4433,51 @@ def _learn_case(N: int, timed: bool) -> dict:
     return res
 
 
+def _negative_alpha_case(N: int, alpha: float = -0.5) -> dict:
+    """grads against plain_grads on nightmare_v3's net with ELU's
+    parameter set to ``alpha`` < 0 (where the activation's output is above
+    0 on both sides of z = 0 and the kernel keeps z's signs apart), after a
+    rollout at N envs, float32: per gradient tensor max|err| over its
+    scale, the losses' and the KL's errors."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import learn as L
+    from nightmare_rl_tpu_torch.ops import rollout as R
+
+    ppo, traj, last = _learn_ppo(N)
+    a = ppo.cfg.algorithm
+    T = traj.reward.shape[0]
+    adv, ret, mean = L.plain_gae(traj.reward, traj.value, traj.done, last,
+                                 a.gamma, a.lam)
+    norm_adv = ppo._normalize(adv, *ppo._spread(adv, mean))
+    idx = ppo.draw_perm(T, N).reshape(a.num_mini_batches, -1)[0].contiguous()
+    for m in ppo.net.modules():
+        if isinstance(m, torch.nn.ELU):
+            m.alpha = alpha
+    pl, flat = R.plan(ppo.net), ppo._flat
+    g_in = (pl, a, traj, ret, norm_adv, idx, flat)
+    l_ref = L.plain_grads(*g_in)
+    f_ref = flat.detach().clone()
+    l_got = L.grads(*g_in)
+    by_tensor, i = {}, 0
+    for (name, _), p in zip(ppo.net.named_parameters(), ppo.params):
+        n = p.numel()
+        by_tensor[name] = _rel_max(f_ref[i:i + n], flat[i:i + n])
+        i += n
+    kl = float(f_ref[-1])
+    return dict(alpha=pl.alpha, B=idx.numel(), worst=max(by_tensor.values()),
+                kl=abs(float(flat[-1]) - kl) / (1 + abs(kl)),
+                losses=float(((l_got - l_ref).abs() / (1 + l_ref.abs())).max()))
+
+
 def phase_learn_kernel(device_name: str, smi: str) -> dict:
     """The learn kernels (``ops/csrc/learn.cu``: ``gae``, GAE's recursion;
     ``grads``, a minibatch's forward pass, losses, backward pass, the
     gradients and the KL; ``adam``, the mean over the ranks, the adaptive
     lr, the clip and Adam's step) against their plain versions
-    (``ops/learn.py``) on the card, float32, after a rollout of
-    nightmare_v3 at LEARN_NS envs (minibatches of 40,960 and 81,920
-    samples), each on the same inputs: gae's advantages and returns
+    (``ops/learn.py``) on the card, float32, after a rollout of each of
+    LEARN_CASES (nightmare_v3 at 2048 and 4096 envs, minibatches of 40,960
+    and 81,920 samples; anymal_c's net at 2048), each on the same inputs: gae's advantages and returns
     within GAE_F32_TOL of max|advantage| (and the mean), every gradient
     tensor within GRADS_F32_TOL of its largest magnitude, the losses and
     the KL within LOSS_F32_TOL of 1 + |value|, Adam's updates of the
@@ -4438,16 +4485,23 @@ def phase_learn_kernel(device_name: str, smi: str) -> dict:
     step counts and the lr exact; each kernel's second call equal to its
     first bit for bit.  Each kernel timed alone (``_kernel_ms``) beside
     its plain version, adam beside torch's fused Adam with the clip's ops,
-    with its bound's share; ptxas's registers and spills from the build.
-    Returns the kernels' figures at 2048 envs for the kernels' line."""
+    with its bound's share; ptxas's registers and spills from the build,
+    grads' grid, shared memory a block and blocks an SM; grads also with
+    ELU's alpha below 0 (``_negative_alpha_case``).  Returns the
+    kernels' figures on nightmare_v3 at 2048 envs for the kernels'
+    line."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import learn as L
+
     t0 = time.perf_counter()
     rows = {}
-    for N in LEARN_NS:
-        r = _learn_case(N, timed=True)
-        rows[N] = r
+    for robot, N in LEARN_CASES:
+        r = _learn_case(N, timed=True, robot=robot)
+        rows[robot, N] = r
         g, d, m = r["gae"], r["grads"], r["adam"]
         worst = max(d["by_tensor"].items(), key=lambda kv: kv[1])
-        print(f"learn-kernel: nightmare_v3 {N} envs x {r['T']} steps "
+        print(f"learn-kernel: {robot} {N} envs x {r['T']} steps "
               f"float32, minibatch {r['B']}: gae advantages "
               f"{g['adv']:.3e}, returns {g['ret']:.3e}, mean {g['mean']:.3e} "
               f"of max|advantage| (tol {GAE_F32_TOL:g}; {g['differ']} "
@@ -4463,14 +4517,16 @@ def phase_learn_kernel(device_name: str, smi: str) -> dict:
               f"{m['lr']} ({m['lr_value']:.4e}); second calls bit for bit: "
               f"gae {g['same']}, grads {d['same']}, adam {m['same']}")
         b = r["bounds"]
-        print(f"learn-kernel: {N} envs alone (cold L2): " + "; ".join(
+        print(f"learn-kernel: {robot} {N} envs alone (cold L2): " + "; ".join(
             f"{k} {r[k + '_ms']:.4f} ms, plain {r[k + '_plain_ms']:.3f} ms, "
             f"bound {b[k][0] * 1e3:.2f} us by {b[k][1]} ({b[k][2] / 1e6:.2f} "
             f"MB) = {b[k][0] / r[k + '_ms']:.1%} of it"
             for k in LEARN_WRAPPERS)
             + f"; torch's fused Adam and the clip's ops "
-            f"{r['adam_library_ms']:.4f} ms; grads {d['smem']} B shared a "
-            f"block")
+            f"{r['adam_library_ms']:.4f} ms; grads {d['blocks']} blocks a net "
+            f"of {GRADS_THREADS} threads, tiles of {L.TILE} samples, "
+            f"{d['smem']} B shared a block, "
+            f"{L.grads_blocks_per_sm(d['smem'], torch.float32)} blocks an SM")
         if (g["adv"] > GAE_F32_TOL or g["ret"] > GAE_F32_TOL
                 or g["mean"] > GAE_F32_TOL or d["worst"] > GRADS_F32_TOL
                 or d["kl"] > LOSS_F32_TOL or d["losses"] > LOSS_F32_TOL
@@ -4479,16 +4535,25 @@ def phase_learn_kernel(device_name: str, smi: str) -> dict:
                 or m["clipped"] > ADAM_F32_TOL or m["stats"] > ADAM_F32_TOL
                 or not (m["steps"] and m["lr"])):
             raise AssertionError(f"the learn kernels disagree with their plain "
-                                 f"versions at {N} envs: {r}")
+                                 f"versions on {robot} at {N} envs: {r}")
         if not (g["same"] and d["same"] and m["same"]):
             raise AssertionError(f"a learn kernel's second call differs from "
-                                 f"its first at {N} envs")
+                                 f"its first on {robot} at {N} envs")
+    neg = _negative_alpha_case(2048)
+    print(f"learn-kernel: nightmare_v3 2048 envs, ELU alpha {neg['alpha']} "
+          f"(z's signs kept apart), minibatch {neg['B']}: grads worst tensor "
+          f"{neg['worst']:.3e} (tol {GRADS_F32_TOL:g}), KL {neg['kl']:.3e}, "
+          f"losses {neg['losses']:.3e} (tol {LOSS_F32_TOL:g})")
+    if (neg["worst"] > GRADS_F32_TOL or neg["kl"] > LOSS_F32_TOL
+            or neg["losses"] > LOSS_F32_TOL):
+        raise AssertionError(f"grads disagrees with its plain version with "
+                             f"ELU's alpha below 0: {neg}")
     ptxas = " | ".join(f"{k['name']}: {k.get('registers')} registers, spill "
                        f"stores/loads {k.get('spill')} B, stack frame "
                        f"{k.get('stack')} B"
                        for k in BUILD_PTXAS.get("learn", []))
     print(f"learn-kernel: ptxas {ptxas}; {_smi_line(t0, device_name, smi)}")
-    main = rows[2048]
+    main = rows["nightmare_v3", 2048]
     errs = dict(gae=main["gae"]["abs"], grads=main["grads"]["abs"],
                 adam=main["adam"]["abs"])
     return {k: dict(max_abs_err=errs[k], ms=main[f"{k}_ms"],
@@ -5644,6 +5709,12 @@ def main() -> int:
         f"{k} {n} = " + " + ".join(f"{who} {c[i]}"
                                    for who, c in LEARN_LAUNCHES.items())
         for i, (k, n) in enumerate(zip(LEARN_WRAPPERS, learn_launches))))
+    slices = {who: LEARN_LAUNCHES[who][1]
+              for who in ("slice", "slice-legs", "slice-anymal")}
+    print("kernel: grads launches on the training slices: " + ", ".join(
+        f"{who} {n}" for who, n in slices.items()))
+    if not all(n > 0 for n in slices.values()):
+        raise AssertionError(f"a training slice ran no grads kernel: {slices}")
     learn_entries = [
         dict(name=f"learn.{k}", route="cuda",
              source="nightmare_rl_tpu_torch/ops/csrc/learn.cu",

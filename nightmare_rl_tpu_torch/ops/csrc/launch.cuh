@@ -93,10 +93,43 @@ struct BlockTeam {
     *dst = *src;
 #endif
   }
+  // N consecutive elements (4, 8 or 16 bytes, aligned to their size)
+  template <int N, typename T>
+  __host__ __device__ void copy_n(T* dst, const T* src) const {
+#ifdef __CUDA_ARCH__
+    __pipeline_memcpy_async(dst, src, N * sizeof(T));
+#else
+    for (int u = 0; u < N; ++u) dst[u] = src[u];
+#endif
+  }
   __host__ __device__ void copy_wait() const {
 #ifdef __CUDA_ARCH__
     __pipeline_commit();
     __pipeline_wait_prior(0);
+#endif
+  }
+  __host__ __device__ void stamp(int) const {}
+};
+
+// The block team of a kernel built with a timeline: thread 0 of each of the
+// first Blocks blocks writes the card's global timer (ns) at stamp k into
+// row `blk` of a device array of Stamps columns, and the SM's cycle counter
+// into the same place of the array's second half (Blocks rows more).
+template <int Stamps, int Blocks>
+struct StampedBlockTeam : BlockTeam {
+  long long* timeline;
+  int blk;
+  __host__ __device__ void stamp(int k) const {
+#ifdef __CUDA_ARCH__
+    if (threadIdx.x == 0 && blk < Blocks) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      const long long at = static_cast<long long>(blk) * Stamps + k;
+      timeline[at] = t;
+      timeline[static_cast<long long>(Blocks) * Stamps + at] = clock64();
+    }
+#else
+    (void)k;
 #endif
   }
 };

@@ -27,23 +27,37 @@
 // (~0.8 us); adam ~0.5 MB (~0.15 us): both are launch-bound.
 //
 // The design.  grads: the grid's blocks split into the actor's and the
-// critic's (the loss's gradient reaches each net through its own head),
-// one block of each per SM; a block stages its net's weights in shared
-// memory once (rows padded to an odd length) and walks its share of the
-// minibatch in tiles of 32 samples: the rows gathered feature-major
-// ([feature][sample], rows of 33), each layer's outputs and activation
-// derivatives kept, the loss stage per sample, the deltas back through the
-// layers in place; every product a 4 x 2 register tile per thread (FP32
-// FMA, no tensor core: wgmma and TMA are for a later design), the tails of
-// the widths 54, 42, 30 and 18 padded by repeating a row; the tile's
-// weight and bias gradients summed over its samples and added to the
-// block's sums in shared memory.  The grid's sums: each block writes its
-// row, the last block of a group of blocks (an integer ticket) adds its
-// group's rows in block order, the last group adds the groups' rows in
-// order and writes the flat buffer: no float atomics, so a replay equals
-// the eager call bit for bit.  gae: a thread an env, its sum by lane and a
-// fixed tree, the blocks' sums by the last block.  adam: one block, the
-// norm's squares by 1,024 lanes and a fixed tree.
+// critic's (the loss's gradient reaches each net through its own head), one
+// block of each per SM, 256 threads each; a block stages its net's weights
+// transposed (Wt[k][j], rows of n_out rounded up to 4) in shared memory once
+// and walks its share of the minibatch in tiles of kTile = 64 samples.  The
+// tile's rows lie feature-major ([feature][sample], 16-byte rows of 68
+// words, 4 (mod 32): the rows of eight consecutive features start on
+// distinct banks), so every product reads its operands as 16-byte vectors:
+// the forward pass a 4 x 4 tile of (outputs, samples) per item (a vector of
+// Wt's row k, a vector of x's), the weight gradients 4 outputs x 4 inputs
+// summed over the samples four at a time (the inputs' rows kt, kt + nkt,
+// ...: a quarter warp's on distinct banks), the deltas 4 inputs x 4
+// samples; FP32 FMA, no tensor core (the port's nets run in full float32).
+// The activation's derivative comes from its output (with z's sign, a bit
+// a sample, where ELU's or LeakyReLU's parameter is below 0 and the output
+// is above 0 on both sides), and a layer's deltas overwrite its outputs
+// once its weight gradients have read them: only x, the hidden outputs and
+// the head stay.  The loss stage is three phases: a member an (action,
+// sample) for the log-probability's and KL's terms, a member a sample for
+// their sums (in the actions' order), the ratio and the clipped surrogate,
+// a member an (action, sample) for d/dmu and d/dstd.
+// While a tile computes, the next one's indices, loss rows and
+// observations are in flight (cp.async, 8-byte copies where a row allows;
+// the observations as they lie into rows the last backward phase no
+// longer reads, laid out into x after it).  A block adds each tile's
+// gradients to its row of the scratch (L2), the last block of a
+// group (an integer ticket) adds its group's rows in block order, the last
+// group of each net adds the groups' rows in order into the flat buffer,
+// and the later of the two nets writes the losses: no float atomics, so a
+// replay equals the eager call bit for bit.  gae: a thread an env, its sum
+// by lane and a fixed tree, the blocks' sums by the last block.  adam: one
+// block, the norm's squares by 1,024 lanes and a fixed tree.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +72,9 @@ using learn_env::GaeArgs;
 using learn_env::GradsArgs;
 
 constexpr int kGradsThreads = 256;
+// launch_grads' return code for tiles whose shared memory is above the
+// card's opt-in limit (ops/learn.py SMEM_ABOVE_LIMIT: a ValueError)
+constexpr int kSmemAboveLimit = -1;
 
 // Whether this block is the last of `n` to arrive at `counter` (the
 // block's stores made visible to the grid first); the last resets it.
@@ -83,22 +100,42 @@ __global__ void __launch_bounds__(learn_env::kGaeLanes)
     learn_env::gae_final(BlockTeam{}, a);
 }
 
+// Built with -DLEARN_TIMELINE (tools/profile_learn.py --timeline), thread 0
+// of each of the first kTimelineBlocks blocks of grads stamps the card's
+// global timer (ns) and its SM's cycle counter at learn_env's Stamp points
+// into g_timeline; otherwise a stamp is nothing.
+#ifdef LEARN_TIMELINE
+constexpr int kTimelineBlocks = 512, kStamps = learn_env::kStamps;
+__device__ long long g_timeline[2 * kTimelineBlocks * kStamps];
+#endif
+
 template <typename T>
 __global__ void __launch_bounds__(kGradsThreads, 2)
     learn_grads_kernel(const __grid_constant__ GradsArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const BlockTeam tm{};
-  learn_env::grads_block(tm, a, blockIdx.x, reinterpret_cast<T*>(smem));
   const int blk = static_cast<int>(blockIdx.x);
+#ifdef LEARN_TIMELINE
+  const common::StampedBlockTeam<kStamps, kTimelineBlocks> tm{{}, g_timeline,
+                                                              blk};
+#else
+  const BlockTeam tm{};
+#endif
+  learn_env::grads_block(tm, a, blk, reinterpret_cast<T*>(smem));
   const int k = blk < a.blocks[0] ? 0 : 1;
   const int b = k == 0 ? blk : blk - a.blocks[0];
   const int g = b / a.group;
   const int in_group = min(a.group, a.blocks[k] - g * a.group);
   if (!last_to_arrive(a.counters + k * a.groups[0] + g, in_group)) return;
   learn_env::grads_group(tm, a, k, g);
-  const int groups = a.groups[0] + a.groups[1];
-  if (!last_to_arrive(a.counters + groups, groups)) return;
-  learn_env::grads_final(tm, a);
+  tm.sync();
+  tm.stamp(learn_env::kStampGroup);
+  int* const net = a.counters + a.groups[0] + a.groups[1];
+  if (!last_to_arrive(net + k, a.groups[k])) return;
+  learn_env::grads_final(tm, a, k);
+  if (!last_to_arrive(net + 2, 2)) return;
+  learn_env::grads_losses(tm, a);
+  tm.sync();
+  tm.stamp(learn_env::kStampFinal);
 }
 
 template <typename T>
@@ -127,7 +164,17 @@ int launch_grads(const int* ints, int nints, const double* reals, int nreals,
   const int smem = learn_env::grads_smem_elems(a) * static_cast<int>(sizeof(T));
   const void* kernel = reinterpret_cast<const void*>(learn_grads_kernel<T>);
   cudaError_t e = common::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) {
+    int device = 0, limit = 0;
+    if (cudaGetDevice(&device) == cudaSuccess &&
+        cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device) == cudaSuccess &&
+        smem > limit) {
+      cudaGetLastError();  // the refused attribute's error, not a launch's
+      return kSmemAboveLimit;
+    }
+    return static_cast<int>(e);
+  }
   learn_grads_kernel<T><<<a.blocks[0] + a.blocks[1], kGradsThreads, smem,
                           stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -186,3 +233,38 @@ LEARN_ENTRY(learn_adam_f32, launch_adam, float)
 LEARN_ENTRY(learn_adam_f64, launch_adam, double)
 LEARN_SMEM_ENTRY(learn_grads_smem_f32, float)
 LEARN_SMEM_ENTRY(learn_grads_smem_f64, double)
+
+// Blocks of grads one SM holds at once with `smem` bytes of dynamic shared
+// memory each, into *blocks.
+extern "C" int learn_grads_blocks_per_sm(int itemsize, int smem,
+                                         int* blocks) {
+  const void* kernel =
+      itemsize == 4 ? reinterpret_cast<const void*>(learn_grads_kernel<float>)
+                    : reinterpret_cast<const void*>(learn_grads_kernel<double>);
+  cudaError_t e = common::allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      kGradsThreads, smem);
+  return static_cast<int>(e);
+}
+
+#ifdef LEARN_TIMELINE
+// The stamps of the last launch's first blocks (kStamps a block) into
+// out[n] on the host: the global timer's (ns) with cycles 0, the SM's
+// cycle counter's with cycles 1; learn_timeline_clear zeroes them first.
+extern "C" int learn_timeline(long long* out, int n, int cycles) {
+  if (n > kTimelineBlocks * kStamps) n = kTimelineBlocks * kStamps;
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_timeline, static_cast<size_t>(n) * sizeof(long long),
+      cycles ? sizeof(long long) * kTimelineBlocks * kStamps : 0));
+}
+extern "C" int learn_timeline_clear() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, g_timeline);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_timeline));
+  return static_cast<int>(e);
+}
+// Stamps a block, and their names, comma-separated.
+extern "C" int learn_timeline_stamps() { return kStamps; }
+extern "C" const char* learn_timeline_names() { return learn_env::kStampNames; }
+#endif

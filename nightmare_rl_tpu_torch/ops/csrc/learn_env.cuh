@@ -9,16 +9,17 @@
 // scan (nightmare_rl_tpu/rl/ppo.py:187-203).
 //
 // grads_block computes, for the samples of a minibatch that a block owns
-// (rows idx of the (T·N, ·) trajectory, gathered as they are read), the
+// (rows idx of the (T·N, ·) trajectory, gathered a tile ahead), the
 // feed-forward actor's or critic's forward pass, the per-sample gradients
 // of the PPO loss (the clipped surrogate and the log-probability through
 // the actor and the std, the clipped value loss through the critic), their
 // backward pass, and sums the weight, bias and std gradients and the loss
-// terms over its samples; grads_group and grads_final sum the blocks'
-// partials over the grid and write every gradient and the KL into the flat
-// buffer and (loss, surrogate, value loss) into the losses.  They port the
-// JAX update's value_and_grad of loss_fn (nightmare_rl_tpu/rl/ppo.py:
-// 339-348, _loss_terms :222-242, models/actor_critic.py:133-159).
+// terms over its samples into its row of the scratch; grads_group,
+// grads_final and grads_losses sum the blocks' rows over the grid and write
+// every gradient and the KL into the flat buffer and (loss, surrogate,
+// value loss) into the losses.  They port the JAX update's value_and_grad
+// of loss_fn (nightmare_rl_tpu/rl/ppo.py:339-348, _loss_terms :222-242,
+// models/actor_critic.py:133-159).
 //
 // adam_block divides the flat buffer (the gradients and, last, the KL,
 // summed over the ranks) by the world, sets the adaptive learning rate from
@@ -28,14 +29,15 @@
 // (nightmare_rl_tpu/rl/ppo.py:100-103, :244-255, :349-359).
 //
 // The team contract is rollout_env.cuh's: rank(), size(), sync(),
-// copy(dst, src) and copy_wait().  Work is split by index, and every sum
-// runs in an order that does not depend on the team's size: a product's
-// element sums its terms in ascending order; the gradients of a block's
-// tile of samples are summed over the tile, then added to the block's sums
-// tile by tile; the grid's partial sums are added group by group in block
-// order, then the groups in order; the GAE and Adam sums run over a fixed
-// number of virtual lanes, then a fixed tree.  No float atomics: a replay
-// gives the eager call's bits.
+// copy(dst, src) and copy_wait(), and stamp(k) (a timer stamp, nothing but
+// in a timeline build).  Work is split by index, and every sum runs in an
+// order that does not depend on the team's size: a product's element sums
+// its terms in ascending order; the gradients of a block's tile of samples
+// are summed over the tile, then added to the block's sums tile by tile;
+// the grid's partial sums are added group by group in block order, then
+// the groups in order; the GAE and Adam sums run over a fixed number of
+// virtual lanes, then a fixed tree.  No float atomics: a replay gives the
+// eager call's bits.
 
 #pragma once
 
@@ -61,26 +63,51 @@ using rollout_env::odd_ld;
 
 constexpr int kGaeLanes = 256;    // envs of a gae block, its lanes
 constexpr int kGaeAhead = 8;      // steps of an env's loads issued at once
-constexpr int kTile = 32;         // samples of a grads tile
-#ifndef LEARN_TILE_R
-#define LEARN_TILE_R 4
-#endif
-#ifndef LEARN_TILE_C
-#define LEARN_TILE_C 2
-#endif
-// A product's register tile: rows and columns (kTile a multiple of them).
+// grads' samples a tile (a multiple of 32), and a feature-major row's
+// length in shared memory: 16-byte rows at 4 (mod 32) words, so that the
+// rows of eight consecutive features start on distinct banks.
+constexpr int kTile = 64;
+constexpr int kLd = kTile + 4;
+// grads' register tiles (members' items; the products' vector loads are 4
+// elements, 16 bytes in float32): the forward pass kFwdJ outputs by kFwdS
+// samples, the deltas kDxK inputs by kDxS samples, the weight gradients
+// kDwJ outputs by kDwK inputs (kFwdJ, kFwdS and kDxS multiples of 4).
 // Every shape gives the same bits (an element sums its terms in order).
-// On the card a minibatch took 518-520 us at 4 x 2, 568-573 at 4 x 4,
-// 529-532 at 2 x 4, 550-552 at 2 x 2, 638-639 at 1 x 4 with the k loop
-// unrolled twice; 491-493 at 4 x 2 unrolled 4 or 8 times, or with 512
-// threads a block (PERF.md §6).
-constexpr int kTR = LEARN_TILE_R;
-constexpr int kTC = LEARN_TILE_C;
-constexpr int kLd = kTile + 1;    // a feature-major row's length (odd)
+constexpr int kFwdJ = 4, kFwdS = 4;
+constexpr int kDxK = 4, kDxS = 4;
+constexpr int kDwJ = 4, kDwK = 4;
+// For ELU's and LeakyReLU's parameter below 0 (GradsArgs::neg), z > 0 of
+// each hidden output: a byte for 4 samples (bit u: sample 4 q + u), kQuads
+// bytes a feature.
+constexpr int kQuads = kTile / 4;
 constexpr int kAdamLanes = 1024;  // adam's virtual lanes for the norm
 constexpr int kMaxTensors = 64;   // adam's parameter tensors at most
 constexpr int kAhead = 4;         // adam's elements a member loads at once
 constexpr int kMaxTeam = 64;      // host team members at most
+
+// The stamps of grads' timeline (csrc/learn.cu built with -DLEARN_TIMELINE,
+// tools/profile_learn.py --timeline): the team's stamp(k) at the end of
+// each phase of one tile of a block's walk (its second, where it has two),
+// of the walk, and of the grid's sums in the block that adds them.  A
+// phase a design does not have is not stamped.
+constexpr int kLossStamps = 3;
+enum Stamp {
+  kStampStart,                              // the block starts
+  kStampStaged,                             // the weights staged
+  kStampTile,                               // the recorded tile starts
+  kStampGather,                             // its rows gathered
+  kStampFwd,                                // + i: forward layer i
+  kStampLoss = kStampFwd + kMaxLayers,      // + k: the loss stage's phases
+  kStampBwd = kStampLoss + kLossStamps,     // + 2 i + part: backward layer i
+  kStampWalk = kStampBwd + 2 * kMaxLayers,  // the block's walk ends
+  kStampGroup,                              // its group's sum
+  kStampFinal,                              // the grid's sum
+  kStamps
+};
+static const char kStampNames[] =
+    "start,staged,tile,gather,fwd0,fwd1,fwd2,fwd3,fwd4,fwd5,fwd6,fwd7,loss0,"
+    "loss1,loss2,bwd0a,bwd0b,bwd1a,bwd1b,bwd2a,bwd2b,bwd3a,bwd3b,bwd4a,bwd4b,"
+    "bwd5a,bwd5b,bwd6a,bwd6b,bwd7a,bwd7b,walk,group,final";
 
 // ---- the C interface's blocks -----------------------------------------
 
@@ -185,22 +212,24 @@ LEARN_HD T max_share(T a, T b) {
   return a > b ? T(1) : (a == b ? T(0.5) : T(0));
 }
 
-// d activate(z) / dz from z and y = activate(z): ELU and SELU from y below
-// 0 (y + alpha is alpha * exp(z)).
+// d activate(z) / dz from y = activate(z) and whether z > 0 (`pos`: y > 0
+// but for ELU's and LeakyReLU's parameter below 0, where y > 0 on both
+// sides and grads keeps z's sign apart); ELU and SELU below 0 from y (y +
+// alpha is alpha * exp(z)).
 template <typename T>
-LEARN_HD T activate_grad(int kind, T alpha, T z, T y) {
+LEARN_HD T activate_grad(int kind, T alpha, T y, bool pos) {
   switch (kind) {
     case rollout_env::kElu:
-      return z > T(0) ? T(1) : y + alpha;
+      return pos ? T(1) : y + alpha;
     case rollout_env::kRelu:
-      return z > T(0) ? T(1) : T(0);
+      return pos ? T(1) : T(0);
     case rollout_env::kSelu: {
       const T scale = T(1.0507009873554804934193349852946);
       const T salpha = T(1.6732632423543772848170429916717);
-      return z > T(0) ? scale : y + scale * salpha;
+      return pos ? scale : y + scale * salpha;
     }
     case rollout_env::kLeakyRelu:
-      return z > T(0) ? T(1) : alpha;
+      return pos ? T(1) : alpha;
     case rollout_env::kTanh:
       return T(1) - y * y;
     default:  // kSigmoid
@@ -208,25 +237,67 @@ LEARN_HD T activate_grad(int kind, T alpha, T z, T y) {
   }
 }
 
-// acc[r][c] += sum over k < K of a[ao[r] + k * ak] * b[bo[c] + k * bk], k
-// ascending: a kTR x kTC tile of a product, its rows and columns at the
-// given offsets (a tail's offsets repeat a valid row; its results are
-// dropped).
+// Four consecutive elements, 16-byte aligned (two 16-byte loads in
+// float64): one vector load on the card.
 template <typename T>
-LEARN_HD void tile_dot(int K, const T* a, const int ao[kTR], int ak,
-                       const T* b, const int bo[kTC], int bk,
-                       T acc[kTR][kTC]) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    T av[kTR], bv[kTC];
-#pragma unroll
-    for (int r = 0; r < kTR; ++r) av[r] = a[ao[r] + k * ak];
-#pragma unroll
-    for (int c = 0; c < kTC; ++c) bv[c] = b[bo[c] + k * bk];
-#pragma unroll
-    for (int r = 0; r < kTR; ++r)
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) acc[r][c] += av[r] * bv[c];
+LEARN_HD void ld4(const T* p, T v[4]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const double2 f = reinterpret_cast<const double2*>(p)[0];
+    const double2 g = reinterpret_cast<const double2*>(p)[1];
+    v[0] = f.x, v[1] = f.y, v[2] = g.x, v[3] = g.y;
+  }
+#else
+  for (int u = 0; u < 4; ++u) v[u] = p[u];
+#endif
+}
+template <typename T>
+LEARN_HD void st4(T* p, const T v[4]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  }
+#else
+  for (int u = 0; u < 4; ++u) p[u] = v[u];
+#endif
+}
+// ld4 of what another block of the grid wrote (through L2 on the card).
+template <typename T>
+LEARN_HD void ld4_shared(const T* p, T v[4]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const double2 f = __ldcg(reinterpret_cast<const double2*>(p));
+    const double2 g = __ldcg(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = f.x, v[1] = f.y, v[2] = g.x, v[3] = g.y;
+  }
+#else
+  for (int u = 0; u < 4; ++u) v[u] = p[u];
+#endif
+}
+
+// put(c, q) for every c < nc and q < w, a member taking the items p = c *
+// w + q = rank, rank + size, ... (no division in the loop).
+template <typename Team, typename Put>
+LEARN_HD void for_rows(const Team& tm, int nc, int w, Put put) {
+  if (w < 1) return;
+  const int dc = tm.size() / w, dq = tm.size() - dc * w;
+  int c = tm.rank() / w, q = tm.rank() - c * w;
+  for (; c < nc; c += dc) {
+    put(c, q);
+    q += dq;
+    if (q >= w) {
+      q -= w;
+      ++c;
+    }
   }
 }
 
@@ -234,34 +305,30 @@ LEARN_HD int min_i(int a, int b) { return a < b ? a : b; }
 LEARN_HD int tiles_of(int n, int t) { return (n + t - 1) / t; }
 
 // put(p, sum of src[q * stride + p] over the rows q < nrows, in row order)
-// for every column p < W: a member takes kCols columns at a time and loads
-// kRows rows of them before it adds them (the rows were written by other
-// blocks of the grid: many loads in flight hide L2's latency).
+// for every column p < W (stride a multiple of 4, src 16-byte aligned): a
+// member takes 4 columns at a time and loads kRows rows of them at once
+// before it adds them (the rows were written by other blocks of the grid:
+// many loads in flight hide L2's latency; a grid of 132 blocks a net sums
+// groups of 12 rows, then 11).
 template <typename T, typename Team, typename Put>
 LEARN_HD void col_sums(const Team& tm, const T* src, size_t stride,
                        int nrows, int W, Put put) {
-  constexpr int kCols = 4, kRows = 8;
-  for (int p0 = tm.rank() * kCols; p0 < W; p0 += tm.size() * kCols) {
-    T sum[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) sum[c] = T(0);
+  constexpr int kRows = 12;
+  for (int p0 = tm.rank() * 4; p0 < W; p0 += tm.size() * 4) {
+    T sum[4] = {T(0), T(0), T(0), T(0)};
     for (int q0 = 0; q0 < nrows; q0 += kRows) {
-      T v[kRows][kCols];
+      T v[kRows][4];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          v[r][c] = q0 + r < nrows && p0 + c < W
-                        ? ld_shared(src + (q0 + r) * stride + p0 + c)
-                        : T(0);
+        if (q0 + r < nrows) ld4_shared(src + (q0 + r) * stride + p0, v[r]);
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
+        if (q0 + r < nrows)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (q0 + r < nrows) sum[c] += v[r][c];
+          for (int c = 0; c < 4; ++c) sum[c] += v[r][c];
     }
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+    for (int c = 0; c < 4; ++c)
       if (p0 + c < W) put(p0 + c, sum[c]);
   }
 }
@@ -375,24 +442,35 @@ LEARN_HD void gae_final(const Team& tm, const GaeArgs<T>& a) {
 // ---- grads ----------------------------------------------------------------
 
 // One net of the grid (the actor, role 0, or the critic, role 1): its
-// layers, their staged weights' offsets and row lengths, their activations'
-// offsets (hidden layers; elements of the y and d buffers, kLd a unit),
-// their gradients' columns in a block's sums (weights row-major, then the
-// biases) and in the flat buffer; the std's and the loss terms' columns.
+// layers; their transposed weights' offsets and row lengths (n_out rounded
+// up to kFwdJ, the pad zero) and their biases' offsets in shared memory;
+// their outputs' rows in y (hidden layers); their gradients' columns in a
+// block's sums (each layer's weight row-major, then its bias) and in the
+// flat buffer; the std's and the loss terms' columns; the width of a
+// block's sums and its row's stride in the scratch (16-byte rows).  Then
+// the block's shared memory, in elements from its base (each part 16-byte
+// aligned): the tile's indices, the weights, biases and the std's
+// constants, the input tile x, the hidden outputs y, the head h, where the
+// next tile's x arrives (the spare rows: y's from layer 1 on and h, which
+// the last backward phase no longer reads, or rows of their own), the loss
+// rows (the actor's: a sample's action, mu and sigma in a row of ldr, then
+// logp and the advantage; the critic's value and return) and the loss
+// stage's per-sample scratch (g, the surrogate or value loss, the KL).
 template <typename T>
 struct Role {
-  int nl, width, in0, wsize, hsize, head;
+  int nl, width, stride, in0, head, ldr;
   Layer<T> layer[kMaxLayers];
-  int ld[kMaxLayers], woff[kMaxLayers], hoff[kMaxLayers];
+  int ldt[kMaxLayers], wtoff[kMaxLayers], boff[kMaxLayers], hoff[kMaxLayers];
   int col_w[kMaxLayers], col_b[kMaxLayers];
   int flat_w[kMaxLayers], flat_b[kMaxLayers];
   int col_std, col_loss;  // the actor's std (A) and (surrogate, kl) sums;
                           // the critic's value loss sum (col_loss)
+  int o_wt, o_b, o_c, o_x, o_y, o_h, o_spare, o_rows, o_aux, o_pos, elems;
 };
 
 template <typename T>
 struct GradsArgs {
-  int B, A, nobs, act, blocks[2], group, groups[2], clipped, P, std_off;
+  int B, A, nobs, act, neg, blocks[2], group, groups[2], clipped, P, std_off;
   T std_floor, alpha, clip, value_coef, entropy_coef;
   const T *obs, *action, *mu, *sigma, *logp, *value, *returns, *adv, *std;
   const long long* idx;
@@ -401,19 +479,54 @@ struct GradsArgs {
   Role<T> role[2];
 };
 
-// The shared memory of a role's block (elements): the staged weights, the
-// block's sums, the input tile (in0 x kLd), the hidden outputs y and their
-// derivatives d (then deltas), the head (outputs, then deltas), and the
-// loss stage's scratch (three A x kLd, three kLd).
+LEARN_HD int up4(int n) { return (n + 3) & ~3; }
+
+// Role k's shared memory layout (Role's o_* fields and elems), from its
+// layers; with z's signs where `neg`.
 template <typename T>
-LEARN_HD int role_smem_elems(const GradsArgs<T>& a, const Role<T>& r) {
-  return r.wsize + r.width + kLd * (r.in0 + 2 * r.hsize + r.head) +
-         kLd * (3 * a.A + 3);
+LEARN_HD void role_layout(int A, int k, bool neg, Role<T>* r) {
+  int at = up4(static_cast<int>(kTile * sizeof(long long) / sizeof(T)));
+  r->o_wt = at;
+  for (int i = 0; i < r->nl; ++i) {
+    r->wtoff[i] = at - r->o_wt;
+    at += r->layer[i].n_in * r->ldt[i];
+  }
+  at = up4(at);
+  r->o_b = at;
+  for (int i = 0; i < r->nl; ++i) {
+    r->boff[i] = at - r->o_b;
+    at += r->layer[i].n_out;
+  }
+  r->o_c = up4(at);
+  at = up4(r->o_c + (k == 0 ? 2 * A : 0));
+  r->o_x = at;
+  r->o_y = at + kLd * r->in0;
+  int hsize = 0;
+  for (int i = 0; i + 1 < r->nl; ++i) {
+    r->hoff[i] = hsize;
+    hsize += r->layer[i].n_out;
+  }
+  r->o_h = r->o_y + kLd * hsize;
+  const int end_h = r->o_h + kLd * r->head;
+  // (the next tile's observations, kTile rows of in0)
+  r->o_spare = r->nl > 1 ? r->o_y + kLd * r->layer[0].n_out : end_h;
+  const int end_spare = r->o_spare + kLd * r->in0;
+  at = end_h > end_spare ? end_h : end_spare;
+  // a loss row: 8-byte aligned at 2 (mod 4) words for an even A (its
+  // copies 8 bytes; a warp's rows on 16 distinct banks), odd otherwise
+  r->ldr = A % 2 == 0 ? 3 * A + (3 * A % 4 == 2 ? 0 : 2) : odd_ld(3 * A);
+  r->o_rows = at;
+  at = up4(at + (k == 0 ? kTile * r->ldr + 2 * kTile : 2 * kTile));
+  r->o_aux = at;
+  r->o_pos = up4(at + 3 * kTile);
+  const int pos_bytes = neg ? kQuads * hsize : 0;
+  r->elems = r->o_pos + up4((pos_bytes + static_cast<int>(sizeof(T)) - 1) /
+                            static_cast<int>(sizeof(T)));
 }
 
 template <typename T>
 LEARN_HD int grads_smem_elems(const GradsArgs<T>& a) {
-  const int x = role_smem_elems(a, a.role[0]), y = role_smem_elems(a, a.role[1]);
+  const int x = a.role[0].elems, y = a.role[1].elems;
   return x > y ? x : y;
 }
 
@@ -422,7 +535,7 @@ template <typename T>
 LEARN_HD long long grads_scratch_elems(const GradsArgs<T>& a) {
   long long n = 0;
   for (int k = 0; k < 2; ++k)
-    n += static_cast<long long>(a.blocks[k] + a.groups[k]) * a.role[k].width;
+    n += static_cast<long long>(a.blocks[k] + a.groups[k]) * a.role[k].stride;
   return n;
 }
 
@@ -465,6 +578,9 @@ inline bool read_grads(const int* ints, int nints, const double* reals,
   a->clip = static_cast<T>(reals[grads_real::clip]);
   a->value_coef = static_cast<T>(reals[grads_real::value_coef]);
   a->entropy_coef = static_cast<T>(reals[grads_real::entropy_coef]);
+  a->neg = (a->act == rollout_env::kElu ||
+            a->act == rollout_env::kLeakyRelu) &&
+           reals[grads_real::alpha] < 0;
   const void* const* P = ptrs;
   auto mp = [&](int k) { return const_cast<void*>(P[k]); };
   a->obs = static_cast<const T*>(P[grads_ptr::obs]);
@@ -489,7 +605,7 @@ inline bool read_grads(const int* ints, int nints, const double* reals,
     Role<T>& r = a->role[k];
     const int l0 = k == 0 ? 0 : n_actor;
     r.nl = k == 0 ? n_actor : n_critic;
-    r.width = r.wsize = r.hsize = 0;
+    r.width = 0;
     for (int i = 0; i < r.nl; ++i) {
       const int l = l0 + i;
       const int* L = I + grads_int::kCount + 4 * l;
@@ -503,11 +619,7 @@ inline bool read_grads(const int* ints, int nints, const double* reals,
                             static_cast<const T*>(P[grads_ptr::kCount + 2 * l + 1]),
                             n_in, n_out};
       if (!r.layer[i].w || !r.layer[i].b) return false;
-      r.ld[i] = odd_ld(n_in);
-      r.woff[i] = r.wsize;
-      r.wsize += n_out * r.ld[i];
-      r.hoff[i] = r.hsize;
-      if (i < r.nl - 1) r.hsize += n_out;
+      r.ldt[i] = tiles_of(n_out, kFwdJ) * kFwdJ;
       r.col_w[i] = r.width;
       r.col_b[i] = r.width + n_in * n_out;
       r.width += n_in * n_out + n_out;
@@ -520,42 +632,51 @@ inline bool read_grads(const int* ints, int nints, const double* reals,
     if (k == 0) r.width += a->A;
     r.col_loss = r.width;
     r.width += k == 0 ? 2 : 1;
+    r.stride = up4(r.width);
+    role_layout(a->A, k, a->neg != 0, &r);
   }
   if (static_cast<long long>(I[grads_int::scratch]) < grads_scratch_elems(*a))
     return false;
   T* s = scratch;
   for (int k = 0; k < 2; ++k) {
     a->part[k] = s;
-    s += static_cast<size_t>(a->blocks[k]) * a->role[k].width;
+    s += static_cast<size_t>(a->blocks[k]) * a->role[k].stride;
   }
   for (int k = 0; k < 2; ++k) {
     a->gsum[k] = s;
-    s += static_cast<size_t>(a->groups[k]) * a->role[k].width;
+    s += static_cast<size_t>(a->groups[k]) * a->role[k].stride;
   }
   return true;
 }
 
 template <typename T>
 struct GradsSmem {
-  T *w, *acc, *x, *y, *d, *h, *l1, *l2, *dd, *g, *sur, *kl;
+  long long* idx;
+  T *wt, *bias, *sd, *lsd, *x, *y, *h, *spare, *rows, *r1, *r2, *g, *sur, *kl;
+  unsigned char* pos;
 };
 
 template <typename T>
 LEARN_HD GradsSmem<T> grads_smem(const GradsArgs<T>& a, const Role<T>& r,
-                                 T* base) {
+                                 int k, T* base) {
   GradsSmem<T> s;
-  s.w = base;
-  s.acc = s.w + r.wsize;
-  s.x = s.acc + r.width;
-  s.y = s.x + kLd * r.in0;
-  s.d = s.y + kLd * r.hsize;
-  s.h = s.d + kLd * r.hsize;
-  s.l1 = s.h + kLd * r.head;
-  s.l2 = s.l1 + kLd * a.A;
-  s.dd = s.l2 + kLd * a.A;
-  s.g = s.dd + kLd * a.A;
-  s.sur = s.g + kLd;
-  s.kl = s.sur + kLd;
+  s.idx = reinterpret_cast<long long*>(base);
+  s.wt = base + r.o_wt;
+  s.bias = base + r.o_b;
+  s.sd = base + r.o_c;
+  s.lsd = s.sd + a.A;
+  s.x = base + r.o_x;
+  s.y = base + r.o_y;
+  s.h = base + r.o_h;
+  s.spare = base + r.o_spare;
+  s.rows = base + r.o_rows;
+  // the actor's logp and advantages, the critic's values and returns
+  s.r1 = s.rows + (k == 0 ? kTile * r.ldr : 0);
+  s.r2 = s.r1 + kTile;
+  s.g = base + r.o_aux;
+  s.sur = s.g + kTile;
+  s.kl = s.sur + kTile;
+  s.pos = reinterpret_cast<unsigned char*>(base + r.o_pos);
   return s;
 }
 
@@ -566,147 +687,210 @@ LEARN_HD T std_eff(const GradsArgs<T>& a, int i) {
   return a.std_floor > T(0) && sd < a.std_floor ? a.std_floor : sd;
 }
 
-// Layer i's forward pass over the tile: z = W x + b, and for a hidden layer
-// y = activate(z) and d = activate'(z) (the head's z into h).
+// The block's weights staged transposed (Wt[k][j] = W[j][k], the rows' pad
+// zero), its biases, and the actor's std and its log per action.
+template <typename T, typename Team>
+LEARN_HD void stage(const Team& tm, const GradsArgs<T>& a, const Role<T>& r,
+                    const GradsSmem<T>& s, bool actor) {
+  for (int i = 0; i < r.nl; ++i) {
+    const Layer<T>& L = r.layer[i];
+    T* wt = s.wt + r.wtoff[i];
+    const int ldt = r.ldt[i], pad = ldt - L.n_out;
+    for_rows(tm, L.n_out, L.n_in, [&](int j, int k) {
+      tm.copy(wt + k * ldt + j, L.w + j * L.n_in + k);
+    });
+    for_rows(tm, L.n_in, pad,
+             [&](int k, int j) { wt[k * ldt + L.n_out + j] = T(0); });
+    for (int j = tm.rank(); j < L.n_out; j += tm.size())
+      tm.copy(s.bias + r.boff[i] + j, L.b + j);
+  }
+  if (actor)
+    for (int i = tm.rank(); i < a.A; i += tm.size()) {
+      const T sd = std_eff(a, i);
+      s.sd[i] = sd;
+      s.lsd[i] = T(log(sd));
+    }
+}
+
+// The samples of tile t below B.
+template <typename T>
+LEARN_HD int tile_samples(const GradsArgs<T>& a, int t) {
+  return min_i(kTile, a.B - t * kTile);
+}
+
+// Tile t's rows of the trajectory (its indices into s.idx).
+template <typename T, typename Team>
+LEARN_HD void fetch_idx(const Team& tm, const GradsArgs<T>& a,
+                        const GradsSmem<T>& s, int t) {
+  const int ns = tile_samples(a, t);
+  for (int c = tm.rank(); c < ns; c += tm.size())
+    tm.copy(s.idx + c, a.idx + t * kTile + c);
+}
+
+// Tile t's observations as they lie (a sample's row after another's, 8-byte
+// copies where the width is even) into the spare rows; place_x lays them
+// out feature-major in x.
+template <typename T, typename Team>
+LEARN_HD void fetch_x(const Team& tm, const GradsArgs<T>& a,
+                      const GradsSmem<T>& s, int t) {
+  const int ns = tile_samples(a, t), n = a.nobs;
+  if (n % 2 == 0)
+    for_rows(tm, ns, n / 2, [&](int c, int q) {
+      tm.template copy_n<2>(s.spare + c * n + 2 * q,
+                            a.obs + static_cast<size_t>(s.idx[c]) * n + 2 * q);
+    });
+  else
+    for_rows(tm, ns, n, [&](int c, int q) {
+      tm.copy(s.spare + c * n + q,
+              a.obs + static_cast<size_t>(s.idx[c]) * n + q);
+    });
+}
+
+// The observations that fetch_x brought, feature-major ([feature][sample],
+// rows of kLd) in x, zero past the minibatch's end.
+template <typename T, typename Team>
+LEARN_HD void place_x(const Team& tm, const GradsArgs<T>& a,
+                      const GradsSmem<T>& s, int t) {
+  const int ns = tile_samples(a, t), n = a.nobs;
+  for_rows(tm, n, kTile, [&](int q, int c) {
+    s.x[q * kLd + c] = c < ns ? s.spare[c * n + q] : T(0);
+  });
+}
+
+// Tile t's rows of the loss stage: the actor's action, mu and sigma (a
+// sample's row of r.ldr; 8-byte copies where A is even), logp and
+// normalized advantage; the critic's value and return.
+template <typename T, typename Team>
+LEARN_HD void fetch_rows(const Team& tm, const GradsArgs<T>& a,
+                         const Role<T>& r, const GradsSmem<T>& s, int k,
+                         int t) {
+  const int ns = tile_samples(a, t), A = a.A;
+  if (k == 1) {
+    for_rows(tm, ns, 2, [&](int c, int q) {
+      const size_t row = static_cast<size_t>(s.idx[c]);
+      tm.copy((q ? s.r2 : s.r1) + c, (q ? a.returns : a.value) + row);
+    });
+    return;
+  }
+  const int v = A % 2 == 0 ? 2 : 1, h = A / v;  // a copy's elements
+  for_rows(tm, ns, 3 * h + 2, [&](int c, int q) {
+    const size_t row = static_cast<size_t>(s.idx[c]);
+    if (q >= 3 * h) {
+      tm.copy((q == 3 * h ? s.r1 : s.r2) + c,
+              (q == 3 * h ? a.logp : a.adv) + row);
+      return;
+    }
+    const int f = q >= 2 * h ? 2 : (q >= h ? 1 : 0);
+    const T* src = (f == 0 ? a.action : (f == 1 ? a.mu : a.sigma)) +
+                   row * A + (q - f * h) * v;
+    T* dst = s.rows + c * r.ldr + q * v;
+    if (v == 2)
+      tm.template copy_n<2>(dst, src);
+    else
+      tm.copy(dst, src);
+  });
+}
+
+// Layer i's forward pass over the tile: z = W x + b (each element's terms
+// in ascending k, then the bias), and for a hidden layer y = activate(z)
+// into y (z > 0 into pos where a.neg), the head's z into h.  A member's
+// item is kFwdJ outputs (their weights vectors of Wt's row k) by kFwdS
+// samples: kFwdS / 4 vectors of x's row k, kTile / (kFwdS / 4) samples
+// apart, so that a quarter warp's vectors lie side by side.
 template <typename T, typename Team>
 LEARN_HD void forward_layer(const Team& tm, const GradsArgs<T>& a,
                             const Role<T>& r, const GradsSmem<T>& s, int i) {
+  constexpr int kSpan = kTile / (kFwdS / 4);
   const Layer<T>& L = r.layer[i];
   const bool last = i == r.nl - 1;
-  const T* x = i == 0 ? s.x : s.y + kLd * r.hoff[i - 1];
-  T* y = last ? s.h : s.y + kLd * r.hoff[i];
-  T* d = s.d + kLd * r.hoff[i];
-  const T* w = s.w + r.woff[i];
-  const int ld = r.ld[i], mt = tiles_of(L.n_out, kTR), nt = kTile / kTC;
-  for (int p = tm.rank(); p < mt * nt; p += tm.size()) {
-    const int j0 = (p / nt) * kTR, s0 = (p % nt) * kTC;
-    int ao[kTR], bo[kTC];
+  const T* in = i == 0 ? s.x : s.y + kLd * r.hoff[i - 1];
+  T* out = last ? s.h : s.y + kLd * r.hoff[i];
+  const T* wt = s.wt + r.wtoff[i];
+  const T* bias = s.bias + r.boff[i];
+  const int ldt = r.ldt[i], nj = ldt / kFwdJ, nst = kSpan / 4;
+  for (int p = tm.rank(); p < nj * nst; p += tm.size()) {
+    const int j0 = (p / nst) * kFwdJ, s0 = (p % nst) * 4;
+    T acc[kFwdJ][kFwdS] = {};
+    const T* wp = wt + j0;
+    const T* xp = in + s0;
+#pragma unroll 4
+    for (int k = 0; k < L.n_in; ++k, wp += ldt, xp += kLd) {
+      T w[kFwdJ], x[kFwdS];
 #pragma unroll
-    for (int q = 0; q < kTR; ++q) ao[q] = min_i(j0 + q, L.n_out - 1) * ld;
+      for (int q = 0; q < kFwdJ; q += 4) ld4(wp + q, w + q);
 #pragma unroll
-    for (int c = 0; c < kTC; ++c) bo[c] = s0 + c;
-    T acc[kTR][kTC] = {};
-    tile_dot(L.n_in, w, ao, 1, x, bo, kLd, acc);
+      for (int m = 0; m < kFwdS / 4; ++m) ld4(xp + m * kSpan, x + 4 * m);
 #pragma unroll
-    for (int q = 0; q < kTR; ++q) {
+      for (int q = 0; q < kFwdJ; ++q)
+#pragma unroll
+        for (int c = 0; c < kFwdS; ++c) acc[q][c] += w[q] * x[c];
+    }
+#pragma unroll
+    for (int q = 0; q < kFwdJ; ++q) {
       const int j = j0 + q;
       if (j >= L.n_out) break;
-      const T b = L.b[j];
+      const T b = bias[j];
+      T v[kFwdS];
+      unsigned bits = 0;
 #pragma unroll
-      for (int c = 0; c < kTC; ++c) {
+      for (int c = 0; c < kFwdS; ++c) {
         const T z = acc[q][c] + b;
-        if (last) {
-          y[j * kLd + s0 + c] = z;
-        } else {
-          const T v = activate(a.act, a.alpha, z);
-          y[j * kLd + s0 + c] = v;
-          d[j * kLd + s0 + c] = activate_grad(a.act, a.alpha, z, v);
-        }
+        v[c] = last ? z : activate(a.act, a.alpha, z);
+        bits |= (z > T(0) ? 1u : 0u) << c;
+      }
+#pragma unroll
+      for (int m = 0; m < kFwdS / 4; ++m)
+        st4(out + j * kLd + s0 + m * kSpan, v + 4 * m);
+      if (a.neg && !last) {
+#pragma unroll
+        for (int m = 0; m < kFwdS / 4; ++m)
+          s.pos[(r.hoff[i] + j) * kQuads + (s0 + m * kSpan) / 4] =
+              static_cast<unsigned char>((bits >> (4 * m)) & 15u);
       }
     }
   }
 }
 
-// Layer i's backward pass over the tile, its output's deltas known (the
-// head's in h, a hidden layer's in d): the weight and bias gradients of
-// the tile added to the block's sums, and (i > 0) the input's deltas
-// d_{i-1} *= W^T delta, in place.
-template <typename T, typename Team>
-LEARN_HD void backward_layer(const Team& tm, const Role<T>& r,
-                             const GradsSmem<T>& s, int i) {
-  const Layer<T>& L = r.layer[i];
-  const bool last = i == r.nl - 1;
-  const T* dout = last ? s.h : s.d + kLd * r.hoff[i];
-  const T* in = i == 0 ? s.x : s.y + kLd * r.hoff[i - 1];
-  T* din = i == 0 ? nullptr : s.d + kLd * r.hoff[i - 1];
-  const T* w = s.w + r.woff[i];
-  const int ld = r.ld[i];
-  const int mw = tiles_of(L.n_out, kTR), nw = tiles_of(L.n_in, kTC);
-  const int n_dw = mw * nw, n_db = L.n_out;
-  const int n_dx = i == 0 ? 0 : tiles_of(L.n_in, kTR) * (kTile / kTC);
-  T* gw = s.acc + r.col_w[i];
-  T* gb = s.acc + r.col_b[i];
-  for (int p = tm.rank(); p < n_dw + n_db + n_dx; p += tm.size()) {
-    int ao[kTR], bo[kTC];
-    T acc[kTR][kTC] = {};
-    if (p < n_dw) {
-      // dW[j][k] += sum_s delta[j][s] x[k][s]
-      const int j0 = (p / nw) * kTR, k0 = (p % nw) * kTC;
-#pragma unroll
-      for (int q = 0; q < kTR; ++q) ao[q] = min_i(j0 + q, L.n_out - 1) * kLd;
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) bo[c] = min_i(k0 + c, L.n_in - 1) * kLd;
-      tile_dot(kTile, dout, ao, 1, in, bo, 1, acc);
-#pragma unroll
-      for (int q = 0; q < kTR; ++q)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c)
-          if (j0 + q < L.n_out && k0 + c < L.n_in)
-            gw[(j0 + q) * L.n_in + k0 + c] += acc[q][c];
-    } else if (p < n_dw + n_db) {
-      const int j = p - n_dw;
-      T sum = T(0);
-      for (int c = 0; c < kTile; ++c) sum += dout[j * kLd + c];
-      gb[j] += sum;
-    } else {
-      // d_{i-1}[k][s] *= sum_j W[j][k] delta[j][s]
-      const int q0 = p - n_dw - n_db;
-      const int k0 = (q0 / (kTile / kTC)) * kTR;
-      const int s0 = (q0 % (kTile / kTC)) * kTC;
-#pragma unroll
-      for (int q = 0; q < kTR; ++q) ao[q] = min_i(k0 + q, L.n_in - 1);
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) bo[c] = s0 + c;
-      tile_dot(L.n_out, w, ao, ld, dout, bo, kLd, acc);
-#pragma unroll
-      for (int q = 0; q < kTR; ++q) {
-        if (k0 + q >= L.n_in) break;
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) {
-          T& e = din[(k0 + q) * kLd + s0 + c];
-          e = e * acc[q][c];
-        }
-      }
-    }
-  }
-}
-
-// The actor's loss stage over a tile of ns samples from row r0 of the
-// minibatch: each sample's log-probability, ratio, clipped surrogate and
-// KL; the head's deltas d loss / d mu (the mean's 1/B in them) into h,
-// the tile's std gradients and surrogate and KL sums added to the block's.
+// The actor's loss stage over a tile of ns samples, in three phases.
+// First a member an (action, sample): d = action - mu into the action's
+// place, the log-probability's and the KL's terms into mu's and sigma's
+// (their last reads); then a member a sample: the terms summed over the
+// actions in ascending order, the ratio, the clipped surrogate and g = d
+// loss / d log-probability (the mean's 1/B in it); then a member an
+// (action, sample) again: the head's delta d loss / d mu into h and d loss
+// / d std into the sigma's place.
 template <typename T, typename Team>
 LEARN_HD void actor_loss(const Team& tm, const GradsArgs<T>& a,
-                         const Role<T>& r, const GradsSmem<T>& s, int r0,
-                         int ns) {
+                         const Role<T>& r, const GradsSmem<T>& s, int ns,
+                         bool rec) {
   const int A = a.A;
   const T c2pi = T(1.8378770664093453);  // Python's math.log(2.0 * math.pi)
   for (int p = tm.rank(); p < A * kTile; p += tm.size()) {
     const int i = p / kTile, c = p - i * kTile;
     if (c >= ns) continue;
-    const size_t at = static_cast<size_t>(a.idx[r0 + c]) * A + i;
-    const T mu = s.h[i * kLd + c], sd = std_eff(a, i);
-    const T d = a.action[at] - mu, so = a.sigma[at], dm = a.mu[at] - mu;
-    s.dd[i * kLd + c] = d;
-    s.l1[i * kLd + c] = T(-0.5) * ((d * d) / (sd * sd) + T(2) * T(log(sd)) +
-                                   c2pi);
-    s.l2[i * kLd + c] = (T(log(sd / so)) +
-                         (so * so + dm * dm) / (T(2) * (sd * sd))) - T(0.5);
+    T* row = s.rows + c * r.ldr;
+    const T mu = s.h[i * kLd + c], sd = s.sd[i];
+    const T d = row[i] - mu, so = row[2 * A + i], dm = row[A + i] - mu;
+    row[i] = d;
+    row[A + i] = T(-0.5) * ((d * d) / (sd * sd) + T(2) * s.lsd[i] + c2pi);
+    row[2 * A + i] =
+        (T(log(sd / so)) + (so * so + dm * dm) / (T(2) * (sd * sd))) - T(0.5);
   }
   tm.sync();
+  if (rec) tm.stamp(kStampLoss);
   const T lo = T(1) - a.clip, hi = T(1) + a.clip;
   const T inv_b = T(1) / static_cast<T>(a.B);
   for (int c = tm.rank(); c < kTile; c += tm.size()) {
     T g = T(0), sur = T(0), kl = T(0);
     if (c < ns) {
-      const size_t row = static_cast<size_t>(a.idx[r0 + c]);
+      const T* row = s.rows + c * r.ldr;
       T lp = T(0);
       for (int i = 0; i < A; ++i) {
-        lp += s.l1[i * kLd + c];
-        kl += s.l2[i * kLd + c];
+        lp += row[A + i];
+        kl += row[2 * A + i];
       }
-      const T ratio = T(exp(lp - a.logp[row]));
-      const T nadv = -a.adv[row];
+      const T ratio = T(exp(lp - s.r1[c]));
+      const T nadv = -s.r2[c];
       const T s1 = nadv * ratio, s2 = nadv * clamp_nan(ratio, lo, hi);
       sur = max_nan(s1, s2);
       const T band = ratio >= lo && ratio <= hi ? T(1) : T(0);
@@ -718,48 +902,30 @@ LEARN_HD void actor_loss(const Team& tm, const GradsArgs<T>& a,
     s.kl[c] = kl;
   }
   tm.sync();
+  if (rec) tm.stamp(kStampLoss + 1);
   for (int p = tm.rank(); p < A * kTile; p += tm.size()) {
     const int i = p / kTile, c = p - i * kTile;
     T dmu = T(0), dsd = T(0);
     if (c < ns) {
-      const T sd = std_eff(a, i), g = s.g[c], d = s.dd[i * kLd + c];
+      const T sd = s.sd[i], g = s.g[c], d = s.rows[c * r.ldr + i];
       dmu = g * (d / (sd * sd));
       dsd = g * ((d * d) / (sd * sd * sd) - T(1) / sd);
     }
     s.h[i * kLd + c] = dmu;
-    s.l1[i * kLd + c] = dsd;
-  }
-  tm.sync();
-  for (int i = tm.rank(); i < A + 1; i += tm.size()) {
-    if (i < A) {
-      T sum = T(0);
-      for (int c = 0; c < kTile; ++c) sum += s.l1[i * kLd + c];
-      s.acc[r.col_std + i] += sum;
-    } else {
-      T sur = T(0), kl = T(0);
-      for (int c = 0; c < kTile; ++c) {
-        sur += s.sur[c];
-        kl += s.kl[c];
-      }
-      s.acc[r.col_loss] += sur;
-      s.acc[r.col_loss + 1] += kl;
-    }
+    s.rows[c * r.ldr + 2 * A + i] = dsd;
   }
 }
 
-// The critic's loss stage: each sample's (clipped) value loss; the head's
-// delta d loss / d v into h; the tile's value loss sum added to the
-// block's.
+// The critic's loss stage: a member a sample, its (clipped) value loss
+// and the head's delta d loss / d v into h.
 template <typename T, typename Team>
 LEARN_HD void critic_loss(const Team& tm, const GradsArgs<T>& a,
-                          const Role<T>& r, const GradsSmem<T>& s, int r0,
-                          int ns) {
+                          const GradsSmem<T>& s, int ns) {
   const T scale = a.value_coef / static_cast<T>(a.B);
   for (int c = tm.rank(); c < kTile; c += tm.size()) {
     T g = T(0), vl = T(0);
     if (c < ns) {
-      const size_t row = static_cast<size_t>(a.idx[r0 + c]);
-      const T v = s.h[c], vo = a.value[row], ret = a.returns[row];
+      const T v = s.h[c], vo = s.r1[c], ret = s.r2[c];
       const T e = v - ret;
       if (a.clipped) {
         const T dv = v - vo;
@@ -778,67 +944,264 @@ LEARN_HD void critic_loss(const Team& tm, const GradsArgs<T>& a,
     s.h[c] = g;
     s.sur[c] = vl;
   }
-  tm.sync();
-  if (tm.rank() == 0) {
-    T sum = T(0);
-    for (int c = 0; c < kTile; ++c) sum += s.sur[c];
-    s.acc[r.col_loss] += sum;
+}
+
+// The items of layer i's sums phase (backward_sums): kDwJ x kDwK weight
+// tiles, then a bias each, then for the head layer the actor's std's A and
+// the loss terms' one.
+struct SumItems {
+  int njt, nkt, n_dw, n_db, n;
+};
+template <typename T>
+LEARN_HD SumItems sum_items(const GradsArgs<T>& a, const Role<T>& r, int i,
+                            int k) {
+  const Layer<T>& L = r.layer[i];
+  SumItems it;
+  it.njt = tiles_of(L.n_out, kDwJ);
+  it.nkt = tiles_of(L.n_in, kDwK);
+  it.n_dw = it.njt * it.nkt;
+  it.n_db = L.n_out;
+  it.n = it.n_dw + it.n_db + (i == r.nl - 1 ? (k == 0 ? a.A + 1 : 1) : 0);
+  return it;
+}
+
+// The block's sums of weight item p of layer i's sums phase (zero for the
+// block's first tile), read from its row `acc` of the scratch.
+template <typename T>
+LEARN_HD void item_sums(const Role<T>& r, int i, const SumItems& it, int p,
+                        const T* acc, bool first, T v[kDwJ][kDwK]) {
+  const Layer<T>& L = r.layer[i];
+  const int jt = p / it.nkt, kt = p - jt * it.nkt;
+#pragma unroll
+  for (int q = 0; q < kDwJ; ++q)
+#pragma unroll
+    for (int c = 0; c < kDwK; ++c) {
+      const int j = jt * kDwJ + q, kk = kt + it.nkt * c;
+      v[q][c] = first || j >= L.n_out || kk >= L.n_in
+                    ? T(0)
+                    : ld_shared(acc + r.col_w[i] + j * L.n_in + kk);
+    }
+}
+
+// The first phase of layer i's backward pass, its output's deltas known
+// (the head's in h, a hidden layer's in its rows of y): the tile's weight
+// and bias gradients (each summed over the samples in ascending order)
+// added to the block's sums; for the head layer also the std's gradients
+// and the loss terms.  A weight item is kDwJ outputs (rows j0 ...) by kDwK
+// inputs (rows kt, kt + nkt, ...: a quarter warp's rows on distinct banks),
+// its samples read as vectors.
+template <typename T, typename Team>
+LEARN_HD void backward_sums(const Team& tm, const GradsArgs<T>& a,
+                            const Role<T>& r, const GradsSmem<T>& s, int i,
+                            int k, T* acc, bool first) {
+  const Layer<T>& L = r.layer[i];
+  const bool last = i == r.nl - 1;
+  const T* dout = last ? s.h : s.y + kLd * r.hoff[i];
+  const T* in = i == 0 ? s.x : s.y + kLd * r.hoff[i - 1];
+  const SumItems it = sum_items(a, r, i, k);
+  for (int p = tm.rank(); p < it.n; p += tm.size()) {
+    if (p < it.n_dw) {
+      const int jt = p / it.nkt, kt = p - jt * it.nkt;
+      int jr[kDwJ], kr[kDwK];
+#pragma unroll
+      for (int q = 0; q < kDwJ; ++q)
+        jr[q] = min_i(jt * kDwJ + q, L.n_out - 1) * kLd;
+#pragma unroll
+      for (int c = 0; c < kDwK; ++c)
+        kr[c] = min_i(kt + it.nkt * c, L.n_in - 1) * kLd;
+      T sum[kDwJ][kDwK] = {};
+#pragma unroll 2
+      for (int s4 = 0; s4 < kTile; s4 += 4) {
+        T dv[kDwJ][4], iv[kDwK][4];
+#pragma unroll
+        for (int q = 0; q < kDwJ; ++q) ld4(dout + jr[q] + s4, dv[q]);
+#pragma unroll
+        for (int c = 0; c < kDwK; ++c) ld4(in + kr[c] + s4, iv[c]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int q = 0; q < kDwJ; ++q)
+#pragma unroll
+            for (int c = 0; c < kDwK; ++c) sum[q][c] += dv[q][u] * iv[c][u];
+      }
+      T prev[kDwJ][kDwK];
+      item_sums(r, i, it, p, acc, first, prev);
+      T* gw = acc + r.col_w[i];
+#pragma unroll
+      for (int q = 0; q < kDwJ; ++q)
+#pragma unroll
+        for (int c = 0; c < kDwK; ++c) {
+          const int j = jt * kDwJ + q, kk = kt + it.nkt * c;
+          if (j < L.n_out && kk < L.n_in)
+            gw[j * L.n_in + kk] = prev[q][c] + sum[q][c];
+        }
+    } else if (p < it.n_dw + it.n_db) {
+      const int j = p - it.n_dw;
+      const T prev = first ? T(0) : ld_shared(acc + r.col_b[i] + j);
+      T sum = T(0);
+      for (int s4 = 0; s4 < kTile; s4 += 4) {
+        T v[4];
+        ld4(dout + j * kLd + s4, v);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sum += v[u];
+      }
+      acc[r.col_b[i] + j] = prev + sum;
+    } else if (k == 0 && p - it.n_dw - it.n_db < a.A) {
+      const int e = p - it.n_dw - it.n_db;
+      const T prev = first ? T(0) : ld_shared(acc + r.col_std + e);
+      T sum = T(0);
+      for (int c = 0; c < kTile; ++c) sum += s.rows[c * r.ldr + 2 * a.A + e];
+      acc[r.col_std + e] = prev + sum;
+    } else {
+      const T prev = first ? T(0) : ld_shared(acc + r.col_loss);
+      const T prev_kl =
+          first || k != 0 ? T(0) : ld_shared(acc + r.col_loss + 1);
+      T sur = T(0), kl = T(0);
+      for (int c = 0; c < kTile; ++c) {
+        sur += s.sur[c];
+        if (k == 0) kl += s.kl[c];
+      }
+      acc[r.col_loss] = prev + sur;
+      if (k == 0) acc[r.col_loss + 1] = prev_kl + kl;
+    }
+  }
+}
+
+// The second phase of layer i's backward pass (i > 0): its input's deltas
+// d_{i-1} = activate'(y_{i-1}) * W^T delta, over y_{i-1} in place (each
+// element's terms in ascending j).  An item is kDxK inputs (rows kt, kt +
+// nkt, ...) by kDxS samples (delta's rows as vectors, placed as the
+// forward pass's).
+template <typename T, typename Team>
+LEARN_HD void backward_deltas(const Team& tm, const GradsArgs<T>& a,
+                              const Role<T>& r, const GradsSmem<T>& s, int i) {
+  constexpr int kSpan = kTile / (kDxS / 4);
+  const Layer<T>& L = r.layer[i];
+  const bool last = i == r.nl - 1;
+  const T* dout = last ? s.h : s.y + kLd * r.hoff[i];
+  T* din = s.y + kLd * r.hoff[i - 1];
+  const T* wt = s.wt + r.wtoff[i];
+  const int ldt = r.ldt[i];
+  const int nkt = tiles_of(L.n_in, kDxK), nst = kSpan / 4;
+  for (int p = tm.rank(); p < nkt * nst; p += tm.size()) {
+    const int kt = p / nst, s0 = (p % nst) * 4;
+    int kr[kDxK];
+#pragma unroll
+    for (int q = 0; q < kDxK; ++q)
+      kr[q] = min_i(kt + nkt * q, L.n_in - 1) * ldt;
+    T sum[kDxK][kDxS] = {};
+    const T* dp = dout + s0;
+#pragma unroll 4
+    for (int j = 0; j < L.n_out; ++j, dp += kLd) {
+      T w[kDxK], d[kDxS];
+#pragma unroll
+      for (int q = 0; q < kDxK; ++q) w[q] = wt[kr[q] + j];
+#pragma unroll
+      for (int m = 0; m < kDxS / 4; ++m) ld4(dp + m * kSpan, d + 4 * m);
+#pragma unroll
+      for (int q = 0; q < kDxK; ++q)
+#pragma unroll
+        for (int c = 0; c < kDxS; ++c) sum[q][c] += w[q] * d[c];
+    }
+#pragma unroll
+    for (int q = 0; q < kDxK; ++q) {
+      const int kk = kt + nkt * q;
+      if (kk >= L.n_in) break;
+      T* e = din + kk * kLd + s0;
+      const unsigned char* sign = s.pos + (r.hoff[i - 1] + kk) * kQuads;
+      T y[kDxS];
+      unsigned bits = 0;
+#pragma unroll
+      for (int m = 0; m < kDxS / 4; ++m) {
+        ld4(e + m * kSpan, y + 4 * m);
+        if (a.neg)
+          bits |= static_cast<unsigned>(sign[(s0 + m * kSpan) / 4]) << (4 * m);
+      }
+#pragma unroll
+      for (int c = 0; c < kDxS; ++c) {
+        const bool pos = a.neg ? ((bits >> c) & 1u) != 0 : y[c] > T(0);
+        y[c] = activate_grad(a.act, a.alpha, y[c], pos) * sum[q][c];
+      }
+#pragma unroll
+      for (int m = 0; m < kDxS / 4; ++m) st4(e + m * kSpan, y + 4 * m);
+    }
   }
 }
 
 // The block `blk` of grads: blocks [0, blocks[0]) take the actor, the rest
 // the critic; a role's block b owns the tiles [b * n / G, (b+1) * n / G)
-// of the minibatch's n tiles.  Its sums go to its row of the scratch.
-// `base` is its workspace (role_smem_elems elements).
+// of the minibatch's n tiles, and sums their gradients into its row of the
+// scratch (tile by tile).  `base` is its workspace (role elems).  While a
+// tile computes, the next one's indices (from the forward pass on), loss
+// rows (from the loss stage's last read on) and observations (during the
+// last backward phase, into the spare rows) are in flight.
 template <typename T, typename Team>
 LEARN_HD void grads_block(const Team& tm, const GradsArgs<T>& a, int blk,
                           T* base) {
   const int k = blk < a.blocks[0] ? 0 : 1;
   const int b = k == 0 ? blk : blk - a.blocks[0];
   const Role<T>& r = a.role[k];
-  const GradsSmem<T> s = grads_smem(a, r, base);
-  for (int i = 0; i < r.nl; ++i) {
-    const Layer<T>& L = r.layer[i];
-    T* w = s.w + r.woff[i];
-    for (int p = tm.rank(); p < L.n_out * L.n_in; p += tm.size()) {
-      const int j = p / L.n_in;
-      tm.copy(w + j * r.ld[i] + (p - j * L.n_in), L.w + p);
-    }
-  }
-  for (int p = tm.rank(); p < r.width; p += tm.size()) s.acc[p] = T(0);
-  tm.copy_wait();
+  const GradsSmem<T> s = grads_smem(a, r, k, base);
+  T* acc = a.part[k] + static_cast<size_t>(b) * r.stride;
+  tm.stamp(kStampStart);
   const int ntiles = (a.B + kTile - 1) / kTile;
   const int G = a.blocks[k];
   const int t0 = static_cast<int>(static_cast<long long>(b) * ntiles / G);
   const int t1 = static_cast<int>(static_cast<long long>(b + 1) * ntiles / G);
+  const int t_rec = t0 + 1 < t1 ? t0 + 1 : t0;
+  fetch_idx(tm, a, s, t0);
+  tm.copy_wait();
+  tm.sync();
+  stage(tm, a, r, s, k == 0);
+  fetch_x(tm, a, s, t0);
+  fetch_rows(tm, a, r, s, k, t0);
+  tm.copy_wait();
+  tm.sync();
+  place_x(tm, a, s, t0);
+  tm.sync();
+  tm.stamp(kStampStaged);
   for (int t = t0; t < t1; ++t) {
-    const int r0 = t * kTile;
-    const int ns = min_i(kTile, a.B - r0);
-    tm.sync();  // the last tile's reads of x are done
-    for (int p = tm.rank(); p < r.in0 * kTile; p += tm.size()) {
-      const int c = p / r.in0, q = p - c * r.in0;
-      s.x[q * kLd + c] =
-          c < ns ? a.obs[static_cast<size_t>(a.idx[r0 + c]) * a.nobs + q]
-                 : T(0);
-    }
-    tm.sync();
+    const bool rec = t == t_rec, next = t + 1 < t1, first = t == t0;
+    const int ns = tile_samples(a, t);
+    if (rec) tm.stamp(kStampTile);
+    if (next) fetch_idx(tm, a, s, t + 1);
     for (int i = 0; i < r.nl; ++i) {
       forward_layer(tm, a, r, s, i);
       tm.sync();
+      if (rec) tm.stamp(kStampFwd + i);
     }
     if (k == 0)
-      actor_loss(tm, a, r, s, r0, ns);
+      actor_loss(tm, a, r, s, ns, rec);
     else
-      critic_loss(tm, a, r, s, r0, ns);
+      critic_loss(tm, a, s, ns);
     tm.sync();
+    if (rec) tm.stamp(kStampLoss + 2);
     for (int i = r.nl - 1; i >= 0; --i) {
-      backward_layer(tm, r, s, i);
+      const bool head = i == r.nl - 1;
+      if (next && i == 0 && r.nl > 1) fetch_x(tm, a, s, t + 1);
+      backward_sums(tm, a, r, s, i, k, acc, first);
+      if (next && head) tm.copy_wait();  // the next tile's indices
       tm.sync();
+      if (rec) tm.stamp(kStampBwd + 2 * i);
+      if (next && head) {
+        fetch_rows(tm, a, r, s, k, t + 1);
+        if (r.nl == 1) fetch_x(tm, a, s, t + 1);
+      }
+      if (i > 0) {
+        backward_deltas(tm, a, r, s, i);
+        tm.sync();
+        if (rec) tm.stamp(kStampBwd + 2 * i + 1);
+      }
+    }
+    if (next) {
+      tm.copy_wait();
+      tm.sync();
+      place_x(tm, a, s, t + 1);
+      tm.sync();
+      if (rec) tm.stamp(kStampGather);
     }
   }
-  tm.sync();
-  T* out = a.part[k] + static_cast<size_t>(b) * r.width;
-  for (int p = tm.rank(); p < r.width; p += tm.size()) out[p] = s.acc[p];
+  tm.stamp(kStampWalk);
 }
 
 // Group g of role k: the sums of its blocks [g * group, ...), added in
@@ -846,60 +1209,56 @@ LEARN_HD void grads_block(const Team& tm, const GradsArgs<T>& a, int blk,
 template <typename T, typename Team>
 LEARN_HD void grads_group(const Team& tm, const GradsArgs<T>& a, int k,
                           int g) {
-  const int W = a.role[k].width;
+  const Role<T>& r = a.role[k];
   const int b0 = g * a.group, nb = min_i(a.group, a.blocks[k] - b0);
-  const T* src = a.part[k] + static_cast<size_t>(b0) * W;
-  T* dst = a.gsum[k] + static_cast<size_t>(g) * W;
-  col_sums(tm, src, W, nb, W, [&](int p, T sum) { dst[p] = sum; });
+  const T* src = a.part[k] + static_cast<size_t>(b0) * r.stride;
+  T* dst = a.gsum[k] + static_cast<size_t>(g) * r.stride;
+  col_sums(tm, src, r.stride, nb, r.width, [&](int p, T sum) { dst[p] = sum; });
 }
 
-// The grid's sums (each column's groups added in group order, into the
-// first group's row) into the flat buffer (every layer's gradients; the
-// std's with the entropy's term, zero where the floor clamps it; the KL at
-// P) and the losses (loss, surrogate, value loss).
+// Role k's grid sums (each column's groups added in group order) into the
+// flat buffer: its layers' gradients; the actor's std's with the entropy's
+// term, zero where the floor clamps it.  The loss terms' sums go to the
+// first group's row, for grads_losses.
 template <typename T, typename Team>
-LEARN_HD void grads_final(const Team& tm, const GradsArgs<T>& a) {
-  const T half_log = T(1.4189385332046727);  // 0.5 * (1 + log(2 pi))
-  for (int k = 0; k < 2; ++k) {
-    T* row = a.gsum[k];
-    col_sums(tm, row, a.role[k].width, a.groups[k], a.role[k].width,
-             [&](int p, T sum) { row[p] = sum; });
-  }
-  tm.sync();
-  for (int k = 0; k < 2; ++k) {
-    const Role<T>& r = a.role[k];
-    const T* sums = a.gsum[k];
-    for (int i = 0; i < r.nl; ++i) {
-      const Layer<T>& L = r.layer[i];
-      const int nw = L.n_in * L.n_out;
-      for (int p = tm.rank(); p < nw + L.n_out; p += tm.size()) {
-        if (p < nw)
-          a.flat[r.flat_w[i] + p] = ld_shared(sums + r.col_w[i] + p);
-        else
-          a.flat[r.flat_b[i] + p - nw] = ld_shared(sums + r.col_b[i] + p - nw);
-      }
+LEARN_HD void grads_final(const Team& tm, const GradsArgs<T>& a, int k) {
+  const Role<T>& r = a.role[k];
+  T* row = a.gsum[k];
+  col_sums(tm, row, r.stride, a.groups[k], r.width, [&](int p, T sum) {
+    if (p >= r.col_loss) {
+      row[p] = sum;
+    } else if (p >= r.col_std) {
+      const int i = p - r.col_std;
+      const T sd = std_eff(a, i);
+      const bool held = a.std_floor > T(0) && !(a.std[i] >= a.std_floor);
+      a.flat[a.std_off + i] =
+          held ? T(0) : sum - a.entropy_coef * (T(1) / sd);
+    } else {
+      int i = 0;
+      while (p >= r.col_b[i] + r.layer[i].n_out) ++i;
+      a.flat[p < r.col_b[i] ? r.flat_w[i] + p - r.col_w[i]
+                            : r.flat_b[i] + p - r.col_b[i]] = sum;
     }
-  }
-  const Role<T>& ra = a.role[0];
-  const T* sa = a.gsum[0];
-  for (int i = tm.rank(); i < a.A; i += tm.size()) {
-    const T sd = std_eff(a, i);
-    const T g = ld_shared(sa + ra.col_std + i) - a.entropy_coef * (T(1) / sd);
-    const bool held = a.std_floor > T(0) && !(a.std[i] >= a.std_floor);
-    a.flat[a.std_off + i] = held ? T(0) : g;
-  }
-  if (tm.rank() == 0) {
-    const T nb = static_cast<T>(a.B);
-    const T sur = ld_shared(sa + ra.col_loss) / nb;
-    const T kl = ld_shared(sa + ra.col_loss + 1) / nb;
-    const T vl = ld_shared(a.gsum[1] + a.role[1].col_loss) / nb;
-    T ent = T(0);
-    for (int i = 0; i < a.A; ++i) ent += half_log + T(log(std_eff(a, i)));
-    a.losses[0] = (sur + a.value_coef * vl) - a.entropy_coef * ent;
-    a.losses[1] = sur;
-    a.losses[2] = vl;
-    a.flat[a.P] = kl;
-  }
+  });
+}
+
+// The losses (loss, surrogate, value loss) and the KL at P, from both
+// roles' loss sums.
+template <typename T, typename Team>
+LEARN_HD void grads_losses(const Team& tm, const GradsArgs<T>& a) {
+  if (tm.rank() != 0) return;
+  const T half_log = T(1.4189385332046727);  // 0.5 * (1 + log(2 pi))
+  const T nb = static_cast<T>(a.B);
+  const T* sa = a.gsum[0] + a.role[0].col_loss;
+  const T sur = ld_shared(sa) / nb;
+  const T kl = ld_shared(sa + 1) / nb;
+  const T vl = ld_shared(a.gsum[1] + a.role[1].col_loss) / nb;
+  T ent = T(0);
+  for (int i = 0; i < a.A; ++i) ent += half_log + T(log(std_eff(a, i)));
+  a.losses[0] = (sur + a.value_coef * vl) - a.entropy_coef * ent;
+  a.losses[1] = sur;
+  a.losses[2] = vl;
+  a.flat[a.P] = kl;
 }
 
 // ---- adam -----------------------------------------------------------------

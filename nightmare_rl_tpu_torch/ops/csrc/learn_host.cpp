@@ -1,9 +1,10 @@
 // Host driver of csrc/learn_env.cuh: the learning kernels' arithmetic run
 // on the CPU by a team of `team` host threads in place of a block's threads
 // (the grid's blocks in series, each with one workspace for its shared
-// memory; then every group's sum and the grid's, which the kernels leave to
-// the last block of each to arrive), with the plain C interface of
-// csrc/learn.cu less the stream, and the team's size in its place.  The CPU
+// memory; then every group's sum, each net's grid sum and the losses, which
+// the kernels leave to the last block of each to arrive), with the plain C
+// interface of csrc/learn.cu less the stream, and the team's size in its
+// place.  The CPU
 // tests (tests/test_torch_learn_kernel.py, tests/test_torch_ppo.py) build
 // it with g++ (ops/build.py::build_host) and hold it against the plain
 // versions and the JAX package; it is not on any path of the port.
@@ -25,7 +26,12 @@ struct HostTeam {
   void copy(T* dst, const T* src) const {
     *dst = *src;
   }
+  template <int N, typename T>
+  void copy_n(T* dst, const T* src) const {
+    for (int u = 0; u < N; ++u) dst[u] = src[u];
+  }
   void copy_wait() const {}
+  void stamp(int) const {}
 };
 
 template <typename T>
@@ -67,8 +73,12 @@ int grads(const int* ints, int nints, const double* reals, int nreals,
                                               k == 0 ? g : g - a.groups[0]);
                      }))
     return 1;
+  if (host_team::run(2, team, [&](const host_team::ThreadTeam& tm, int k) {
+        learn_env::grads_final(HostTeam{tm}, a, k);
+      }))
+    return 1;
   return host_team::run(1, team, [&](const host_team::ThreadTeam& tm, int) {
-    learn_env::grads_final(HostTeam{tm}, a);
+    learn_env::grads_losses(HostTeam{tm}, a);
   });
 }
 

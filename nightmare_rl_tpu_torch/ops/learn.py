@@ -59,9 +59,10 @@ from nightmare_rl_tpu_torch.ops.rollout import Plan, _blocks, _check
 from nightmare_rl_tpu_torch.utils.device import constant, full_float32
 
 GAE_LANES = 256      # learn_env.cuh kGaeLanes: envs a block of gae
-TILE = 32            # learn_env.cuh kTile: samples of a grads tile
+TILE = 64            # learn_env.cuh kTile: samples of a grads tile
 MAX_TENSORS = 64     # learn_env.cuh kMaxTensors: adam's parameter tensors
 MAX_TEAM = 64        # learn_env.cuh kMaxTeam
+SMEM_ABOVE_LIMIT = -1  # learn.cu kSmemAboveLimit: a launch's return code
 HOST_BLOCKS = 3      # host_grads' default blocks a net (the card: its SMs)
 
 
@@ -217,6 +218,9 @@ def _call(which: str, dtype, dev, host: bool, team: int, args) -> None:
     ctx = (torch.cuda.device(dev) if not host else contextlib.nullcontext())
     with ctx:
         err = _fn(f"learn_{which}", dtype, host)(*args, last)
+    if err == SMEM_ABOVE_LIMIT and not host:
+        _refuse(f"its {which} tiles take more shared memory a block than "
+                "the card allows")
     if err != 0:
         raise RuntimeError(
             f"the learn {which} host driver refused its arguments ({err})"
@@ -301,7 +305,9 @@ def _flat_offset(t: Optional[torch.Tensor], flat: torch.Tensor,
 def grads_geometry(pl: Plan, B: int, blocks: int) -> dict:
     """grads' grid on a minibatch of ``B`` samples with up to ``blocks``
     blocks a net: the blocks of each net, the blocks a group of the grid's
-    sum, the width of a block's sums per net and the scratch's elements."""
+    sum, the width of a block's sums per net (its scratch row padded to a
+    multiple of 4), the scratch's elements and the grid's tickets (each
+    group's, each net's and the losses')."""
     tiles = -(-B // TILE)
     n = max(1, min(blocks, tiles))
     group = max(1, math.isqrt(n - 1) + 1)
@@ -311,8 +317,8 @@ def grads_geometry(pl: Plan, B: int, blocks: int) -> dict:
                   for m in layers) + extra
               for layers, extra in ((pl.actor, A + 2), (pl.critic, 1))]
     return dict(blocks=n, group=group, groups=groups, widths=widths,
-                scratch=sum((n + groups) * w for w in widths),
-                counters=2 * groups + 1)
+                scratch=sum((n + groups) * (-(-w // 4) * 4) for w in widths),
+                counters=2 * groups + 3)
 
 
 def _grads_operands(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
@@ -377,9 +383,11 @@ def _grads_operands(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
     return ints, reals, ptrs, extra, ps, geo
 
 
-def _run_grads(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
-               host: bool, team: int = 1, blocks: Optional[int] = None,
-               ) -> torch.Tensor:
+def _grads_args(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
+                host: bool, blocks: Optional[int] = None):
+    """grads' argument blocks for the host driver's or the kernel's C
+    interface (less the last argument), and the tensors they point to (the
+    caller keeps them alive through the call; "losses": what it writes)."""
     dev = flat.device
     if blocks is None:
         blocks = (HOST_BLOCKS if host else
@@ -388,8 +396,15 @@ def _run_grads(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
         pl, algo, traj, returns, norm_adv, idx, flat, blocks)
     ptrs["counters"] = (torch.zeros(geo["counters"], dtype=torch.int32)
                         if host else _counters("grads", geo["counters"], dev))
-    args = _blocks(_names(host, "grads"), ints, reals, ptrs, extra, ps)
-    _call("grads", flat.dtype, dev, host, team, args)
+    return _blocks(_names(host, "grads"), ints, reals, ptrs, extra, ps), ptrs
+
+
+def _run_grads(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
+               host: bool, team: int = 1, blocks: Optional[int] = None,
+               ) -> torch.Tensor:
+    args, ptrs = _grads_args(pl, algo, traj, returns, norm_adv, idx, flat,
+                             host, blocks)
+    _call("grads", flat.dtype, flat.device, host, team, args)
     return ptrs["losses"]
 
 
@@ -426,6 +441,20 @@ def grads_smem_bytes(pl: Plan, algo, traj, returns, norm_adv, idx,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(*args)
+
+
+def grads_blocks_per_sm(smem: int, dtype: torch.dtype) -> int:
+    """grads' blocks one SM of the current card holds with ``smem`` bytes
+    of shared memory each (the occupancy query)."""
+    fn = _lib(False).learn_grads_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(torch.tensor([], dtype=dtype).element_size(), smem,
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"learn grads occupancy query: cudaError_t {err}")
+    return blocks.value
 
 
 def _run_adam(optimizer, flat, lr, world, algo, losses, host: bool,

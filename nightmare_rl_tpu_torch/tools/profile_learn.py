@@ -30,23 +30,34 @@ and the generator restored in place before every run):
 
 It runs on trees of the port from before ``ops/learn.py`` too.
 
-``--grads-blocks G ...`` instead times this tree's ``grads`` kernel alone
+``--grads-blocks G ...`` instead times the tree's ``grads`` kernel alone
 (each launch behind a spin kernel and an L2 flush, ``chip_smoke.py``'s
 ``_kernel_ms``) on the first minibatch of the PPO's update at each number
-of blocks a net (the card's SMs by default), the sizes in turns (in order,
-then in reverse): how the kernel's time splits between a block's walk over
-its tiles and the grid's sums.
+of blocks a net, the sizes in turns (in order, then in reverse): how the
+kernel's time splits between a block's walk over its tiles and the grid's
+sums.  ``--timeline`` builds the tree's ``learn.cu`` with
+``-DLEARN_TIMELINE`` (thread 0 of each block stamps the card's global
+timer and its SM's cycle counter at the end of each phase of one tile,
+its block's second: the rows' gather, each forward layer, the loss
+stage's phases, each backward layer's; at the end of the block's walk and
+of the grid's sums, ``learn_env.cuh``'s ``Stamp``), runs it once on that
+minibatch and prints, per net, each phase's µs (mean and largest over the
+blocks) and cycles; a tree whose source has no stamps gives none.
 ``--against DIR`` (the root of another tree of the port, e.g. a ``git
 archive`` of an earlier commit) measures that tree's package the same way,
 in turns with this one's (this, other, other, this), each run a process of
-its own with its tree's package first on the path.  The last line is one
-JSON object with these numbers and the card's name.  A missing card
-raises.
+its own with its tree's package first on the path (with ``--timeline``,
+each tree's first run gives its timeline).  The last line is one JSON
+object with these numbers and the card's name.  A missing card raises.
+
+    python -m nightmare_rl_tpu_torch.tools.profile_learn [-e 2048]
+        --grads-blocks 132 [--timeline] [--against DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import inspect
 import json
 import os
@@ -245,11 +256,11 @@ def measure(robot: str, envs: int) -> dict:
     return out
 
 
-def grads_blocks(robot: str, envs: int, sizes: Sequence[int]) -> dict:
-    """``grads`` alone by blocks a net (see the module's docstring)."""
+def _grads_inputs(robot: str, envs: int):
+    """The first minibatch of a PPO's update after one rollout at ``envs``
+    envs, as ``grads`` takes it (every argument but the blocks)."""
     from nightmare_rl_tpu_torch.ops import learn as L
     from nightmare_rl_tpu_torch.tools.profile_rollout import _ppo
-    from nightmare_rl_tpu_torch.tools.profile_smooth import alone_us
 
     ppo = _ppo(robot, envs, torch.device("cuda"))
     with torch.no_grad():
@@ -261,18 +272,144 @@ def grads_blocks(robot: str, envs: int, sizes: Sequence[int]) -> dict:
     a = ppo.cfg.algorithm
     T = traj.reward.shape[0]
     idx = ppo.draw_perm(T, envs).reshape(a.num_mini_batches, -1)[0]
+    return (ppo.act_plan, a, traj, ret, norm_adv, idx, ppo._flat)
+
+
+def _ptxas(log: str, label: str) -> None:
+    """ptxas's registers, stack and spills of grads in float32 from a build
+    log of ``learn.cu``."""
+    from nightmare_rl_tpu_torch.tools.profile_smooth import ptxas
+
+    for f in ptxas(log):
+        if "grads_kernelIf" in f["function"]:
+            print(f"profile-learn: {label}: grads float32 "
+                  f"{f.get('registers')} registers, stack {f.get('stack')} B, "
+                  f"spill {f.get('spill_stores')}/{f.get('spill_loads')} B")
+
+
+def grads_blocks(robot: str, envs: int, sizes: Sequence[int]) -> dict:
+    """``grads`` alone by blocks a net, in turns (see the module's
+    docstring)."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+    from nightmare_rl_tpu_torch.tools.profile_smooth import alone_us
+
+    args = _grads_inputs(robot, envs)
+    _ptxas(L.build.build("learn")["log"], "learn.cu")
     us: Dict[int, List[float]] = {G: [] for G in sizes}
-    for order in (list(sizes), list(sizes)[::-1]):
+    for order in (sizes, sizes[::-1]):
         for G in order:
             us[G].append(alone_us(lambda G=G: L._run_grads(
-                ppo.act_plan, a, traj, ret, norm_adv, idx, ppo._flat,
-                host=False, blocks=G)))
+                *args, host=False, blocks=G)))
     name = torch.cuda.get_device_name(0)
-    print(f"profile-learn: {name}, {robot} {envs} envs float32, grads alone "
-          f"(L2 flushed) on a minibatch of {idx.numel()} by blocks a net, in "
-          f"turns: " + "; ".join(f"{G}: {', '.join(f'{x:.2f}' for x in v)} "
-                                 f"us" for G, v in us.items()))
-    return {"device": name, "robot": robot, "envs": envs, "grads_us": us}
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(L.__file__)))
+    print(f"profile-learn: {name}, {tree}: {robot} {envs} envs float32, grads "
+          f"alone (L2 flushed) on a minibatch of {args[5].numel()} by blocks a "
+          "net, in turns: " + "; ".join(
+              f"{G}: {', '.join(f'{x:.2f}' for x in t)} us"
+              for G, t in us.items()))
+    return {"device": name, "robot": robot, "envs": envs, "tree": tree,
+            "grads_us": us}
+
+
+def _phase_split(t: torch.Tensor, c: torch.Tensor, names: Sequence[str],
+                 rows: range) -> dict:
+    """The stamps of blocks ``rows`` (global timer ns ``t``, cycles ``c``;
+    0: not stamped) as phases: each present stamp's time since the stamp
+    before it in its block, in µs and in cycles, the mean and the largest
+    over the blocks, in the order of the blocks' mean times."""
+    acc: Dict[str, list] = {}
+    t0 = float(t[rows.start:rows.stop, 0][t[rows.start:rows.stop, 0] > 0].min())
+    for b in rows:
+        have = [k for k in range(len(names)) if t[b, k] > 0]
+        have.sort(key=lambda k: float(t[b, k]))
+        for k0, k1 in zip(have, have[1:]):
+            acc.setdefault(names[k1], []).append(
+                (float(t[b, k1] - t[b, k0]) / 1e3, float(c[b, k1] - c[b, k0]),
+                 (float(t[b, k1]) - t0) / 1e3))
+    out = {}
+    for name, v in sorted(acc.items(), key=lambda kv: sum(
+            x[2] for x in kv[1]) / len(kv[1])):
+        us = [x[0] for x in v]
+        cyc = [x[1] for x in v]
+        out[name] = {"blocks": len(v), "mean_us": sum(us) / len(us),
+                     "max_us": max(us), "mean_cycles": sum(cyc) / len(cyc),
+                     "end_us": max(x[2] for x in v)}
+    return out
+
+
+def grads_timeline(robot: str, envs: int, args=None) -> Optional[dict]:
+    """The stamped build of this process's tree (``learn.cu`` with
+    ``-DLEARN_TIMELINE``), launched through its own C entry on the
+    wrapper's argument blocks, on the first minibatch: each role's phases
+    of one tile (a block's second), its walk and the grid's sums; None
+    where the tree's source has no stamps."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+    from nightmare_rl_tpu_torch.tools.profile_smooth import _nvcc_lib, alone_us
+
+    src = os.path.join(os.path.dirname(os.path.abspath(L.__file__)), "csrc",
+                       "learn.cu")
+    with open(src) as fh:
+        if "LEARN_TIMELINE" not in fh.read():
+            return None
+    args = args or _grads_inputs(robot, envs)
+    built = _nvcc_lib(src, ["LEARN_TIMELINE"])
+    lib = built["lib"]
+    _ptxas(built["log"], "learn.cu -DLEARN_TIMELINE")
+    launch = getattr(lib, "learn_grads_" + (
+        "f32" if args[6].dtype == torch.float32 else "f64"))
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+
+    def run():
+        blocks, keep = L._grads_args(*args, host=False)
+        err = launch(*blocks, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"stamped grads launch: cudaError_t {err}")
+        return keep
+
+    stamped = alone_us(run)
+    lib.learn_timeline_names.restype = ctypes.c_char_p
+    names = lib.learn_timeline_names().decode().split(",")
+    nst = lib.learn_timeline_stamps()
+    if lib.learn_timeline_clear() != 0:
+        raise RuntimeError("learn_timeline_clear failed")
+    run()
+    torch.cuda.synchronize()
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    G = L.grads_geometry(args[0], args[5].numel(), blocks)["blocks"]
+    tile = L.TILE
+    get = lib.learn_timeline
+    get.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    get.restype = ctypes.c_int
+    n = 2 * G * nst
+    out = []
+    for cycles in (0, 1):
+        buf = (ctypes.c_longlong * n)()
+        if get(buf, n, cycles) != 0:
+            raise RuntimeError("learn_timeline failed")
+        out.append(torch.tensor(list(buf), dtype=torch.float64).view(
+            2 * G, nst))
+    t, c = out
+    launch0 = float(t[:, 0][t[:, 0] > 0].min())
+    res = {"stamped_alone_us": stamped, "blocks": G,
+           "tile": tile, "tiles": -(-args[5].numel() // tile),
+           "end_us": float(t.max() - launch0) / 1e3}
+    name = torch.cuda.get_device_name(0)
+    print(f"profile-learn: {name}, timeline of grads (the stamped build "
+          f"{stamped:.2f} us alone; {G} blocks a net, {res['tiles']} tiles of "
+          f"{tile} samples; the last stamp {res['end_us']:.2f} us after the "
+          f"first block starts)")
+    for k, role in enumerate(("actor", "critic")):
+        split = _phase_split(t, c, names, range(k * G, (k + 1) * G))
+        res[role] = split
+        print(f"  {role} (us mean / max over blocks, cycles mean; the "
+              f"phase's last end, us): " + ", ".join(
+                  f"{p} {v['mean_us']:.2f}/{v['max_us']:.2f} "
+                  f"({v['mean_cycles']:.0f} cyc; {v['end_us']:.1f})"
+                  for p, v in split.items()))
+    return res
 
 
 def _worker(root: str, argv: Sequence[str]) -> dict:
@@ -322,6 +459,16 @@ def _print(label: str, r: dict) -> None:
         for k, v in r["graph_profile"]["by_kernel"].items()))
 
 
+def _kernel_runs(args) -> dict:
+    """``--grads-blocks`` and ``--timeline`` in this process's tree."""
+    r = {}
+    if args.grads_blocks:
+        r["blocks"] = grads_blocks(args.robot, args.envs, args.grads_blocks)
+    if args.timeline:
+        r["timeline"] = grads_timeline(args.robot, args.envs)
+    return r
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("-e", "--envs", type=int, default=2048)
@@ -330,27 +477,49 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--against", default=None)
     p.add_argument("--grads-blocks", type=int, nargs="+", default=None,
                    help="time grads alone at each number of blocks a net")
+    p.add_argument("--timeline", action="store_true",
+                   help="grads' phases from a build with its timer stamps")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_learn measures the card: CUDA is not "
                            "available")
     os.environ.setdefault("NIGHTMARE_PGS", "legs")
+    kernel = bool(args.grads_blocks or args.timeline)
+    sub = ["-e", str(args.envs), "--robot", args.robot]
     if args.grads_blocks:
-        r = grads_blocks(args.robot, args.envs, args.grads_blocks)
+        sub += ["--grads-blocks", *map(str, args.grads_blocks)]
+    if args.worker:
+        r = _kernel_runs(args) if kernel else measure(args.robot, args.envs)
         print(json.dumps(r))
         return r
-    sub = ["-e", str(args.envs), "--robot", args.robot]
-    if args.worker:
-        r = measure(args.robot, args.envs)
+    if kernel and args.against is None:
+        r = _kernel_runs(args)
         print(json.dumps(r))
         return r
     if args.against is None:
         runs = [("this", measure(args.robot, args.envs))]
     else:
         other = os.path.abspath(args.against)
-        runs = [(who, _worker(REPO if who == "this" else other, sub))
-                for who in ("this", "other", "other", "this")]
+        runs, seen = [], set()
+        for who in ("this", "other", "other", "this"):
+            extra = ["--timeline"] if args.timeline and who not in seen else []
+            seen.add(who)
+            runs.append((who, _worker(REPO if who == "this" else other,
+                                      sub + extra)))
+    if kernel:
+        result = {"device": torch.cuda.get_device_name(0),
+                  "against": args.against,
+                  "runs": [dict(r, who=who) for who, r in runs]}
+        if args.grads_blocks:
+            print("profile-learn: grads alone in turns (this, other, other, "
+                  "this), us by blocks a net: " + "; ".join(
+                      f"{G}: " + ", ".join(
+                          f"{sum(r['blocks']['grads_us'][str(G)]) / 2:.2f}"
+                          for _, r in runs)
+                      for G in args.grads_blocks))
+        print(json.dumps(result))
+        return result
     for who, r in runs:
         _print(who, r)
     result = {"device": runs[0][1]["device"], "against": args.against,

@@ -1023,6 +1023,59 @@ def test_solve_out_kernel_matches_plain(cuda, robot, form):
 
 
 @pytest.mark.cuda
+def test_learn_grads_with_a_negative_alpha(cuda):
+    """grads with ELU's alpha below 0 (the activation's output above 0 on
+    both sides of z = 0) against the plain version after a rollout at 64
+    envs in float32, within the smoke's tolerances."""
+    r = smoke._negative_alpha_case(64)
+    assert r["alpha"] < 0
+    assert r["worst"] <= smoke.GRADS_F32_TOL, r
+    assert max(r["kl"], r["losses"]) <= smoke.LOSS_F32_TOL, r
+
+
+def _wide_grads_case(device, width):
+    """A PPO on a stand-in env (66 observations, 18 actions) with hidden
+    layers [width, width] in both nets, float32, on ``device``, and a
+    random minibatch of 64 samples: grads' arguments."""
+    import types
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg
+    from nightmare_rl_tpu_torch.rl import ppo as tppo
+
+    cfg = PPOCfg()
+    cfg = cfg.replace(policy=dataclasses.replace(
+        cfg.policy, actor_hidden_dims=[width, width],
+        critic_hidden_dims=[width, width]))
+    env = types.SimpleNamespace(device=device, dtype=torch.float32,
+                                num_obs=66, num_actions=18)
+    p = tppo.PPO(env, cfg)
+    p.init_params(0)
+    g = torch.Generator().manual_seed(0)
+    t = lambda *s: torch.randn(*s, generator=g).to(device)  # noqa: E731
+    T, N = 2, 64
+    traj = tppo.Transition(t(T, N, 66), t(T, N, 18), t(T, N),
+                           torch.zeros(T, N, dtype=torch.bool, device=device),
+                           t(T, N), t(T, N), t(T, N, 18),
+                           0.5 + t(T, N, 18).abs())
+    idx = torch.randperm(T * N, generator=g)[:64].to(device)
+    return (p.act_plan, cfg.algorithm, traj, t(T, N), t(T, N), idx, p._flat)
+
+
+@pytest.mark.cuda
+def test_learn_grads_refuses_tiles_above_the_shared_memory_limit(cuda):
+    """A net whose weights do not fit one block's shared memory (hidden
+    layers of 512) raises ValueError, not a launch failure, and leaves no
+    error behind for the next launch; a narrow one runs."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+
+    with pytest.raises(ValueError, match="shared memory"):
+        L.grads(*_wide_grads_case(cuda, 512))
+    losses = L.grads(*_wide_grads_case(cuda, 32))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
 def test_learn_kernels_match_plain(cuda):
     """The learn kernels (``ops/csrc/learn.cu``: ``gae``, ``grads``,
     ``adam``) against ``ops/learn.py``'s plain versions after a rollout at

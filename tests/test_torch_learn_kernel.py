@@ -14,7 +14,10 @@ sizes 1, 3, 5 and 32.
   the nightmare_v3 net and a small net whose actor and critic differ in
   depth; ratios on both sides of the clip band with advantages of both
   signs, values on both sides of the value clip, the std floor holding
-  some actions, the unclipped value loss, other activations.
+  some actions, the unclipped value loss, other activations; every net on
+  the tile's edges (a minibatch below one tile of ``L.TILE`` samples, of
+  exactly one, of two and a partial one) over 1, 2 and 5 blocks a net
+  (more blocks than tiles: the grid takes one a tile) at every team size.
 - adam: the parameters, Adam's moments and step counts, the lr, the
   clipped gradients and the statistics; the KL above twice the target,
   below half of it, inside the band and 0, the fixed schedule; a norm
@@ -145,9 +148,9 @@ def _batch(p, seed):
     return traj, value + 0.5 * t(T, N), t(T, N)
 
 
-def _grads_case(name, seed=4, B=50):
-    """A PPO and a minibatch of B samples (50: a full tile and a partial
-    one)."""
+def _grads_case(name, seed=4, B=L.TILE + 36):
+    """A PPO and a minibatch of B samples (by default a full tile and a
+    partial one)."""
     p = _ppo(name)
     traj, ret, adv = _batch(p, seed)
     idx = torch.from_numpy(np.random.default_rng(seed).permutation(T * N)[:B])
@@ -200,16 +203,86 @@ def test_host_grads_matches_plain(name, team):
 @pytest.mark.parametrize("blocks", [1, 2, 5])
 def test_host_grads_is_the_same_at_every_team_size(blocks):
     """Teams of 1, 3, 5 and 32, the grid's sums over 1, 2 and 5 blocks a
-    net (5: groups of 3 and 2)."""
-    p, batch = _grads_case("nightmare_v3", seed=5, B=150)
+    net (5 asked on 3 tiles: 3 blocks, groups of 2 and 1)."""
+    p, batch = _grads_case("nightmare_v3", seed=5, B=2 * L.TILE + 22)
     outs = []
     for team in TEAMS:
         got = L.host_grads(p.act_plan, p.cfg.algorithm, *batch, p._flat,
                            team=team, blocks=blocks)
         outs.append((got.clone(), p._flat.clone()))
     assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
-    assert L.grads_geometry(p.act_plan, 150, blocks)["groups"] == (
-        2 if blocks == 5 else 1)
+    geo = L.grads_geometry(p.act_plan, 2 * L.TILE + 22, blocks)
+    assert (geo["blocks"], geo["groups"]) == ((3, 2) if blocks == 5
+                                              else (blocks, 1))
+
+
+# minibatch sizes at the edges of grads' tile: below one tile, exactly one,
+# two full tiles and a partial one (T * N = 192 rows to draw from)
+TILE_EDGES = {"below-one": L.TILE - 14, "one": L.TILE,
+              "ragged": 2 * L.TILE + 22}
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 5])
+@pytest.mark.parametrize("edge", list(TILE_EDGES))
+@pytest.mark.parametrize("name", list(NETS))
+def test_host_grads_at_the_tile_edges(name, edge, blocks):
+    """Each net on each tile edge over 1, 2 and 5 blocks a net (more
+    blocks than tiles: one a tile) at every team size in TEAMS: every
+    gradient tensor, the KL and the losses within TOL of the plain
+    version, every element written, the same bits at every team size."""
+    B = TILE_EDGES[edge]
+    p, batch = _grads_case(name, seed=8, B=B)
+    ref = L.plain_grads(p.act_plan, p.cfg.algorithm, *batch, p._flat)
+    want = p._flat.clone()
+    tiles = -(-B // L.TILE)
+    assert L.grads_geometry(p.act_plan, B, blocks)["blocks"] == min(blocks,
+                                                                    tiles)
+    outs = []
+    for team in TEAMS:
+        p._flat.fill_(7.0)
+        got = L.host_grads(p.act_plan, p.cfg.algorithm, *batch, p._flat,
+                           team=team, blocks=blocks)
+        assert torch.all(p._flat != 7.0)
+        i = 0
+        for q in p.params:
+            n = q.numel()
+            assert _close(want[i:i + n], p._flat[i:i + n]), (team, i)
+            i += n
+        assert _close(want[-1:], p._flat[-1:]) and _close(ref, got), team
+        outs.append((got.clone(), p._flat.clone()))
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("name,alpha", [("nightmare_v3", -0.7),
+                                        ("small-lrelu", -0.3)])
+def test_host_grads_with_a_negative_alpha(name, alpha):
+    """ELU's and LeakyReLU's parameter below 0, where the activation's
+    output is above 0 on both sides of z = 0 (grads keeps z's signs): within
+    TOL of the plain version over a full tile and a partial one, the same
+    bits at every team size."""
+    p, batch = _grads_case(name, seed=9)
+    for m in p.net.modules():
+        if isinstance(m, torch.nn.ELU):
+            m.alpha = alpha
+        elif isinstance(m, torch.nn.LeakyReLU):
+            m.negative_slope = alpha
+    pl = R.plan(p.net)
+    assert pl.alpha == alpha
+    ref = L.plain_grads(pl, p.cfg.algorithm, *batch, p._flat)
+    want = p._flat.clone()
+    outs = []
+    for team in TEAMS:
+        p._flat.fill_(7.0)
+        got = L.host_grads(pl, p.cfg.algorithm, *batch, p._flat, team=team,
+                           blocks=2)
+        i = 0
+        for q in p.params:
+            n = q.numel()
+            assert _close(want[i:i + n], p._flat[i:i + n]), (team, i)
+            i += n
+        assert _close(want[-1:], p._flat[-1:]) and _close(ref, got), team
+        outs.append((got.clone(), p._flat.clone()))
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
 
 
 def test_grads_refuses_what_it_does_not_take():
