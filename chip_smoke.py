@@ -173,7 +173,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
              first bit for bit; each timed alone beside its plain version
              (adam also beside torch's fused Adam with the clip's ops) and
              its bound, with ptxas's registers and spills, grads' grid,
-             shared memory a block and blocks an SM; grads also on
+             shared memory a block and blocks an SM; adam also on the
+             recurrent net's 2,434,795 parameters (random gradients and
+             Adam state from a seed), held and timed so; grads also on
              nightmare_v3's net with ELU's alpha at -0.5 (2048 envs),
              within the same tolerances;
 7. policy  — ``artifacts/model_3176.pt`` loaded and run on the card against
@@ -831,7 +833,8 @@ def phase_build() -> None:
         lambda m: f"rollout_{m[1]}_kernel<"
                   f"{'float' if m[2] == 'f' else 'double'}>")
     kernels["learn"] = _ptxas(
-        infos["learn"]["log"], r"learn_(gae|grads|adam)_kernelI([fd])E",
+        infos["learn"]["log"],
+        r"learn_(gae|grads|adam_sums|adam_step)_kernelI([fd])E",
         lambda m: f"learn_{m[1]}_kernel<"
                   f"{'float' if m[2] == 'f' else 'double'}>")
     BUILD_PTXAS.update(kernels)
@@ -4299,14 +4302,11 @@ def _learn_bounds(ppo, T: int, N: int, B: int) -> dict:
     operations a multiply-add of the forward pass, the weight gradients
     and the deltas, 4 a hidden unit (bias, activation, its derivative, the
     delta's product), 30 an action and 20 a sample for the losses.  adam:
-    the flat buffer read and written, the parameters and both moments read
-    and written, the step counts, the lr, the losses and the statistics;
-    16 operations a parameter."""
+    ``_adam_bound``'s."""
     it = 4
     pl = ppo.act_plan
     A, nobs = pl.net.std.shape[0], pl.actor[0].in_features
     P = ppo._flat.numel() - 1
-    nt = len(ppo.params)
     macs = sum(m.in_features * m.out_features for m in pl.layers)
     dx = sum(m.in_features * m.out_features
              for m in pl.actor[1:] + pl.critic[1:])
@@ -4316,7 +4316,16 @@ def _learn_bounds(ppo, T: int, N: int, B: int) -> dict:
         grads=(B * (it * (nobs + 3 * A + 5) + 8) + it * P + it * (P + 1)
                + 3 * it,
                B * (2 * (2 * macs + dx) + 4 * hidden + 30 * A + 20)),
-        adam=(it * (2 * (P + 1) + 6 * P + 2 + 3 + 4) + 8 * nt, 16 * P))
+        adam=_adam_bound(P, len(ppo.params)))
+
+
+def _adam_bound(P: int, nt: int) -> tuple:
+    """adam's bytes and operations on P parameters in nt tensors in
+    float32: the flat buffer read and written, the parameters and both
+    moments read and written, the step counts, the lr, the losses and the
+    statistics; 16 operations a parameter."""
+    it = 4
+    return it * (2 * (P + 1) + 6 * P + 2 + 3 + 4) + 8 * nt, 16 * P
 
 
 def _learn_case(N: int, timed: bool, robot: str = "nightmare_v3") -> dict:
@@ -4374,33 +4383,62 @@ def _learn_case(N: int, timed: bool, robot: str = "nightmare_v3") -> dict:
         blocks=L.grads_geometry(pl, B, torch.cuda.get_device_properties(
             0).multi_processor_count)["blocks"],
         kl_band=(a.desired_kl / 2.0, a.desired_kl * 2.0))
-    held = ppo._held()
+    with torch.no_grad():
+        flat.copy_(f_ref)  # adam from the plain grads' gradients
+    res.update(_adam_hold((ppo.optimizer, flat, ppo.lr, 1, a, l_ref), timed))
+    if timed:
+        res["gae_ms"] = _kernel_ms(lambda: L.gae(*gae_in))
+        res["gae_plain_ms"] = _cuda_ms(lambda: L.plain_gae(*gae_in), 10, 2)
+        res["grads_ms"] = _kernel_ms(lambda: L.grads(*g_in))
+        res["grads_plain_ms"] = _cuda_ms(lambda: L.plain_grads(*g_in), 10, 2)
+        res["bounds"] = {k: _bytes_ops_bound(nb, ops, torch.float32)
+                         for k, (nb, ops) in _learn_bounds(
+                             ppo, T, N, B).items()}
+    return res
+
+
+def _adam_hold(a_in, timed: bool) -> dict:
+    """adam against plain_adam on the card on ``a_in`` (its arguments), each
+    from the same state (the parameters, gradients, Adam's state, the lr
+    and the flat buffer restored in place before each call): per field
+    max|err| over its scale, the step counts and the lr exact, the second
+    call equal to the first bit for bit (``"adam"``); with ``timed``, adam
+    alone (``_kernel_ms``) beside plain_adam and torch's fused Adam with
+    the clip's ops; the state restored after."""
+    import torch
+
+    from nightmare_rl_tpu_torch.ops import learn as L
+
+    opt, flat, lr, _, algo, _ = a_in
+    params = opt.param_groups[0]["params"]
+    held = [*params, *(p.grad for p in params),
+            *(x for p in params for x in opt.state[p].values()), lr]
     start = [h.detach().clone() for h in held]
+    f_start = flat.detach().clone()
 
     def restore():
         with torch.no_grad():
             for h, x in zip(held, start):
                 h.copy_(x)
-            flat.copy_(f_ref)
+            flat.copy_(f_start)
 
     def after(stats):
         return [h.detach().clone() for h in held] + [flat.clone(),
                                                      stats.clone()]
 
-    a_in = (ppo.optimizer, flat, ppo.lr, 1, a, l_ref)
     restore()
     s_ref = after(L.plain_adam(*a_in))
     restore()
     s_got = after(L.adam(*a_in))
     restore()
     s_again = after(L.adam(*a_in))
-    n = len(ppo.params)
+    n = len(params)
     # Adam's state by parameter: step, exp_avg, exp_avg_sq
     steps = [2 * n + 3 * k for k in range(n)]
     moments = [j + q for j in steps for q in (1, 2)]
-    p_err = max(_rel_max(s_ref[j], s_got[j]) for j in range(n))
-    res["adam"] = dict(
-        params=p_err, moments=max(_rel_max(s_ref[j], s_got[j]) for j in moments),
+    res = {"adam": dict(
+        params=max(_rel_max(s_ref[j], s_got[j]) for j in range(n)),
+        moments=max(_rel_max(s_ref[j], s_got[j]) for j in moments),
         steps=all(torch.equal(s_ref[j], s_got[j]) for j in steps),
         lr=torch.equal(s_ref[len(held) - 1], s_got[len(held) - 1]),
         clipped=_rel_max(s_ref[-2], s_got[-2]),
@@ -4408,29 +4446,37 @@ def _learn_case(N: int, timed: bool, robot: str = "nightmare_v3") -> dict:
                      / (1 + s_ref[-1].abs())).max()),
         same=all(torch.equal(x, y) for x, y in zip(s_got, s_again)),
         abs=max(float((s_got[j] - s_ref[j]).abs().max()) for j in range(n)),
-        lr_value=float(s_got[len(held) - 1]))
+        lr_value=float(s_got[len(held) - 1]),
+        P=flat.numel() - 1, tensors=n,
+        chunks=L.adam_chunks(p.numel() for p in params))}
     restore()
     if timed:
-        res["gae_ms"] = _kernel_ms(lambda: L.gae(*gae_in))
-        res["gae_plain_ms"] = _cuda_ms(lambda: L.plain_gae(*gae_in), 10, 2)
-        res["grads_ms"] = _kernel_ms(lambda: L.grads(*g_in))
-        res["grads_plain_ms"] = _cuda_ms(lambda: L.plain_grads(*g_in), 10, 2)
-        restore()
         res["adam_ms"] = _kernel_ms(lambda: L.adam(*a_in))
         restore()
         res["adam_plain_ms"] = _cuda_ms(lambda: L.plain_adam(*a_in), 10, 2)
         restore()
 
         def library():
-            L.clip_by_global_norm(ppo.params, a.max_grad_norm)
-            ppo.optimizer.step()
+            L.clip_by_global_norm(params, algo.max_grad_norm)
+            opt.step()
 
         res["adam_library_ms"] = _kernel_ms(library)
         restore()
-        res["bounds"] = {k: _bytes_ops_bound(nb, ops, torch.float32)
-                         for k, (nb, ops) in _learn_bounds(
-                             ppo, T, N, B).items()}
+        res["adam_bound"] = _bytes_ops_bound(
+            *_adam_bound(flat.numel() - 1, n), torch.float32)
     return res
+
+
+def _adam_recurrent_case(timed: bool) -> dict:
+    """adam against plain_adam on the recurrent net's parameters at the
+    config's widths (nightmare_v3's 66 observations and 18 actions, LSTMs
+    of 512: P = 2,434,795 in 23 tensors), float32 on the card, from
+    ``profile_learn._adam_inputs`` (``init_params(0)``'s weights, Adam a
+    few steps in, gradients drawn at 1e-2, the clip engaged, the KL at 2.5
+    times its target: the lr divided), as ``_adam_hold`` holds it."""
+    from nightmare_rl_tpu_torch.tools.profile_learn import _adam_inputs
+
+    return _adam_hold(_adam_inputs("ActorCriticRecurrent", kl=2.5), timed)
 
 
 def _negative_alpha_case(N: int, alpha: float = -0.5) -> dict:
@@ -4486,8 +4532,10 @@ def phase_learn_kernel(device_name: str, smi: str) -> dict:
     first bit for bit.  Each kernel timed alone (``_kernel_ms``) beside
     its plain version, adam beside torch's fused Adam with the clip's ops,
     with its bound's share; ptxas's registers and spills from the build,
-    grads' grid, shared memory a block and blocks an SM; grads also with
-    ELU's alpha below 0 (``_negative_alpha_case``).  Returns the
+    grads' grid, shared memory a block and blocks an SM; adam also on the
+    recurrent net's 2,434,795 parameters (``_adam_recurrent_case``: held
+    at the same tolerances and timed so); grads also with ELU's alpha below
+    0 (``_negative_alpha_case``).  Returns the
     kernels' figures on nightmare_v3 at 2048 envs for the kernels'
     line."""
     import torch
@@ -4539,6 +4587,24 @@ def phase_learn_kernel(device_name: str, smi: str) -> dict:
         if not (g["same"] and d["same"] and m["same"]):
             raise AssertionError(f"a learn kernel's second call differs from "
                                  f"its first on {robot} at {N} envs")
+    rec = _adam_recurrent_case(timed=True)
+    m, b = rec["adam"], rec["adam_bound"]
+    print(f"learn-kernel: adam on the recurrent net's parameters (P = "
+          f"{m['P']:,} in {m['tensors']} tensors, {m['chunks']} chunks) "
+          f"float32: parameters {m['params']:.3e} (tol "
+          f"{ADAM_PARAM_F32_TOL:g}), moments {m['moments']:.3e}, clipped "
+          f"gradients {m['clipped']:.3e}, statistics {m['stats']:.3e} (tol "
+          f"{ADAM_F32_TOL:g}), steps equal {m['steps']}, lr equal {m['lr']} "
+          f"({m['lr_value']:.4e}); second call bit for bit {m['same']}; alone "
+          f"(cold L2) {rec['adam_ms']:.4f} ms, plain "
+          f"{rec['adam_plain_ms']:.3f} ms, torch's fused Adam and the clip's "
+          f"ops {rec['adam_library_ms']:.4f} ms, bound {b[0] * 1e3:.2f} us by "
+          f"{b[1]} ({b[2] / 1e6:.2f} MB) = {b[0] / rec['adam_ms']:.1%} of it")
+    if (m["params"] > ADAM_PARAM_F32_TOL or m["moments"] > ADAM_F32_TOL
+            or m["clipped"] > ADAM_F32_TOL or m["stats"] > ADAM_F32_TOL
+            or not (m["steps"] and m["lr"] and m["same"])):
+        raise AssertionError(f"adam disagrees with its plain version on the "
+                             f"recurrent net's parameters: {m}")
     neg = _negative_alpha_case(2048)
     print(f"learn-kernel: nightmare_v3 2048 envs, ELU alpha {neg['alpha']} "
           f"(z's signs kept apart), minibatch {neg['B']}: grads worst tensor "

@@ -24,7 +24,12 @@
 // ~45 us at 67 TFLOP/s in float32 outside the tensor cores (the port's
 // nets run in full float32: no TF32); its bytes, the rows gathered and
 // the gradients written, ~20.6 MB, ~6 us at 3.35 TB/s.  gae moves ~2.8 MB
-// (~0.8 us); adam ~0.5 MB (~0.15 us): both are launch-bound.
+// (~0.8 us).  adam moves ~32 bytes a parameter (the gradients, both moments
+// and the parameters read and written): ~0.48 MB (~0.14 us) for
+// nightmare_v3's 15,043 parameters, where two dependent launches and their
+// DRAM round trips bound it, and ~78 MB (~23 us) for the recurrent net's
+// 2,434,795, where the bytes do: a design in one block ran 40 us and
+// 5.4 ms (one SM's loads in flight), so adam spreads over the card.
 //
 // The design.  grads: the grid's blocks split into the actor's and the
 // critic's (the loss's gradient reaches each net through its own head), one
@@ -56,8 +61,20 @@
 // group of each net adds the groups' rows in order into the flat buffer,
 // and the later of the two nets writes the losses: no float atomics, so a
 // replay equals the eager call bit for bit.  gae: a thread an env, its sum
-// by lane and a fixed tree, the blocks' sums by the last block.  adam: one
-// block, the norm's squares by 1,024 lanes and a fixed tree.
+// by lane and a fixed tree, the blocks' sums by the last block.  adam: each
+// tensor cut into chunks of kAdamChunk = 1,024 elements, a block of 256
+// threads a chunk, 4 consecutive elements a thread (16-byte loads where
+// the address allows, 8-byte in float32 where it is 8-byte aligned: the
+// recurrent net's big tensors sit at flat offsets of 2 mod 4), in two
+// launches.  Phase A sums each chunk's squares by lane and a fixed tree
+// and takes its tensors' bias corrections; the last block (an integer
+// ticket) adds the chunks' sums in chunk order, the norm and the lr.
+// Phase B, launched as A's programmatic dependent, loads its chunk's four
+// operands while A runs (A writes none of them), waits for A's end, and
+// writes the step.  Each element is read and written by one thread of
+// each phase, and B stores only after A has ended: race-free; the sums'
+// order depends on the tensors' sizes alone, so every grid and team gives
+// the same bits.
 
 #include <cuda_runtime.h>
 
@@ -101,12 +118,17 @@ __global__ void __launch_bounds__(learn_env::kGaeLanes)
 }
 
 // Built with -DLEARN_TIMELINE (tools/profile_learn.py --timeline), thread 0
-// of each of the first kTimelineBlocks blocks of grads stamps the card's
-// global timer (ns) and its SM's cycle counter at learn_env's Stamp points
-// into g_timeline; otherwise a stamp is nothing.
+// of each of the first kTimelineBlocks blocks of grads and adam stamps the
+// card's global timer (ns) and its SM's cycle counter at learn_env's Stamp
+// points into g_timeline (row: the block); otherwise a stamp is nothing.
 #ifdef LEARN_TIMELINE
-constexpr int kTimelineBlocks = 512, kStamps = learn_env::kStamps;
+constexpr int kTimelineBlocks = 1024, kStamps = learn_env::kStamps;
 __device__ long long g_timeline[2 * kTimelineBlocks * kStamps];
+using Team = common::StampedBlockTeam<kStamps, kTimelineBlocks>;
+__device__ Team team_of(int blk) { return Team{{}, g_timeline, blk}; }
+#else
+using Team = BlockTeam;
+__device__ Team team_of(int) { return Team{}; }
 #endif
 
 template <typename T>
@@ -114,12 +136,7 @@ __global__ void __launch_bounds__(kGradsThreads, 2)
     learn_grads_kernel(const __grid_constant__ GradsArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blk = static_cast<int>(blockIdx.x);
-#ifdef LEARN_TIMELINE
-  const common::StampedBlockTeam<kStamps, kTimelineBlocks> tm{{}, g_timeline,
-                                                              blk};
-#else
-  const BlockTeam tm{};
-#endif
+  const Team tm = team_of(blk);
   learn_env::grads_block(tm, a, blk, reinterpret_cast<T*>(smem));
   const int k = blk < a.blocks[0] ? 0 : 1;
   const int b = k == 0 ? blk : blk - a.blocks[0];
@@ -138,11 +155,28 @@ __global__ void __launch_bounds__(kGradsThreads, 2)
   tm.stamp(learn_env::kStampFinal);
 }
 
+// adam's phase A: the bias corrections and the chunks' sums of squares,
+// then the last block's norm and lr; phase B, its programmatic dependent
+// (launch_adam): the step.  Every block of phase A lets phase B's blocks
+// launch as soon as it starts: they load their operands, which phase A does
+// not write, and wait for its end before they read its results and store.
 template <typename T>
-__global__ void __launch_bounds__(learn_env::kAdamLanes)
-    learn_adam_kernel(const __grid_constant__ AdamArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  learn_env::adam_block(BlockTeam{}, a, smem);
+__global__ void __launch_bounds__(learn_env::kAdamThreads)
+    learn_adam_sums_kernel(const __grid_constant__ AdamArgs<T> a) {
+  __shared__ T lanes[learn_env::kAdamThreads];
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int blk = static_cast<int>(blockIdx.x);
+  const Team tm = team_of(blk);
+  learn_env::adam_sums(tm, a, blk, lanes);
+  if (last_to_arrive(a.counter, gridDim.x))
+    learn_env::adam_final(tm, a, lanes);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(learn_env::kAdamThreads)
+    learn_adam_step_kernel(const __grid_constant__ AdamArgs<T> a) {
+  const int blk = static_cast<int>(blockIdx.x);
+  learn_env::adam_step(team_of(blk), a, blk);
 }
 
 template <typename T>
@@ -186,9 +220,21 @@ int launch_adam(const int* ints, int nints, const double* reals, int nreals,
   AdamArgs<T> a;
   if (!learn_env::read_adam(ints, nints, reals, nreals, ptrs, nptrs, &a))
     return static_cast<int>(cudaErrorInvalidValue);
-  learn_adam_kernel<T><<<1, learn_env::kAdamLanes,
-                         learn_env::adam_smem_bytes<T>(), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  learn_adam_sums_kernel<T><<<a.blocks, learn_env::kAdamThreads, 0,
+                              stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.blocks);
+  cfg.blockDim = dim3(learn_env::kAdamThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, learn_adam_step_kernel<T>, a));
 }
 
 }  // namespace

@@ -21,12 +21,16 @@
 // of loss_fn (nightmare_rl_tpu/rl/ppo.py:339-348, _loss_terms :222-242,
 // models/actor_critic.py:133-159).
 //
-// adam_block divides the flat buffer (the gradients and, last, the KL,
-// summed over the ranks) by the world, sets the adaptive learning rate from
-// the KL, clips the gradients by their global norm (optax's rule) and takes
+// adam divides the flat buffer (the gradients and, last, the KL, summed
+// over the ranks) by the world, sets the adaptive learning rate from the
+// KL, clips the gradients by their global norm (optax's rule) and takes
 // Adam's step on every parameter tensor (torch's fused Adam's formula),
-// counting each tensor's step.  It ports the optax chain and _adapt_lr
-// (nightmare_rl_tpu/rl/ppo.py:100-103, :244-255, :349-359).
+// counting each tensor's step, in fixed chunks of each tensor: adam_sums
+// sums a block's chunks' squares (and takes its tensors' bias
+// corrections), adam_final (the last block) the chunks' sums, the norm and
+// the lr, and adam_step takes a block's chunks' step.  It ports the optax
+// chain and _adapt_lr (nightmare_rl_tpu/rl/ppo.py:100-103, :244-255,
+// :349-359).
 //
 // The team contract is rollout_env.cuh's: rank(), size(), sync(),
 // copy(dst, src) and copy_wait(), and stamp(k) (a timer stamp, nothing but
@@ -35,9 +39,11 @@
 // its terms in ascending order; the gradients of a block's tile of samples
 // are summed over the tile, then added to the block's sums tile by tile;
 // the grid's partial sums are added group by group in block order, then
-// the groups in order; the GAE and Adam sums run over a fixed number of
-// virtual lanes, then a fixed tree.  No float atomics: a replay gives the
-// eager call's bits.
+// the groups in order; the GAE sums and each of adam's chunks' and the
+// chunks' sums (in chunk order) run over a fixed number of virtual lanes,
+// then a fixed tree: the order depends on the tensors' sizes alone, never
+// on the grid's or the team's.  No float atomics: a replay gives the eager
+// call's bits.
 
 #pragma once
 
@@ -80,16 +86,20 @@ constexpr int kDwJ = 4, kDwK = 4;
 // each hidden output: a byte for 4 samples (bit u: sample 4 q + u), kQuads
 // bytes a feature.
 constexpr int kQuads = kTile / 4;
-constexpr int kAdamLanes = 1024;  // adam's virtual lanes for the norm
+// adam's chunks: a tensor's elements from its start in chunks of
+// kAdamChunk, a block's kAdamThreads members (its lanes) 4 consecutive
+// elements each.
+constexpr int kAdamThreads = 256;
+constexpr int kAdamChunk = 4 * kAdamThreads;
 constexpr int kMaxTensors = 64;   // adam's parameter tensors at most
-constexpr int kAhead = 4;         // adam's elements a member loads at once
 constexpr int kMaxTeam = 64;      // host team members at most
 
-// The stamps of grads' timeline (csrc/learn.cu built with -DLEARN_TIMELINE,
-// tools/profile_learn.py --timeline): the team's stamp(k) at the end of
-// each phase of one tile of a block's walk (its second, where it has two),
-// of the walk, and of the grid's sums in the block that adds them.  A
-// phase a design does not have is not stamped.
+// The stamps of grads' and adam's timelines (csrc/learn.cu built with
+// -DLEARN_TIMELINE, tools/profile_learn.py --timeline): the team's stamp(k)
+// at the end of each phase of one tile of grads' walk (a block's second,
+// where it has two), of the walk, and of the grid's sums in the block that
+// adds them; and at the end of each of adam's phases.  A phase a design does
+// not have is not stamped.
 constexpr int kLossStamps = 3;
 enum Stamp {
   kStampStart,                              // the block starts
@@ -102,12 +112,20 @@ enum Stamp {
   kStampWalk = kStampBwd + 2 * kMaxLayers,  // the block's walk ends
   kStampGroup,                              // its group's sum
   kStampFinal,                              // the grid's sum
+  kStampAdamStart,                          // adam: a block starts
+  kStampAdamSquares,                        // its sums of squares
+  kStampAdamTree,                           // (last block) the norm, the lr
+  kStampAdamPass,                           // the step (phase B) starts
+  kStampAdamWait,                           // it has waited for phase A
+  kStampAdamFirst,                          // its first chunk
+  kStampAdamLast,                           // its last (of several)
   kStamps
 };
 static const char kStampNames[] =
     "start,staged,tile,gather,fwd0,fwd1,fwd2,fwd3,fwd4,fwd5,fwd6,fwd7,loss0,"
     "loss1,loss2,bwd0a,bwd0b,bwd1a,bwd1b,bwd2a,bwd2b,bwd3a,bwd3b,bwd4a,bwd4b,"
-    "bwd5a,bwd5b,bwd6a,bwd6b,bwd7a,bwd7b,walk,group,final";
+    "bwd5a,bwd5b,bwd6a,bwd6b,bwd7a,bwd7b,walk,group,final,adam_start,"
+    "adam_squares,adam_tree,adam_pass,adam_wait,adam_first,adam_last";
 
 // ---- the C interface's blocks -----------------------------------------
 
@@ -145,18 +163,23 @@ static const char kStampNames[] =
   X(std) X(flat) X(losses) X(scratch) X(counters)
 
 // adam: the gradients (the flat buffer's KL index), the parameter tensors,
-// the adaptive schedule (0 or 1), the world; then per tensor its elements
-// and its gradient's flat offset.
-#define LEARN_ADAM_INTS(X) X(P) X(ntensors) X(adaptive) X(world)
+// the adaptive schedule (0 or 1), the world, the chunks and the grid's
+// blocks; then per tensor, in flat order, its elements and its gradient's
+// flat offset.
+#define LEARN_ADAM_INTS(X)                                                    \
+  X(P) X(ntensors) X(adaptive) X(world) X(chunks) X(blocks)
 // the KL target, the clip's norm, Adam's betas and eps, the lr's bounds and
 // factor.
 #define LEARN_ADAM_REALS(X)                                                   \
   X(desired_kl) X(max_grad_norm) X(beta1) X(beta2) X(eps) X(lr_min)           \
   X(lr_max) X(lr_factor)
 // the flat buffer (P + 1), the lr (), the losses (3); output the
-// statistics (4: the losses and the KL); then per tensor its parameter,
-// Adam's exp_avg and exp_avg_sq and its step (float32).
-#define LEARN_ADAM_PTRS(X) X(flat) X(lr) X(losses) X(stats)
+// statistics (4: the losses and the KL); the scratch
+// (adam_scratch_elems) and the grid's counter (one int, 0 between
+// launches); then per tensor its parameter, Adam's exp_avg and exp_avg_sq
+// and its step (float32).
+#define LEARN_ADAM_PTRS(X)                                                    \
+  X(flat) X(lr) X(losses) X(stats) X(scratch) X(counter)
 
 #define LEARN_ENUM(name) name,
 #define LEARN_NAME(name) #name ","
@@ -1265,15 +1288,25 @@ LEARN_HD void grads_losses(const Team& tm, const GradsArgs<T>& a) {
 
 template <typename T>
 struct AdamArgs {
-  int P, ntensors, adaptive, world;
+  int P, ntensors, adaptive, world, chunks, blocks;
   T desired_hi, desired_lo, max_norm, beta1, beta2, eps, lr_min, lr_max,
       factor;
-  T *flat, *lr, *stats;
+  T *flat, *lr, *stats, *scratch;
   const T* losses;
-  int numel[kMaxTensors], off[kMaxTensors];
+  int* counter;
+  // per tensor in flat order: its elements, its flat offset, its first
+  // chunk (chunk0[ntensors]: the chunks)
+  int numel[kMaxTensors], off[kMaxTensors], chunk0[kMaxTensors + 1];
   T *param[kMaxTensors], *m[kMaxTensors], *v[kMaxTensors];
   float* step[kMaxTensors];
 };
+
+// adam's scratch: the norm, the lr, each tensor's step size (lr over its
+// first bias correction) and second bias correction, then the chunks' sums
+// of squares.
+LEARN_HD int adam_scratch_elems(int ntensors, int chunks) {
+  return 2 + 2 * ntensors + chunks;
+}
 
 template <typename T>
 inline bool read_adam(const int* ints, int nints, const double* reals,
@@ -1286,8 +1319,11 @@ inline bool read_adam(const int* ints, int nints, const double* reals,
   a->ntensors = ints[adam_int::ntensors];
   a->adaptive = ints[adam_int::adaptive];
   a->world = ints[adam_int::world];
+  a->chunks = ints[adam_int::chunks];
+  a->blocks = ints[adam_int::blocks];
   const int nt = a->ntensors;
   if (a->P < 1 || nt < 1 || nt > kMaxTensors || a->world < 1 ||
+      a->blocks < 1 || a->blocks > a->chunks ||
       nints != adam_int::kCount + 2 * nt || nptrs != adam_ptr::kCount + 4 * nt)
     return false;
   const double* R = reals;
@@ -1306,134 +1342,302 @@ inline bool read_adam(const int* ints, int nints, const double* reals,
   a->lr = static_cast<T*>(mp(adam_ptr::lr));
   a->losses = static_cast<const T*>(ptrs[adam_ptr::losses]);
   a->stats = static_cast<T*>(mp(adam_ptr::stats));
+  a->scratch = static_cast<T*>(mp(adam_ptr::scratch));
+  a->counter = static_cast<int*>(mp(adam_ptr::counter));
   for (int k = 0; k < nptrs; ++k)
     if (!ptrs[k]) return false;
-  long long covered = 0;
+  // the tensors tile [0, P) in order
+  long long at = 0, chunks = 0;
   for (int t = 0; t < nt; ++t) {
     a->numel[t] = ints[adam_int::kCount + 2 * t];
     a->off[t] = ints[adam_int::kCount + 2 * t + 1];
-    if (a->numel[t] < 1 || a->off[t] < 0 || a->off[t] + a->numel[t] > a->P)
-      return false;
-    covered += a->numel[t];
+    if (a->numel[t] < 1 || a->off[t] != at) return false;
+    at += a->numel[t];
+    a->chunk0[t] = static_cast<int>(chunks);
+    chunks += (a->numel[t] + kAdamChunk - 1) / kAdamChunk;
     const int q = adam_ptr::kCount + 4 * t;
     a->param[t] = static_cast<T*>(mp(q));
     a->m[t] = static_cast<T*>(mp(q + 1));
     a->v[t] = static_cast<T*>(mp(q + 2));
     a->step[t] = static_cast<float*>(mp(q + 3));
   }
-  return covered == a->P;
-}
-
-// adam's workspace (bytes): the lanes' sums, then per tensor its new step
-// and bias corrections, then the norm and the lr.
-template <typename T>
-LEARN_HD int adam_smem_bytes() {
-  return static_cast<int>(sizeof(T)) * (kAdamLanes + 2 * kMaxTensors + 2) +
-         static_cast<int>(sizeof(float)) * kMaxTensors;
+  a->chunk0[nt] = static_cast<int>(chunks);
+  return at == a->P && chunks == a->chunks;
 }
 
 LEARN_HD float pow_t(float a, float b) { return powf(a, b); }
 LEARN_HD double pow_t(double a, double b) { return pow(a, b); }
 
-// The whole of adam, by one team: `base` is its workspace.
-template <typename T, typename Team>
-LEARN_HD void adam_block(const Team& tm, const AdamArgs<T>& a, void* base) {
-  T* sq = static_cast<T*>(base);
-  T* bc1 = sq + kAdamLanes;
-  T* bc2 = bc1 + kMaxTensors;
-  T* scal = bc2 + kMaxTensors;  // the norm, the lr
-  float* steps = reinterpret_cast<float*>(scal + 2);
-  const T world = static_cast<T>(a.world);
-  // the mean over the ranks, in place, and each lane's sum of squares of
-  // the gradients (elements v, v + kAdamLanes, ...)
-  for (int v = tm.rank(); v < kAdamLanes; v += tm.size()) {
-    T s = T(0);
-    for (int i0 = v; i0 <= a.P; i0 += kAhead * kAdamLanes) {
-      T g[kAhead];
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        const int i = i0 + j * kAdamLanes;
-        g[j] = i <= a.P ? a.flat[i] / world : T(0);
-      }
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        const int i = i0 + j * kAdamLanes;
-        if (i <= a.P) a.flat[i] = g[j];
-        if (i < a.P) s += g[j] * g[j];
-      }
+// The tensor of chunk k (the last whose first chunk is at most k).
+template <typename T>
+LEARN_HD int adam_tensor(const AdamArgs<T>& a, int k) {
+  int lo = 0, hi = a.ntensors - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (a.chunk0[mid] <= k)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
+}
+
+// Four consecutive elements at p: one 16-byte load on the card where p is
+// 16-byte aligned (two in float64), two 8-byte loads where it is 8-byte
+// aligned in float32, else four.  Within a chunk every member's 4 elements
+// share one alignment, so the branch is uniform.
+template <typename T>
+LEARN_HD void ld4_any(const T* p, T v[4]) {
+#ifdef __CUDA_ARCH__
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  if (at % 16 == 0) {
+    ld4(p, v);
+    return;
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (at % 8 == 0) {
+      const float2 f = reinterpret_cast<const float2*>(p)[0];
+      const float2 g = reinterpret_cast<const float2*>(p)[1];
+      v[0] = f.x, v[1] = f.y, v[2] = g.x, v[3] = g.y;
+      return;
     }
-    sq[v] = s;
   }
-  // each tensor's step count and bias corrections (torch's fused Adam:
-  // the step incremented first, its corrections in T)
-  for (int t = tm.rank(); t < a.ntensors; t += tm.size()) {
-    const float st = *a.step[t] + 1.0f;
-    steps[t] = st;
-    bc1[t] = T(1) - pow_t(a.beta1, static_cast<T>(st));
-    bc2[t] = static_cast<T>(sqrt(T(1) - pow_t(a.beta2, static_cast<T>(st))));
+#endif
+  for (int u = 0; u < 4; ++u) v[u] = p[u];
+}
+template <typename T>
+LEARN_HD void st4_any(T* p, const T v[4]) {
+#ifdef __CUDA_ARCH__
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  if (at % 16 == 0) {
+    st4(p, v);
+    return;
   }
-  for (int h = kAdamLanes / 2; h > 0; h /= 2) {
+  if constexpr (sizeof(T) == 4) {
+    if (at % 8 == 0) {
+      reinterpret_cast<float2*>(p)[0] = make_float2(v[0], v[1]);
+      reinterpret_cast<float2*>(p)[1] = make_float2(v[2], v[3]);
+      return;
+    }
+  }
+#endif
+  for (int u = 0; u < 4; ++u) p[u] = v[u];
+}
+
+// Elements e .. e + 3 of a chunk of n elements at p (those at n and above:
+// 0), and their store.
+template <typename T>
+LEARN_HD void ld_group(const T* p, int e, int n, T x[4]) {
+  if (e + 4 <= n) {
+    ld4_any(p + e, x);
+    return;
+  }
+  for (int u = 0; u < 4; ++u) x[u] = e + u < n ? p[e + u] : T(0);
+}
+template <typename T>
+LEARN_HD void st_group(T* p, int e, int n, const T x[4]) {
+  if (e + 4 <= n) {
+    st4_any(p + e, x);
+    return;
+  }
+  for (int u = 0; u < 4; ++u)
+    if (e + u < n) p[e + u] = x[u];
+}
+
+// The sum of lanes[0 .. kAdamThreads) by a fixed tree (lanes[v] +=
+// lanes[v + h], h = kAdamThreads / 2, ..., 1), into lanes[0]; the team is
+// synced before and after.  On the card (a block of kAdamThreads) the last
+// five levels run in warp 0's registers by shuffles: the same sums.
+template <typename T, typename Team>
+LEARN_HD void lanes_tree(const Team& tm, T* lanes) {
+  int h = kAdamThreads / 2;
+#ifdef __CUDA_ARCH__
+  for (; h >= 32; h /= 2) {
     tm.sync();
-    for (int v = tm.rank(); v < h; v += tm.size()) sq[v] += sq[v + h];
+    if (tm.rank() < h) lanes[tm.rank()] += lanes[tm.rank() + h];
   }
   tm.sync();
-  if (tm.rank() == 0) {
-    const T kl = a.flat[a.P];
-    T lr = *a.lr;
-    if (a.adaptive) {
-      if (kl > a.desired_hi) {
-        const T x = lr / a.factor;
-        lr = x < a.lr_min ? a.lr_min : x;
-      } else if (kl < a.desired_lo && kl > T(0)) {
-        const T x = lr * a.factor;
-        lr = x > a.lr_max ? a.lr_max : x;
-      }
+  if (tm.rank() < 32) {
+    T x = lanes[tm.rank()];
+    for (; h > 0; h /= 2) x += __shfl_down_sync(0xffffffffu, x, h);
+    if (tm.rank() == 0) lanes[0] = x;
+  }
+#else
+  for (; h > 0; h /= 2) {
+    tm.sync();
+    for (int v = tm.rank(); v < h; v += tm.size()) lanes[v] += lanes[v + h];
+  }
+#endif
+  tm.sync();
+}
+
+// x over the world (x itself for a world of one: the same bits, without a
+// division).
+template <typename T>
+LEARN_HD T over_world(T x, int world) {
+  return world == 1 ? x : x / static_cast<T>(world);
+}
+
+// The adaptive lr from the KL (over the world) and the lr before it.
+template <typename T>
+LEARN_HD T adam_lr(const AdamArgs<T>& a, T kl) {
+  T lr = *a.lr;
+  if (a.adaptive) {
+    if (kl > a.desired_hi) {
+      const T x = lr / a.factor;
+      lr = x < a.lr_min ? a.lr_min : x;
+    } else if (kl < a.desired_lo && kl > T(0)) {
+      const T x = lr * a.factor;
+      lr = x > a.lr_max ? a.lr_max : x;
     }
+  }
+  return lr;
+}
+
+// Waits, in a kernel launched as the programmatic dependent of the one
+// before it in the stream, until that kernel has ended and its writes are
+// visible; nothing on the host, whose phases run in order.
+LEARN_HD void wait_prior_grid() {
+#ifdef __CUDA_ARCH__
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// Chunk k's tensor t, its first element e0 in t and its elements n.
+template <typename T>
+LEARN_HD void adam_chunk(const AdamArgs<T>& a, int k, int* t, int* e0,
+                         int* n) {
+  *t = adam_tensor(a, k);
+  *e0 = (k - a.chunk0[*t]) * kAdamChunk;
+  *n = min_i(kAdamChunk, a.numel[*t] - *e0);
+}
+
+// Phase A, block blk of a.blocks: for its tensors t = blk, blk + blocks,
+// ..., the step count, step size and second bias correction (torch's fused
+// Adam: the step incremented first, its corrections in T) into the
+// scratch; for its chunks k = blk, blk + blocks, ..., the sum of squares of
+// the chunk's gradients over the world (lane v adds its 4 elements' in
+// order, then the lanes' tree) into the scratch.  `lanes`: kAdamThreads
+// elements of workspace.
+template <typename T, typename Team>
+LEARN_HD void adam_sums(const Team& tm, const AdamArgs<T>& a, int blk,
+                        T* lanes) {
+  tm.stamp(kStampAdamStart);
+  const int nt = a.ntensors;
+  for (int t = blk + tm.rank() * a.blocks; t < nt;
+       t += a.blocks * tm.size()) {
+    const T lr = adam_lr(a, over_world(a.flat[a.P], a.world));
+    const float st = *a.step[t] + 1.0f;
+    *a.step[t] = st;
+    a.scratch[2 + t] = lr / (T(1) - pow_t(a.beta1, static_cast<T>(st)));
+    a.scratch[2 + nt + t] =
+        static_cast<T>(sqrt(T(1) - pow_t(a.beta2, static_cast<T>(st))));
+  }
+  T* const part = a.scratch + adam_scratch_elems(nt, 0);
+  for (int k = blk; k < a.chunks; k += a.blocks) {
+    int t, e0, n;
+    adam_chunk(a, k, &t, &e0, &n);
+    const T* const g = a.flat + a.off[t] + e0;
+    for (int v = tm.rank(); v < kAdamThreads; v += tm.size()) {
+      T x[4];
+      ld_group(g, 4 * v, n, x);
+      T s = T(0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const T q = over_world(x[u], a.world);
+        s = fma_t(q, q, s);
+      }
+      lanes[v] = s;
+    }
+    lanes_tree(tm, lanes);
+    if (tm.rank() == 0) part[k] = lanes[0];
+  }
+  tm.sync();
+  tm.stamp(kStampAdamSquares);
+}
+
+// Phase A's end, by the last block to arrive: the chunks' sums in chunk
+// order (lane v adds chunks v, v + kAdamThreads, ..., then the lanes'
+// tree), the norm; the KL over the world, the adaptive lr and the
+// statistics.
+template <typename T, typename Team>
+LEARN_HD void adam_final(const Team& tm, const AdamArgs<T>& a, T* lanes) {
+  const T* const part = a.scratch + adam_scratch_elems(a.ntensors, 0);
+  // member 0's loads first, in flight while the lanes add the sums
+  T kl = T(0), lr = T(0), losses[3];
+  if (tm.rank() == 0) {
+    kl = over_world(a.flat[a.P], a.world);
+    lr = adam_lr(a, kl);
+    for (int k = 0; k < 3; ++k) losses[k] = a.losses[k];
+  }
+  for (int v = tm.rank(); v < kAdamThreads; v += tm.size()) {
+    T s = T(0);
+    for (int k = v; k < a.chunks; k += kAdamThreads) s += ld_shared(part + k);
+    lanes[v] = s;
+  }
+  lanes_tree(tm, lanes);
+  if (tm.rank() == 0) {
+    a.flat[a.P] = kl;
     *a.lr = lr;
-    scal[0] = static_cast<T>(sqrt(sq[0]));
-    scal[1] = lr;
-    for (int k = 0; k < 3; ++k) a.stats[k] = a.losses[k];
+    a.scratch[0] = static_cast<T>(sqrt(lanes[0]));
+    a.scratch[1] = lr;
+    for (int k = 0; k < 3; ++k) a.stats[k] = losses[k];
     a.stats[3] = kl;
   }
-  tm.sync();
-  const T norm = scal[0], lr = scal[1];
-  const bool keep = norm < a.max_norm;
-  // the elements of every tensor in flat order, kAhead a member at once
-  for (int i0 = tm.rank(); i0 < a.P; i0 += kAhead * tm.size()) {
-    int ts[kAhead], es[kAhead];
-    T g[kAhead], m[kAhead], v[kAhead], p[kAhead];
+  tm.stamp(kStampAdamTree);
+}
+
+// Phase B, block blk of a.blocks: Adam's step on its chunks k = blk, blk +
+// blocks, ...: every operand of a member's elements loaded at once, the
+// gradient over the world and clipped, the moments and the parameter by
+// torch's fused Adam's formula, each written back where it was read (the
+// clipped gradient into the flat buffer).  Phase A writes none of the
+// operands, so a kernel launched as phase A's programmatic dependent loads
+// its first chunk's while phase A runs, and waits for it
+// (wait_prior_grid) before it reads the scratch and stores.
+template <typename T, typename Team>
+LEARN_HD void adam_step(const Team& tm, const AdamArgs<T>& a, int blk) {
+  tm.stamp(kStampAdamPass);
+  const T* const sc = a.scratch;
+  for (int k = blk; k < a.chunks; k += a.blocks) {
+    int t, e0, n;
+    adam_chunk(a, k, &t, &e0, &n);
+    T* const g = a.flat + a.off[t] + e0;
+    T* const m = a.m[t] + e0;
+    T* const v = a.v[t] + e0;
+    T* const p = a.param[t] + e0;
+    for (int r = tm.rank(); r < kAdamThreads; r += tm.size()) {
+      const int e = 4 * r;
+      T xg[4], xm[4], xv[4], xp[4];
+      ld_group(g, e, n, xg);
+      ld_group(m, e, n, xm);
+      ld_group(v, e, n, xv);
+      ld_group(p, e, n, xp);
+      wait_prior_grid();
+      if (k == blk) tm.stamp(kStampAdamWait);
+      const T norm = sc[0], size = sc[2 + t], bc2 = sc[2 + a.ntensors + t];
+      const bool keep = norm < a.max_norm;
 #pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int i = i0 + j * tm.size();
-      ts[j] = -1;
-      if (i >= a.P) continue;
-      for (int t = 0; t < a.ntensors; ++t)
-        if (i >= a.off[t] && i < a.off[t] + a.numel[t]) ts[j] = t;
-      const int t = ts[j];
-      if (t < 0) continue;
-      es[j] = i - a.off[t];
-      g[j] = a.flat[i];
-      m[j] = a.m[t][es[j]];
-      v[j] = a.v[t][es[j]];
-      p[j] = a.param[t][es[j]];
+      for (int u = 0; u < 4; ++u) {
+        T gj = over_world(xg[u], a.world);
+        if (!keep) gj = (gj / norm) * a.max_norm;
+        const T mj = fma_t(a.beta1, xm[u], fma_t(-a.beta1, gj, gj));
+        const T gg = gj * gj;
+        const T vj = fma_t(a.beta2, xv[u], fma_t(-a.beta2, gg, gg));
+        const T denom = static_cast<T>(sqrt(vj)) / bc2 + a.eps;
+        xp[u] = xp[u] - size * mj / denom;
+        xg[u] = gj;
+        xm[u] = mj;
+        xv[u] = vj;
+      }
+      st_group(g, e, n, xg);
+      st_group(m, e, n, xm);
+      st_group(v, e, n, xv);
+      st_group(p, e, n, xp);
     }
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int t = ts[j], e = es[j];
-      if (t < 0) continue;
-      T gj = g[j];
-      if (!keep) gj = (gj / norm) * a.max_norm;
-      a.flat[i0 + j * tm.size()] = gj;
-      const T mj = fma_t(a.beta1, m[j], fma_t(-a.beta1, gj, gj));
-      const T gg = gj * gj;
-      const T vj = fma_t(a.beta2, v[j], fma_t(-a.beta2, gg, gg));
-      const T denom = static_cast<T>(sqrt(vj)) / bc2[t] + a.eps;
-      a.param[t][e] = p[j] - (lr / bc1[t]) * mj / denom;
-      a.m[t][e] = mj;
-      a.v[t][e] = vj;
-    }
+    if (k == blk) tm.stamp(kStampAdamFirst);
   }
-  for (int t = tm.rank(); t < a.ntensors; t += tm.size()) *a.step[t] = steps[t];
+  if (blk + a.blocks < a.chunks) tm.stamp(kStampAdamLast);
 }
 
 }  // namespace learn_env

@@ -1,13 +1,14 @@
 // Host driver of csrc/learn_env.cuh: the learning kernels' arithmetic run
 // on the CPU by a team of `team` host threads in place of a block's threads
 // (the grid's blocks in series, each with one workspace for its shared
-// memory; then every group's sum, each net's grid sum and the losses, which
-// the kernels leave to the last block of each to arrive), with the plain C
-// interface of csrc/learn.cu less the stream, and the team's size in its
-// place.  The CPU
-// tests (tests/test_torch_learn_kernel.py, tests/test_torch_ppo.py) build
-// it with g++ (ops/build.py::build_host) and hold it against the plain
-// versions and the JAX package; it is not on any path of the port.
+// memory; then every group's sum, each net's grid sum and the losses, or
+// adam's norm, lr and bias corrections, which the kernels leave to the last
+// block of each to arrive; then adam's step, block by block), with the
+// plain C interface of csrc/learn.cu less the stream, and the team's size in
+// its place.  The CPU tests (tests/test_torch_learn_kernel.py,
+// tests/test_torch_ppo.py) build it with g++ (ops/build.py::build_host) and
+// hold it against the plain versions and the JAX package; it is not on any
+// path of the port.
 
 #include <vector>
 
@@ -89,11 +90,20 @@ int adam(const int* ints, int nints, const double* reals, int nreals,
   if (team < 1 || team > learn_env::kMaxTeam ||
       !learn_env::read_adam(ints, nints, reals, nreals, ptrs, nptrs, &a))
     return 1;
-  std::vector<double> work(
-      (learn_env::adam_smem_bytes<T>() + sizeof(double) - 1) / sizeof(double));
-  return host_team::run(1, team, [&](const host_team::ThreadTeam& tm, int) {
-    learn_env::adam_block(HostTeam{tm}, a, work.data());
-  });
+  std::vector<T> lanes(learn_env::kAdamThreads);
+  if (host_team::run(a.blocks, team,
+                     [&](const host_team::ThreadTeam& tm, int blk) {
+                       learn_env::adam_sums(HostTeam{tm}, a, blk, lanes.data());
+                     }))
+    return 1;
+  if (host_team::run(1, team, [&](const host_team::ThreadTeam& tm, int) {
+        learn_env::adam_final(HostTeam{tm}, a, lanes.data());
+      }))
+    return 1;
+  return host_team::run(a.blocks, team,
+                        [&](const host_team::ThreadTeam& tm, int blk) {
+                          learn_env::adam_step(HostTeam{tm}, a, blk);
+                        });
 }
 
 }  // namespace

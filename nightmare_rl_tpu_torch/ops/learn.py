@@ -36,6 +36,10 @@ Adam's state by pointer at launch, so a captured graph reads and writes
 the tensors the PPO holds.  ``grads``'s grid sums its blocks' partial sums
 in a fixed order, with integer tickets in a zeroed buffer that the
 kernels leave zeroed (``_counters``), so a replay gives the eager call's
+bits.  ``adam`` is one call of two launches over each tensor's chunks of
+ADAM_CHUNK elements (``adam_chunks``; a block a chunk): the chunks' sums
+of squares, which the last block to arrive (a ticket) adds in chunk order
+into the norm and the lr, then the step; every block count gives the same
 bits.
 
 ``host_gae``, ``host_grads`` and ``host_adam`` run the same arithmetic on
@@ -48,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import itertools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -61,6 +66,7 @@ from nightmare_rl_tpu_torch.utils.device import constant, full_float32
 GAE_LANES = 256      # learn_env.cuh kGaeLanes: envs a block of gae
 TILE = 64            # learn_env.cuh kTile: samples of a grads tile
 MAX_TENSORS = 64     # learn_env.cuh kMaxTensors: adam's parameter tensors
+ADAM_CHUNK = 1024    # learn_env.cuh kAdamChunk: elements of an adam chunk
 MAX_TEAM = 64        # learn_env.cuh kMaxTeam
 SMEM_ABOVE_LIMIT = -1  # learn.cu kSmemAboveLimit: a launch's return code
 HOST_BLOCKS = 3      # host_grads' default blocks a net (the card: its SMs)
@@ -457,8 +463,18 @@ def grads_blocks_per_sm(smem: int, dtype: torch.dtype) -> int:
     return blocks.value
 
 
-def _run_adam(optimizer, flat, lr, world, algo, losses, host: bool,
-              team: int = 1) -> torch.Tensor:
+def adam_chunks(numels) -> int:
+    """adam's chunks of tensors of ``numels`` elements: each tensor's
+    elements from its start in chunks of ADAM_CHUNK."""
+    return sum(-(-n // ADAM_CHUNK) for n in numels)
+
+
+def _adam_args(optimizer, flat, lr, world, algo, losses, host: bool,
+               blocks: Optional[int] = None):
+    """adam's argument blocks for the host driver's or the kernel's C
+    interface (less the last argument) over up to ``blocks`` blocks (by
+    default one a chunk), and the tensors they point to (the caller keeps
+    them alive through the call; "stats": what it returns)."""
     dt, dev = flat.dtype, flat.device
     _dtype_ok(dt)
     group = optimizer.param_groups
@@ -472,31 +488,53 @@ def _run_adam(optimizer, flat, lr, world, algo, losses, host: bool,
     params: List[torch.Tensor] = g["params"]
     if not 1 <= len(params) <= MAX_TENSORS:
         raise ValueError(f"adam takes 1 to {MAX_TENSORS} parameter tensors")
+    # the tensors in the flat buffer's order, which they must tile
+    at = sorted((_flat_offset(p.grad, flat, f"parameter {k}"), k)
+                for k, p in enumerate(params))
+    ends = list(itertools.accumulate(params[k].numel() for _, k in at))
+    if ([off for off, _ in at] != [0] + ends[:-1]
+            or ends[-1] != flat.numel() - 1):
+        _refuse("the flat buffer holds gradients that adam does not step")
     extra_i, extra_p = [], []
-    for k, p in enumerate(params):
+    for off, k in at:
+        p = params[k]
         st = optimizer.state[p]
-        extra_i += [p.numel(), _flat_offset(p.grad, flat, f"parameter {k}")]
+        extra_i += [p.numel(), off]
         extra_p += [_check(p, f"parameter {k}", p.shape, dt, dev, True),
                     _check(st["exp_avg"], "exp_avg", p.shape, dt, dev, True),
                     _check(st["exp_avg_sq"], "exp_avg_sq", p.shape, dt, dev,
                            True),
                     _check(st["step"], "step", (), torch.float32, dev, True)]
+    chunks = adam_chunks(p.numel() for p in params)
+    blocks = chunks if blocks is None else max(1, min(blocks, chunks))
     b1, b2 = g["betas"]
-    stats = torch.empty(4, dtype=dt, device=dev)
+    ptrs = dict(flat=_check(flat, "flat", flat.shape, dt, dev, True),
+                lr=_check(lr, "lr", (), dt, dev, True),
+                losses=_check(losses, "losses", (3,), dt, dev),
+                stats=torch.empty(4, dtype=dt, device=dev),
+                scratch=torch.empty(2 + 2 * len(params) + chunks, dtype=dt,
+                                    device=dev),
+                counter=(torch.zeros(1, dtype=torch.int32) if host
+                         else _counters("adam", 1, dev)))
     args = _blocks(
         _names(host, "adam"),
         dict(P=flat.numel() - 1, ntensors=len(params),
-             adaptive=int(algo.schedule == "adaptive"), world=int(world)),
+             adaptive=int(algo.schedule == "adaptive"), world=int(world),
+             chunks=chunks, blocks=blocks),
         dict(desired_kl=float(algo.desired_kl),
              max_grad_norm=float(algo.max_grad_norm), beta1=float(b1),
              beta2=float(b2), eps=float(g["eps"]), lr_min=1e-5, lr_max=1e-2,
              lr_factor=1.5),
-        dict(flat=_check(flat, "flat", flat.shape, dt, dev, True),
-             lr=_check(lr, "lr", (), dt, dev, True),
-             losses=_check(losses, "losses", (3,), dt, dev), stats=stats),
-        extra_i, extra_p)
-    _call("adam", dt, dev, host, team, args)
-    return stats
+        ptrs, extra_i, extra_p)
+    return args, ptrs
+
+
+def _run_adam(optimizer, flat, lr, world, algo, losses, host: bool,
+              team: int = 1, blocks: Optional[int] = None) -> torch.Tensor:
+    args, keep = _adam_args(optimizer, flat, lr, world, algo, losses, host,
+                            blocks)
+    _call("adam", flat.dtype, flat.device, host, team, args)
+    return keep["stats"]
 
 
 def adam(optimizer: torch.optim.Adam, flat: torch.Tensor, lr: torch.Tensor,
@@ -544,10 +582,11 @@ def host_grads(pl: Plan, algo, traj, returns, norm_adv, idx, flat,
                       team=team, blocks=blocks)
 
 
-def host_adam(optimizer, flat, lr, world, algo, losses,
-              team: int = 1) -> torch.Tensor:
+def host_adam(optimizer, flat, lr, world, algo, losses, team: int = 1,
+              blocks: Optional[int] = None) -> torch.Tensor:
     """``adam``'s arithmetic on CPU tensors through the host driver, as
-    ``host_gae``."""
+    ``host_gae``, over up to ``blocks`` blocks (by default one a chunk, as
+    the card's grid)."""
     _host_team(team, flat, "host_adam")
     return _run_adam(optimizer, flat, lr, world, algo, losses, host=True,
-                     team=team)
+                     team=team, blocks=blocks)

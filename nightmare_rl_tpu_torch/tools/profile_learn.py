@@ -52,6 +52,26 @@ object with these numbers and the card's name.  A missing card raises.
 
     python -m nightmare_rl_tpu_torch.tools.profile_learn [-e 2048]
         --grads-blocks 132 [--timeline] [--against DIR]
+
+``--adam`` instead times the tree's ``adam`` alone (L2 flushed) on the
+parameters of each of nightmare_v3's nets at the config's widths (the
+feed-forward net's 15,043 in 17 tensors, the recurrent net's 2,434,795 in
+23), weights from a seed and Adam a few steps in (``_adam_inputs``), in
+turns, and its calls back to back on the host's clock; with
+``--timeline`` it also launches the stamped build's adam once on each
+(cold L2) and prints adam's phases by block from its own stamps
+(``adam_start``, ``adam_squares``: a block's sums of squares;
+``adam_tree``: the last block's norm and lr; ``adam_pass``, ``adam_wait``,
+``adam_first``, ``adam_last``: the step's start, the end of its wait for
+the sums, its first and last chunks; a design without a phase does not
+stamp it); with ``--against``, in turns with the other tree's.  ``--recurrent`` measures
+the learning half of the recurrent net's PPO (its seconds and spans by
+part, eager and replayed, without the profiler's splits).
+
+    python -m nightmare_rl_tpu_torch.tools.profile_learn --adam
+        [--timeline] [--against DIR]
+    python -m nightmare_rl_tpu_torch.tools.profile_learn --recurrent
+        [--against DIR]
 """
 
 from __future__ import annotations
@@ -167,15 +187,38 @@ def _split(prof) -> Dict[str, dict]:
     return acc
 
 
-def measure(robot: str, envs: int) -> dict:
-    """This process's tree, measured (see the module's docstring)."""
+def _recurrent_ppo(envs: int, dev):
+    """The training slice's PPO (``profile_rollout._ppo``, whose older
+    versions ``--against`` may import take no policy) with the recurrent
+    net (nightmare_v3 only)."""
+    import dataclasses
+
+    from nightmare_rl_tpu_torch.core.config import EnvCfg, NightmareV3Cfg
+    from nightmare_rl_tpu_torch.core.config import PPOCfg
+    from nightmare_rl_tpu_torch.envs.nightmare_v3 import NightmareV3Env
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+
+    env = NightmareV3Env(NightmareV3Cfg().replace(
+        env=EnvCfg(num_envs=envs)), device=dev, dtype=torch.float32)
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=dataclasses.replace(
+        cfg.runner, policy_class_name="ActorCriticRecurrent"))
+    ppo = PPO(env, cfg, record_states=True)
+    ppo.init(0)
+    ppo.randomize_episode_lengths()
+    return ppo
+
+
+def measure(robot: str, envs: int, recurrent: bool = False) -> dict:
+    """This process's tree, measured (see the module's docstring); the
+    recurrent net's without the profiler's splits."""
     from nightmare_rl_tpu_torch.rl.ppo import PPO, Parts
     from nightmare_rl_tpu_torch.tools.profile_rollout import _ppo
     from nightmare_rl_tpu_torch.utils.device import full_float32
     from nightmare_rl_tpu_torch.utils.graph import clone
 
     dev = torch.device("cuda")
-    ppo = _ppo(robot, envs, dev)
+    ppo = _recurrent_ppo(envs, dev) if recurrent else _ppo(robot, envs, dev)
     with torch.no_grad():
         ppo.rollout()
     inputs = (ppo._traj, ppo.obs, ppo.hidden, clone(ppo.hidden))
@@ -203,7 +246,8 @@ def measure(robot: str, envs: int) -> dict:
         return ppo._learn(*inputs, parts=Parts(*(parts or cap.parts)))
 
     out = {"device": torch.cuda.get_device_name(dev), "robot": robot,
-           "envs": envs, "steps": ppo.cfg.runner.num_steps_per_env,
+           "recurrent": recurrent, "envs": envs,
+           "steps": ppo.cfg.runner.num_steps_per_env,
            "samples_per_minibatch": (ppo.cfg.runner.num_steps_per_env * envs
                                      // ppo.cfg.algorithm.num_mini_batches),
            "capture_s": capture_s,
@@ -227,6 +271,8 @@ def measure(robot: str, envs: int) -> dict:
         run(who, _timed(base, fields, pairs))
         out[f"{who}_span_ms"] = _spans(pairs)
     restore()
+    if recurrent:
+        return out
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run("eager", _ranged(ppo._parts(), fields))
@@ -275,14 +321,14 @@ def _grads_inputs(robot: str, envs: int):
     return (ppo.act_plan, a, traj, ret, norm_adv, idx, ppo._flat)
 
 
-def _ptxas(log: str, label: str) -> None:
-    """ptxas's registers, stack and spills of grads in float32 from a build
-    log of ``learn.cu``."""
+def _ptxas(log: str, label: str, kernel: str = "grads") -> None:
+    """ptxas's registers, stack and spills of ``kernel``'s float32 kernels
+    from a build log of ``learn.cu``."""
     from nightmare_rl_tpu_torch.tools.profile_smooth import ptxas
 
     for f in ptxas(log):
-        if "grads_kernelIf" in f["function"]:
-            print(f"profile-learn: {label}: grads float32 "
+        if f"learn_{kernel}" in f["function"] and "kernelIf" in f["function"]:
+            print(f"profile-learn: {label}: {f['function']} "
                   f"{f.get('registers')} registers, stack {f.get('stack')} B, "
                   f"spill {f.get('spill_stores')}/{f.get('spill_loads')} B")
 
@@ -318,7 +364,8 @@ def _phase_split(t: torch.Tensor, c: torch.Tensor, names: Sequence[str],
     before it in its block, in µs and in cycles, the mean and the largest
     over the blocks, in the order of the blocks' mean times."""
     acc: Dict[str, list] = {}
-    t0 = float(t[rows.start:rows.stop, 0][t[rows.start:rows.stop, 0] > 0].min())
+    span = t[rows.start:rows.stop]
+    t0 = float(span[span > 0].min())
     for b in rows:
         have = [k for k in range(len(names)) if t[b, k] > 0]
         have.sort(key=lambda k: float(t[b, k]))
@@ -412,6 +459,157 @@ def grads_timeline(robot: str, envs: int, args=None) -> Optional[dict]:
     return res
 
 
+ADAM_NETS = ("ActorCritic", "ActorCriticRecurrent")
+
+
+def _adam_inputs(kind: str, seed: int = 0, kl: float = 1.0):
+    """adam's arguments for a PPO with ``kind``'s net at the config's widths
+    (nightmare_v3's 66 observations and 18 actions) on the card in float32:
+    ``init_params(seed)``'s weights, Adam a few steps in (step counts 3,
+    moments drawn from the seed), gradients drawn at 1e-2 (their norm above
+    max_grad_norm: the clip engaged), the KL at ``kl`` times its target (by
+    default the lr kept), world 1."""
+    import dataclasses
+    import types
+
+    from nightmare_rl_tpu_torch.core.config import PPOCfg
+    from nightmare_rl_tpu_torch.rl.ppo import PPO
+
+    dev = torch.device("cuda")
+    cfg = PPOCfg()
+    cfg = cfg.replace(runner=dataclasses.replace(cfg.runner,
+                                                 policy_class_name=kind))
+    env = types.SimpleNamespace(device=dev, dtype=torch.float32, num_obs=66,
+                                num_actions=18)
+    ppo = PPO(env, cfg)
+    ppo.init_params(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for st in ppo.optimizer.state.values():
+            st["step"].fill_(3.0)
+            st["exp_avg"].normal_(0.0, 1e-3, generator=g)
+            st["exp_avg_sq"].uniform_(0.0, 1e-5, generator=g)
+        ppo._flat.normal_(0.0, 1e-2, generator=g)
+        ppo._flat[-1] = cfg.algorithm.desired_kl * kl
+    losses = torch.zeros(3, device=dev)
+    return (ppo.optimizer, ppo._flat, ppo._lr, 1, cfg.algorithm, losses)
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """µs of the host's clock per call of ``fn`` over ``calls`` calls back
+    to back (the device's queue drained before and after): the wrapper's
+    host time where it exceeds the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def adam_alone() -> dict:
+    """``adam`` alone (L2 flushed) on each of ADAM_NETS' parameters, twice
+    in turns, and its calls back to back on the host's clock."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+    from nightmare_rl_tpu_torch.tools.profile_smooth import alone_us
+
+    _ptxas(L.build.build("learn")["log"], "learn.cu", "adam")
+    ins = {k: _adam_inputs(k) for k in ADAM_NETS}
+    us: Dict[str, List[float]] = {k: [] for k in ADAM_NETS}
+    for order in (ADAM_NETS, ADAM_NETS[::-1]):
+        for k in order:
+            us[k].append(alone_us(lambda k=k: L.adam(*ins[k])))
+    host = {k: _host_us(lambda k=k: L.adam(*ins[k])) for k in ADAM_NETS}
+    sizes = {k: ins[k][1].numel() - 1 for k in ADAM_NETS}
+    name = torch.cuda.get_device_name(0)
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(L.__file__)))
+    print(f"profile-learn: {name}, {tree}: adam alone (L2 flushed), in "
+          "turns: " + "; ".join(
+              f"{k} (P = {sizes[k]:,}) {', '.join(f'{x:.2f}' for x in t)} us"
+              for k, t in us.items()) + "; back to back on the host's clock "
+          + ", ".join(f"{k} {v:.2f} us a call" for k, v in host.items()))
+    return {"device": name, "tree": tree, "P": sizes, "adam_us": us,
+            "host_us": host}
+
+
+def adam_timeline() -> Optional[dict]:
+    """The stamped build of this process's tree launched through its own C
+    entry on ``_adam_args``' blocks, on each of ADAM_NETS' parameters:
+    adam's phases by block; None where the tree's source has no adam
+    stamps."""
+    from nightmare_rl_tpu_torch.ops import learn as L
+    from nightmare_rl_tpu_torch.tools.profile_smooth import (
+        L2_FLUSH_BYTES, SPIN_CYCLES, _nvcc_lib, alone_us)
+
+    src = os.path.join(os.path.dirname(os.path.abspath(L.__file__)), "csrc",
+                       "learn.cu")
+    with open(src) as fh:
+        if "LEARN_TIMELINE" not in fh.read() or not hasattr(L, "_adam_args"):
+            return None
+    built = _nvcc_lib(src, ["LEARN_TIMELINE"])
+    lib = built["lib"]
+    lib.learn_timeline_names.restype = ctypes.c_char_p
+    names = lib.learn_timeline_names().decode().split(",")
+    if "adam_start" not in names:
+        return None
+    _ptxas(built["log"], "learn.cu -DLEARN_TIMELINE", "adam")
+    nst = lib.learn_timeline_stamps()
+    launch = lib.learn_adam_f32
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    get = lib.learn_timeline
+    get.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    get.restype = ctypes.c_int
+    rows = 1024  # learn.cu's kTimelineBlocks (the library caps a read)
+    name = torch.cuda.get_device_name(0)
+    res = {}
+    for kind in ADAM_NETS:
+        a_in = _adam_inputs(kind)
+
+        def run():
+            blocks, keep = L._adam_args(*a_in, host=False)
+            err = launch(*blocks, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"stamped adam launch: cudaError_t {err}")
+            return keep
+
+        stamped = alone_us(run)
+        if lib.learn_timeline_clear() != 0:
+            raise RuntimeError("learn_timeline_clear failed")
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)  # alone and cold, as alone_us's calls
+        flush.zero_()
+        run()
+        torch.cuda.synchronize()
+        out = []
+        for cycles in (0, 1):
+            buf = (ctypes.c_longlong * (rows * nst))()
+            if get(buf, rows * nst, cycles) != 0:
+                raise RuntimeError("learn_timeline failed")
+            out.append(torch.tensor(list(buf), dtype=torch.float64).view(
+                rows, nst))
+        t, c = out
+        used = [b for b in range(rows) if bool((t[b] > 0).any())]
+        t0 = float(t[used][t[used] > 0].min())
+        split = _phase_split(t, c, names, range(used[0], used[-1] + 1))
+        r = {"P": a_in[1].numel() - 1, "stamped_alone_us": stamped,
+             "blocks": len(used), "end_us": float(t.max() - t0) / 1e3,
+             "phases": split}
+        res[kind] = r
+        print(f"profile-learn: {name}, timeline of adam on {kind}'s "
+              f"parameters (P = {r['P']:,}; the stamped build {stamped:.2f} "
+              f"us alone; {len(used)} blocks stamped; the last stamp "
+              f"{r['end_us']:.2f} us after the first): " + ", ".join(
+                  f"{p} {v['mean_us']:.2f}/{v['max_us']:.2f} us in "
+                  f"{v['blocks']} blocks ({v['mean_cycles']:.0f} cyc; "
+                  f"{v['end_us']:.1f})" for p, v in split.items()))
+    return res
+
+
 def _worker(root: str, argv: Sequence[str]) -> dict:
     """``measure`` in a process of its own, ``root``'s package first on the
     path; its last line of output, JSON."""
@@ -432,18 +630,21 @@ def _worker(root: str, argv: Sequence[str]) -> dict:
 
 def _print(label: str, r: dict) -> None:
     s = r["update_s"]
+    net = " recurrent" if r.get("recurrent") else ""
     print(f"profile-learn: {r['device']}, {label} ({r['tree']}), "
-          f"{r['robot']} {r['envs']} envs x {r['steps']} steps float32 "
+          f"{r['robot']}{net} {r['envs']} envs x {r['steps']} steps float32 "
           f"({r['samples_per_minibatch']} samples a minibatch): the learning "
           f"half in turns (eager, graph, graph, eager) "
           f"{s['eager'][0]:.4f}, {s['graph'][0]:.4f}, {s['graph'][1]:.4f}, "
-          f"{s['eager'][1]:.4f} s; capture {r['capture_s']:.2f} s; graph "
-          f"replays {r['graph_profile']['kernels']} kernels, device busy "
-          f"{r['graph_profile']['device_busy_ms']:.3f} ms")
+          f"{s['eager'][1]:.4f} s; capture {r['capture_s']:.2f} s")
     for who in ("eager", "graph"):
         print(f"  {who} spans by part: " + "; ".join(
             f"{k} {v['ms']:.3f} ms in {v['calls']} calls"
             for k, v in r[f"{who}_span_ms"].items()))
+    if "eager_parts" not in r:
+        return
+    print(f"  graph replays {r['graph_profile']['kernels']} kernels, device "
+          f"busy {r['graph_profile']['device_busy_ms']:.3f} ms")
     parts = r["eager_parts"]
     total = [sum(p[k] for p in parts.values()) for k in ("kernels",
                                                          "device_ms")]
@@ -460,11 +661,16 @@ def _print(label: str, r: dict) -> None:
 
 
 def _kernel_runs(args) -> dict:
-    """``--grads-blocks`` and ``--timeline`` in this process's tree."""
+    """``--grads-blocks``, ``--adam`` and ``--timeline`` in this process's
+    tree."""
     r = {}
     if args.grads_blocks:
         r["blocks"] = grads_blocks(args.robot, args.envs, args.grads_blocks)
-    if args.timeline:
+    if args.adam:
+        r["adam"] = adam_alone()
+    if args.timeline and args.adam:
+        r["adam_timeline"] = adam_timeline()
+    if args.timeline and (args.grads_blocks or not args.adam):
         r["timeline"] = grads_timeline(args.robot, args.envs)
     return r
 
@@ -477,20 +683,30 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--against", default=None)
     p.add_argument("--grads-blocks", type=int, nargs="+", default=None,
                    help="time grads alone at each number of blocks a net")
+    p.add_argument("--adam", action="store_true",
+                   help="time adam alone on both nets' parameters")
     p.add_argument("--timeline", action="store_true",
-                   help="grads' phases from a build with its timer stamps")
+                   help="the phases of grads (or, with --adam, adam) from a "
+                   "build with its timer stamps")
+    p.add_argument("--recurrent", action="store_true",
+                   help="the learning half of the recurrent net")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_learn measures the card: CUDA is not "
                            "available")
     os.environ.setdefault("NIGHTMARE_PGS", "legs")
-    kernel = bool(args.grads_blocks or args.timeline)
+    kernel = bool(args.grads_blocks or args.timeline or args.adam)
     sub = ["-e", str(args.envs), "--robot", args.robot]
     if args.grads_blocks:
         sub += ["--grads-blocks", *map(str, args.grads_blocks)]
+    if args.adam:
+        sub += ["--adam"]
+    if args.recurrent:
+        sub += ["--recurrent"]
     if args.worker:
-        r = _kernel_runs(args) if kernel else measure(args.robot, args.envs)
+        r = (_kernel_runs(args) if kernel
+             else measure(args.robot, args.envs, args.recurrent))
         print(json.dumps(r))
         return r
     if kernel and args.against is None:
@@ -498,7 +714,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(json.dumps(r))
         return r
     if args.against is None:
-        runs = [("this", measure(args.robot, args.envs))]
+        runs = [("this", measure(args.robot, args.envs, args.recurrent))]
     else:
         other = os.path.abspath(args.against)
         runs, seen = [], set()
@@ -518,6 +734,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                           f"{sum(r['blocks']['grads_us'][str(G)]) / 2:.2f}"
                           for _, r in runs)
                       for G in args.grads_blocks))
+        if args.adam:
+            print("profile-learn: adam alone in turns (this, other, other, "
+                  "this), us: " + "; ".join(
+                      f"{k}: " + ", ".join(
+                          f"{sum(r['adam']['adam_us'][k]) / 2:.2f}"
+                          for _, r in runs)
+                      for k in ADAM_NETS)
+                  + "; back to back on the host's clock, us a call: "
+                  + "; ".join(f"{k}: " + ", ".join(
+                      f"{r['adam']['host_us'][k]:.2f}" for _, r in runs)
+                      for k in ADAM_NETS))
         print(json.dumps(result))
         return result
     for who, r in runs:

@@ -1082,18 +1082,25 @@ def test_learn_kernels_match_plain(cuda):
     64 envs in float32, as the smoke's learn-kernel phase holds them: each
     on the plain version's inputs within its tolerance, the step counts and
     the lr exact, each kernel's second call equal to its first; one launch
-    per call."""
+    per call.  adam also on the recurrent net's parameters at full width
+    (``chip_smoke._adam_recurrent_case``: 2,434,795 in 23 tensors, chunks
+    of several blocks' grid), at the same tolerances."""
     from nightmare_rl_tpu_torch.ops import learn as L
 
     before = (L.gae.launches, L.grads.launches, L.adam.launches)
     r = smoke._learn_case(64, timed=False)
     assert (L.gae.launches, L.grads.launches, L.adam.launches) == (
         before[0] + 2, before[1] + 2, before[2] + 2)
-    g, d, m = r["gae"], r["grads"], r["adam"]
+    rec = smoke._adam_recurrent_case(timed=False)["adam"]
+    assert L.adam.launches == before[2] + 4
+    assert (rec["P"], rec["tensors"]) == (2_434_795, 23), rec
+    g, d = r["gae"], r["grads"]
     assert max(g["adv"], g["ret"], g["mean"]) <= smoke.GAE_F32_TOL, g
     assert d["worst"] <= smoke.GRADS_F32_TOL, d
     assert max(d["kl"], d["losses"]) <= smoke.LOSS_F32_TOL, d
-    assert m["params"] <= smoke.ADAM_PARAM_F32_TOL, m
-    assert max(m["moments"], m["clipped"], m["stats"]) <= smoke.ADAM_F32_TOL, m
-    assert m["steps"] and m["lr"], m
-    assert g["same"] and d["same"] and m["same"]
+    for m in (r["adam"], rec):
+        assert m["params"] <= smoke.ADAM_PARAM_F32_TOL, m
+        assert max(m["moments"], m["clipped"],
+                   m["stats"]) <= smoke.ADAM_F32_TOL, m
+        assert m["steps"] and m["lr"] and m["same"], m
+    assert g["same"] and d["same"]

@@ -21,7 +21,10 @@ sizes 1, 3, 5 and 32.
 - adam: the parameters, Adam's moments and step counts, the lr, the
   clipped gradients and the statistics; the KL above twice the target,
   below half of it, inside the band and 0, the fixed schedule; a norm
-  below and above max_grad_norm; world 2's mean.
+  below and above max_grad_norm; world 2's mean; a net with a tensor of
+  several chunks (a ragged last one) beside tensors smaller than a chunk,
+  and the recurrent net at a narrow width; over one block a chunk and 1, 2
+  and 5 blocks, the same bits at every block count and team size.
 - the refusals and the counters; the wrapper imports nothing of JAX.
 
 tests/test_torch_ppo.py holds the whole update through these host drivers
@@ -105,14 +108,18 @@ def test_host_gae_float32_rounds_as_the_plain_ops():
 
 
 def _ppo(name, dtype=torch.float64, seed=3, **algo):
-    nobs, A, ah, ch, act, floor, clipped = NETS[name]
+    nobs, A, ah, ch, act, floor, clipped = {**NETS, **ADAM_NETS}[name]
     cfg = PPOCfg()
     cfg = cfg.replace(
         policy=dataclasses.replace(cfg.policy, actor_hidden_dims=list(ah),
                                    critic_hidden_dims=list(ch),
-                                   activation=act, std_floor=floor),
+                                   activation=act, std_floor=floor,
+                                   rnn_hidden_size=RNN_HIDDEN),
         algorithm=dataclasses.replace(cfg.algorithm,
                                       use_clipped_value_loss=clipped, **algo))
+    if name == "recurrent":
+        cfg = cfg.replace(runner=dataclasses.replace(
+            cfg.runner, policy_class_name="ActorCriticRecurrent"))
     env = types.SimpleNamespace(device=torch.device("cpu"), dtype=dtype,
                                 num_obs=nobs, num_actions=A)
     p = tppo.PPO(env, cfg)
@@ -289,7 +296,7 @@ def test_grads_refuses_what_it_does_not_take():
     """A net the rollout plan refuses (mixed activations, a Linear layer
     without a bias) raises on the CPU as on the card; so does the
     recurrent net's (its MLPs read the LSTMs), and a flat buffer that the
-    gradients do not tile."""
+    gradients do not tile, for grads and for adam."""
     mixed = tac.ActorCritic(66, 18)
     mixed.actor[1] = torch.nn.ReLU()
     bare = tac.ActorCritic(66, 18)
@@ -304,28 +311,50 @@ def test_grads_refuses_what_it_does_not_take():
     wider = torch.zeros(p._flat.numel() + 1, dtype=p._flat.dtype)
     with pytest.raises(ValueError, match="does not write|not a view"):
         L.host_grads(p.act_plan, p.cfg.algorithm, *batch, wider)
+    # adam: gradients that leave an element of the flat buffer out
+    i = 0
+    for q in p.params:
+        q.grad = wider[i:i + q.numel()].view_as(q)
+        i += q.numel()
+    with pytest.raises(ValueError, match="does not step"):
+        L.host_adam(p.optimizer, wider, p.lr, 1, p.cfg.algorithm,
+                    torch.zeros(3, dtype=wider.dtype))
 
 
 # ---------------------------------------------------------------------------
 # adam
 # ---------------------------------------------------------------------------
 
-# (the KL as a multiple of the target, the gradients' scale, the world,
-# the schedule)
-ADAM_CASES = {
-    "kl-above-2x": (2.5, 1e-3, 1, "adaptive"),
-    "kl-below-half": (0.25, 1e-3, 1, "adaptive"),
-    "kl-inside": (1.0, 1e-3, 1, "adaptive"),
-    "kl-zero": (0.0, 1e-3, 1, "adaptive"),
-    "norm-above": (1.0, 10.0, 1, "adaptive"),
-    "world-2": (2.5, 10.0, 2, "adaptive"),
-    "fixed": (2.5, 10.0, 1, "fixed"),
+# adam's nets beside NETS' nightmare_v3 (17 tensors): "wide", whose first
+# actor weight takes several chunks of L.ADAM_CHUNK elements and a ragged
+# last one, beside tensors smaller than a chunk; and "recurrent",
+# ActorCriticRecurrent with LSTMs of RNN_HIDDEN units (23 trained tensors:
+# the LSTMs' bias_ih stays frozen), whose LSTM weights take several chunks
+# each at flat offsets of 2 (mod 4).
+RNN_HIDDEN = 48
+ADAM_NETS = {
+    "wide": (66, 18, (130, 7), (9,), "elu", 0.0, True),
+    "recurrent": (66, 18, (54, 42, 30), (54, 42, 30), "elu", 0.0, True),
 }
+# (the KL as a multiple of the target, the gradients' scale, the world,
+# the schedule, the net)
+ADAM_CASES = {
+    "kl-above-2x": (2.5, 1e-3, 1, "adaptive", "nightmare_v3"),
+    "kl-below-half": (0.25, 1e-3, 1, "adaptive", "nightmare_v3"),
+    "kl-inside": (1.0, 1e-3, 1, "adaptive", "nightmare_v3"),
+    "kl-zero": (0.0, 1e-3, 1, "adaptive", "nightmare_v3"),
+    "norm-above": (1.0, 10.0, 1, "adaptive", "nightmare_v3"),
+    "world-2": (2.5, 10.0, 2, "adaptive", "nightmare_v3"),
+    "fixed": (2.5, 10.0, 1, "fixed", "nightmare_v3"),
+    "chunks": (0.25, 10.0, 2, "adaptive", "wide"),
+    "recurrent": (1.0, 1e-3, 1, "adaptive", "recurrent"),
+}
+ADAM_BLOCKS = (None, 1, 2, 5)  # None: one block a chunk, the card's grid
 
 
 def _adam_case(case, seed=6):
-    kl_scale, g_scale, world, schedule = ADAM_CASES[case]
-    p = _ppo("nightmare_v3", seed=seed, schedule=schedule)
+    kl_scale, g_scale, world, schedule, net = ADAM_CASES[case]
+    p = _ppo(net, seed=seed, schedule=schedule)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         # a few steps in: moments and step counts away from their start
@@ -351,32 +380,45 @@ def _adam_state(p, stats):
 @pytest.mark.parametrize("team", TEAMS)
 @pytest.mark.parametrize("case", list(ADAM_CASES))
 def test_host_adam_matches_plain(case, team):
+    """Every field within TOL of the plain step (the step counts and the
+    lr exact) over one block a chunk and over 1, 2 and 5 blocks (a block
+    takes every blocks-th chunk), the same bits at each block count and
+    team size as at one block a chunk with a team of one."""
     ref_p, world, losses = _adam_case(case)
-    got_p, _, _ = _adam_case(case)
     norm = float(torch.linalg.vector_norm(ref_p._flat[:-1])) / world
     assert (norm > ALGO.max_grad_norm) == (case in ("norm-above", "world-2",
-                                                     "fixed"))
+                                                     "fixed", "chunks"))
+    numels = [q.numel() for q in ref_p.params]
+    if case in ("chunks", "recurrent"):
+        # a tensor over several chunks ending in a ragged one, beside
+        # tensors smaller than a chunk
+        assert any(n > 2 * L.ADAM_CHUNK and n % L.ADAM_CHUNK for n in numels)
+        assert any(n < L.ADAM_CHUNK for n in numels)
+    assert case != "recurrent" or len(numels) == 23
     lr0 = float(ref_p.lr)
     ref = _adam_state(ref_p, L.plain_adam(ref_p.optimizer, ref_p._flat,
                                           ref_p.lr, world,
                                           ref_p.cfg.algorithm, losses))
-    got = _adam_state(got_p, L.host_adam(got_p.optimizer, got_p._flat,
-                                         got_p.lr, world, got_p.cfg.algorithm,
-                                         losses, team=team))
-    for a, b in zip(ref, got):
-        assert a.dtype == b.dtype
-        if a.dtype == torch.float32 or a.dim() == 0:  # steps and the lr
-            assert torch.equal(a, b)
-        else:
-            assert _close(a, b)
     moved = float(ref_p.lr) != lr0
-    assert moved == (case in ("kl-above-2x", "kl-below-half", "world-2"))
+    assert moved == (case in ("kl-above-2x", "kl-below-half", "world-2",
+                              "chunks"))
     assert torch.equal(ref[-1][:3], losses)
     one_p, _, _ = _adam_case(case)
     one = _adam_state(one_p, L.host_adam(one_p.optimizer, one_p._flat,
                                          one_p.lr, world, one_p.cfg.algorithm,
                                          losses, team=1))
-    assert all(torch.equal(a, b) for a, b in zip(one, got))
+    for blocks in ADAM_BLOCKS:
+        got_p, _, _ = _adam_case(case)
+        got = _adam_state(got_p, L.host_adam(
+            got_p.optimizer, got_p._flat, got_p.lr, world,
+            got_p.cfg.algorithm, losses, team=team, blocks=blocks))
+        for a, b in zip(ref, got):
+            assert a.dtype == b.dtype
+            if a.dtype == torch.float32 or a.dim() == 0:  # steps and the lr
+                assert torch.equal(a, b), blocks
+            else:
+                assert _close(a, b), blocks
+        assert all(torch.equal(a, b) for a, b in zip(one, got)), blocks
 
 
 def test_adam_keeps_the_optimizer_state_dict():
