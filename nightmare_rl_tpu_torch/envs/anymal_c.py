@@ -38,6 +38,7 @@ from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline
 from nightmare_rl_tpu_torch.physics import system as S
+from nightmare_rl_tpu_torch.utils import trace
 from nightmare_rl_tpu_torch.utils.device import full_float32, resolve_device
 
 REWARD_NAMES = [
@@ -118,6 +119,8 @@ class AnymalCEnv:
     # budgets, as the JAX scans): the rollout replays it as a CUDA graph
     graph_step = True
 
+    # the model's tables, the kernels' plans and the PGS form's probe
+    @trace.spanned("setup.env")
     def __init__(self, cfg: AnymalCCfg = AnymalCCfg(),
                  sys: Optional[S.System] = None,
                  dtype: torch.dtype = torch.float32, device=None,

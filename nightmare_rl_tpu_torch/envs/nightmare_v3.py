@@ -42,6 +42,7 @@ from nightmare_rl_tpu_torch.ops import task
 from nightmare_rl_tpu_torch.parallel.shard import Shard, local_envs
 from nightmare_rl_tpu_torch.physics import loader, pipeline, solver
 from nightmare_rl_tpu_torch.physics import system as S
+from nightmare_rl_tpu_torch.utils import trace
 from nightmare_rl_tpu_torch.utils.device import full_float32, resolve_device
 
 # reward functions in the reference config's registration order
@@ -98,6 +99,8 @@ class NightmareV3Env:
     # (utils/graph.py)
     graph_step = True
 
+    # the model's tables, the kernels' plans and the PGS form's probe
+    @trace.spanned("setup.env")
     def __init__(self, cfg: NightmareV3Cfg, sys: S.System | None = None,
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0, shard: Shard = Shard()):

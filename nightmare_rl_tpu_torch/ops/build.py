@@ -9,6 +9,9 @@ CUDA toolkit is installed.
 
 ``build_host`` compiles a ``csrc/<name>.cpp`` with g++ the same way: the
 host driver of a kernel's per-env arithmetic, which the CPU tests run.
+
+Each library compiled in this process counts once in the tracing counter
+``build.compiles`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import re
 import shutil
 import subprocess
 import time
+
+from nightmare_rl_tpu_torch.utils import trace
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
@@ -86,6 +91,7 @@ def build(name: str) -> dict:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    trace.count("build.compiles")
     with open(log, "w") as fh:
         fh.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
@@ -115,6 +121,7 @@ def build_host(name: str) -> str:
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}{proc.stderr}")
+    trace.count("build.compiles")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return lib
 

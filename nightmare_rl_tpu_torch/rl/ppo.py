@@ -75,7 +75,6 @@ learning half replays the same graphs.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -87,6 +86,8 @@ from nightmare_rl_tpu_torch.ops import learn as L
 from nightmare_rl_tpu_torch.ops import rollout as R
 from nightmare_rl_tpu_torch.ops.learn import clip_by_global_norm  # noqa: F401
 from nightmare_rl_tpu_torch.parallel.shard import Shard
+from nightmare_rl_tpu_torch.utils import graph as G
+from nightmare_rl_tpu_torch.utils import trace
 from nightmare_rl_tpu_torch.utils.device import full_float32
 from nightmare_rl_tpu_torch.utils.graph import (
     CapturedStep, CapturedUpdate, assign, clone, leaves,
@@ -108,6 +109,7 @@ class Transition(NamedTuple):
 
 
 def _sync(device: torch.device) -> None:
+    trace.count("host.syncs")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -115,6 +117,7 @@ def _sync(device: torch.device) -> None:
 def _record_to_host(rows: torch.Tensor, widths) -> Tuple[np.ndarray, ...]:
     """Env 0's rows (T, Σ widths) of [qpos | qvel | action | done |
     commands] → the (T, ·) numpy arrays of each, in ONE device→host copy."""
+    trace.count("host.syncs")
     cols = np.split(rows.cpu().numpy(), np.cumsum(widths)[:-1], axis=1)
     qpos, qvel, act, done, cmd = cols
     return qpos, qvel, act, done[:, 0] > 0.5, cmd
@@ -428,8 +431,10 @@ class PPO:
         for _ in range(T):
             carry = step(carry)
         self.env_state, self.obs, self.hidden, _, n_done, term_sums = carry
-        record: Optional[tuple] = (None if self._rec is None else
-                                   _record_to_host(self._rec, self._rec_widths))
+        record: Optional[tuple] = None
+        if self._rec is not None:
+            with trace.span("ppo.record"):
+                record = _record_to_host(self._rec, self._rec_widths)
         return self._traj, n_done.clone(), term_sums.clone(), record
 
     def _advantages(self, traj: Transition, last_value: torch.Tensor):
@@ -619,23 +624,43 @@ class PPO:
 
     def learn_step(self) -> Dict[str, object]:
         """One PPO iteration (rollout + update); the statistics are read to
-        the host once, at its end."""
-        t0 = time.perf_counter()
-        # the rollout-start hidden state (the rollout updates its buffers)
-        hidden0 = clone(self.hidden)
-        traj, n_done, term_sums, record = self.rollout()
-        _sync(self.device)
-        t1 = time.perf_counter()
-        inputs = (traj, self.obs, self.hidden, hidden0)
-        learned = self._learner(*inputs)(*inputs)
-        _sync(self.device)
-        t2 = time.perf_counter()
+        the host once, at its end.  Its spans (``utils/trace.py``):
+        ``ppo.iteration`` over all of it, and in it ``ppo.rollout`` (the
+        rollout and the sync after it: ``rollout_s``), ``ppo.learn`` (the
+        learning half and the sync after it: ``update_s``) and
+        ``ppo.stats`` (the reductions, the readback, the statistics).
+        ``graph_captures`` counts the graphs captured in the iteration."""
+        captures = G.captures
+        with trace.span("ppo.iteration"):
+            # the rollout-start hidden state (the rollout updates its buffers)
+            hidden0 = clone(self.hidden)
+            with trace.timed("ppo.rollout") as rollout:
+                traj, n_done, term_sums, record = self.rollout()
+                _sync(self.device)
+            with trace.timed("ppo.learn") as learn:
+                inputs = (traj, self.obs, self.hidden, hidden0)
+                learned = self._learner(*inputs)(*inputs)
+                _sync(self.device)
+            with trace.span("ppo.stats"):
+                stats = self._stats(learned, traj, n_done, term_sums)
+        stats.update(rollout_s=rollout.seconds, update_s=learn.seconds,
+                     graph_captures=G.captures - captures)
+        if record is not None:
+            # (qpos, qvel, action, done, commands), each (T, ·)
+            stats["record"] = record
+        return stats
+
+    def _stats(self, learned: torch.Tensor, traj: Transition,
+               n_done: torch.Tensor, term_sums: torch.Tensor) -> Dict:
+        """The iteration's statistics: the update's (``learned``) and the
+        episode and rollout metrics over the global batch, in one reduction
+        and one read to the host."""
         self.iteration += 1
-        # episode and rollout metrics over the global batch, in one reduction
         red = self._all_sum(torch.cat([
             n_done.reshape(1).to(term_sums.dtype), term_sums,
             (traj.reward.mean() / self.shard.world).reshape(1),
             traj.done.sum().reshape(1).to(term_sums.dtype)]))
+        trace.count("host.syncs")
         host = torch.cat([learned.to(red.dtype), self._noise_std().reshape(
             1).to(red.dtype), red]).cpu()
         k = len(STAT_KEYS)
@@ -649,12 +674,7 @@ class PPO:
             dones=int(host[-1]),
             episode_reward_means=ep_means.tolist(),
             mean_noise_std=float(host[k]),
-            rollout_s=t1 - t0,
-            update_s=t2 - t1,
         )
-        if record is not None:
-            # (qpos, qvel, action, done, commands), each (T, ·)
-            stats["record"] = record
         return stats
 
     def _noise_std(self) -> torch.Tensor:

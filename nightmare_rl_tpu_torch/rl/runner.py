@@ -7,7 +7,9 @@ latest-run/latest-checkpoint resume resolution, a final save when
 SIGTERM/SIGINT arrives, training-time recording of env 0's episodes as
 ``.pkl`` files (``cfg.viewer.record_states``, on by default, as in the
 reference), render-during-training (``cfg.viewer.render``) and an optional
-``torch.profiler`` trace of iterations 2-4.
+``torch.profiler`` trace of iterations 2-4 (``trace.json``), with the
+port's tracing on (``utils/trace.py``) so that the trace holds its spans,
+and those spans and counters beside it (``spans.json``).
 
 With a ``mesh`` (``parallel/mesh.py``) the runner drives ``ShardedPPO``:
 every rank runs it, the statistics are global, and rank 0 alone prints,
@@ -18,6 +20,7 @@ mesh, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -27,7 +30,7 @@ from typing import Optional
 
 from nightmare_rl_tpu_torch.core.config import PPOCfg
 from nightmare_rl_tpu_torch.rl.ppo import PPO
-from nightmare_rl_tpu_torch.utils import checkpoint
+from nightmare_rl_tpu_torch.utils import checkpoint, trace
 from nightmare_rl_tpu_torch.utils.recorder import StateRecorder
 
 
@@ -136,7 +139,10 @@ class OnPolicyRunner:
               init_at_random_ep_len: bool = False,
               profile_dir: Optional[str] = None) -> None:
         """``profile_dir``: write a torch.profiler chrome trace of iterations
-        2-4 there (the counterpart of the JAX package's jax.profiler hook)."""
+        2-4 there (the counterpart of the JAX package's jax.profiler hook),
+        ``trace.json``, and the port's spans and counters of the same
+        iterations, ``spans.json`` (``utils/trace.py``: its stamps aligned
+        to the trace's clock)."""
         # checkpoint-on-signal: a preempted run saves model_<iter> and exits
         stop = {"flag": False}
 
@@ -156,21 +162,28 @@ class OnPolicyRunner:
                 self.writer = None
 
     def _start_profiler(self):
+        """The profiler started with the port's tracing on: (the stack that
+        stops both, the profiler, the recording)."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
         if self.env.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        return prof
+        stack = contextlib.ExitStack()
+        rec = stack.enter_context(trace.recording())
+        prof = stack.enter_context(profile(activities=acts))
+        return stack, prof, rec
 
-    def _stop_profiler(self, prof, profile_dir: str) -> None:
-        prof.stop()
+    def _stop_profiler(self, profiling, profile_dir: str) -> None:
+        stack, prof, rec = profiling
+        stack.close()
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        with open(path) as fh:
+            rec.align(json.load(fh))
+        rec.write(os.path.join(profile_dir, "spans.json"))
+        print(f"profiler trace written to {path}, spans beside it")
 
     def _learn(self, num_iters: int, init_at_random_ep_len: bool,
                stop: dict, profile_dir: Optional[str]) -> None:
@@ -217,6 +230,8 @@ class OnPolicyRunner:
                     self.writer.add_scalar(f"episode/rew_{name}", val, it)
                 self.writer.add_scalar("perf/env_steps_per_s",
                                        steps_per_iter / dt_iter, it)
+                for key in ("rollout_s", "update_s", "graph_captures"):
+                    self.writer.add_scalar(f"perf/{key}", stats[key], it)
                 self.writer.flush()
             if (it % 10 == 0 or k == 0) and self.main:
                 print(f"iter {it}: reward {stats['mean_reward']:+.4f} "

@@ -45,7 +45,12 @@ Capture, in the constructor on the card:
   ``ops/smooth.py``, ``ops/integrate.py``, ``ops/assemble.py``,
   ``ops/task.py``, ``ops/rollout.py``, ``ops/learn.py``) count the
   launches the graph holds
-  once per replay, not at capture.
+  once per replay, not at capture;
+- with a recording on (``utils/trace.py``), spans: ``graph.capture`` over
+  the construction (its ``fn`` the step's qualname), in it
+  ``graph.warmup`` and ``graph.record`` (the capture and the graph's
+  instantiation), both opened and closed outside the capture; and the
+  counter ``graph.captures``.
 
 Environment variables that a step reads (``NIGHTMARE_PGS``,
 ``NIGHTMARE_NO_WARMSTART``) are read at capture: the graph keeps the form
@@ -70,7 +75,6 @@ on every replay.
 from __future__ import annotations
 
 import dataclasses
-import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -89,6 +93,7 @@ from nightmare_rl_tpu_torch.ops.smooth import smooth_forward
 from nightmare_rl_tpu_torch.ops.solve_out import outputs as solve_outputs
 from nightmare_rl_tpu_torch.ops.task import post as task_post
 from nightmare_rl_tpu_torch.ops.task import pre as task_pre
+from nightmare_rl_tpu_torch.utils import trace
 from nightmare_rl_tpu_torch.utils.device import full_float32
 
 # the kernel wrappers whose ``launches`` attribute counts their launches
@@ -96,6 +101,11 @@ _COUNTED = (P.pgs, P.pgs_legs, newton_solve, smooth_forward,
             integrate_update, assemble_rows, solve_outputs, task_pre,
             task_post, rollout_act, rollout_store, learn_gae, learn_grads,
             learn_adam)
+
+# the captured objects made in this process (``CapturedStep``,
+# ``CapturedUpdate``; on the CPU, which captures nothing, their eager
+# stand-ins): ``PPO.learn_step``'s ``graph_captures``
+captures = 0
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -192,6 +202,7 @@ class _Captured:
     def _init_graph(self, device: torch.device,
                     generators: Sequence[Optional[torch.Generator]],
                     debug: bool = False) -> None:
+        global captures
         self.device = device
         self.debug = debug
         self.launches: Dict[str, int] = {}
@@ -199,9 +210,13 @@ class _Captured:
         self.warmup_s = self.capture_s = self.record_s = 0.0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._result = None
-        if device.type == "cuda":
-            with torch.cuda.device(device):
-                self._capture([g for g in generators if g is not None])
+        captures += 1
+        trace.count("graph.captures")
+        with trace.span("graph.capture", fn=getattr(
+                self.fn, "__qualname__", repr(self.fn))):
+            if device.type == "cuda":
+                with torch.cuda.device(device):
+                    self._capture([g for g in generators if g is not None])
 
     def __call__(self, *args):
         """Copy the given state and inputs into the buffers, then replay
@@ -230,12 +245,12 @@ class _Captured:
         dev = self.device
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            self.warm_up(generators)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t0
+        with trace.timed("graph.warmup") as warm:
+            with torch.cuda.stream(stream):
+                self.warm_up(generators)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            torch.cuda.synchronize(dev)
+        self.warmup_s = warm.seconds
 
         # with debug, the graph's nodes are kept after instantiation
         graph = torch.cuda.CUDAGraph(keep_graph=self.debug)
@@ -245,33 +260,34 @@ class _Captured:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         err: Optional[BaseException] = None
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=stream):
-                prev = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._result = self._run()
-                except Exception as e:  # noqa: BLE001 - re-raised below
-                    err = e
-                finally:
-                    torch.cuda.set_sync_debug_mode(prev)
-                    self.record_s = time.perf_counter() - t0
-            if err is None and self.debug:
-                graph.instantiate()
-        except Exception as e:  # noqa: BLE001 - capture_end after a failure
-            err = err or e
-        finally:
-            self.launches = {fn.__name__: fn.launches - n
-                             for fn, n in counts.items()}
-            for fn, n in counts.items():
-                fn.launches = n
+        # the span opens before the capture begins and closes after it ends
+        with trace.timed("graph.record") as rec:
+            try:
+                with torch.cuda.graph(graph, stream=stream):
+                    prev = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        self._result = self._run()
+                    except Exception as e:  # noqa: BLE001 - re-raised below
+                        err = e
+                    finally:
+                        torch.cuda.set_sync_debug_mode(prev)
+                        self.record_s = (trace.now() - rec.start) * 1e-9
+                if err is None and self.debug:
+                    graph.instantiate()
+            except Exception as e:  # noqa: BLE001 - capture_end after a failure
+                err = err or e
+            finally:
+                self.launches = {fn.__name__: fn.launches - n
+                                 for fn, n in counts.items()}
+                for fn, n in counts.items():
+                    fn.launches = n
         if err is not None:
             name = getattr(self.fn, "__qualname__", repr(self.fn))
             raise RuntimeError(f"CUDA graph capture of {name} failed at "
                                f"{_where(err)}: {err}") from err
         # capture_end (or, with debug, instantiate) instantiated the graph
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = rec.seconds
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = graph
 
@@ -331,9 +347,11 @@ class CapturedStep(_Captured):
     After capture, ``launches`` maps each counted kernel wrapper's name to
     the launches one replay makes, ``pool_bytes`` is the device memory
     the capture reserved (the graph's private pool: its intermediates and
-    outputs), ``warmup_s`` the warm-up's seconds, ``capture_s`` those of
-    the capture and the graph's instantiation, and ``record_s`` those of
-    the capture alone (the step's call while the stream records)."""
+    outputs), ``warmup_s`` the warm-up's seconds (the ``graph.warmup``
+    span's), ``capture_s`` those of the capture and the graph's
+    instantiation (the ``graph.record`` span's), and ``record_s`` those of
+    the capture alone (the step's call while the stream records, from the
+    same span's start)."""
 
     def __init__(self, fn: Callable, state, *inputs,
                  generators: Sequence[Optional[torch.Generator]] = (),

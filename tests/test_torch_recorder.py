@@ -111,6 +111,22 @@ def test_recorded_frames_are_pre_reset_states():
         assert torch.equal(q, q_after) != d
 
 
+def test_metrics_hold_each_iterations_times_and_captures(run_dir):
+    """metrics.jsonl has learn_step's rollout and update seconds and the
+    graphs captured in each iteration (the rollout step and the learning
+    half's five parts in the first)."""
+    log_dir, _, _ = run_dir
+    with open(os.path.join(log_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    perf = {(r["tag"], r["step"]): r["value"] for r in rows
+            if r["tag"].startswith("perf/")}
+    for step in (1, 2):
+        assert perf[("perf/rollout_s", step)] > 0
+        assert perf[("perf/update_s", step)] > 0
+    assert perf[("perf/graph_captures", 1)] == 6
+    assert perf[("perf/graph_captures", 2)] == 0
+
+
 def test_jsonl_metrics(tmp_path):
     w = JsonlWriter(str(tmp_path))
     w.add_scalar("train/loss", 1.5, 3)
@@ -192,7 +208,9 @@ def test_viewer_disables_itself_and_profile_hook_writes_a_trace(tmp_path,
                                                                 capsys):
     """render=True without an MJCF path (or mujoco, or a display) prints a
     message and trains on; profile_dir gets a torch.profiler chrome trace
-    of iterations 2-4 (here the run ends inside the window, at 3)."""
+    of iterations 2-4 (here the run ends inside the window, at 3), which
+    holds the port's spans, and those spans and counters beside it
+    (``spans.json``, aligned to the trace's clock)."""
     import dataclasses
 
     env = _short_env(2)
@@ -206,3 +224,18 @@ def test_viewer_disables_itself_and_profile_hook_writes_a_trace(tmp_path,
     assert out.count("viewer unavailable, disabling render") == 1
     assert runner.viewer._dead and runner.ppo.iteration == 3
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with open(tmp_path / "prof" / "trace.json") as fh:
+        marks = [e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "user_annotation"
+                 and e["name"].startswith("ppo.")]
+    with open(tmp_path / "prof" / "spans.json") as fh:
+        spans = json.load(fh)
+    names = [s["name"] for s in spans["spans"]]
+    assert names == ["ppo.iteration", "ppo.rollout", "ppo.record",
+                     "ppo.learn", "ppo.stats"]
+    assert sorted(marks) == sorted(names)
+    assert spans["counters"] == {"host.syncs": 4}
+    assert all(s["iteration"] == 0 for s in spans["spans"])
+    assert isinstance(spans["offset_ns"], int)
+    assert not any(e for e in os.listdir(tmp_path / "prof")
+                   if e not in ("trace.json", "spans.json"))
